@@ -1,0 +1,30 @@
+"""Dispatch for the port's kernels.
+
+The model code calls these. A tensor on the CPU runs the kernel's plain
+PyTorch version; a CUDA tensor launches the hand-written Hopper kernel,
+and any failure to build or launch it raises — there is no fallback
+that would hide the kernel.
+"""
+from repro_torch.kernels.chunked_prefill_attention import (
+    chunked_prefill_attention)
+from repro_torch.kernels.fused_swiglu import fused_swiglu
+from repro_torch.kernels.paged_decode_attention import (
+    paged_decode_attention)
+
+KERNELS = (paged_decode_attention, chunked_prefill_attention,
+           fused_swiglu)
+
+
+def launch_counts() -> dict:
+    """Kernel launches per wrapper since the counts were last reset."""
+    return {k.__name__: k.launches for k in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+__all__ = ["KERNELS", "chunked_prefill_attention", "fused_swiglu",
+           "launch_counts", "paged_decode_attention",
+           "reset_launch_counts"]

@@ -1,0 +1,84 @@
+"""Shared neural-net layers: norms, RoPE, MLPs, embeddings.
+
+Pure functions over plain dict params (torch tensors), mirroring the
+reference's ``repro/models/layers.py`` so each counterpart is found by
+name.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.blocking import blocked_rows
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float) -> torch.Tensor:
+    dtype = x.dtype
+    x = x.float()
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * scale.float()).to(dtype)
+
+
+# ----------------------------------------------------------------------
+# RoPE
+# ----------------------------------------------------------------------
+def rope_freqs(head_dim: int, theta: float,
+               device=None) -> torch.Tensor:
+    """Inverse frequencies, shape (head_dim // 2,), float32."""
+    half = head_dim // 2
+    expo = torch.arange(half, dtype=torch.float32, device=device) / half
+    # a Python-scalar base: no host-to-device copy (which would
+    # synchronise the stream on every call)
+    return 1.0 / torch.pow(float(theta), expo)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq) int."""
+    half = x.shape[-1] // 2
+    inv = rope_freqs(x.shape[-1], theta, device=x.device)   # (half,)
+    ang = positions[..., None].float() * inv                # (..., seq, half)
+    sin = torch.sin(ang)[..., None, :]                      # (..., seq, 1, half)
+    cos = torch.cos(ang)[..., None, :]
+    xf1 = x[..., :half].float()
+    xf2 = x[..., half:].float()
+    out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin],
+                    dim=-1)
+    return out.to(x.dtype)
+
+
+# ----------------------------------------------------------------------
+# MLPs
+# ----------------------------------------------------------------------
+def swiglu_mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """Gated SwiGLU MLP: params {w_gate, w_up, w_down}; x (..., d).
+
+    Runs over fixed-shape token blocks (``models.blocking``) so each
+    token's bits are independent of batch composition. The decode MLP
+    takes this path; the prefill MLP goes through the fused kernel
+    (``transformer.mlp_apply``).
+    """
+    wg, wu, wd = params["w_gate"], params["w_up"], params["w_down"]
+
+    def blk(xb: torch.Tensor) -> torch.Tensor:
+        g = torch.matmul(xb, wg)
+        u = torch.matmul(xb, wu)
+        h = torch.nn.functional.silu(g.float()).to(xb.dtype) * u
+        return torch.matmul(h, wd)
+
+    xt = x.reshape(-1, x.shape[-1])
+    return blocked_rows(blk, xt).reshape(x.shape)
+
+
+def embed_tokens(embedding: torch.Tensor,
+                 tokens: torch.Tensor) -> torch.Tensor:
+    """embedding (V, d); tokens (...) int -> (..., d)."""
+    return embedding[tokens.long()]
+
+
+def lm_head(params: dict, x: torch.Tensor,
+            tie_embeddings: bool) -> torch.Tensor:
+    if tie_embeddings:
+        return torch.matmul(x, params["embedding"].t())
+    return torch.matmul(x, params["lm_head"])

@@ -1,0 +1,413 @@
+"""Paged KV-cache subsystem: ref-counted page pool, block tables, and
+prefix sharing between the probe and ensemble stages.
+
+The port of ``repro/serving/kv_pool.py`` for the dense page layout and
+the step-level loop:
+
+* **PagePool** — a fixed pool of ``page_size``-token pages with
+  reference counts. Allocation, retain, and release are host-side and
+  deterministic; double frees and use-after-free raise typed errors
+  instead of corrupting block tables; exhaustion raises
+  ``PoolExhausted`` with the pool left intact.
+* **Block tables** — each sequence maps logical token positions to
+  pages via an int32 table row. The N probe samples of one prompt
+  *share* the read-only full prompt pages (one ref per owner) and only
+  hold private pages for the region decode writes — the partial
+  prompt-tail page is materialised per sample by a copy-on-write fork.
+* **PagedKVServer** — per-model serving state: the device page tensors
+  (``self.pages``: ``{k, v}`` of ``(L, P, page_size, KV, Dh)`` in the
+  model dtype on the server's device), the pool, and a ref-counted
+  prompt-prefix cache (cross-request reuse of identical prompts).
+
+The quant, ring and lane layouts and the wave engine's
+``probe_wave``/``reuse_decode`` are not ported yet.
+"""
+from __future__ import annotations
+
+from collections import OrderedDict
+from dataclasses import dataclass
+from typing import List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.params import torch_dtype
+from repro_torch.models.transformer import resolve_layout
+
+
+# ----------------------------------------------------------------------
+# errors
+# ----------------------------------------------------------------------
+class PagePoolError(RuntimeError):
+    """Base class for page-pool accounting violations."""
+
+
+class PoolExhausted(PagePoolError):
+    """Allocation request exceeds the pool's free pages. The pool state
+    is unchanged: no partial allocation escapes."""
+
+
+class PageAccountingError(PagePoolError):
+    """Refcount violation: double free or retain of a free page."""
+
+
+def pages_for(n_tokens: int, page_size: int) -> int:
+    """Pages needed to hold ``n_tokens`` positions."""
+    return -(-int(n_tokens) // page_size) if n_tokens > 0 else 0
+
+
+@dataclass(frozen=True)
+class RowGeometry:
+    """Page accounting for one row of ``prompt_len`` tokens decoding up
+    to ``max_new`` more. ``n_shared`` prompt pages are read-only
+    shareable across a row's lanes; ``nbp`` pages hold the prompt
+    (shared + the COW tail); each decode lane holds ``n_tail`` private
+    pages and a block table ``nb`` entries wide; the decode attention
+    span is ``cache_len`` positions."""
+    n_shared: int
+    tail_tokens: int        # tokens in the COW prompt-tail page
+    nbp: int                # prompt pages per row
+    nb: int                 # block-table width per decode lane
+    n_tail: int             # private pages per decode lane
+    cache_len: int          # decode attention span (dense-equivalent)
+
+
+# ----------------------------------------------------------------------
+# page pool
+# ----------------------------------------------------------------------
+class PagePool:
+    """Fixed pool of KV pages with reference counting.
+
+    Pure host-side bookkeeping (the device tensors live in
+    ``PagedKVServer``); every operation is deterministic — the free
+    list is LIFO, so identical call sequences produce identical page
+    ids.
+    """
+
+    def __init__(self, num_pages: int, page_size: int):
+        if num_pages <= 0 or page_size <= 0:
+            raise ValueError("num_pages and page_size must be positive")
+        self.num_pages = int(num_pages)
+        self.page_size = int(page_size)
+        self._refs = np.zeros(self.num_pages, np.int32)
+        # LIFO free list, seeded so the first allocations are 0,1,2,...
+        self._free: List[int] = list(range(self.num_pages - 1, -1, -1))
+        self.highwater = 0
+        self.allocs_total = 0
+
+    # ------------------------------------------------------------------
+    @property
+    def pages_in_use(self) -> int:
+        return self.num_pages - len(self._free)
+
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    def refcount(self, page: int) -> int:
+        return int(self._refs[page])
+
+    def alloc(self, n: int) -> np.ndarray:
+        """Allocate ``n`` pages (refcount 1 each). All-or-nothing:
+        raises ``PoolExhausted`` leaving the pool untouched."""
+        n = int(n)
+        if n < 0:
+            raise ValueError(f"cannot allocate {n} pages")
+        if n > len(self._free):
+            raise PoolExhausted(
+                f"requested {n} pages, {len(self._free)} free "
+                f"(pool {self.num_pages} x {self.page_size} tokens)")
+        ids = [self._free.pop() for _ in range(n)]
+        self._refs[ids] = 1
+        self.allocs_total += n
+        if self.pages_in_use > self.highwater:
+            self.highwater = self.pages_in_use
+        return np.asarray(ids, np.int32)
+
+    def retain(self, pages: Sequence[int]) -> None:
+        """Add one reference to each page (prefix sharing / COW fork)."""
+        for p in np.asarray(pages, np.int64).ravel():
+            if self._refs[p] <= 0:
+                raise PageAccountingError(
+                    f"retain of free page {int(p)}")
+            self._refs[p] += 1
+
+    def release(self, pages: Sequence[int]) -> None:
+        """Drop one reference from each page; pages hitting zero return
+        to the free list (LIFO)."""
+        for p in np.asarray(pages, np.int64).ravel():
+            if self._refs[p] <= 0:
+                raise PageAccountingError(
+                    f"double free of page {int(p)}")
+            self._refs[p] -= 1
+            if self._refs[p] == 0:
+                self._free.append(int(p))
+
+
+# ----------------------------------------------------------------------
+# stats
+# ----------------------------------------------------------------------
+@dataclass
+class KVStats:
+    """Measured paged-KV accounting for one model's server."""
+    model: str = ""
+    page_size: int = 0
+    page_bytes: int = 0                 # bytes per page (all layers, K+V)
+    pool_pages: int = 0
+    pages_in_use: int = 0               # latest sample
+    pages_highwater: int = 0            # pool-lifetime peak
+    prefill_tokens_computed: int = 0
+    prefill_tokens_reused_probe: int = 0    # probe -> ensemble seeding
+    prefill_tokens_reused_prefix: int = 0   # cross-request prompt reuse
+    cow_forks: int = 0                  # partial-tail pages materialised
+    prefill_chunks: int = 0             # chunked-prefill calls issued
+    prefix_evictions: int = 0           # cost-aware cache evictions
+
+    @property
+    def prefill_tokens_reused(self) -> int:
+        return (self.prefill_tokens_reused_probe
+                + self.prefill_tokens_reused_prefix)
+
+
+# ----------------------------------------------------------------------
+# prefix cache (cross-request reuse of identical prompts)
+# ----------------------------------------------------------------------
+@dataclass
+class _PrefixEntry:
+    shared: np.ndarray          # full prompt pages (read-only, cache ref)
+    tail: Optional[int]         # pristine partial prompt-tail page
+    logits0: torch.Tensor       # (V,) last-position prefill logits
+    tokens: int = 0             # prompt tokens a hit saves recomputing
+    hits: int = 0               # hits since insertion
+    seq: int = 0                # insertion order (deterministic ties)
+
+    @property
+    def pages_held(self) -> int:
+        return int(self.shared.size) + (1 if self.tail is not None
+                                        else 0)
+
+    @property
+    def score(self) -> float:
+        """Cost-aware retention value: prefill tokens saved per page
+        held. A hit saves ``tokens`` of prefill; un-hit entries carry
+        one optimistic expected hit so fresh prompts are not evicted
+        before they can prove themselves."""
+        return self.tokens * (self.hits + 1) / max(self.pages_held, 1)
+
+
+# ----------------------------------------------------------------------
+# per-model paged serving state
+# ----------------------------------------------------------------------
+class PagedKVServer:
+    """Paged KV serving state for one model (one set of params).
+
+    Owns the device page tensors, the pool, and the prefix cache. The
+    engine creates one server per distinct ``params`` object, so an
+    ensemble member that *is* the probe model shares the probe's
+    server — which is what makes probe->ensemble prefill reuse sound
+    (KV caches are functions of params, not just configs).
+    """
+
+    def __init__(self, cfg: ModelConfig, *, page_size: int = 8,
+                 prefix_cache_entries: int = 32,
+                 device: Union[str, torch.device] = "cuda"):
+        layout = resolve_layout(cfg)
+        if layout is None:
+            raise ValueError(
+                f"config {cfg.name!r} is not paged-KV capable "
+                "(GQA, linear cache, and dense or gather-dispatch "
+                "MoE FFN required; hybrid stacks stay dense)")
+        if layout != "dense":
+            raise NotImplementedError(
+                f"config {cfg.name!r} needs the {layout!r} page layout, "
+                "which is not ported yet")
+        self.cfg = cfg
+        self.layout = layout
+        self.device = torch.device(device)
+        self.page_size = int(page_size)
+        self.prefix_cache_entries = int(prefix_cache_entries)
+        self.pool: Optional[PagePool] = None
+        self.pages: Optional[dict] = None
+        self._scratch: Optional[np.ndarray] = None
+        self._prefix: "OrderedDict[bytes, _PrefixEntry]" = OrderedDict()
+        self._prefix_seq = 0
+        self._capacity_key: Optional[Tuple[int, int, int, int]] = None
+        self.stats = KVStats(
+            model=cfg.name, page_size=self.page_size,
+            page_bytes=self._page_bytes())
+
+    def _page_bytes(self) -> int:
+        """Bytes one page (all layers, K and V) holds."""
+        cfg = self.cfg
+        return (cfg.num_layers * self.page_size * cfg.num_kv_heads
+                * 2 * cfg.resolved_head_dim * torch_dtype(cfg).itemsize)
+
+    # -- layout geometry -----------------------------------------------
+    @property
+    def chunked(self) -> bool:
+        """Whether this server's rows may prefill in chunks (only the
+        dense layout composes chunk-by-chunk)."""
+        return self.layout == "dense"
+
+    def row_geometry(self, prompt_len: int,
+                     max_new_tokens: int) -> RowGeometry:
+        """Page accounting for one row under the dense layout."""
+        s, m, ps = int(prompt_len), int(max_new_tokens), self.page_size
+        n_shared = s // ps
+        nbp = pages_for(s, ps)
+        nb = pages_for(s + m, ps)
+        return RowGeometry(
+            n_shared=n_shared, tail_tokens=s - n_shared * ps,
+            nbp=nbp, nb=nb, n_tail=nb - n_shared, cache_len=s + m)
+
+    def table_width(self, prompt_len: int, max_new_tokens: int) -> int:
+        """Block-table width one decode lane needs."""
+        return self.row_geometry(prompt_len, max_new_tokens).nb
+
+    # -- capacity ------------------------------------------------------
+    def _zero_pages(self, num_pages: int) -> dict:
+        """Freshly zeroed page tensors on the server's device, in the
+        model dtype (axis 1 = page id)."""
+        cfg = self.cfg
+        shape = (cfg.num_layers, num_pages, self.page_size,
+                 cfg.num_kv_heads, cfg.resolved_head_dim)
+        dt = torch_dtype(cfg)
+        return {"k": torch.zeros(shape, dtype=dt, device=self.device),
+                "v": torch.zeros(shape, dtype=dt, device=self.device)}
+
+    def _rebuild(self, num_pages: int, scratch_pages: int,
+                 key: Tuple[int, int, int, int]) -> None:
+        if self.pool is not None:
+            self.drop_prefix_cache()
+            # only the OLD scratch pages may remain held — they are
+            # discarded with the old pool; user pages must be gone
+            old_scratch = self._scratch.size \
+                if self._scratch is not None else 0
+            if self.pool.pages_in_use > old_scratch:
+                raise PagePoolError(
+                    "cannot rebuild the page pool while pages are held")
+        self.pool = PagePool(num_pages, self.page_size)
+        self.pages = None           # free the old tensors first
+        self.pages = self._zero_pages(num_pages)
+        # scratch pages soak up the writes of bucket-padding rows; never
+        # referenced by any live block table, so their contents are
+        # dead by construction
+        self._scratch = self.pool.alloc(scratch_pages)
+        self._capacity_key = key
+        self.stats.pool_pages = num_pages
+        self._sample_usage()
+
+    def drop_prefix_cache(self) -> None:
+        for entry in self._prefix.values():
+            self._release_entry(entry)
+        self._prefix.clear()
+
+    def _sample_usage(self) -> None:
+        if self.pool is not None:
+            self.stats.pages_in_use = self.pool.pages_in_use
+            self.stats.pages_highwater = self.pool.highwater
+
+    # -- prefix cache --------------------------------------------------
+    def _prefix_lookup(self, key: bytes) -> Optional[_PrefixEntry]:
+        if self.prefix_cache_entries <= 0:
+            return None
+        entry = self._prefix.get(key)
+        if entry is not None:
+            entry.hits += 1
+        return entry
+
+    def _release_entry(self, entry: _PrefixEntry) -> None:
+        self.pool.release(entry.shared)
+        if entry.tail is not None:
+            self.pool.release([entry.tail])
+
+    def _evict_one(self) -> bool:
+        """Evict the lowest-value cache entry (prefill-tokens-saved
+        per page held; insertion order breaks ties deterministically).
+        Returns False when the cache is empty."""
+        if not self._prefix:
+            return False
+        worst = min(self._prefix,
+                    key=lambda k: (self._prefix[k].score,
+                                   self._prefix[k].seq))
+        self._release_entry(self._prefix.pop(worst))
+        self.stats.prefix_evictions += 1
+        return True
+
+    def evict_prefix(self, pages_needed: int) -> int:
+        """Cost-aware eviction until at least ``pages_needed`` pages
+        are free, the cache is empty, or an eviction round frees
+        nothing (a victim whose pages are still shared by a live row
+        releases references without returning a page). Returns the
+        free-page count."""
+        while self.pool.free_pages < pages_needed:
+            before = self.pool.free_pages
+            if not self._evict_one():
+                break                  # cache empty
+            if self.pool.free_pages == before:
+                break                  # victim fully shared: no progress
+        self._sample_usage()
+        return self.pool.free_pages
+
+    def _alloc_retry(self, n: int) -> np.ndarray:
+        """Pool allocation with the evict-and-retry loop: on
+        exhaustion, shed prefix-cache entries (cheapest value per page
+        first) and retry; ``PoolExhausted`` escapes once eviction
+        cannot free enough."""
+        try:
+            return self.pool.alloc(n)
+        except PoolExhausted:
+            if self.evict_prefix(n) < n:
+                raise
+            return self.pool.alloc(n)
+
+    def _prefix_insert(self, key: bytes, shared: np.ndarray,
+                       tail: Optional[int], logits0: torch.Tensor,
+                       tokens: int = 0) -> None:
+        if self.prefix_cache_entries <= 0:
+            return
+        old = self._prefix.pop(key, None)
+        if old is not None:
+            self._release_entry(old)
+        self.pool.retain(shared)
+        if tail is not None:
+            self.pool.retain([tail])
+        self._prefix[key] = _PrefixEntry(
+            shared=shared.copy(), tail=tail, logits0=logits0.clone(),
+            tokens=tokens, seq=self._prefix_seq)
+        self._prefix_seq += 1
+        while len(self._prefix) > self.prefix_cache_entries:
+            self._evict_one()
+
+    # -- step-level serving support ------------------------------------
+    def stream_row_pages(self, prompt_len: int, lanes_per_row: int,
+                         max_new_tokens: int) -> int:
+        """Worst-case pages one step-loop row holds on this server:
+        the prompt pages plus each lane's private pages (probe samples
+        and seeded ensemble decodes alike)."""
+        g = self.row_geometry(prompt_len, max_new_tokens)
+        return g.nbp + lanes_per_row * g.n_tail
+
+    def ensure_capacity_stream(self, max_rows: int, prompt_len: int,
+                               lanes_per_row: int,
+                               max_new_tokens: int) -> None:
+        """Size the pool for the step-level loop's steady state:
+        ``max_rows`` rows concurrently resident, each holding its
+        prompt pages and ``lanes_per_row`` private lanes — plus the
+        prefix cache and a scratch region wide enough for a *full*
+        (prompt+decode) pad-row block table. Must run before any pages
+        are held (the step loop calls it at admission of the first
+        row)."""
+        g = self.row_geometry(prompt_len, max_new_tokens)
+        need = (max_rows * self.stream_row_pages(
+                    prompt_len, lanes_per_row, max_new_tokens)
+                + self.prefix_cache_entries * g.nbp
+                + g.nb)                              # scratch pages
+        key = (max_rows, prompt_len, lanes_per_row, max_new_tokens)
+        if (self._capacity_key is not None and self.pool is not None
+                and self.pool.num_pages >= need
+                and self._scratch is not None
+                and self._scratch.size >= g.nb):
+            return
+        self._rebuild(need, g.nb, key)
