@@ -12,18 +12,29 @@ Phases (each raises on failure, and the script then exits non-zero):
    limit as ``nvidia-smi`` reports them;
 2. build  — compile the hand-written kernels from ``src/repro_torch/csrc``
    with nvcc (``kernels/build.py``) and print the build time;
-3. kernels — call each kernel's wrapper on the card at the shapes the
-   serving path gives it, hold the result against its plain PyTorch
-   version on the same inputs (float32 and bfloat16), and time kernel,
-   plain version and one PyTorch library call as a yardstick;
-4. reference — a reduced float32 model's chunked prefill and decode
-   step on the card agree with the same call on the CPU, where every
-   kernel runs its plain version;
+3. kernels — call each of the six kernels' wrappers on the card at the
+   shapes the serving paths give it, hold the result against its plain
+   PyTorch version on the same inputs (float32 and bfloat16; for the
+   int8 kernels, q in those types over int8 codes), and time kernel,
+   plain version and, where one exists, a PyTorch library call as a
+   yardstick;
+4. reference — a reduced float32 model on the card agrees with the same
+   calls on the CPU, where every kernel runs its plain version: chunked
+   prefill and a paged decode step; one-shot prefill and decode steps
+   over a dense and over an int8 contiguous cache; one-shot prefill into
+   int8 pages and paged decode steps over them;
 5. serve — the stepped ACAR engine serves 16 long-prompt tasks through
    a full-width smollm-135m fleet (bf16, seed-initialised weights): every
-   task retires, all three kernels launch during the run, no page leaks
+   task retires, its three kernels launch during the run, no page leaks
    outside the prefix cache, and a second run reproduces sigma, modes
-   and answers.
+   and answers;
+6. wave — the same stream through a full-width fleet whose probe and
+   probe twin keep int8 KV (two dense members beside them), served by
+   the wave engine from pool pages (``run_batch``, the default path of
+   ``launch.serve``), by the wave engine over contiguous caches
+   (``paged=False``) and by the stepped engine: on each path every task
+   is answered, the path's kernels launch, no page leaks, and a rerun
+   reproduces sigma, modes, answers and probe texts.
 
 It prints one JSON line describing the kernels, the ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``.
@@ -170,6 +181,67 @@ def swiglu_case(torch, gen, dtype):
     return (x, *ws)
 
 
+ROWS_WAVE = 48                        # 16 tasks x 3 probe samples
+S_WAVE = PROMPT + MAX_NEW             # the wave's cache: 105 positions
+
+
+def _quantize(x):
+    from repro_torch.models.attention import quantize_kv
+    return quantize_kv(x)
+
+
+def dense_cache_case(torch, gen, dtype):
+    """The probe wave's decode over contiguous caches: 48 rows of 105
+    positions (prompt + new tokens, off any power-of-two tile)."""
+    shape = (ROWS_WAVE, S_WAVE, KV, D)
+    q = torch.randn((ROWS_WAVE, H, D), generator=gen, device="cuda")
+    k = torch.randn(shape, generator=gen, device="cuda")
+    v = torch.randn(shape, generator=gen, device="cuda")
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+def quant_cache_case(torch, gen, dtype):
+    """The same wave over an int8 cache: codes and scales quantised by
+    the port's ``quantize_kv``."""
+    shape = (ROWS_WAVE, S_WAVE, KV, D)
+    q = torch.randn((ROWS_WAVE, H, D), generator=gen, device="cuda")
+    kc, ks = _quantize(torch.randn(shape, generator=gen, device="cuda"))
+    vc, vs = _quantize(torch.randn(shape, generator=gen, device="cuda"))
+    return q.to(dtype), kc, ks, vc, vs
+
+
+def quant_pages_case(torch, gen, dtype):
+    """The probe wave's decode over int8 pages: each task's 12 full
+    prompt pages shared by its 3 samples, 2 private pages per sample
+    (the forked prompt tail and the decode page), 14 scratch pages.
+    Every page starts with random (stale) codes and scales."""
+    n_shared, nb = PROMPT // PAGE, -(-S_WAVE // PAGE)
+    n_tail, tasks = nb - n_shared, ROWS_WAVE // 3
+    n_pages = tasks * n_shared + ROWS_WAVE * n_tail + nb
+    shape = (n_pages, PAGE, KV, D)
+    kc, ks = _quantize(torch.randn(shape, generator=gen, device="cuda"))
+    vc, vs = _quantize(torch.randn(shape, generator=gen, device="cuda"))
+    prompt = torch.arange(tasks * n_shared, device="cuda").reshape(
+        tasks, n_shared).repeat_interleave(3, dim=0)
+    tails = tasks * n_shared + torch.arange(
+        ROWS_WAVE * n_tail, device="cuda").reshape(ROWS_WAVE, n_tail)
+    table = torch.cat([prompt, tails], dim=1).to(torch.int32).contiguous()
+    lengths = torch.full((ROWS_WAVE,), S_WAVE, dtype=torch.int32,
+                         device="cuda")
+    q = torch.randn((ROWS_WAVE, H, D), generator=gen, device="cuda")
+    return q.to(dtype), kc, ks, vc, vs, table, lengths
+
+
+def unique_keys(torch, table, lengths) -> int:
+    """Cache positions the rows must read, a page that several rows
+    share counted once: distinct (page, slot) pairs below each row's
+    length."""
+    nb = table.shape[1]
+    pos = torch.arange(nb * PAGE, device=table.device)
+    slot = table.long().repeat_interleave(PAGE, dim=1) * PAGE + pos % PAGE
+    return int(slot[pos[None] < lengths.long()[:, None]].unique().numel())
+
+
 def _gather(torch, pages, table):
     b, nb = table.shape
     return pages[table.long()].reshape(b, nb * PAGE, KV, D)
@@ -180,9 +252,14 @@ def run_kernel_phase(torch):
     from repro_torch.kernels import ops
     from repro_torch.kernels.chunked_prefill_attention import (
         chunked_prefill_attention_plain)
+    from repro_torch.kernels.decode_attention import decode_attention_plain
+    from repro_torch.kernels.decode_attention_quant import (
+        decode_attention_quant_plain)
     from repro_torch.kernels.fused_swiglu import fused_swiglu_plain
     from repro_torch.kernels.paged_decode_attention import (
         paged_decode_attention_plain)
+    from repro_torch.kernels.paged_decode_attention_quant import (
+        paged_decode_attention_quant_plain)
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -211,10 +288,10 @@ def run_kernel_phase(torch):
         q4 = q[:, :, None]
         lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
             q4, kc, vc, attn_mask=mask))
-        n_keys = int(lengths.sum())
+        n_keys = unique_keys(torch, table, lengths)
         bytes_moved = (2 * q.numel() * item + 2 * n_keys * KV * D * item
                        + 4 * (table.numel() + lengths.numel()))
-        flops = 4.0 * H * D * n_keys
+        flops = 4.0 * H * D * float(lengths.sum())
         bnd, by = bound_ms(bytes_moved, flops, dname)
         results[("paged_decode_attention", dname)] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
@@ -242,9 +319,10 @@ def run_kernel_phase(torch):
         q4 = q.transpose(1, 2)
         lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
             q4, kc, vc, attn_mask=mask))
-        # keys each row needs: up to its last query position
+        # keys each row needs: up to its last query position; the two
+        # pad rows share their scratch pages
         keys_row = (qpos.max(dim=1).values + 1).clamp(max=PROMPT)
-        n_keys = int(keys_row.sum())
+        n_keys = unique_keys(torch, table, keys_row)
         bytes_moved = (2 * q.numel() * item + 2 * n_keys * KV * D * item
                        + 4 * (table.numel() + qpos.numel()))
         flops = 4.0 * H * D * float((qpos + 1).sum())
@@ -273,13 +351,113 @@ def run_kernel_phase(torch):
             max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
             bound_by=by, library_ms=lib)
 
+        tol = TOL[("attention", dname)]
+        n_keys = ROWS_WAVE * S_WAVE
+        qo_bytes = 2 * ROWS_WAVE * H * D * item       # q read, out written
+        flops = 4.0 * H * D * n_keys
+
+        # -- decode over a contiguous cache --------------------------
+        q, k, v = dense_cache_case(torch, gen, dtype)
+        err = 0.0
+        for length in (S_WAVE, 60):                   # and a length < S
+            got = ops.decode_attention(q, k, v, length)
+            want = decode_attention_plain(q, k, v, length)
+            torch.cuda.synchronize()
+            err = max(err, check_close(
+                f"decode_attention[{dname}, length {length}]", got, want,
+                tol))
+        ms = time_ms(torch, lambda: ops.decode_attention(q, k, v, S_WAVE))
+        plain = time_ms(torch, lambda: decode_attention_plain(
+            q, k, v, S_WAVE))
+        kc = k.repeat_interleave(H // KV, 2).transpose(1, 2)
+        vc = v.repeat_interleave(H // KV, 2).transpose(1, 2)
+        mask = (torch.arange(S_WAVE, device="cuda")
+                < S_WAVE)[None, None, None]
+        q4 = q[:, :, None]
+        lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q4, kc, vc, attn_mask=mask))
+        bnd, by = bound_ms(qo_bytes + 2 * n_keys * KV * D * item, flops,
+                           dname)
+        results[("decode_attention", dname)] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
+            bound_by=by, library_ms=lib)
+
+        # -- decode over an int8 cache -------------------------------
+        q, kc8, ks, vc8, vs = quant_cache_case(torch, gen, dtype)
+        err = 0.0
+        for length in (S_WAVE, 60):
+            got = ops.decode_attention_quant(q, kc8, ks, vc8, vs, length)
+            want = decode_attention_quant_plain(q, kc8, ks, vc8, vs,
+                                                length)
+            torch.cuda.synchronize()
+            err = max(err, check_close(
+                f"decode_attention_quant[{dname}, length {length}]", got,
+                want, tol))
+        ms = time_ms(torch, lambda: ops.decode_attention_quant(
+            q, kc8, ks, vc8, vs, S_WAVE))
+        plain = time_ms(torch, lambda: decode_attention_quant_plain(
+            q, kc8, ks, vc8, vs, S_WAVE))
+        # codes (1 byte) and one f32 scale per cached vector, K and V
+        bnd, by = bound_ms(qo_bytes + 2 * n_keys * KV * (D + 4), flops,
+                           dname)
+        results[("decode_attention_quant", dname)] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
+            bound_by=by, library_ms=None)
+
+        # -- paged decode over int8 pages ----------------------------
+        q, kp8, ksp, vp8, vsp, table, lengths = quant_pages_case(
+            torch, gen, dtype)
+        args = (q, kp8, ksp, vp8, vsp, table)
+        got = ops.paged_decode_attention_quant(*args, lengths)
+        want = paged_decode_attention_quant_plain(*args, lengths)
+        torch.cuda.synchronize()
+        err = check_close(f"paged_decode_attention_quant[{dname}]", got,
+                          want, tol)
+        # the first decode step (length 98): the last table slot is a
+        # whole spare page; poisoning it and every stale slot past the
+        # lengths must leave the output bit-identical
+        first = torch.full_like(lengths, PROMPT + 1)
+        got = ops.paged_decode_attention_quant(*args, first)
+        want = paged_decode_attention_quant_plain(*args, first)
+        torch.cuda.synchronize()
+        err = max(err, check_close(
+            f"paged_decode_attention_quant[{dname}, length 98]", got,
+            want, tol))
+        stale = table[:, -1].long()
+        kp_p, ks_p = kp8.clone(), ksp.clone()
+        kp_p[stale], ks_p[stale] = 127, 1e6
+        kp_p[table[:, -2].long(), 2:], ks_p[table[:, -2].long(), 2:] = \
+            -127, 1e6
+        poisoned = ops.paged_decode_attention_quant(
+            q, kp_p, ks_p, vp8, vsp, table, first)
+        torch.cuda.synchronize()
+        if not torch.equal(poisoned, got):
+            raise AssertionError(
+                f"paged_decode_attention_quant[{dname}]: stale bytes past "
+                "the lengths reached the output")
+        ms = time_ms(torch, lambda: ops.paged_decode_attention_quant(
+            *args, lengths))
+        plain = time_ms(torch, lambda: paged_decode_attention_quant_plain(
+            *args, lengths))
+        # the 3 samples of a task share its prompt pages: each page
+        # read once
+        bnd, by = bound_ms(qo_bytes + 2 * unique_keys(torch, table, lengths)
+                           * KV * (D + 4)
+                           + 4 * (table.numel() + lengths.numel()), flops,
+                           dname)
+        results[("paged_decode_attention_quant", dname)] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
+            bound_by=by, library_ms=None)
+
     for (name, dname), r in results.items():
         atol, rtol = TOL[("swiglu" if name == "fused_swiglu"
                           else "attention", dname)]
+        lib = ("none" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms")
         log(f"kernel {name} [{dname}]: max_abs_err {r['max_abs_err']:.3e}"
-            f" (atol {atol}, rtol {rtol})  kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms"
-            f"  library {r['library_ms']:.4f} ms  bound {r['bound_ms']:.5f}"
-            f" ms ({r['bound_by']})")
+            f" (atol {atol}, rtol {rtol})  kernel {r['ms']:.4f} ms  "
+            f"plain {r['plain_ms']:.4f} ms  library {lib}  bound "
+            f"{r['bound_ms']:.5f} ms ({r['bound_by']})")
     return results
 
 
@@ -332,6 +510,85 @@ def run_reference_phase(torch):
                 f"reference check: {what} on the card differ from the "
                 f"CPU by {err:.3e}")
         log(f"reference: {what} card vs cpu max abs diff {err:.3e}")
+
+
+def run_wave_reference_phase(torch):
+    """The wave path's model calls on a reduced float32 model: one-shot
+    prefill and two decode steps over a dense cache (the dense-cache
+    decode kernel) and over an int8 cache (the int8-cache kernel), and
+    one-shot prefill into int8 pages followed by two paged decode steps
+    (the int8 paged kernel), on the card against the same calls on the
+    CPU. Logits must agree to 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import params as params_lib
+    from repro_torch.models import transformer as T
+
+    base = get_config("smollm-135m", reduced=True).replace(
+        vocab_size=19, dtype="float32", tie_embeddings=True)
+    cfg = base.replace(kv_quant=True)
+    params_cpu = params_lib.init_params(base, 0, device="cpu")
+    rng = np.random.default_rng(1)
+    b, s, new = 4, 21, 2
+    ids = rng.integers(3, 19, size=(b, s)).astype(np.int64)
+    nbp, nb = -(-s // PAGE), -(-(s + new) // PAGE) + 1   # a spare slot
+    table = rng.permutation(b * nb).astype(np.int32).reshape(b, nb)
+
+    def cache_program(c, prm, dev):
+        lg, cache = T.prefill(c, prm, torch.from_numpy(ids).to(dev),
+                              cache_len=s + new)
+        out = [lg]
+        for step in range(new):
+            lg, cache = T.decode_step(c, prm, cache, torch.argmax(lg, -1),
+                                      s + step)
+            out.append(lg)
+        return out
+
+    def pages_program(c, prm, dev):
+        shape = (c.num_layers, b * nb, PAGE, c.num_kv_heads,
+                 c.resolved_head_dim)
+        pages = {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
+                 "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+                 "k_scale": torch.zeros(shape[:-1], device=dev),
+                 "v_scale": torch.zeros(shape[:-1], device=dev)}
+        bt = torch.from_numpy(table).to(dev)
+        lg, pages = T.prefill_paged(c, prm, torch.from_numpy(ids).to(dev),
+                                    pages, bt[:, :nbp].contiguous())
+        out = [lg]
+        for step in range(new):
+            pos = torch.full((b,), s + step, dtype=torch.int32, device=dev)
+            lg, pages = T.decode_step_paged(c, prm, pages, bt,
+                                            torch.argmax(lg, -1), pos,
+                                            cache_len=s + new)
+            out.append(lg)
+        return out
+
+    params_gpu = _to_device(params_cpu, "cuda")
+    for label, c, program, kernel in (
+            ("dense cache", base, cache_program, "decode_attention"),
+            ("int8 cache", cfg, cache_program, "decode_attention_quant"),
+            ("int8 pages", cfg, pages_program,
+             "paged_decode_attention_quant")):
+        want = program(c, params_cpu, "cpu")
+        ops.reset_launch_counts()
+        got = program(c, params_gpu, "cuda")
+        torch.cuda.synchronize()
+        if ops.launch_counts()[kernel] != new * c.num_layers:
+            raise AssertionError(f"reference check: {label} did not run "
+                                 f"{kernel} on the card")
+        for i, (a, bref) in enumerate(zip(got, want)):
+            a = a.cpu()
+            if a.shape != bref.shape or not torch.isfinite(a).all():
+                raise AssertionError(
+                    f"reference check: bad {label} logits {i}")
+            err = float((a - bref).abs().max())
+            if err > 1e-4:
+                raise AssertionError(
+                    f"reference check: {label} logits {i} on the card "
+                    f"differ from the CPU by {err:.3e}")
+            what = "prefill" if i == 0 else f"decode step {i}"
+            log(f"reference: {label} {what} logits card vs cpu max abs "
+                f"diff {err:.3e}")
 
 
 def _to_device(tree, dev):
@@ -421,24 +678,36 @@ def report_profile(prof, wall: float, wall_profiled: float) -> None:
             f"{e.key[:90]}")
 
 
-def run_serve_phase(torch, gpu_name: str):
-    from repro_torch.configs import ACARConfig, get_config
-    from repro_torch.kernels import ops
+def full_width_params(torch):
+    """Seed-initialised full-width smollm-135m params for seeds 0, 1, 2
+    (the probe and two other members) on the card."""
+    from repro_torch.configs import get_config
     from repro_torch.models.params import count_params, init_params
-    from repro_torch.serving import (
-        BatchedACAREngine, MicroBatchPolicy, ZooModel)
 
     cfg = get_config("smollm-135m")
     t0 = time.perf_counter()
-    p_probe = init_params(cfg, 0, device="cuda")
-    p_m1 = init_params(cfg, 1, device="cuda")
-    p_m2 = init_params(cfg, 2, device="cuda")
+    params = [init_params(cfg, seed, device="cuda") for seed in range(3)]
     torch.cuda.synchronize()
     log(f"serve: {cfg.name} {cfg.num_layers} layers d_model {cfg.d_model}"
         f" heads {cfg.num_heads}/{cfg.num_kv_heads} d_ff {cfg.d_ff} vocab "
-        f"{cfg.vocab_size} {cfg.dtype}: {count_params(p_probe)} params per "
-        f"model, 3 models initialised in "
+        f"{cfg.vocab_size} {cfg.dtype}: {count_params(params[0])} params "
+        f"per model, 3 models initialised in "
         f"{time.perf_counter() - t0:.2f} s")
+    return cfg, params
+
+
+# the kernels the stepped engine runs over a dense fleet
+STEPPED_KERNELS = ("paged_decode_attention", "chunked_prefill_attention",
+                   "fused_swiglu")
+
+
+def run_serve_phase(torch, gpu_name: str, cfg, params):
+    from repro_torch.configs import ACARConfig
+    from repro_torch.kernels import ops
+    from repro_torch.serving import (
+        BatchedACAREngine, MicroBatchPolicy, ZooModel)
+
+    p_probe, p_m1, p_m2 = params
     probe = ZooModel("smollm-probe", cfg, p_probe)
     ensemble = [ZooModel("smollm-m1", cfg, p_m1),
                 ZooModel("smollm-m2", cfg, p_m2),
@@ -467,8 +736,8 @@ def run_serve_phase(torch, gpu_name: str):
     eng, res, wall = serve()
     launches = ops.launch_counts()
     log(f"serve: launches during the run {launches}")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in STEPPED_KERNELS:
+        if launches[name] <= 0:
             raise AssertionError(f"serve: {name} never launched")
     if res.step.retired != len(tasks) or any(
             a is None for a in res.final_answers):
@@ -501,6 +770,127 @@ def run_serve_phase(torch, gpu_name: str):
     return launches
 
 
+# ----------------------------------------------------------------------
+# phase 6: the wave engine over int8 and dense KV
+# ----------------------------------------------------------------------
+# the kernels each path must launch
+WAVE_PATHS = {
+    "wave_paged": ("paged_decode_attention", "fused_swiglu",
+                   "paged_decode_attention_quant"),
+    "wave_dense": ("fused_swiglu", "decode_attention",
+                   "decode_attention_quant"),
+    "stepped_int8": ("paged_decode_attention", "chunked_prefill_attention",
+                     "fused_swiglu", "paged_decode_attention_quant"),
+}
+# kernels a path must not launch: a paged wave that fell back to
+# contiguous caches (PoolExhausted) would launch the contiguous decodes
+WAVE_ABSENT = {
+    "wave_paged": ("chunked_prefill_attention", "decode_attention",
+                   "decode_attention_quant"),
+    "wave_dense": ("paged_decode_attention", "chunked_prefill_attention",
+                   "paged_decode_attention_quant"),
+    "stepped_int8": ("decode_attention", "decode_attention_quant"),
+}
+
+
+def _same_results(a, b) -> bool:
+    return (np.array_equal(a.sigma, b.sigma)
+            and np.array_equal(a.modes, b.modes)
+            and a.final_answers == b.final_answers
+            and a.member_answers == b.member_answers
+            and a.probe_texts == b.probe_texts)
+
+
+def run_wave_phase(torch, gpu_name: str, cfg, params) -> dict:
+    """Serve the phase-5 stream through a fleet whose probe and probe
+    twin keep int8 KV: the wave engine from pool pages (int8 pages for
+    the probe and twin, dense pages for the members), the wave engine
+    over contiguous caches, and the stepped engine. Each path runs
+    with the launch counts set to 0 just before it and read just
+    after, then once more, which must reproduce it: the two wave
+    paths under the profiler (phase 5 profiles the stepped engine
+    already). Returns each path's launch counts."""
+    import contextlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import ACARConfig
+    from repro_torch.kernels import ops
+    from repro_torch.serving import (
+        BatchedACAREngine, MicroBatchPolicy, ZooModel)
+
+    qcfg = cfg.replace(kv_quant=True)
+    p_probe, p_m1, p_m2 = params
+    probe = ZooModel("smollm-q8-probe", qcfg, p_probe)
+    ensemble = [ZooModel("smollm-m1", cfg, p_m1),
+                ZooModel("smollm-m2", cfg, p_m2),
+                ZooModel("smollm-q8-twin", qcfg, p_probe)]
+    tasks = long_prompt_tasks(16, prompt_chars=PROMPT)
+    modes = forced_modes(len(tasks))
+
+    def route(sig, indices):
+        return modes[np.asarray(indices, np.int64)]
+
+    policy = MicroBatchPolicy(max_batch_size=8, max_batch_tokens=1 << 20)
+    n = ACARConfig().n_probe_samples
+
+    def serve(path):
+        eng = BatchedACAREngine(
+            ACARConfig(probe_temperature=0.9, seed=0), probe, ensemble,
+            max_new_tokens=MAX_NEW, route_fn=route, device="cuda",
+            paged=False if path == "wave_dense" else None)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if path == "stepped_int8":
+            res = eng.run_stepped(tasks, policy, chunk_tokens=32,
+                                  megastep=4)
+            tokens = res.step.decode_tokens
+        else:
+            res = eng.run_batch(tasks)
+            tokens = (len(tasks) * n * MAX_NEW
+                      + res.compaction.ensemble_decode_tokens)
+        torch.cuda.synchronize()
+        return eng, res, time.perf_counter() - t, tokens
+
+    launches_by_path = {}
+    for path, needed in WAVE_PATHS.items():
+        ops.reset_launch_counts()
+        eng, res, wall, tokens = serve(path)
+        launches = ops.launch_counts()
+        launches_by_path[path] = launches
+        log(f"wave[{path}]: launches during the run {launches}")
+        for name in needed:
+            if launches[name] <= 0:
+                raise AssertionError(f"wave[{path}]: {name} never "
+                                     "launched")
+        for name in WAVE_ABSENT[path]:
+            if launches[name] != 0:
+                raise AssertionError(f"wave[{path}]: {name} launched "
+                                     "off this path")
+        if (len(res.final_answers) != len(tasks)
+                or any(a is None for a in res.final_answers)):
+            raise AssertionError(f"wave[{path}]: a task went unanswered")
+        check_no_leaks(eng)
+        log(f"wave[{path}]: {len(tasks)} tasks on {gpu_name}: wall "
+            f"{wall:.3f} s, modes {np.bincount(res.modes, minlength=3)}")
+        log(f"wave[{path}]: tasks/s {len(tasks) / wall:.3f}")
+        log(f"wave[{path}]: decode tokens/s {tokens / wall:.1f} "
+            f"({tokens} decode tokens)")
+        profiled = path != "stepped_int8"
+        with (profile(activities=[ProfilerActivity.CUDA]) if profiled
+              else contextlib.nullcontext()) as prof:
+            eng2, res2, wall2, _ = serve(path)
+        if profiled:
+            report_profile(prof, wall, wall2)
+        if not _same_results(res, res2):
+            raise AssertionError(f"wave[{path}]: a rerun changed sigma, "
+                                 "modes, answers or probe texts")
+        check_no_leaks(eng2)
+        log(f"wave[{path}]: rerun identical (sigma, modes, answers, "
+            f"probe texts); rerun wall {wall2:.3f} s")
+    return launches_by_path
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -523,9 +913,20 @@ def main() -> int:
     build.load()
     log(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s")
 
+    def phase_done(name):
+        log(f"phase {name}: done {time.perf_counter() - t0:.1f} s after "
+            "the build started")
+
     results = run_kernel_phase(torch)
+    phase_done("kernels")
     run_reference_phase(torch)
-    launches = run_serve_phase(torch, gpu_name)
+    run_wave_reference_phase(torch)
+    phase_done("reference")
+    cfg, params = full_width_params(torch)
+    by_path = {"stepped": run_serve_phase(torch, gpu_name, cfg, params)}
+    phase_done("serve")
+    by_path.update(run_wave_phase(torch, gpu_name, cfg, params))
+    phase_done("wave")
 
     sources = {
         "paged_decode_attention": "src/repro/kernels/"
@@ -533,18 +934,30 @@ def main() -> int:
         "chunked_prefill_attention": "src/repro/kernels/"
                                      "chunked_prefill_attention.py:128",
         "fused_swiglu": "src/repro/kernels/fused_swiglu.py:61",
+        "decode_attention": "src/repro/kernels/decode_attention.py:100",
+        "paged_decode_attention_quant": "src/repro/kernels/"
+                                        "paged_decode_attention_quant.py:135",
+        "decode_attention_quant": "src/repro/kernels/"
+                                  "decode_attention_quant.py:92",
     }
     kernels = []
     for name, replaces in sources.items():
         r = results[(name, "bfloat16")]
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces,
+            "launches": sum(c[name] for c in by_path.values()),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "dtype": "bfloat16"})
+            "dtype": "bfloat16",
+            "launches_by_path": {p: c[name] for p, c in by_path.items()}}
+        if r["library_ms"] is None:
+            entry["library_note"] = (
+                "no single PyTorch call computes attention over int8 "
+                "codes with per-vector scales folded in")
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(smi.splitlines()[0])
     print(json.dumps({"ok": True, "device": {

@@ -29,8 +29,9 @@ CSRC = _PKG / "csrc"
 REPO_ROOT = _PKG.parents[1]
 BUILD_DIR = REPO_ROOT / "build" / "kernels"
 SOURCES = ("paged_decode_attention.cu", "chunked_prefill_attention.cu",
-           "fused_swiglu.cu")
-HEADERS = ("common.cuh",)
+           "fused_swiglu.cu", "decode_attention.cu",
+           "decode_attention_quant.cu", "paged_decode_attention_quant.cu")
+HEADERS = ("common.cuh", "decode_core.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -44,6 +45,12 @@ _SIGNATURES = {
         [_VP] * 6 + [_I] * 9 + [_VP],
     "acar_fused_swiglu":
         [_VP] * 5 + [_I] * 4 + [_VP],
+    "acar_decode_attention":
+        [_VP] * 4 + [_I] * 7 + [_VP],
+    "acar_decode_attention_quant":
+        [_VP] * 6 + [_I] * 7 + [_VP],
+    "acar_paged_decode_attention_quant":
+        [_VP] * 8 + [_I] * 7 + [_VP],
 }
 
 _lock = threading.Lock()

@@ -7,12 +7,18 @@ that would hide the kernel.
 """
 from repro_torch.kernels.chunked_prefill_attention import (
     chunked_prefill_attention)
+from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.decode_attention_quant import (
+    decode_attention_quant)
 from repro_torch.kernels.fused_swiglu import fused_swiglu
 from repro_torch.kernels.paged_decode_attention import (
     paged_decode_attention)
+from repro_torch.kernels.paged_decode_attention_quant import (
+    paged_decode_attention_quant)
 
 KERNELS = (paged_decode_attention, chunked_prefill_attention,
-           fused_swiglu)
+           fused_swiglu, decode_attention, paged_decode_attention_quant,
+           decode_attention_quant)
 
 
 def launch_counts() -> dict:
@@ -25,6 +31,7 @@ def reset_launch_counts() -> None:
         k.launches = 0
 
 
-__all__ = ["KERNELS", "chunked_prefill_attention", "fused_swiglu",
-           "launch_counts", "paged_decode_attention",
+__all__ = ["KERNELS", "chunked_prefill_attention", "decode_attention",
+           "decode_attention_quant", "fused_swiglu", "launch_counts",
+           "paged_decode_attention", "paged_decode_attention_quant",
            "reset_launch_counts"]

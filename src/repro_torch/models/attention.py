@@ -1,31 +1,140 @@
-"""GQA attention against paged KV: projections, chunked prefill and
-single-token decode.
+"""GQA attention: one-shot prefill over the whole prompt, single-token
+decode against a contiguous cache (dense or int8), and the paged
+variants the step-level loop runs (chunked prefill and decode over
+dense or int8 pages).
 
-The port of the dense GQA functions of ``repro/models/attention.py``
-that the step-level serving loop runs. Attention itself goes through
-``kernels.ops``: the hand-written Hopper kernels on the card, their
-plain PyTorch versions on the CPU.
+The port of the dense GQA functions of ``repro/models/attention.py``.
+Decode and chunked-prefill attention go through ``kernels.ops``: the
+hand-written Hopper kernels on the card, their plain PyTorch versions
+on the CPU. One-shot prefill attention is plain PyTorch, as the
+reference leaves it to XLA outside any kernel.
 
-Pages are updated in place: where the reference returns new page arrays
-from ``.at[].set``, the port writes the token's (or the chunk's) K/V
-into the layer's page slice with ``index_put_`` and returns the same
-tensors. The write and the kernel that reads it run on one stream, so
-the write is complete before the kernel reads the pages.
+Caches and pages are updated in place: where the reference returns new
+arrays from ``dynamic_update_slice`` or ``.at[].set``, the port writes
+the token's (or the chunk's) K/V into the given tensors and returns
+them. The write and the kernel that reads it run on one stream, so the
+write is complete before the kernel reads it.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope
 
+_NEG_INF = -1e30
 # one-shot prefill switches to blockwise online softmax at this block
-# (the reference's flash_attention); chunked prefill is held to the
-# one-shot path only off that grid (transformer.prefill_chunk_paged)
+# (flash_attention); chunked prefill is held to the one-shot path only
+# off that grid (transformer.prefill_chunk_paged)
 _FLASH_BLOCK = 512
+
+
+def _inv_sqrt(dk: int) -> float:
+    """1/sqrt(dk) in f32, as the reference computes its scale; a Python
+    scalar keeps the call free of host-to-device copies."""
+    return float(np.float32(1.0) / np.sqrt(np.float32(dk)))
+
+
+# ======================================================================
+# core attention math
+# ======================================================================
+def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   mask: torch.Tensor) -> torch.Tensor:
+    """Reference path for short sequences.
+
+    q: (B,Sq,H,Dk); k: (B,Sk,KV,Dk); v: (B,Sk,KV,Dv);
+    mask: (Sq,Sk) or (B,Sq,Sk) bool (True = attend).
+    Returns (B,Sq,H,Dv).
+    """
+    b, sq, h, dk = q.shape
+    kv = k.shape[2]
+    g = h // kv
+    qr = q.reshape(b, sq, kv, g, dk)
+    # scores accumulate in f32 (the reference's preferred_element_type)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qr.float(),
+                          k.float()) * _inv_sqrt(dk)
+    m = mask[None, None, None] if mask.dim() == 2 else mask[:, None, None]
+    scores = scores.masked_fill(~m, _NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(v.dtype), v)
+    return out.reshape(b, sq, h, v.shape[-1])
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    q_positions: torch.Tensor, k_positions: torch.Tensor,
+                    *, causal: bool = True, window: Optional[int] = None,
+                    block: int = _FLASH_BLOCK) -> torch.Tensor:
+    """Blockwise online-softmax attention over key blocks of ``block``
+    positions; a key axis off that grid (or within one block) takes
+    ``full_attention``, as in the reference.
+
+    q: (B,Sq,H,Dk); k: (B,Sk,KV,Dk); v: (B,Sk,KV,Dv);
+    q_positions: (Sq,) int; k_positions: (Sk,) int.
+    """
+    b, sq, h, dk = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    g = h // kv
+    if sk % block != 0 or sk <= block:
+        mask = _make_mask(q_positions, k_positions, causal, window)
+        return full_attention(q, k, v, mask)
+
+    qr = q.reshape(b, sq, kv, g, dk).float() * _inv_sqrt(dk)
+    m = torch.full((b, kv, g, sq), _NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l_sum = torch.zeros((b, kv, g, sq), dtype=torch.float32,
+                        device=q.device)
+    acc = torch.zeros((b, kv, g, sq, dv), dtype=torch.float32,
+                      device=q.device)
+    for j in range(sk // block):
+        sl = slice(j * block, (j + 1) * block)
+        kb, vb, kp = k[:, sl], v[:, sl], k_positions[sl]
+        s = torch.einsum("bqkgd,bskd->bkgqs", qr, kb.float())
+        s = s.masked_fill(~_make_mask(q_positions, kp, causal, window),
+                          _NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l_sum = l_sum * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bkgqs,bskd->bkgqd", p, vb.float())
+        m = m_new
+    out = acc / torch.clamp_min(l_sum, 1e-30)[..., None]
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dv)
+    return out.to(q.dtype)
+
+
+def _make_mask(q_positions: torch.Tensor, k_positions: torch.Tensor,
+               causal: bool, window: Optional[int]) -> torch.Tensor:
+    m = torch.ones((q_positions.shape[0], k_positions.shape[0]),
+                   dtype=torch.bool, device=q_positions.device)
+    if causal:
+        m &= q_positions[:, None] >= k_positions[None, :]
+    if window is not None:
+        m &= (q_positions[:, None] - k_positions[None, :]) < window
+    return m
+
+
+# ======================================================================
+# int8 KV cache (symmetric per-vector quantization over head_dim)
+# ======================================================================
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (..., D) -> (int8 codes (..., D), f32 scale (...,)).
+
+    Symmetric per-vector quantisation: scale = max|x| * (1/127) over the
+    head dim (a multiply by the f32 reciprocal, as the reference keeps
+    it, never a divide by 127), codes = round-half-even(x / scale)
+    clipped to +-127.
+    """
+    xf = x.float()
+    amax = torch.abs(xf).amax(dim=-1)
+    scale = torch.clamp_min(amax, 1e-8) * float(np.float32(1.0 / 127.0))
+    codes = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return codes.to(torch.int8), scale
 
 
 def gqa_project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor):
@@ -36,6 +145,72 @@ def gqa_project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor):
     k = torch.matmul(x, p["wk"]).reshape(b, s, cfg.num_kv_heads, hd)
     v = torch.matmul(x, p["wv"]).reshape(b, s, cfg.num_kv_heads, hd)
     return q, k, v
+
+
+def _decode_qkv(cfg: ModelConfig, p: dict, x_t: torch.Tensor,
+                positions: torch.Tensor):
+    """Project one token per row and rope it: x_t (B, d) ->
+    q (B, H, Dh), k/v (B, KV, Dh); positions broadcasts to (B, 1)."""
+    b = x_t.shape[0]
+    hd = cfg.resolved_head_dim
+    q = torch.matmul(x_t, p["wq"]).reshape(b, cfg.num_heads, hd)
+    k = torch.matmul(x_t, p["wk"]).reshape(b, cfg.num_kv_heads, hd)
+    v = torch.matmul(x_t, p["wv"]).reshape(b, cfg.num_kv_heads, hd)
+    if cfg.use_rope:
+        q = apply_rope(q[:, None], positions, cfg.rope_theta)[:, 0]
+        k = apply_rope(k[:, None], positions, cfg.rope_theta)[:, 0]
+    return q, k, v
+
+
+def gqa_decode(cfg: ModelConfig, p: dict, x_t: torch.Tensor, cache: dict,
+               pos: int, *, ring: bool = False
+               ) -> Tuple[torch.Tensor, dict]:
+    """Single-token GQA decode over a linear contiguous cache.
+
+    x_t: (B, d); cache: one layer's {k, v} (B, S, KV, Dh) in the model
+    dtype, or the int8 cache {k, v} int8 codes plus {k_scale, v_scale}
+    (B, S, KV) f32, updated in place; pos: the wave's current position
+    (a Python int, one for every row). The token's K/V (quantised by
+    ``quantize_kv`` for the int8 cache) land at slot ``pos``; attention
+    reads the ``pos + 1`` valid slots through the dense-cache kernel or
+    the int8 one. Ring caches (sliding-window layers) are not ported.
+    Returns (y (B, d), cache).
+    """
+    if ring:
+        raise NotImplementedError(
+            "ring-buffer (sliding-window) decode is not ported yet")
+    b = x_t.shape[0]
+    hd = cfg.resolved_head_dim
+    pos = int(pos)
+    positions = torch.full((1, 1), pos, dtype=torch.int64,
+                           device=x_t.device)
+    q, k, v = _decode_qkv(cfg, p, x_t, positions)
+    q = q.contiguous()
+    if "k_scale" in cache:                 # int8-quantised cache
+        kq, ks = quantize_kv(k)
+        vq, vs = quantize_kv(v)
+        cache["k"][:, pos] = kq
+        cache["v"][:, pos] = vq
+        cache["k_scale"][:, pos] = ks
+        cache["v_scale"][:, pos] = vs
+        out = ops.decode_attention_quant(
+            q, cache["k"], cache["k_scale"], cache["v"], cache["v_scale"],
+            pos + 1)
+    else:
+        cache["k"][:, pos] = k.to(cache["k"].dtype)
+        cache["v"][:, pos] = v.to(cache["v"].dtype)
+        out = ops.decode_attention(q, cache["k"], cache["v"], pos + 1)
+    y = torch.matmul(out.reshape(b, cfg.num_heads * hd), p["wo"])
+    return y, cache
+
+
+def _page_slots(block_table: torch.Tensor, pos_rows: torch.Tensor,
+                page_size: int):
+    """(page id, slot) of each row's write position."""
+    pos_l = pos_rows.long()
+    page_ids = torch.gather(block_table.long(), 1,
+                            (pos_l // page_size)[:, None])[:, 0]
+    return page_ids, pos_l % page_size
 
 
 def gqa_decode_paged(cfg: ModelConfig, p: dict, x_t: torch.Tensor,
@@ -55,20 +230,9 @@ def gqa_decode_paged(cfg: ModelConfig, p: dict, x_t: torch.Tensor,
     """
     b = x_t.shape[0]
     hd = cfg.resolved_head_dim
-    kv = cfg.num_kv_heads
-    q = torch.matmul(x_t, p["wq"]).reshape(b, cfg.num_heads, hd)
-    k = torch.matmul(x_t, p["wk"]).reshape(b, kv, hd)
-    v = torch.matmul(x_t, p["wv"]).reshape(b, kv, hd)
     pos_rows = pos.expand(b) if pos.dim() == 0 else pos
-    if cfg.use_rope:
-        q = apply_rope(q[:, None], pos_rows[:, None], cfg.rope_theta)[:, 0]
-        k = apply_rope(k[:, None], pos_rows[:, None], cfg.rope_theta)[:, 0]
-
-    ps = k_pages.shape[1]
-    pos_l = pos_rows.long()
-    page_ids = torch.gather(block_table.long(), 1,
-                            (pos_l // ps)[:, None])[:, 0]       # (B,)
-    slot = pos_l % ps                                           # (B,)
+    q, k, v = _decode_qkv(cfg, p, x_t, pos_rows[:, None])
+    page_ids, slot = _page_slots(block_table, pos_rows, k_pages.shape[1])
     k_pages[page_ids, slot] = k.to(k_pages.dtype)
     v_pages[page_ids, slot] = v.to(v_pages.dtype)
 
@@ -78,6 +242,42 @@ def gqa_decode_paged(cfg: ModelConfig, p: dict, x_t: torch.Tensor,
     out = out.reshape(b, cfg.num_heads * hd)
     y = torch.matmul(out, p["wo"])
     return y, k_pages, v_pages
+
+
+def gqa_decode_quant_paged(cfg: ModelConfig, p: dict, x_t: torch.Tensor,
+                           pages: dict, block_table: torch.Tensor,
+                           pos: torch.Tensor, *, cache_len: int
+                           ) -> Tuple[torch.Tensor, dict]:
+    """Single-token GQA decode against int8-quantised KV pages.
+
+    x_t: (B, d); pages: one layer's slice of the quant pool — {k, v}
+    (P, page_size, KV, Dh) int8 codes and {k_scale, v_scale}
+    (P, page_size, KV) f32 per-vector scales, updated in place;
+    block_table: (B, NB) int32 page ids; pos: scalar or (B,) per-row
+    positions; cache_len: kept for the reference's signature. The
+    token's K/V quantise through the same ``quantize_kv`` as the dense
+    int8 cache; the int8 paged kernel reads codes and scales in place
+    and masks by ``pos + 1`` per row. Returns (y (B, d), pages).
+    """
+    b = x_t.shape[0]
+    hd = cfg.resolved_head_dim
+    pos_rows = pos.expand(b) if pos.dim() == 0 else pos
+    q, k, v = _decode_qkv(cfg, p, x_t, pos_rows[:, None])
+    kq, ks = quantize_kv(k)
+    vq, vs = quantize_kv(v)
+    page_ids, slot = _page_slots(block_table, pos_rows,
+                                 pages["k"].shape[1])
+    pages["k"][page_ids, slot] = kq
+    pages["v"][page_ids, slot] = vq
+    pages["k_scale"][page_ids, slot] = ks
+    pages["v_scale"][page_ids, slot] = vs
+
+    lengths = (pos_rows + 1).to(torch.int32).contiguous()
+    out = ops.paged_decode_attention_quant(
+        q.contiguous(), pages["k"], pages["k_scale"], pages["v"],
+        pages["v_scale"], block_table, lengths)
+    y = torch.matmul(out.reshape(b, cfg.num_heads * hd), p["wo"])
+    return y, pages
 
 
 def gqa_prefill_chunk_paged(cfg: ModelConfig, p: dict, x: torch.Tensor,

@@ -1,24 +1,31 @@
-"""Paged transformer forward passes for the step-level serving loop:
-one prefill chunk, and one decode step, over the page pool.
+"""Transformer prefill and decode for serving: one-shot prefill into a
+contiguous cache or into pool pages, one chunk of a paged prefill, and
+one decode step over a contiguous cache or over the page pool.
 
-The port of the dense-layout paged path of
-``repro/models/transformer.py``. The reference scans the stacked layer
-params (``stack_scan``); here a Python loop walks the stacked tensors
-layer by layer, and each layer's page slice is updated in place.
+The port of the dense-family serving path of
+``repro/models/transformer.py`` (dense and int8 caches; dense and quant
+page layouts). The reference scans the stacked layer params
+(``stack_scan``); here a Python loop walks the stacked tensors layer by
+layer, and each layer's cache or page slice is updated in place.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (
-    embed_tokens, lm_head, rms_norm, swiglu_mlp)
+    apply_rope, embed_tokens, lm_head, rms_norm, swiglu_mlp)
+from repro_torch.models.params import torch_dtype
 
 Pages = Dict[str, torch.Tensor]
+Cache = Dict[str, Dict[str, torch.Tensor]]
+# the dense-cache decode kernel's block (repro/kernels/decode_attention.py)
+DECODE_BLOCK_S = 512
 
 
 # ----------------------------------------------------------------------
@@ -72,6 +79,129 @@ def _layer(tree: dict, i: int) -> dict:
             for k, v in tree.items()}
 
 
+def _check_dense_family(cfg: ModelConfig) -> None:
+    if (cfg.family != "dense" or cfg.attn_kind != "gqa"
+            or cfg.frontend is not None or cfg.moe is not None):
+        raise NotImplementedError(
+            f"{cfg.name}: only the dense GQA family is ported")
+
+
+def _attn_cache_len(cfg: ModelConfig, seq_len: int) -> int:
+    """Cache positions for ``seq_len`` total positions: the window for
+    sliding-window layers; otherwise caches longer than the decode
+    kernel's 512-key block round up to that grid, as the reference does
+    on its kernel path (positions past the true length are masked)."""
+    if cfg.window is not None:
+        return min(seq_len, cfg.window)
+    if seq_len > DECODE_BLOCK_S:
+        return -(-seq_len // DECODE_BLOCK_S) * DECODE_BLOCK_S
+    return seq_len
+
+
+def _pad_cache(k: torch.Tensor, cache_len: int) -> torch.Tensor:
+    """Zero-pad axis 1 (positions) to ``cache_len``."""
+    s = k.shape[1]
+    if s == cache_len:
+        return k
+    assert s < cache_len
+    pad = [0, 0] * (k.dim() - 2) + [0, cache_len - s]
+    return F.pad(k, pad)
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
+               device=None) -> Cache:
+    """Zero-initialised decode cache for ``seq_len`` total positions
+    (dense family): {"layers": {k, v}} of (L, B, S, KV, Dh) in the
+    model dtype, or int8 codes plus {k_scale, v_scale} (L, B, S, KV)
+    f32 planes for an int8 cache (``cfg.kv_quant``)."""
+    _check_dense_family(cfg)
+    s = _attn_cache_len(cfg, seq_len)
+    shape = (cfg.num_layers, batch, s, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    if cfg.kv_quant:
+        layers = {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                  "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                  "k_scale": torch.zeros(shape[:-1], device=device),
+                  "v_scale": torch.zeros(shape[:-1], device=device)}
+    else:
+        dt = torch_dtype(cfg)
+        layers = {"k": torch.zeros(shape, dtype=dt, device=device),
+                  "v": torch.zeros(shape, dtype=dt, device=device)}
+    return {"layers": layers}
+
+
+# ----------------------------------------------------------------------
+# one-shot prefill
+# ----------------------------------------------------------------------
+def _attn_prefill_layer(cfg: ModelConfig, lp: dict, x: torch.Tensor,
+                        positions: torch.Tensor):
+    """One full-prompt GQA layer: returns (x, k, v) with the layer's
+    rope'd K/V (B, S, KV, Dh) for the caller to pack into its cache or
+    pages."""
+    h = norm_apply(cfg, lp["attn_norm"], x)
+    q, k, v = attn.gqa_project_qkv(cfg, lp["attn"], h)
+    if cfg.use_rope:
+        q = apply_rope(q, positions[None], cfg.rope_theta)
+        k = apply_rope(k, positions[None], cfg.rope_theta)
+    o = attn.flash_attention(q, k, v, positions, positions, causal=True,
+                             window=cfg.window)
+    b, s = x.shape[:2]
+    o = o.reshape(b, s, cfg.num_heads * cfg.resolved_head_dim)
+    x = x + torch.matmul(o, lp["attn"]["wo"])
+    h = norm_apply(cfg, lp["mlp_norm"], x)
+    return x + mlp_apply(cfg, lp["mlp"], h), k, v
+
+
+def _cache_entry(cfg: ModelConfig, k: torch.Tensor,
+                 v: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """A layer's cache leaves from its K/V: as they are, or int8 codes
+    plus f32 scales (``attn.quantize_kv``) for an int8 cache."""
+    if not cfg.kv_quant:
+        return {"k": k, "v": v}
+    kq, ks = attn.quantize_kv(k)
+    vq, vs = attn.quantize_kv(v)
+    return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+
+
+def _prefill_layers(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+                    pack) -> torch.Tensor:
+    """Run the prompt through every layer; ``pack(i, entry)`` stores
+    layer i's cache leaves. Returns the last position's logits."""
+    if cfg.window is not None:
+        raise NotImplementedError(
+            "sliding-window (ring) caches are not ported yet")
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    x = _embed_inputs(cfg, params, tokens)
+    for i in range(cfg.num_layers):
+        x, k, v = _attn_prefill_layer(cfg, _layer(params["layers"], i), x,
+                                      positions)
+        pack(i, _cache_entry(cfg, k, v))
+    return _logits(cfg, params, x[:, -1])
+
+
+def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+            cache_len: Optional[int] = None
+            ) -> Tuple[torch.Tensor, Cache]:
+    """Process a prompt (dense family): tokens (B, S) -> (last-position
+    logits (B, V), decode cache for ``cache_len`` total positions,
+    default S). The cache is ``init_cache``'s layout with the prompt's
+    K/V (or their int8 codes and scales) in positions [0, S) and zeros
+    after."""
+    _check_dense_family(cfg)
+    s = tokens.shape[1]
+    a_len = _attn_cache_len(cfg, s if cache_len is None else cache_len)
+    per_layer = []
+
+    def pack(i, entry):
+        per_layer.append({n: _pad_cache(a, a_len)
+                          for n, a in entry.items()})
+
+    logits = _prefill_layers(cfg, params, tokens, pack)
+    layers = {n: torch.stack([e[n] for e in per_layer])
+              for n in per_layer[0]}
+    return logits, {"layers": layers}
+
+
 # ----------------------------------------------------------------------
 # paged KV-cache path (serving/kv_pool.py page pool + block tables)
 # ----------------------------------------------------------------------
@@ -101,6 +231,43 @@ def resolve_layout(cfg: ModelConfig) -> Optional[str]:
     if cfg.window is not None:
         return "ring"
     return "dense"
+
+
+def prefill_paged(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+                  pages: Pages, prefill_table: torch.Tensor, *,
+                  cache_len: Optional[int] = None
+                  ) -> Tuple[torch.Tensor, Pages]:
+    """One-shot prompt prefill that scatters each layer's K/V into pool
+    pages (dense and quant layouts).
+
+    tokens: (B, S); pages: the pool's leaves (L, P, page_size, ...) —
+    dense {k, v} in the model dtype, quant int8 {k, v} plus f32
+    {k_scale, v_scale} — written in place; prefill_table: (B, NBp)
+    int32 page ids covering each row's prompt. The hidden-state math
+    is ``prefill``'s; only the cache packing differs, and quant packing
+    runs the same ``quantize_kv`` as the int8 cache. ``cache_len`` is
+    kept for the reference's signature (only ring layouts need it).
+    Returns (last-position logits (B, V), pages).
+    """
+    layout = resolve_layout(cfg)
+    if layout not in ("dense", "quant"):
+        raise NotImplementedError(
+            f"{cfg.name}: one-shot paged prefill of the {layout!r} "
+            "layout is not ported yet")
+    b, s = tokens.shape
+    ps = pages["k"].shape[2]
+    nbp = prefill_table.shape[1]
+    table = prefill_table.long()
+
+    def pack(i, entry):
+        # pad positions to the page boundary (the pad lands in the
+        # partial tail page's dead slots) and scatter page-shaped chunks
+        for n, a in entry.items():
+            a = _pad_cache(a, nbp * ps)
+            a = a.reshape((b, nbp, ps) + a.shape[2:])
+            pages[n][i][table] = a.to(pages[n].dtype)
+
+    return _prefill_layers(cfg, params, tokens, pack), pages
 
 
 def prefill_chunk_paged(cfg: ModelConfig, params: dict,
@@ -149,22 +316,59 @@ def decode_step_paged(cfg: ModelConfig, params: dict, pages: Pages,
                       block_table: torch.Tensor, token: torch.Tensor,
                       pos: torch.Tensor, *, cache_len: int
                       ) -> Tuple[torch.Tensor, Pages]:
-    """One decode step over the paged state (dense layout). token: (B,)
-    int; pos: scalar, or (B,) per-row positions; cache_len: static
-    dense-equivalent cache length (prompt + max_new). Each layer writes
-    the token's K/V at ``pos`` into the row's block-table page, in
-    place. Returns (logits (B, V), pages)."""
-    if resolve_layout(cfg) != "dense":
+    """One decode step over the paged state (dense and quant layouts).
+    token: (B,) int; pos: scalar, or (B,) per-row positions; cache_len:
+    static dense-equivalent cache length (prompt + max_new). Each layer
+    writes the token's K/V (quant: codes and scales) at ``pos`` into
+    the row's block-table page, in place. Returns (logits (B, V),
+    pages)."""
+    layout = resolve_layout(cfg)
+    if layout not in ("dense", "quant"):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense page layout is ported")
+            f"{cfg.name}: the {layout!r} page layout is not ported yet")
     x = embed_tokens(params["embedding"], token)
     for i in range(cfg.num_layers):
         lp = _layer(params["layers"], i)
         h = norm_apply(cfg, lp["attn_norm"], x)
-        a, _, _ = attn.gqa_decode_paged(
-            cfg, lp["attn"], h, pages["k"][i], pages["v"][i], block_table,
-            pos, cache_len=cache_len)
+        if layout == "quant":
+            a, _ = attn.gqa_decode_quant_paged(
+                cfg, lp["attn"], h, {n: t[i] for n, t in pages.items()},
+                block_table, pos, cache_len=cache_len)
+        else:
+            a, _, _ = attn.gqa_decode_paged(
+                cfg, lp["attn"], h, pages["k"][i], pages["v"][i],
+                block_table, pos, cache_len=cache_len)
         x = x + a
         h = norm_apply(cfg, lp["mlp_norm"], x)
         x = x + mlp_apply_token(cfg, lp["mlp"], h)
     return _logits(cfg, params, x), pages
+
+
+# ----------------------------------------------------------------------
+# decode over a contiguous cache
+# ----------------------------------------------------------------------
+def _attn_decode_layer(cfg: ModelConfig, lp: dict, x_t: torch.Tensor,
+                       cache_l: dict, pos: int) -> torch.Tensor:
+    h = norm_apply(cfg, lp["attn_norm"], x_t)
+    a, _ = attn.gqa_decode(cfg, lp["attn"], h, cache_l, pos,
+                           ring=cfg.window is not None)
+    x_t = x_t + a
+    h = norm_apply(cfg, lp["mlp_norm"], x_t)
+    return x_t + mlp_apply_token(cfg, lp["mlp"], h)
+
+
+def decode_step(cfg: ModelConfig, params: dict, cache: Cache,
+                token: torch.Tensor, pos: int
+                ) -> Tuple[torch.Tensor, Cache]:
+    """One decode step over a contiguous cache (dense family). token:
+    (B,) int; pos: the position written, one Python int for the whole
+    batch. Writes each layer's K/V (or int8 codes and scales) at
+    ``pos`` in place and returns (logits for position pos + 1 (B, V),
+    cache)."""
+    _check_dense_family(cfg)
+    x = embed_tokens(params["embedding"], token)
+    layers = cache["layers"]
+    for i in range(cfg.num_layers):
+        x = _attn_decode_layer(cfg, _layer(params["layers"], i), x,
+                               {n: t[i] for n, t in layers.items()}, pos)
+    return _logits(cfg, params, x), cache

@@ -7,7 +7,7 @@ reference's random bits. This module reproduces jax 0.9.0's
 ``threefry2x32`` as jax runs it by default: raw ``(2,)`` uint32 keys,
 ``jax_threefry_partitionable=True`` (random bits at index ``j`` of a
 draw hash the counter pair ``(j >> 32, j & 0xffffffff)``), ``fold_in``,
-and ``uniform`` -> gumbel -> ``categorical``. Keys and bits agree with
+``split``, and ``uniform`` -> gumbel -> ``categorical``. Keys and bits agree with
 jax's bit for bit (``tests/test_torch_sampling.py``).
 
 uint32 arithmetic is emulated in int64 tensors (values kept in
@@ -80,6 +80,18 @@ def fold_in_np(key: np.ndarray, data) -> np.ndarray:
     out = fold_in(_as_keys(key), torch.as_tensor(np.asarray(data,
                                                             np.int64)))
     return out.numpy().astype(np.uint32)
+
+
+def split(key: np.ndarray, n: int) -> np.ndarray:
+    """``jax.random.split(key, n)``: (n, 2) uint32. Under the
+    partitionable layout subkey ``i`` hashes the counter pair
+    ``(i >> 32, i & 0xffffffff)``, which for ``i < 2**32`` is
+    ``fold_in(key, i)``."""
+    if not 0 <= n <= 1 << 32:
+        raise ValueError(f"cannot split a key into {n} subkeys")
+    key = np.asarray(key, np.uint32)
+    return fold_in_np(np.broadcast_to(key, (n, 2)),
+                      np.arange(n, dtype=np.int64))
 
 
 def random_bits(keys: torch.Tensor, n: int) -> torch.Tensor:

@@ -1,17 +1,21 @@
-"""Step-level sampling programs over the paged KV pool.
+"""Sampling over the port's models: the wave generators (prefill, then a
+fixed-length decode loop over a contiguous cache or over pool pages)
+and the step-level programs over the paged KV pool.
 
-The port of the step-level subset of ``repro/sampling/sampler.py``: the
-per-row key streams (``probe_row_keys``/``member_row_keys``), the
-batch-composition-invariant draw (``sample_token_rows``), the page fork,
-one prefill chunk, one decode step, and the K-tick decode megastep. The
-reference compiles each into one XLA program; here they run eagerly,
-and the megastep's K ticks are a Python loop over the per-tick body
-(capturing it in a CUDA graph is later work). Page tensors are updated
-in place.
+The port of ``repro/sampling/sampler.py``. The reference compiles each
+generator into one XLA program and drives decode with ``lax.scan``;
+here they run eagerly and the decode steps are a Python loop whose
+position is a host integer, so no step reads a value back from the
+card. Temperature 0 is greedy; otherwise tokens come from the replica
+of jax's categorical draw (``prng``), either with one key per step for
+the whole batch (``sample_token``) or with per-row key streams
+(``sample_token_rows``). Finished rows (EOS emitted) keep emitting
+``pad_id``, so a wave runs a fixed number of steps. Caches and pages
+are updated in place.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -21,6 +25,35 @@ from repro_torch.models import transformer as T
 from repro_torch.sampling import prng
 
 Pages = Dict[str, torch.Tensor]
+
+
+class GenerateOutput(NamedTuple):
+    tokens: torch.Tensor     # (B, max_new) int32, pad_id after EOS
+    logprobs: torch.Tensor   # (B, max_new) float32 logprob of chosen tok
+    lengths: torch.Tensor    # (B,) int32 — emitted tokens incl. EOS
+
+
+def _temperature_scaled(logits: torch.Tensor,
+                        temperature: float) -> torch.Tensor:
+    # a true division by a tensor of the temperature (a division by a
+    # Python scalar may run as a multiply by its reciprocal)
+    return logits.float() / torch.full_like(logits, temperature,
+                                            dtype=torch.float32)
+
+
+def sample_token(logits: torch.Tensor, temperature: float,
+                 key: torch.Tensor) -> torch.Tensor:
+    """logits: (B, V) -> (B,) int32. One draw for the whole batch:
+    ``jax.random.categorical(key, logits / temperature)`` with key
+    (2,) int64 holding uint32 values, whose Gumbel noise indexes the
+    flattened (B, V) array — so a row's token depends on the batch
+    shape (``sample_token_rows`` does not)."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    scaled = _temperature_scaled(logits, temperature)
+    g = prng.gumbel(key.reshape(1, 2), scaled.numel()).reshape(
+        scaled.shape)
+    return torch.argmax(g + scaled, dim=-1).to(torch.int32)
 
 
 def sample_token_rows(logits: torch.Tensor, temperature: float,
@@ -34,10 +67,7 @@ def sample_token_rows(logits: torch.Tensor, temperature: float,
     identical tokens whatever batch it shares. Returns (B,) int32."""
     if temperature <= 0.0:
         return torch.argmax(logits, dim=-1).to(torch.int32)
-    # a true division by a tensor of the temperature (a division by a
-    # Python scalar may run as a multiply by its reciprocal)
-    scaled = logits.float() / torch.full_like(logits, temperature,
-                                              dtype=torch.float32)
+    scaled = _temperature_scaled(logits, temperature)
     steps = torch.as_tensor(steps, device=logits.device).expand(
         logits.shape[0])
     keys = prng.fold_in(row_keys, steps)
@@ -88,6 +118,179 @@ def fork_pages(pages: Pages, src: Sequence[int],
         d = torch.as_tensor(np.asarray(dst, np.int64), device=a.device)
         a[:, d] = a[:, s]
     return pages
+
+
+def batch_invariant(cfg: ModelConfig) -> bool:
+    """True when one row's forward pass cannot depend on which other
+    rows share the batch: every non-MoE config, and MoE with the
+    capacity-free gather dispatch. Compaction and shared-prefix prefill
+    are bit-equivalent to the padded and tiled paths only for these."""
+    return cfg.moe is None or cfg.moe.impl == "gather"
+
+
+def _device_of(params: dict) -> torch.device:
+    return params["embedding"].device
+
+
+def _as_tokens(tokens, device) -> torch.Tensor:
+    if isinstance(tokens, torch.Tensor):
+        return tokens.to(device)
+    return torch.from_numpy(np.ascontiguousarray(tokens)).to(device)
+
+
+def _decode_scan(cfg: ModelConfig, params: dict, cache, logits0: torch.Tensor,
+                 start_pos: int, batch: int, max_new_tokens: int,
+                 temperature: float, key, eos_id: int, pad_id: int,
+                 decode_fn=None, row_keys=None
+                 ) -> Tuple[GenerateOutput, object]:
+    """The fixed-length decode loop over an existing prefill cache.
+
+    ``decode_fn(cache, token, pos) -> (logits, cache)`` overrides the
+    per-step transition (the paged path passes pages through it); the
+    default is ``T.decode_step`` over a contiguous cache. ``pos`` is a
+    host integer. Without ``row_keys`` step i draws the whole batch
+    from ``split(key, max_new_tokens)[i]``; with ``row_keys`` ((B, 2)
+    uint32) row r draws from ``fold_in(row_keys[r], i)``. Returns the
+    output and the final cache."""
+    if decode_fn is None:
+        def decode_fn(cache, token, pos):
+            return T.decode_step(cfg, params, cache, token, pos)
+
+    dev = logits0.device
+    if row_keys is not None:
+        row_keys = prng._as_keys(row_keys, dev)
+    else:
+        step_keys = prng._as_keys(prng.split(key, max_new_tokens), dev)
+    logits = logits0
+    done = torch.zeros(batch, dtype=torch.bool, device=dev)
+    emits, logps, live = [], [], []
+    for i in range(max_new_tokens):
+        if row_keys is None:
+            tok = sample_token(logits, temperature, step_keys[i])
+        else:
+            tok = sample_token_rows(
+                logits, temperature, row_keys,
+                torch.full((batch,), i, dtype=torch.int64, device=dev))
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        tok_logp = torch.gather(logp, 1, tok.long()[:, None])[:, 0]
+        emit = torch.where(done, torch.full_like(tok, pad_id), tok)
+        emits.append(emit)
+        logps.append(torch.where(done, torch.zeros_like(tok_logp),
+                                 tok_logp))
+        live.append(~done)
+        done = done | (tok == eos_id)
+        logits, cache = decode_fn(cache, emit, start_pos + i)
+    # a row emits a real token (possibly EOS, possibly one that merely
+    # equals pad_id) at every step it was not yet done
+    lengths = torch.stack(live, dim=1).sum(dim=1).to(torch.int32)
+    return GenerateOutput(tokens=torch.stack(emits, dim=1),
+                          logprobs=torch.stack(logps, dim=1),
+                          lengths=lengths), cache
+
+
+def generate(cfg: ModelConfig, params: dict, prompt_tokens, *,
+             max_new_tokens: int, temperature: float = 0.0,
+             key: Optional[np.ndarray] = None, eos_id: int = -1,
+             pad_id: int = 0, row_keys=None) -> GenerateOutput:
+    """prompt_tokens: (B, S) int — fixed-length prompts, on the params'
+    device. ``key`` is a raw (2,) uint32 key (default ``PRNGKey(0)``);
+    ``row_keys`` ((B, 2) uint32) switches sampling to per-row key
+    streams (batch-composition invariant; see ``sample_token_rows``)."""
+    tokens = _as_tokens(prompt_tokens, _device_of(params))
+    b, s = tokens.shape
+    if key is None:
+        key = prng.prng_key(0)
+    logits0, cache = T.prefill(cfg, params, tokens,
+                               cache_len=s + max_new_tokens)
+    out, _ = _decode_scan(cfg, params, cache, logits0, s, b,
+                          max_new_tokens, temperature, key, eos_id,
+                          pad_id, row_keys=row_keys)
+    return out
+
+
+def tile_cache(cache: dict, n: int, batch: Optional[int] = None) -> dict:
+    """Broadcast a prefill cache of batch B to B*n rows (row i's
+    replicas occupy rows i*n .. i*n+n-1, matching ``np.repeat`` on the
+    prompt batch). The dense family's cache is ``{"layers": leaves}``
+    with the batch on axis 1 of every (L, B, ...) leaf; ``batch``
+    asserts that axis really is the batch axis."""
+    out = {}
+    for k, leaves in cache.items():
+        if batch is not None:
+            for leaf in leaves.values():
+                if leaf.shape[1] != batch:
+                    raise ValueError(
+                        f"cache entry {k!r}: expected batch {batch} on "
+                        f"axis 1, got shape {tuple(leaf.shape)}")
+        out[k] = {name: torch.repeat_interleave(a, n, dim=1)
+                  for name, a in leaves.items()}
+    return out
+
+
+def generate_samples(cfg: ModelConfig, params: dict, prompt_tokens,
+                     n: int, *, max_new_tokens: int,
+                     temperature: float = 0.0,
+                     key: Optional[np.ndarray] = None, eos_id: int = -1,
+                     pad_id: int = 0, row_keys=None) -> GenerateOutput:
+    """N samples per prompt with a single shared-prefix prefill.
+
+    prompt_tokens: (B, S) -> GenerateOutput over B*n rows, row-major in
+    sample index (row i*n+j is sample j of prompt i): one prefill per
+    prompt, its cache tiled to the n samples, and only the decode loop
+    runs at B*n rows."""
+    tokens = _as_tokens(prompt_tokens, _device_of(params))
+    b, s = tokens.shape
+    if key is None:
+        key = prng.prng_key(0)
+    logits0, cache = T.prefill(cfg, params, tokens,
+                               cache_len=s + max_new_tokens)
+    cache = tile_cache(cache, n, batch=b)
+    logits0 = torch.repeat_interleave(logits0, n, dim=0)
+    out, _ = _decode_scan(cfg, params, cache, logits0, s, b * n,
+                          max_new_tokens, temperature, key, eos_id,
+                          pad_id, row_keys=row_keys)
+    return out
+
+
+# ----------------------------------------------------------------------
+# paged KV-cache path (serving/kv_pool.py owns allocation)
+# ----------------------------------------------------------------------
+def prefill_paged(cfg: ModelConfig, params: dict, prompt_tokens: torch.Tensor,
+                  pages: Pages, prefill_table: torch.Tensor,
+                  cache_len: Optional[int] = None
+                  ) -> Tuple[torch.Tensor, Pages]:
+    """One-shot prompt prefill scattering K/V (quant: codes and scales)
+    into pool pages. prompt_tokens: (B, S); prefill_table: (B, NBp)
+    int32. Returns (logits0 (B, V), pages)."""
+    return T.prefill_paged(cfg, params, prompt_tokens, pages,
+                           prefill_table, cache_len=cache_len)
+
+
+def decode_paged(cfg: ModelConfig, params: dict, logits0: torch.Tensor,
+                 pages: Pages, block_table: torch.Tensor, key, *,
+                 start_pos: int, max_new_tokens: int,
+                 temperature: float = 0.0, eos_id: int = -1,
+                 pad_id: int = 0, row_keys=None
+                 ) -> Tuple[GenerateOutput, Pages]:
+    """Fixed-length decode over paged state, from prefill logits.
+
+    logits0: (B, V) last-prompt-position logits (fresh or reused from a
+    retained probe prefill); block_table: (B, NB) int32 page ids per
+    row — the N-sample probe wave points its rows' prompt-prefix
+    entries at shared read-only pages. Returns (GenerateOutput, pages).
+    """
+    b = logits0.shape[0]
+    cache_len = start_pos + max_new_tokens
+    dev = logits0.device
+
+    def decode_fn(pages, token, pos):
+        pos_t = torch.full((), pos, dtype=torch.int32, device=dev)
+        return T.decode_step_paged(cfg, params, pages, block_table,
+                                   token, pos_t, cache_len=cache_len)
+
+    return _decode_scan(cfg, params, pages, logits0, start_pos, b,
+                        max_new_tokens, temperature, key, eos_id, pad_id,
+                        decode_fn=decode_fn, row_keys=row_keys)
 
 
 def prefill_chunk_paged(cfg: ModelConfig, params: dict,

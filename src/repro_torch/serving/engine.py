@@ -1,15 +1,27 @@
 """Batched ACAR serving engine — Algorithm 1 of the paper over real
-models, served by the step-level loop.
+models.
 
-The port of ``repro/serving/engine.py`` for the stepped main path: the
-probe's N samples decode over shared prompt pages, sigma over the
-interned probe answers routes each task (single / arena-lite /
+The port of ``repro/serving/engine.py``. Two entry points serve a
+stream: ``run_batch`` runs one lockstep wave (the default path of
+``launch.serve``) and ``run_stepped`` runs the step-level loop. In
+both, the probe's N samples decode over one shared prefill, sigma over
+the interned probe answers routes each task (single / arena-lite /
 full-arena), only the escalated tasks decode on the ensemble members
-(the probe's twin reuses the probe's pages), and the judge aggregates.
-Answers are canonicalised on the host (``core.extract``) and interned
-to int32 ids; sigma, routing and the judge run as tensor math over the
-ids. The wave engines (``run_batch``/``run_queued``), fault injection,
-journaling, recovery and tracing are not ported yet.
+(the probe's twin reuses the probe's prompt pages), and the judge
+aggregates. Answers are canonicalised on the host (``core.extract``)
+and interned to int32 ids; sigma, routing and the judge run as tensor
+math over the ids on the host.
+
+In the wave, two compute-follows-routing optimisations make decode
+cost follow what the router escalated: the shared-prefix probe prefill
+(one prefill per prompt, its pages or cache shared by the N samples)
+and escalated-subset compaction (members decode only the rows they are
+needed for, gathered into power-of-two buckets — ``compaction.py``).
+Both engage only where they cannot change a row's tokens. With
+``paged=False`` the wave decodes over contiguous caches instead of
+pool pages, as the reference's A/B baseline and pool-exhaustion
+fallback do. ``run_queued``, fault injection, journaling, recovery and
+tracing are not ported yet.
 """
 from __future__ import annotations
 
@@ -17,17 +29,25 @@ import inspect
 import os
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional, Sequence, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from repro_torch.configs.acar import ACARConfig
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.sigma import route_batch
+from repro_torch.core.extract import extract
+from repro_torch.core.sigma import (
+    majority_vote_batch, route_batch, sigma_batch)
+from repro_torch.data import tokenizer as tok
 from repro_torch.data.tasks import Task
 from repro_torch.models.transformer import resolve_layout
-from repro_torch.serving.kv_pool import KVStats, PagedKVServer
+from repro_torch.sampling import (
+    generate, generate_samples, member_row_keys, probe_row_keys)
+from repro_torch.sampling import prng
+from repro_torch.serving.compaction import CompactionStats, plan_compaction
+from repro_torch.serving.kv_pool import (
+    KVStats, PagedKVServer, PoolExhausted, ProbeHandle)
 from repro_torch.serving.metrics import PromCounters
 from repro_torch.serving.queue import AdmissionQueue, MicroBatchPolicy
 
@@ -84,6 +104,21 @@ def judge_batch(member_ids: torch.Tensor, probe_majority: torch.Tensor,
                        torch.where(modes == 1, lite, plural))
 
 
+@dataclass
+class BatchResult:
+    sigma: np.ndarray            # (B,)
+    modes: np.ndarray            # (B,) int mode ids
+    final_answers: List[str]
+    probe_texts: List[List[str]]
+    ensemble_calls_saved: int
+    wall_ms: float
+    # per-row, per-member extracted answers; None where the router did
+    # not escalate the row to that member (exactly the judge's -1
+    # entries) — identical between compacted and masked execution
+    member_answers: Optional[List[List[Optional[str]]]] = None
+    compaction: Optional[CompactionStats] = None
+
+
 def _deterministic_cuda() -> None:
     """Serving on the card: full-precision float32 matmuls (TF32 off for
     matmuls and cuDNN) and deterministic algorithms, so a rerun of a
@@ -98,12 +133,20 @@ def _deterministic_cuda() -> None:
 class BatchedACAREngine:
     """Batched ACAR engine over real zoo models.
 
-    ``route_fn`` overrides sigma->mode routing (benchmarks use it to
-    force escalation rates). Page pools live on ``device``; the models'
-    params must already be there."""
+    The probe always prefills each prompt once and tiles it to its N
+    samples, and greedy members decode only their escalated rows: the
+    port serves only the dense family, whose rows never depend on
+    their batch. ``paged`` None serves every model whose
+    config has a dense or quant page layout from pool pages; False
+    serves the wave over contiguous caches. ``route_fn`` overrides
+    sigma->mode routing (benchmarks use it to force escalation rates).
+    Page pools and caches live on ``device``; the models' params must
+    already be there."""
 
     def __init__(self, acfg: ACARConfig, probe: ZooModel,
-                 ensemble: Sequence[ZooModel], max_new_tokens: int = 8,
+                 ensemble: Sequence[ZooModel],
+                 max_new_tokens: int = 8,
+                 paged: Optional[bool] = None,
                  kv_page_size: int = 8,
                  kv_prefix_cache: int = 32,
                  route_fn: Optional[Callable] = None,
@@ -112,6 +155,7 @@ class BatchedACAREngine:
         self.probe = probe
         self.ensemble = list(ensemble)
         self.max_new_tokens = max_new_tokens
+        self.paged = paged
         self.kv_page_size = kv_page_size
         self.kv_prefix_cache = kv_prefix_cache
         self.device = torch.device(device)
@@ -138,8 +182,10 @@ class BatchedACAREngine:
         """One server per distinct params object: an ensemble member
         that *is* the probe model shares the probe's server, which is
         what makes probe->ensemble prefill-page reuse sound (KV is a
-        function of params, not just configs)."""
-        if resolve_layout(zm.cfg) is None:
+        function of params, not just configs). The dense and quant page
+        layouts are served; ``paged=False`` serves none."""
+        if (self.paged is False
+                or resolve_layout(zm.cfg) not in ("dense", "quant")):
             return None
         key = id(zm.params)
         srv = self._kv_servers.get(key)
@@ -168,11 +214,11 @@ class BatchedACAREngine:
                 and self._kv_server(zm) is kv_srv)
 
     def _member_compactable(self, zm: ZooModel) -> bool:
-        """Seeding a member's decode from the probe's pages must not
-        perturb its rows: greedy decode of a batch-invariant (non-MoE)
-        config."""
-        return (self.acfg.ensemble_temperature <= 0.0
-                and zm.cfg.moe is None)
+        """Compaction (and seeding a member's decode from the probe's
+        pages) must not perturb the decoded rows: greedy decode
+        (temperature-0 sampling is batch-shape independent) of a
+        batch-invariant config, which every dense config is."""
+        return self.acfg.ensemble_temperature <= 0.0
 
     def route_modes(self, sig, admission_indices):
         """Invoke route_fn, passing admission indices when it wants
@@ -180,6 +226,224 @@ class BatchedACAREngine:
         if self._route_takes_indices:
             return self.route_fn(sig, list(admission_indices))
         return self.route_fn(sig)
+
+    # ------------------------------------------------------------------
+    # wave entry point
+    # ------------------------------------------------------------------
+    def _decode_texts(self, out_tokens) -> List[str]:
+        return [tok.decode(row) for row in np.asarray(out_tokens)]
+
+    def _probe_decode(self, ids: np.ndarray, key: np.ndarray,
+                      stats: CompactionStats,
+                      row_keys=None) -> List[str]:
+        """N-sample probe decode over contiguous caches: one prefill per
+        prompt, its cache tiled to the N samples."""
+        b, s = ids.shape
+        n = self.acfg.n_probe_samples
+        stats.probe_prefill_tokens += b * s
+        out = generate_samples(
+            self.probe.cfg, self.probe.params, ids, n,
+            max_new_tokens=self.max_new_tokens,
+            temperature=self.acfg.probe_temperature,
+            key=key, eos_id=tok.EOS, pad_id=tok.PAD, row_keys=row_keys)
+        saved = b * (n - 1) * s
+        stats.probe_prefill_tokens_saved += saved
+        stats.probe_prefill_flops_saved += \
+            2.0 * self.probe.cfg.active_param_count() * saved
+        return self._decode_texts(out.tokens.cpu())
+
+    def _member_decode(self, zm: ZooModel,
+                       srv_m: Optional[PagedKVServer],
+                       sub_ids: np.ndarray, mkey: np.ndarray,
+                       row_keys=None):
+        """One ensemble member decode over ``sub_ids`` rows: paged when
+        the member has a server, over a contiguous cache otherwise. A
+        paged decode that exhausts its pool even after prefix eviction
+        falls back to the contiguous cache instead of failing the
+        wave."""
+        if srv_m is not None:
+            try:
+                return srv_m.generate(
+                    zm.params, sub_ids,
+                    max_new_tokens=self.max_new_tokens,
+                    temperature=self.acfg.ensemble_temperature,
+                    key=mkey, eos_id=tok.EOS, pad_id=tok.PAD,
+                    row_keys=row_keys)
+            except PoolExhausted:
+                pass
+        return generate(zm.cfg, zm.params, sub_ids,
+                        max_new_tokens=self.max_new_tokens,
+                        temperature=self.acfg.ensemble_temperature,
+                        key=mkey, eos_id=tok.EOS, pad_id=tok.PAD,
+                        row_keys=row_keys)
+
+    def _probe_decode_paged(self, ids: np.ndarray, key: np.ndarray,
+                            stats: CompactionStats,
+                            kv_srv: PagedKVServer, row_keys=None
+                            ) -> Tuple[List[str], ProbeHandle]:
+        """Paged N-sample probe: one prefill per uncached prompt, the
+        samples share read-only prefix pages (COW fork of the tail),
+        and the prompt pages stay retained for ensemble seeding.
+        Prefill accounting records what actually ran (prefix-cache hits
+        and bucket padding included)."""
+        b, s = ids.shape
+        n = self.acfg.n_probe_samples
+        computed0 = kv_srv.stats.prefill_tokens_computed
+        out, handle = kv_srv.probe_wave(
+            self.probe.params, ids, n,
+            max_new_tokens=self.max_new_tokens,
+            temperature=self.acfg.probe_temperature, key=key,
+            eos_id=tok.EOS, pad_id=tok.PAD, row_keys=row_keys)
+        computed = kv_srv.stats.prefill_tokens_computed - computed0
+        saved = b * n * s - computed
+        stats.probe_prefill_tokens += computed
+        stats.probe_prefill_tokens_saved += saved
+        stats.probe_prefill_flops_saved += \
+            2.0 * self.probe.cfg.active_param_count() * saved
+        return self._decode_texts(out.tokens), handle
+
+    def run_batch(self, tasks: Sequence[Task], start_index: int = 0,
+                  tracer=None,
+                  request_ids: Optional[Sequence[str]] = None
+                  ) -> BatchResult:
+        """One wave over ``tasks``. ``start_index`` is the admission
+        index of the first row — the stable per-task identity that
+        seeds every row's sampling key stream, so a task emits the
+        same tokens whether it is served in this wave, another wave,
+        or the step-level loop. ``request_ids`` names traces; the
+        ``tracer`` is not ported yet and raises
+        ``NotImplementedError``."""
+        if tracer is not None:
+            raise NotImplementedError(
+                "run_batch(tracer=...) is not ported yet")
+        t0 = time.perf_counter()
+        b = len(tasks)
+        n = self.acfg.n_probe_samples
+        ids = tok.encode_aligned([t.text for t in tasks])
+        key = prng.prng_key(self.acfg.seed)
+        admission = list(range(start_index, start_index + b))
+        probe_keys = probe_row_keys(key, admission, n)
+        stats = CompactionStats(batch=b)
+        kv_srv = self._kv_server(self.probe)
+        handle: Optional[ProbeHandle] = None
+        if kv_srv is not None:
+            try:
+                texts, handle = self._probe_decode_paged(
+                    ids, key, stats, kv_srv, row_keys=probe_keys)
+            except PoolExhausted:
+                # eviction could not free enough pages: serve the wave
+                # over contiguous caches (same tokens) rather than fail
+                kv_srv = None
+                texts = self._probe_decode(ids, key, stats,
+                                           row_keys=probe_keys)
+        else:
+            texts = self._probe_decode(ids, key, stats,
+                                       row_keys=probe_keys)
+        try:
+            answers = [extract(texts[i * n + j], tasks[i].kind)
+                       for i in range(b) for j in range(n)]
+            # one interning table for the whole batch: probe ids first,
+            # ensemble answers join the same namespace below
+            id_table: Dict[str, int] = {}
+            answer_ids = intern_answers(answers, id_table).reshape(b, n)
+
+            sig = sigma_batch(torch.from_numpy(answer_ids))
+            modes = self.route_modes(sig, admission)
+            probe_major = majority_vote_batch(torch.from_numpy(answer_ids))
+
+            # ensemble decodes over the escalated subset: gather rows
+            # into power-of-two buckets, decode, scatter answers back;
+            # masked full-batch decode when compaction cannot engage
+            modes_np = np.asarray(modes)
+            plan = plan_compaction(modes_np, len(self.ensemble),
+                                   self.acfg.arena_lite_size)
+            stats.escalated_rows = plan.escalated_rows
+            stats.full_arena_rows = plan.full_arena_rows
+            if handle is not None:
+                # a task's probe pages are freed the moment its route
+                # resolves; only rows some probe-model member will seed
+                # its decode from stay retained
+                keep: set = set()
+                for mi, zm in enumerate(self.ensemble):
+                    mp = plan.members[mi]
+                    if (self._kv_reuse_member(zm, kv_srv)
+                            and self._member_compactable(zm)
+                            and mp.bucket < b):
+                        keep.update(int(r) for r in mp.rows)
+                handle.resolve(sorted(keep))
+            member_cols = []
+            member_answers: List[List[Optional[str]]] = \
+                [[None] * len(self.ensemble) for _ in range(b)]
+            for mi, zm in enumerate(self.ensemble):
+                mp = plan.members[mi]
+                col = np.full(b, -1, np.int32)
+                if mp.n_rows == 0:
+                    member_cols.append(col)
+                    continue
+                mkey = prng.fold_in_np(key, 1000 + mi)
+                srv_m = self._kv_server(zm)
+                if self._member_compactable(zm) and mp.bucket < b:
+                    rows = mp.padded_rows()
+                    mrk = member_row_keys(
+                        key, [start_index + int(r) for r in rows], mi)
+                    if (handle is not None
+                            and self._kv_reuse_member(zm, kv_srv)):
+                        # seed from the probe's retained prompt pages:
+                        # prefill skipped, logits0 reused, tail COW-forked
+                        mout = kv_srv.reuse_decode(
+                            self.probe.params, handle, rows.tolist(),
+                            max_new_tokens=self.max_new_tokens,
+                            temperature=self.acfg.ensemble_temperature,
+                            key=mkey, eos_id=tok.EOS, pad_id=tok.PAD,
+                            row_keys=mrk)
+                    else:
+                        mout = self._member_decode(zm, srv_m, ids[rows],
+                                                   mkey, row_keys=mrk)
+                    sub_texts = self._decode_texts(mout.tokens.cpu())
+                    for j, r in enumerate(mp.rows):
+                        a = extract(sub_texts[j], tasks[r].kind)
+                        col[r] = id_table.setdefault(a, len(id_table))
+                        member_answers[r][mi] = a
+                    decoded_rows = mp.bucket
+                else:
+                    mout = self._member_decode(
+                        zm, srv_m, ids, mkey,
+                        row_keys=member_row_keys(key, admission, mi))
+                    mtexts = self._decode_texts(mout.tokens.cpu())
+                    for r in mp.rows:
+                        a = extract(mtexts[r], tasks[r].kind)
+                        col[r] = id_table.setdefault(a, len(id_table))
+                        member_answers[r][mi] = a
+                    decoded_rows = b
+                member_cols.append(col)
+                stats.bucket_sizes.append(decoded_rows)
+                stats.bucket_rows.append(mp.n_rows)
+                stats.ensemble_decode_tokens += \
+                    decoded_rows * self.max_new_tokens
+                stats.ensemble_decode_tokens_saved += \
+                    (b - decoded_rows) * self.max_new_tokens
+            member_ids = torch.from_numpy(np.stack(member_cols, axis=1))
+
+            final_ids = judge_batch(member_ids, probe_major,
+                                    torch.as_tensor(modes_np))
+            rev = {v: k for k, v in id_table.items()}
+            final_answers = [rev[int(i)] for i in final_ids.tolist()]
+            saved = int(np.sum(len(self.ensemble) - np.where(
+                modes_np == 0, 0,
+                np.where(modes_np == 1, self.acfg.arena_lite_size,
+                         len(self.ensemble)))))
+            probe_texts = [texts[i * n:(i + 1) * n] for i in range(b)]
+            return BatchResult(
+                sigma=sig.numpy(), modes=modes_np,
+                final_answers=final_answers, probe_texts=probe_texts,
+                ensemble_calls_saved=saved,
+                wall_ms=(time.perf_counter() - t0) * 1e3,
+                member_answers=member_answers, compaction=stats)
+        finally:
+            # probe prompt pages must never outlive the batch, even when
+            # a member decode raises (close is idempotent)
+            if handle is not None:
+                handle.close()
 
     # ------------------------------------------------------------------
     # step-level continuous batching entry point
@@ -297,6 +561,7 @@ class QueuedServeResult:
     ensemble_calls_saved: int
     wall_ms: float
     metrics: Optional[object] = field(default=None, repr=False)
+    compaction: Optional[CompactionStats] = None
     probe_texts: Optional[List[List[str]]] = None
     member_answers: Optional[List[List[Optional[str]]]] = None
     # paged-KV accounting per model server

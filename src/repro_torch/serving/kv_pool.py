@@ -15,12 +15,24 @@ the step-level loop:
   hold private pages for the region decode writes — the partial
   prompt-tail page is materialised per sample by a copy-on-write fork.
 * **PagedKVServer** — per-model serving state: the device page tensors
-  (``self.pages``: ``{k, v}`` of ``(L, P, page_size, KV, Dh)`` in the
-  model dtype on the server's device), the pool, and a ref-counted
-  prompt-prefix cache (cross-request reuse of identical prompts).
+  (``self.pages``) on the server's device, the pool, a ref-counted
+  prompt-prefix cache (cross-request reuse of identical prompts), and
+  the wave orchestration the engine calls: ``probe_wave`` (N samples,
+  one prefill, shared prefix pages), ``reuse_decode`` (an ensemble
+  member seeded from the probe's retained prompt pages, prefill
+  skipped) and ``generate`` (paged single-sample waves).
 
-The quant, ring and lane layouts and the wave engine's
-``probe_wave``/``reuse_decode`` are not ported yet.
+One server serves one layout (``models.transformer.resolve_layout``);
+every leaf keeps the page id on axis 1:
+
+* ``"dense"`` — ``{k, v}`` of ``(L, P, page_size, KV, Dh)`` in the
+  model dtype.
+* ``"quant"`` — ``{k, v}`` int8 codes plus ``{k_scale, v_scale}``
+  ``(L, P, page_size, KV)`` f32 per-vector scale planes
+  (``models.attention.quantize_kv``): Dh + 4 bytes per position and
+  head instead of 2 * Dh * itemsize.
+
+The ring and lane layouts are not ported yet.
 """
 from __future__ import annotations
 
@@ -34,6 +46,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.params import torch_dtype
 from repro_torch.models.transformer import resolve_layout
+from repro_torch.serving.compaction import bucket_size
 
 
 # ----------------------------------------------------------------------
@@ -157,6 +170,10 @@ class KVStats:
     pool_pages: int = 0
     pages_in_use: int = 0               # latest sample
     pages_highwater: int = 0            # pool-lifetime peak
+    # peak pages referenced by one probe wave (shared prompt pages +
+    # canonical tails + sample-private pages) — the counterpart of the
+    # dense tile_cache working set, excluding prefix-cache retention
+    probe_pages_highwater: int = 0
     prefill_tokens_computed: int = 0
     prefill_tokens_reused_probe: int = 0    # probe -> ensemble seeding
     prefill_tokens_reused_prefix: int = 0   # cross-request prompt reuse
@@ -168,6 +185,17 @@ class KVStats:
     def prefill_tokens_reused(self) -> int:
         return (self.prefill_tokens_reused_probe
                 + self.prefill_tokens_reused_prefix)
+
+    @property
+    def probe_highwater_bytes(self) -> int:
+        return self.probe_pages_highwater * self.page_bytes
+
+
+def dense_tile_slots(batch: int, n_samples: int, prompt_len: int,
+                     max_new_tokens: int) -> int:
+    """Token slots the dense ``tile_cache`` probe path materialises for
+    one wave: every sample row holds a full prompt+new cache."""
+    return batch * n_samples * (prompt_len + max_new_tokens)
 
 
 # ----------------------------------------------------------------------
@@ -197,6 +225,50 @@ class _PrefixEntry:
 
 
 # ----------------------------------------------------------------------
+# probe wave handle
+# ----------------------------------------------------------------------
+@dataclass
+class ProbeHandle:
+    """Per-wave retention of the probe's prompt pages, so ensemble
+    members sharing the probe's model can seed their decode from them.
+    Rows are released the moment their route resolves (``resolve``);
+    ``close`` drops whatever is left."""
+    server: "PagedKVServer"
+    prompt_len: int
+    max_new_tokens: int
+    logits0: torch.Tensor                  # (B, V) float32, on device
+    shared: List[np.ndarray]               # per row: full prompt pages
+    tails: List[Optional[int]]             # per row: canonical tail page
+    live: np.ndarray                       # (B,) bool — handle refs held
+
+    @property
+    def batch(self) -> int:
+        return self.live.shape[0]
+
+    def _release_row(self, r: int) -> None:
+        if not self.live[r]:
+            return
+        self.server.pool.release(self.shared[r])
+        if self.tails[r] is not None:
+            self.server.pool.release([self.tails[r]])
+        self.live[r] = False
+
+    def resolve(self, keep_rows: Sequence[int]) -> None:
+        """Free every row's prompt pages except ``keep_rows`` (the rows
+        some ensemble member will still seed its decode from)."""
+        keep = set(int(r) for r in keep_rows)
+        for r in range(self.batch):
+            if r not in keep:
+                self._release_row(r)
+        self.server._sample_usage()
+
+    def close(self) -> None:
+        for r in range(self.batch):
+            self._release_row(r)
+        self.server._sample_usage()
+
+
+# ----------------------------------------------------------------------
 # per-model paged serving state
 # ----------------------------------------------------------------------
 class PagedKVServer:
@@ -218,7 +290,7 @@ class PagedKVServer:
                 f"config {cfg.name!r} is not paged-KV capable "
                 "(GQA, linear cache, and dense or gather-dispatch "
                 "MoE FFN required; hybrid stacks stay dense)")
-        if layout != "dense":
+        if layout not in ("dense", "quant"):
             raise NotImplementedError(
                 f"config {cfg.name!r} needs the {layout!r} page layout, "
                 "which is not ported yet")
@@ -238,10 +310,13 @@ class PagedKVServer:
             page_bytes=self._page_bytes())
 
     def _page_bytes(self) -> int:
-        """Bytes one page (all layers, K and V) holds."""
+        """Bytes one page (all layers, K and V) holds under this
+        layout."""
         cfg = self.cfg
-        return (cfg.num_layers * self.page_size * cfg.num_kv_heads
-                * 2 * cfg.resolved_head_dim * torch_dtype(cfg).itemsize)
+        hd = cfg.resolved_head_dim
+        per_vec = (2 * (hd + 4) if self.layout == "quant"   # codes+scale
+                   else 2 * hd * torch_dtype(cfg).itemsize)
+        return cfg.num_layers * self.page_size * cfg.num_kv_heads * per_vec
 
     # -- layout geometry -----------------------------------------------
     @property
@@ -252,7 +327,8 @@ class PagedKVServer:
 
     def row_geometry(self, prompt_len: int,
                      max_new_tokens: int) -> RowGeometry:
-        """Page accounting for one row under the dense layout."""
+        """Page accounting for one row (the dense and quant layouts
+        share one geometry)."""
         s, m, ps = int(prompt_len), int(max_new_tokens), self.page_size
         n_shared = s // ps
         nbp = pages_for(s, ps)
@@ -266,15 +342,42 @@ class PagedKVServer:
         return self.row_geometry(prompt_len, max_new_tokens).nb
 
     # -- capacity ------------------------------------------------------
+    def _ensure_capacity(self, batch: int, prompt_len: int,
+                         n_samples: int, max_new_tokens: int) -> None:
+        """(Re)build the pool and page tensors when a wave's worst case
+        outgrows them. Only called at wave boundaries, when no handle
+        holds pages; rebuilding drops the prefix cache."""
+        key = (batch, prompt_len, n_samples, max_new_tokens)
+        if self._capacity_key is not None and self.pool is not None:
+            b0, s0, n0, m0 = self._capacity_key
+            if (batch <= b0 and prompt_len <= s0 and n_samples <= n0
+                    and max_new_tokens <= m0):
+                return
+            key = (max(batch, b0), max(prompt_len, s0),
+                   max(n_samples, n0), max(max_new_tokens, m0))
+        b, s, n, m = key
+        g = self.row_geometry(s, m)
+        need = (b * (g.nbp + n * g.n_tail)  # probe wave peak
+                + b * g.nb                  # one member wave (own prefill)
+                + self.prefix_cache_entries * g.nbp
+                + g.nbp)                    # scratch pages
+        self._rebuild(need, g.nbp, key)
+
     def _zero_pages(self, num_pages: int) -> dict:
-        """Freshly zeroed page tensors on the server's device, in the
-        model dtype (axis 1 = page id)."""
+        """Freshly zeroed page tensors on the server's device (axis 1 =
+        page id): the model dtype for dense pages, int8 codes plus f32
+        scale planes for quant pages."""
         cfg = self.cfg
         shape = (cfg.num_layers, num_pages, self.page_size,
                  cfg.num_kv_heads, cfg.resolved_head_dim)
-        dt = torch_dtype(cfg)
-        return {"k": torch.zeros(shape, dtype=dt, device=self.device),
-                "v": torch.zeros(shape, dtype=dt, device=self.device)}
+        dt = torch.int8 if self.layout == "quant" else torch_dtype(cfg)
+        pages = {"k": torch.zeros(shape, dtype=dt, device=self.device),
+                 "v": torch.zeros(shape, dtype=dt, device=self.device)}
+        if self.layout == "quant":
+            for name in ("k_scale", "v_scale"):
+                pages[name] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                          device=self.device)
+        return pages
 
     def _rebuild(self, num_pages: int, scratch_pages: int,
                  key: Tuple[int, int, int, int]) -> None:
@@ -380,6 +483,200 @@ class PagedKVServer:
         while len(self._prefix) > self.prefix_cache_entries:
             self._evict_one()
 
+    # -- waves ---------------------------------------------------------
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def probe_wave(self, params: dict, ids: np.ndarray, n_samples: int,
+                   *, max_new_tokens: int, temperature: float, key,
+                   eos_id: int, pad_id: int, row_keys=None):
+        """N-sample probe decode with shared prefix pages.
+
+        One prefill per distinct uncached prompt; the N samples of a
+        prompt share its full prompt pages read-only and fork only the
+        partial tail page (COW). ``row_keys`` ((B*N, 2) uint32) opts
+        into per-row sampling key streams. Returns
+        ``(GenerateOutput, ProbeHandle)`` with the tokens on the host;
+        the handle retains each row's prompt pages for ensemble seeding
+        until ``resolve``/``close``.
+        """
+        from repro_torch.sampling import sampler as S
+
+        b, s = ids.shape
+        n = int(n_samples)
+        self._ensure_capacity(b, s, n, max_new_tokens)
+        g = self.row_geometry(s, max_new_tokens)
+
+        # 1. prompt pages per row: prefix-cache hit -> retain the
+        # cached pages; miss -> allocate fresh ones (handle-owned). On
+        # any failure, release whatever this wave accumulated so an
+        # exhausted pool stays consistent.
+        shared_rows: List[np.ndarray] = []
+        tail_rows: List[Optional[int]] = []
+        miss: List[int] = []
+        hits: List[Optional[_PrefixEntry]] = []
+        try:
+            for r in range(b):
+                entry = self._prefix_lookup(ids[r].tobytes())
+                hits.append(entry)
+                if entry is not None:
+                    self.pool.retain(entry.shared)
+                    if entry.tail is not None:
+                        self.pool.retain([entry.tail])
+                    shared_rows.append(entry.shared.copy())
+                    tail_rows.append(entry.tail)
+                    self.stats.prefill_tokens_reused_prefix += s
+                else:
+                    pages = self._alloc_retry(g.nbp)
+                    shared_rows.append(pages[:g.n_shared])
+                    tail_rows.append(int(pages[g.n_shared])
+                                     if g.tail_tokens else None)
+                    miss.append(r)
+
+            # 2. one prefill over the uncached rows, gathered into a
+            # power-of-two bucket (padding rows replicate the first
+            # miss and write into scratch pages)
+            logits0 = torch.zeros((b, self.cfg.vocab_size),
+                                  dtype=torch.float32, device=self.device)
+            if miss:
+                bucket = bucket_size(len(miss), cap=b)
+                rows_idx = miss + [miss[0]] * (bucket - len(miss))
+                pf_table = np.empty((bucket, g.nbp), np.int32)
+                for i, r in enumerate(rows_idx):
+                    if i < len(miss):
+                        row_pages = list(shared_rows[r])
+                        if g.tail_tokens:
+                            row_pages.append(tail_rows[r])
+                        pf_table[i] = row_pages
+                    else:
+                        pf_table[i] = self._scratch[:g.nbp]
+                lg, self.pages = S.prefill_paged(
+                    self.cfg, params, self._tensor(ids[rows_idx]),
+                    self.pages, self._tensor(pf_table))
+                logits0[miss] = lg[:len(miss)].float()
+                # the bucket's padding rows compute real (discarded)
+                # prefill work — count what actually ran
+                self.stats.prefill_tokens_computed += bucket * s
+            for r, entry in enumerate(hits):
+                if entry is not None:
+                    logits0[r] = entry.logits0
+
+            # 3. publish the fresh rows to the prefix cache
+            for r in miss:
+                self._prefix_insert(ids[r].tobytes(), shared_rows[r],
+                                    tail_rows[r], logits0[r], tokens=s)
+        except BaseException:
+            for r in range(len(shared_rows)):
+                self.pool.release(shared_rows[r])
+                if tail_rows[r] is not None:
+                    self.pool.release([tail_rows[r]])
+            self._sample_usage()
+            raise
+
+        # the handle owns the prompt pages from here on: any failure
+        # below must close it (and drop the sample pages)
+        handle = ProbeHandle(
+            server=self, prompt_len=s, max_new_tokens=max_new_tokens,
+            logits0=logits0, shared=shared_rows, tails=tail_rows,
+            live=np.ones(b, bool))
+        sample_tails = None
+        try:
+            # 4. sample-private pages + COW fork of each canonical tail
+            sample_tails = self._alloc_retry(b * n * g.n_tail).reshape(
+                b, n, g.n_tail)
+            self.stats.probe_pages_highwater = max(
+                self.stats.probe_pages_highwater,
+                b * (g.nbp + n * g.n_tail))
+            block_table = np.empty((b * n, g.nb), np.int32)
+            for r in range(b):
+                for j in range(n):
+                    block_table[r * n + j, :g.n_shared] = \
+                        shared_rows[r][:g.n_shared]
+                    block_table[r * n + j, g.n_shared:] = \
+                        sample_tails[r, j]
+            if g.tail_tokens:
+                src = np.repeat(np.asarray(tail_rows, np.int64), n)
+                dst = sample_tails[:, :, 0].reshape(-1)
+                S.fork_pages(self.pages, src, dst)
+                self.stats.cow_forks += b * n
+
+            # 5. decode the expanded (B*N) wave over the shared pages
+            out, self.pages = S.decode_paged(
+                self.cfg, params,
+                torch.repeat_interleave(logits0, n, dim=0),
+                self.pages, self._tensor(block_table), key,
+                start_pos=s, max_new_tokens=max_new_tokens,
+                temperature=temperature, eos_id=eos_id, pad_id=pad_id,
+                row_keys=row_keys)
+            # tokens to the host before the sample pages are recycled
+            out = _to_host(out)
+        except BaseException:
+            if sample_tails is not None:
+                self.pool.release(sample_tails.reshape(-1))
+            handle.close()
+            raise
+        self.pool.release(sample_tails.reshape(-1))
+        self._sample_usage()
+        return out, handle
+
+    def reuse_decode(self, params: dict, handle: ProbeHandle,
+                     rows: Sequence[int], *, max_new_tokens: int,
+                     temperature: float, key, eos_id: int,
+                     pad_id: int, row_keys=None):
+        """Ensemble decode seeded from the probe's prompt pages: prefill
+        is skipped — the rows' shared pages are read in place, the
+        canonical tail page is COW-forked per decode row, and the
+        prefill logits come from the handle. Only sound when ``params``
+        is the probe's params (the engine keys servers by params
+        identity)."""
+        from repro_torch.sampling import sampler as S
+
+        rows = [int(r) for r in rows]
+        s = handle.prompt_len
+        g = self.row_geometry(s, max_new_tokens)
+        for r in rows:
+            if not handle.live[r]:
+                raise PageAccountingError(
+                    f"reuse of row {r} after its pages were resolved")
+
+        nr = len(rows)
+        tails = self._alloc_retry(nr * g.n_tail).reshape(nr, g.n_tail)
+        try:
+            block_table = np.empty((nr, g.nb), np.int32)
+            for i, r in enumerate(rows):
+                block_table[i, :g.n_shared] = \
+                    handle.shared[r][:g.n_shared]
+                block_table[i, g.n_shared:] = tails[i]
+            if g.tail_tokens:
+                S.fork_pages(self.pages, [handle.tails[r] for r in rows],
+                             tails[:, 0])
+                self.stats.cow_forks += nr
+            out, self.pages = S.decode_paged(
+                self.cfg, params, handle.logits0[rows], self.pages,
+                self._tensor(block_table), key, start_pos=s,
+                max_new_tokens=max_new_tokens, temperature=temperature,
+                eos_id=eos_id, pad_id=pad_id, row_keys=row_keys)
+            out = _to_host(out)
+        finally:
+            self.pool.release(tails.reshape(-1))
+            self._sample_usage()
+        self.stats.prefill_tokens_reused_probe += s * nr
+        return out
+
+    def generate(self, params: dict, ids: np.ndarray, *,
+                 max_new_tokens: int, temperature: float, key,
+                 eos_id: int, pad_id: int, row_keys=None):
+        """Paged single-sample generation (a probe wave with N=1 whose
+        prompt pages are released at once): page-granular allocation
+        instead of batch-max padded dense caches, plus cross-request
+        prompt reuse through the prefix cache."""
+        out, handle = self.probe_wave(
+            params, ids, 1, max_new_tokens=max_new_tokens,
+            temperature=temperature, key=key, eos_id=eos_id,
+            pad_id=pad_id, row_keys=row_keys)
+        handle.close()
+        return out
+
     # -- step-level serving support ------------------------------------
     def stream_row_pages(self, prompt_len: int, lanes_per_row: int,
                          max_new_tokens: int) -> int:
@@ -411,3 +708,8 @@ class PagedKVServer:
                 and self._scratch.size >= g.nb):
             return
         self._rebuild(need, g.nb, key)
+
+
+def _to_host(out):
+    """A GenerateOutput with its tensors copied to the host."""
+    return type(out)(*(t.cpu() for t in out))

@@ -1,7 +1,7 @@
 """Step-level continuous batching for the ACAR serving engine.
 
 The port of ``repro/serving/step_loop.py::StepLoopRunner`` on one
-device with the dense page layout. One logical tick advances a *mixed*
+device with the dense and quant page layouts. One logical tick advances a *mixed*
 set of rows where each row is independently in
 
     prefill-chunk -> probe-decode -> route-pending -> ensemble-decode
@@ -10,7 +10,7 @@ set of rows where each row is independently in
 Rows are admitted from ``AdmissionQueue.ready()`` the moment the page
 budget opens (``StepPlanner.may_admit``), long prompts prefill in
 fixed-size chunks appended to the paged KV pool
-(``sampler.prefill_chunk_paged``), decodes of any phase mix into one
+(``sampler.prefill_chunk_paged``; quant pages prefill one-shot), decodes of any phase mix into one
 bucketed ``decode_megastep_rows`` launch per (server, temperature,
 cache length) that runs up to ``StepPlanner.megastep`` ticks with the
 lane state kept on the device, and a finished row retires — and frees
@@ -32,9 +32,9 @@ executor, so a tick advances the clock by the *maximum* programs any
 single server launched, while programs on the same server serialize.
 
 Fault injection, the write-ahead journal, crash recovery, span tracing,
-on-capacity attribution, one-shot prefill of non-chunkable layouts,
-dense-cache member fallback and the sharded runner are not ported yet;
-reaching them raises ``NotImplementedError``.
+on-capacity attribution, the ring and lane layouts, dense-cache member
+fallback and the sharded runner are not ported yet; reaching them
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -459,9 +459,51 @@ class StepLoopRunner:
         return 1
 
     def _run_one_shot_prefill_group(self, key, items) -> int:
-        raise NotImplementedError(
-            "one-shot prefill of non-chunkable page layouts (quant, "
-            "ring, lanes) is not ported yet")
+        """One whole-prompt prefill launch for a non-chunkable layout
+        (quant: a chunk would attend the already-quantised prefix). The
+        prompt math is ``prefill``'s, only the page packing differs,
+        and the virtual clock is charged the ``chunk_count(s)`` units
+        the chunked path would pay. Ring and lane layouts are not
+        ported yet."""
+        _, _, s = key
+        srv = items[0][0]
+        if srv.layout != "quant":
+            raise NotImplementedError(
+                f"one-shot prefill of the {srv.layout!r} page layout is "
+                "not ported yet")
+        g = self._geometry(srv, s)
+        rows = sorted(items, key=lambda it: it[1].admission)
+        bucket = self.planner.decode_bucket(len(rows))
+        tokens = np.zeros((bucket, s), np.int32)
+        tables = np.empty((bucket, g.nbp), np.int32)
+        for i in range(bucket):
+            if i < len(rows):
+                srv_i, row, mx = rows[i]
+                target = mx if mx is not None else row
+                tokens[i] = row.ids
+                tables[i, :target.shared.size] = target.shared
+                if target.tail is not None:
+                    tables[i, -1] = target.tail
+            else:
+                # pad rows prefill zeros into scratch pages
+                tables[i] = srv._scratch[:g.nbp]
+        zm = self._server_model(srv)
+        lg, srv.pages = S.prefill_paged(
+            zm.cfg, zm.params, self._device_array(srv, tokens), srv.pages,
+            self._device_array(srv, tables))
+        srv.stats.prefill_tokens_computed += bucket * s
+        self.metrics.inc("acar_prefill_oneshot_total",
+                         model=srv.stats.model,
+                         help="one-shot prefill device programs run "
+                              "for non-chunkable page layouts")
+        self.stats.launches += 1
+        for i, (srv_i, row, mx) in enumerate(rows):
+            target = mx if mx is not None else row
+            target.prefill_pos = s
+            target.logits0 = lg[i]
+            srv._prefix_insert(row.ids.tobytes(), target.shared,
+                               target.tail, lg[i], tokens=s)
+        return self.planner.chunk_count(s)
 
     def _server_model(self, srv: PagedKVServer):
         if srv is self.probe_srv:

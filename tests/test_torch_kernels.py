@@ -317,7 +317,8 @@ def test_cpu_tensors_take_the_plain_versions_without_launching():
                                   tref.fused_swiglu_ref(*arrs).numpy())
     assert ops.launch_counts() == {
         "paged_decode_attention": 0, "chunked_prefill_attention": 0,
-        "fused_swiglu": 0}
+        "fused_swiglu": 0, "decode_attention": 0,
+        "paged_decode_attention_quant": 0, "decode_attention_quant": 0}
 
 
 def test_wrappers_raise_off_the_cpu_instead_of_falling_back():

@@ -295,8 +295,8 @@ def test_paged_server_allocates_dense_pages_on_its_device(zoo):
     assert srv.stats.page_bytes == (tcfg.num_layers * PAGE
                                     * tcfg.num_kv_heads * 2
                                     * tcfg.resolved_head_dim * 4)
-    with pytest.raises(NotImplementedError, match="quant"):
-        PagedKVServer(tcfg.replace(kv_quant=True), device="cpu")
+    with pytest.raises(NotImplementedError, match="ring"):
+        PagedKVServer(tcfg.replace(window=16), device="cpu")
 
 
 def _prefilled(zoo, b, s, max_new, seed):
