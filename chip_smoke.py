@@ -34,7 +34,20 @@ Phases (each raises on failure, and the script then exits non-zero):
    ``launch.serve``), by the wave engine over contiguous caches
    (``paged=False``) and by the stepped engine: on each path every task
    is answered, the path's kernels launch, no page leaks, and a rerun
-   reproduces sigma, modes, answers and probe texts.
+   reproduces sigma, modes, answers and probe texts;
+7. train — ``make_train_step`` trains falcon-mamba-7b (2 of its 64
+   layers) and recurrentgemma-2b (3 of its 26 layers) at their
+   published widths, bf16, ``remat="layer"``, 4 optimizer steps each,
+   twice: every loss is finite, every param moves, the rerun reproduces
+   losses and params bit for bit, and the scan kernels launch forward
+   and backward; then ``train()``, the entry point, trains reduced
+   smollm-135m on arithmetic and its checkpoint restores bit for bit.
+
+Phase 3 also holds the training path's kernels against their plain
+versions at the phase-7 shapes (the selective scan and the RG-LRU scan,
+forward and backward; the fused SwiGLU at recurrentgemma-2b's width
+with its gradient), and phase 4 a train step of each reduced f32 family
+on the card against the CPU, every gradient leaf included.
 
 It prints one JSON line describing the kernels, the ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``.
@@ -75,19 +88,33 @@ TOL = {
     ("attention", "bfloat16"): (2e-2, 2e-2),
     ("swiglu", "float32"): (2e-5, 2e-4),
     ("swiglu", "bfloat16"): (2e-2, 2e-1),
+    # the selective scan's y at 5x, its state at 1e-4 / 1e-3, the RG-LRU
+    # at 1e-5, as tests/test_kernels.py holds the Pallas kernels
+    ("scan_y", "float32"): (1e-4, 1e-4),
+    ("scan_y", "bfloat16"): (1e-1, 1e-1),
+    ("scan_h", "float32"): (1e-4, 1e-3),
+    ("scan_h", "bfloat16"): (1e-4, 1e-3),
+    ("rglru", "float32"): (1e-5, 1e-5),
+    ("rglru", "bfloat16"): (1e-5, 1e-5),
 }
+# a gradient's max abs error as a share of its largest magnitude: sums
+# over B*S or D in other orders (f32), and one rounding of each output
+# to bf16 (2^-8 = 3.9e-3 of it) with the f32 sums' differences before it
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(torch, fn, n: int = TIMED_LAUNCHES) -> float:
+def time_ms(torch, fn, n: int = TIMED_LAUNCHES, warmup: int = 5) -> float:
     """Median device time of ``fn`` over ``n`` calls, by CUDA events.
     A spin kernel holds the stream while the host queues all ``n``
     calls, so each event pair brackets the device work of one call and
-    not the host's launch overhead."""
-    for _ in range(5):
+    not the host's launch overhead (a plain version that issues
+    thousands of kernels a call may outrun the spin, and then its time
+    includes the host's)."""
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     ev = [(torch.cuda.Event(enable_timing=True),
@@ -106,6 +133,26 @@ def bound_ms(bytes_moved: float, flops: float, dtype: str):
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
+
+
+def check_grads(name: str, got, want, dname: str) -> float:
+    """Each gradient within ``GRAD_TOL`` of its largest magnitude;
+    returns the largest error as a share of it."""
+    import torch
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = g.float(), w.float()
+        if g.shape != w.shape or not torch.isfinite(g).all():
+            raise AssertionError(f"{name}: bad gradient {i}")
+        scale = float(w.abs().max())
+        share = float((g - w).abs().max()) / max(scale, 1e-30)
+        if share > GRAD_TOL[dname]:
+            raise AssertionError(
+                f"{name}: gradient {i} disagrees with the plain version's:"
+                f" max abs err {share:.3e} of its max {scale:.3e} (tol "
+                f"{GRAD_TOL[dname]})")
+        worst = max(worst, share)
+    return worst
 
 
 def check_close(name: str, got, want, tol) -> float:
@@ -462,6 +509,195 @@ def run_kernel_phase(torch):
 
 
 # ----------------------------------------------------------------------
+# phase 3, training path: the scans and the SwiGLU at phase 7's shapes
+# ----------------------------------------------------------------------
+SS_SHAPE = (4, 1024, 8192, 16)        # falcon-mamba-7b: B, S, d_inner, N
+RG_SHAPE = (1, 4096, 2560)            # recurrentgemma-2b: B, S, lru width
+SWIGLU_TRAIN = (4096, 2560, 7680)     # recurrentgemma-2b's MLP, B*S tokens
+# f32 operations per (b, t, d, n) of the selective scan: forward exp,
+# 2 products for the decay and the input, decay*h, the add, h*c and the
+# sum over n; backward that recomputation plus about 21 for g, dx, ddt,
+# d a_log, dB, dC and the carry. Counted on the CUDA cores' f32 rate:
+# all of the scans' arithmetic is f32.
+SS_FWD_OPS, SS_BWD_OPS = 7, 28
+RG_FWD_OPS, RG_BWD_OPS = 2, 4
+SCAN_LIBRARY_NOTE = ("no single PyTorch call computes either scan (a "
+                     "linear recurrence over the sequence)")
+
+
+def _scan_case(torch, gen, dtype):
+    """The selective scan's inputs as ``mamba_block`` gives them in a
+    model of this dtype: x, B, C in it; dt (a softplus in f32) and a_log
+    (log 1..N, the model's init) in f32."""
+    b, s, d, n = SS_SHAPE
+    x = (torch.randn((b, s, d), generator=gen, device="cuda") * 0.5)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, s, d), generator=gen, device="cuda")) * 0.1
+    a_log = torch.log(torch.arange(1, n + 1, dtype=torch.float32,
+                                   device="cuda")).expand(d, n).contiguous()
+    bm = torch.randn((b, s, n), generator=gen, device="cuda")
+    cm = torch.randn((b, s, n), generator=gen, device="cuda")
+    return x.to(dtype), dt, a_log, bm.to(dtype), cm.to(dtype)
+
+
+def run_train_kernel_phase(torch):
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import selective_scan as ss
+    from repro_torch.kernels.fused_swiglu import fused_swiglu_plain
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    results = {}
+    f32_peak = PEAK_FLOPS["float32"]
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        item = torch.tensor([], dtype=dtype).element_size()
+
+        # -- selective scan, forward and backward --------------------
+        x, dt, a_log, bm, cm = _scan_case(torch, gen, dtype)
+        b, s, d, n = SS_SHAPE
+        y, h, ckpt = ss._launch_fwd(x, dt, a_log, bm, cm)
+        yp, hp = ss.selective_scan_plain(x, dt, a_log, bm, cm)
+        torch.cuda.synchronize()
+        err = max(check_close(f"selective_scan[{dname}] y", y, yp,
+                              TOL[("scan_y", dname)]),
+                  check_close(f"selective_scan[{dname}] h_final", h, hp,
+                              TOL[("scan_h", dname)]))
+        del yp, hp
+        ms = time_ms(torch, lambda: ss._launch_fwd(x, dt, a_log, bm, cm), 20)
+        plain = time_ms(torch, lambda: ss.selective_scan_plain(
+            x, dt, a_log, bm, cm), 2, warmup=1)
+        elems = float(b * s * d * n)
+        bytes_fwd = (2 * b * s * d * item + 4 * b * s * d
+                     + 2 * b * s * n * item + 4 * d * n + 4 * b * d * n)
+        bnd, by = max((bytes_fwd / HBM_BYTES_PER_S * 1e3, "bytes"),
+                      (SS_FWD_OPS * elems / f32_peak * 1e3, "operations"))
+        results[("selective_scan", dname)] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
+            bound_by=by, library_ms=None)
+
+        dy = torch.randn((b, s, d), generator=gen, device="cuda").to(dtype)
+        dh = torch.randn((b, d, n), generator=gen, device="cuda")
+        got = ss.selective_scan_bwd(x, dt, a_log, bm, cm, ckpt, dy, dh)
+        want = ss.selective_scan_bwd_plain(x, dt, a_log, bm, cm, dy, dh)
+        torch.cuda.synchronize()
+        if [g.dtype for g in got] != [t.dtype for t in
+                                      (x, dt, a_log, bm, cm)]:
+            raise AssertionError("selective_scan_bwd: gradient dtypes")
+        share = check_grads(f"selective_scan_bwd[{dname}]", got, want,
+                            dname)
+        err = max(float((g.float() - w.float()).abs().max())
+                  for g, w in zip(got, want))
+        del got, want
+        ms = time_ms(torch, lambda: ss.selective_scan_bwd(
+            x, dt, a_log, bm, cm, ckpt, dy, dh), 20)
+        plain = time_ms(torch, lambda: ss.selective_scan_bwd_plain(
+            x, dt, a_log, bm, cm, dy, dh), 2, warmup=1)
+        # reads x, dt, B, C, a_log, dy, dh_final; writes dx, ddt, dB,
+        # dC, d a_log
+        bytes_bwd = (3 * b * s * d * item + 2 * 4 * b * s * d
+                     + 4 * b * s * n * item + 2 * 4 * d * n
+                     + 4 * b * d * n)
+        bnd, by = max((bytes_bwd / HBM_BYTES_PER_S * 1e3, "bytes"),
+                      (SS_BWD_OPS * elems / f32_peak * 1e3, "operations"))
+        results[("selective_scan_bwd", dname)] = dict(
+            max_abs_err=err, grad_err_share=share, ms=ms, plain_ms=plain,
+            bound_ms=bnd, bound_by=by, library_ms=None)
+        del x, dt, a_log, bm, cm, ckpt, dy, dh, y, h
+
+        # -- RG-LRU scan, forward and backward -----------------------
+        b, s, w = RG_SHAPE
+        a = (torch.rand((b, s, w), generator=gen, device="cuda") * 0.3
+             + 0.69).to(dtype)
+        u = (torch.randn((b, s, w), generator=gen, device="cuda")
+             * 0.1).to(dtype)
+        hs, hf = rg._launch_fwd(a, u)
+        hsp, hfp = rg.rglru_scan_plain(a, u)
+        torch.cuda.synchronize()
+        err = max(check_close(f"rglru_scan[{dname}] hs", hs, hsp,
+                              TOL[("rglru", dname)]),
+                  check_close(f"rglru_scan[{dname}] h_final", hf, hfp,
+                              TOL[("rglru", dname)]))
+        ms = time_ms(torch, lambda: rg._launch_fwd(a, u), 20)
+        plain = time_ms(torch, lambda: rg.rglru_scan_plain(a, u), 3,
+                        warmup=1)
+        elems = float(b * s * w)
+        bnd, by = max(((2 * item + 4) * elems / HBM_BYTES_PER_S * 1e3
+                       + 4 * b * w / HBM_BYTES_PER_S * 1e3, "bytes"),
+                      (RG_FWD_OPS * elems / f32_peak * 1e3, "operations"))
+        results[("rglru_scan", dname)] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
+            bound_by=by, library_ms=None)
+
+        dhs = torch.randn((b, s, w), generator=gen, device="cuda")
+        dhf = torch.randn((b, w), generator=gen, device="cuda")
+        got = rg.rglru_scan_bwd(a, u, hs, dhs, dhf)
+        want = rg.rglru_scan_bwd_plain(a, u, hsp, dhs, dhf)
+        torch.cuda.synchronize()
+        share = check_grads(f"rglru_scan_bwd[{dname}]", got, want, dname)
+        err = max(float((g.float() - wt.float()).abs().max())
+                  for g, wt in zip(got, want))
+        ms = time_ms(torch, lambda: rg.rglru_scan_bwd(a, u, hs, dhs, dhf),
+                     20)
+        plain = time_ms(torch, lambda: rg.rglru_scan_bwd_plain(
+            a, u, hsp, dhs, dhf), 3, warmup=1)
+        # reads a, hs, dhs, dh_final; writes da, du
+        bnd, by = max(((3 * item + 8) * elems / HBM_BYTES_PER_S * 1e3
+                       + 4 * b * w / HBM_BYTES_PER_S * 1e3, "bytes"),
+                      (RG_BWD_OPS * elems / f32_peak * 1e3, "operations"))
+        results[("rglru_scan_bwd", dname)] = dict(
+            max_abs_err=err, grad_err_share=share, ms=ms, plain_ms=plain,
+            bound_ms=bnd, bound_by=by, library_ms=None)
+        del a, u, hs, hf, hsp, hfp, dhs, dhf, got, want
+
+        # -- fused SwiGLU at recurrentgemma-2b's width, and its gradient
+        t, d, f = SWIGLU_TRAIN
+        xs = (torch.randn((t, d), generator=gen, device="cuda")
+              * 0.5).to(dtype)
+        ws = [(torch.randn(sh, generator=gen, device="cuda")
+               * 0.02).to(dtype) for sh in ((d, f), (d, f), (f, d))]
+        got = ops.fused_swiglu(xs, *ws)
+        want = fused_swiglu_plain(xs, *ws)
+        torch.cuda.synchronize()
+        err = check_close(f"fused_swiglu[{dname}, d {d}]", got, want,
+                          TOL[("swiglu", dname)])
+        ms = time_ms(torch, lambda: ops.fused_swiglu(xs, *ws), 5)
+        plain = time_ms(torch, lambda: fused_swiglu_plain(xs, *ws), 5)
+        lib = time_ms(torch, lambda: torch.matmul(
+            F.silu(torch.matmul(xs, ws[0])) * torch.matmul(xs, ws[1]),
+            ws[2]), 5)
+        bnd, by = bound_ms((2 * t * d + 3 * d * f) * item,
+                           6.0 * t * d * f, dname)
+        xr = xs.clone().requires_grad_(True)
+        wr = [wt.clone().requires_grad_(True) for wt in ws]
+        dy = torch.randn((t, d), generator=gen, device="cuda").to(dtype)
+        got = torch.autograd.grad(ops.fused_swiglu(xr, *wr), [xr, *wr], dy)
+        want = torch.autograd.grad(fused_swiglu_plain(xr, *wr), [xr, *wr],
+                                   dy)
+        torch.cuda.synchronize()
+        share = check_grads(f"fused_swiglu gradient[{dname}, d {d}]", got,
+                            want, dname)
+        results[("fused_swiglu_train", dname)] = dict(
+            max_abs_err=err, grad_err_share=share, ms=ms, plain_ms=plain,
+            bound_ms=bnd, bound_by=by, library_ms=lib)
+        del xs, ws, xr, wr, dy, got, want
+        torch.cuda.empty_cache()
+
+    for (name, dname), r in results.items():
+        lib = ("none" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms")
+        extra = (f"  gradient err {r['grad_err_share']:.3e} of max"
+                 if "grad_err_share" in r else "")
+        log(f"kernel {name} [{dname}]: max_abs_err {r['max_abs_err']:.3e}"
+            f"{extra}  kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} "
+            f"ms  library {lib}  bound {r['bound_ms']:.5f} ms "
+            f"({r['bound_by']})")
+    return results
+
+
+# ----------------------------------------------------------------------
 # phase 4: the port on the card against the port on the CPU
 # ----------------------------------------------------------------------
 def run_reference_phase(torch):
@@ -594,6 +830,95 @@ def run_wave_reference_phase(torch):
 def _to_device(tree, dev):
     return {k: _to_device(v, dev) if isinstance(v, dict) else v.to(dev)
             for k, v in tree.items()}
+
+
+# the kernels each reduced family's train step must launch on the card
+TRAIN_REFERENCE_KERNELS = {
+    "smollm-135m": ("fused_swiglu",),
+    "falcon-mamba-7b": ("selective_scan", "selective_scan_bwd"),
+    "recurrentgemma-2b": ("fused_swiglu", "rglru_scan", "rglru_scan_bwd"),
+}
+
+
+def run_train_reference_phase(torch):
+    """One train step of each reduced f32 family (dense, ssm, hybrid)
+    on the card against the same step on the CPU: the loss, every
+    gradient leaf (atol 1e-6 + 1e-4 of the leaf's max, as the CPU tests
+    hold the port against the reference) and the params after the step
+    (atol 1e-5 where the CPU gradient exceeds 1e-6; AdamW's first update
+    is about lr * sign(g), so a gradient that is rounding noise near
+    zero may flip an element by 2 lr: those are counted, at most 0.1% of
+    a leaf). Every leaf's gradient must be non-zero on the card: a
+    kernel without a gradient would leave its weights at zero."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import synthetic_lm_batches
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.models import params as params_lib
+    from repro_torch.optim import init as opt_init
+    from repro_torch.runtime import deterministic_cuda
+
+    deterministic_cuda()
+    tc = TrainConfig(learning_rate=1e-3, warmup_steps=2, total_steps=10)
+    for arch, kernels in TRAIN_REFERENCE_KERNELS.items():
+        cfg = get_config(arch, reduced=True).replace(dtype="float32")
+        params_cpu = params_lib.init_params(cfg, 0, device="cpu")
+        b = next(synthetic_lm_batches(2, 80, cfg.vocab_size, seed=3))
+        out = {}
+        for dev in ("cpu", "cuda"):
+            prm = params_cpu if dev == "cpu" else _to_device(params_cpu,
+                                                             dev)
+            batch = {"tokens": torch.from_numpy(b.tokens).to(dev),
+                     "labels": torch.from_numpy(b.labels).to(dev),
+                     "loss_mask": torch.from_numpy(b.loss_mask).to(dev)}
+            ops.reset_launch_counts()
+            loss, _, grads = loss_and_grads(cfg, prm, batch)
+            new, _, met = make_train_step(cfg, tc)(prm, opt_init(prm),
+                                                   batch)
+            launches = ops.launch_counts()
+            out[dev] = (float(loss), float(met["loss"]),
+                        dict(params_lib._leaves(grads)),
+                        dict(params_lib._leaves(new)), launches)
+        (lc, mc, gc, pc, _), (lg, mg, gg, pg, launches) = \
+            out["cpu"], out["cuda"]
+        for k in kernels:
+            if launches[k] <= 0:
+                raise AssertionError(f"train reference: {arch} did not "
+                                     f"launch {k} on the card")
+        for what, a, bref in (("loss", lg, lc), ("step loss", mg, mc)):
+            if not abs(a - bref) <= 1e-5 * abs(bref):
+                raise AssertionError(f"train reference: {arch} {what} "
+                                     f"{a} on the card, {bref} on the CPU")
+        worst, flips = 0.0, 0
+        for k, g_cpu in gc.items():
+            g = gg[k].cpu()
+            scale = float(g_cpu.abs().max())
+            if not float(g.abs().max()) > 0.0:
+                raise AssertionError(f"train reference: {arch} {k} has a "
+                                     "zero gradient on the card")
+            err = float((g - g_cpu).abs().max())
+            if err > 1e-6 + 1e-4 * scale:
+                raise AssertionError(
+                    f"train reference: {arch} gradient {k} differs by "
+                    f"{err:.3e} (max {scale:.3e})")
+            worst = max(worst, err / scale)
+            dp = (pg[k].cpu() - pc[k]).abs()
+            sure = g_cpu.abs() > 1e-6
+            if sure.any() and float(dp[sure].max()) > 1e-5:
+                raise AssertionError(f"train reference: {arch} param {k} "
+                                     "after the step differs")
+            n_flip = int((dp > 1e-5).sum())
+            if n_flip > max(1, dp.numel() // 1000):
+                raise AssertionError(f"train reference: {arch} param {k}:"
+                                     f" {n_flip} elements flipped")
+            flips += n_flip
+        ran = {k: launches[k] for k in kernels}
+        log(f"reference: train step {arch}: loss card {lg:.7f} cpu "
+            f"{lc:.7f}; {len(gc)} gradient leaves agree (worst "
+            f"{worst:.3e} of the leaf max), all non-zero on the card; "
+            f"params after the step agree ({flips} noise elements); "
+            f"launches {ran}")
 
 
 # ----------------------------------------------------------------------
@@ -891,6 +1216,169 @@ def run_wave_phase(torch, gpu_name: str, cfg, params) -> dict:
     return launches_by_path
 
 
+# ----------------------------------------------------------------------
+# phase 7: training at the published widths
+# ----------------------------------------------------------------------
+TRAIN_CELLS = {
+    # path: (arch, layers kept, batch, sequence, kernels it must launch)
+    "train_mamba": ("falcon-mamba-7b", 2, 4, 1024,
+                    ("selective_scan", "selective_scan_bwd")),
+    "train_griffin": ("recurrentgemma-2b", 3, 1, 4096,
+                      ("rglru_scan", "rglru_scan_bwd", "fused_swiglu")),
+}
+TRAIN_STEPS = 4
+
+
+def run_train_phase(torch, gpu_name: str) -> dict:
+    """Each cell's model at its published width (depth cut to fit one
+    card with AdamW's f32 moments), bf16, ``remat="layer"``: 4 steps of
+    ``make_train_step`` on synthetic batches from a seed, twice from the
+    same seed-initialised params. Every loss finite, every param moved,
+    the rerun bit-identical in losses and params, the cell's kernels
+    launched forward and backward. Then one profiled step. Returns each
+    path's launch counts (the first run's)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import synthetic_lm_batches
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import params as params_lib
+    from repro_torch.optim import init as opt_init
+
+    launches_by_path = {}
+    for path, (arch, layers, bsz, seq, kernels) in TRAIN_CELLS.items():
+        cfg = get_config(arch).replace(num_layers=layers)
+        # bf16 params take AdamW's f32 update rounded back to bf16, as
+        # the reference's do: a norm scale at 1.0 moves only by a step
+        # above half a bf16 spacing there (2e-3), so the peak rate is
+        # 3e-3, reached at the first step
+        tc = TrainConfig(learning_rate=3e-3, warmup_steps=1,
+                         total_steps=TRAIN_STEPS)
+        it = synthetic_lm_batches(bsz, seq, cfg.vocab_size, seed=0)
+        batches = []
+        for _ in range(TRAIN_STEPS):
+            b = next(it)
+            batches.append({
+                "tokens": torch.from_numpy(b.tokens).cuda(),
+                "labels": torch.from_numpy(b.labels).cuda(),
+                "loss_mask": torch.from_numpy(b.loss_mask).cuda()})
+        step = make_train_step(cfg, tc)
+
+        def run():
+            p0 = params_lib.init_params(cfg, 0, device="cuda")
+            st = opt_init(p0)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            p, losses = p0, []
+            for b in batches:
+                p, st, m = step(p, st, b)
+                losses.append(m["loss"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            return (p0, p, st, [float(x) for x in losses], wall,
+                    torch.cuda.max_memory_allocated())
+
+        ops.reset_launch_counts()
+        p0, p1, st1, losses1, wall1, peak = run()
+        del st1
+        launches = ops.launch_counts()
+        launches_by_path[path] = launches
+        log(f"train[{path}]: launches during the run {launches}")
+        for k in kernels:
+            if launches[k] <= 0:
+                raise AssertionError(f"train[{path}]: {k} never launched")
+        if not all(np.isfinite(losses1)):
+            raise AssertionError(f"train[{path}]: losses {losses1}")
+        l0, l1 = dict(params_lib._leaves(p0)), dict(params_lib._leaves(p1))
+        still = [k for k in l0 if torch.equal(l0[k], l1[k])]
+        if still:
+            raise AssertionError(f"train[{path}]: params never moved: "
+                                 f"{still}")
+        n_params = params_lib.count_params(p0)
+        del p0, l0
+        _, p2, st2, losses2, wall2, _ = run()
+        l2 = dict(params_lib._leaves(p2))
+        if losses2 != losses1 or any(not torch.equal(l1[k], l2[k])
+                                     for k in l1):
+            raise AssertionError(f"train[{path}]: the rerun changed the "
+                                 "losses or the params")
+        del p1, l1, l2
+        tokens = TRAIN_STEPS * bsz * seq
+        log(f"train[{path}]: {cfg.name} d_model {cfg.d_model}, "
+            f"{layers} of its layers, vocab {cfg.vocab_size}, {cfg.dtype},"
+            f" remat {cfg.remat}: {n_params} params; batch {bsz} x {seq} "
+            f"on {gpu_name}")
+        log(f"train[{path}]: losses {losses1}; rerun identical (losses "
+            f"and params bit for bit); every param moved")
+        log(f"train[{path}]: walls {wall1:.3f} s / {wall2:.3f} s for "
+            f"{TRAIN_STEPS} steps; steps/s {TRAIN_STEPS / wall2:.3f}; "
+            f"tokens/s {tokens / wall2:.1f}; peak memory "
+            f"{peak / 2**30:.2f} GiB")
+        # one more step unprofiled, then the same step under the profiler
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step(p2, st2, batches[0])
+        torch.cuda.synchronize()
+        wall_step = time.perf_counter() - t
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            step(p2, st2, batches[0])
+            torch.cuda.synchronize()
+            wall_prof = time.perf_counter() - t
+        report_profile(prof, wall_step, wall_prof)
+        del p2, st2, batches, prof
+        torch.cuda.empty_cache()
+    return launches_by_path
+
+
+def run_train_entry_phase(torch) -> dict:
+    """``train()``, the entry point, on reduced smollm-135m arithmetic
+    with a checkpoint: its loss falls and the npz restores bit for bit.
+    Returns the run's launch counts."""
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.data.pipeline import arithmetic_batches
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.launch.train import reduced_for_data, train
+    from repro_torch.models import params as params_lib
+
+    # the loss train() starts from: its init params on its first batch
+    b = next(arithmetic_batches(64, 24, seed=0))
+    first, _, _ = loss_and_grads(
+        reduced_for_data("smollm-135m", "arithmetic"),
+        params_lib.init_params(reduced_for_data("smollm-135m",
+                                                "arithmetic"), 0,
+                               device="cuda"),
+        {n: torch.from_numpy(getattr(b, n)).cuda()
+         for n in ("tokens", "labels", "loss_mask")})
+    ckpt = ROOT / "build" / "chip_smoke" / "smollm_arith.npz"
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    cfg, params, metrics = train(arch="smollm-135m", steps=60, batch=64,
+                                 seq=24, lr=2e-3, ckpt=str(ckpt),
+                                 log_every=20, device="cuda")
+    wall = time.perf_counter() - t
+    launches = ops.launch_counts()
+    if launches["fused_swiglu"] <= 0:
+        raise AssertionError("train entry: fused_swiglu never launched")
+    if not float(metrics["loss"]) < 0.75 * float(first):
+        raise AssertionError(f"train entry: loss {metrics['loss']} after "
+                             f"60 steps, {float(first)} at the start")
+    got = dict(params_lib._leaves(restore_checkpoint(
+        ckpt, params_lib.init_params(cfg, 1, device="cuda"))))
+    for k, v in params_lib._leaves(params):
+        if not torch.equal(got[k], v):
+            raise AssertionError(f"train entry: checkpoint leaf {k} "
+                                 "restored differently")
+    log(f"train entry: 60 steps in {wall:.2f} s, loss {float(first):.4f}"
+        f" -> {float(metrics['loss']):.4f}; checkpoint restores bit for bit; "
+        f"launches {launches}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -918,15 +1406,22 @@ def main() -> int:
             "the build started")
 
     results = run_kernel_phase(torch)
+    results.update(run_train_kernel_phase(torch))
     phase_done("kernels")
     run_reference_phase(torch)
     run_wave_reference_phase(torch)
+    run_train_reference_phase(torch)
     phase_done("reference")
     cfg, params = full_width_params(torch)
     by_path = {"stepped": run_serve_phase(torch, gpu_name, cfg, params)}
     phase_done("serve")
     by_path.update(run_wave_phase(torch, gpu_name, cfg, params))
     phase_done("wave")
+    del params
+    torch.cuda.empty_cache()
+    by_path.update(run_train_phase(torch, gpu_name))
+    by_path["train_entry"] = run_train_entry_phase(torch)
+    phase_done("train")
 
     sources = {
         "paged_decode_attention": "src/repro/kernels/"
@@ -939,13 +1434,18 @@ def main() -> int:
                                         "paged_decode_attention_quant.py:135",
         "decode_attention_quant": "src/repro/kernels/"
                                   "decode_attention_quant.py:92",
+        "selective_scan": "src/repro/kernels/selective_scan.py:76",
+        "selective_scan_bwd": "src/repro/kernels/selective_scan.py:76",
+        "rglru_scan": "src/repro/kernels/rglru_scan.py:58",
+        "rglru_scan_bwd": "src/repro/kernels/rglru_scan.py:58",
     }
     kernels = []
     for name, replaces in sources.items():
         r = results[(name, "bfloat16")]
         entry = {
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/csrc/{name}.cu",
+            "source": "src/repro_torch/csrc/"
+                      f"{name.removesuffix('_bwd')}.cu",
             "replaces": replaces,
             "launches": sum(c[name] for c in by_path.values()),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -953,10 +1453,24 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "dtype": "bfloat16",
             "launches_by_path": {p: c[name] for p, c in by_path.items()}}
-        if r["library_ms"] is None:
+        if name.endswith("_bwd"):
+            entry["note"] = (
+                "the backward of the kernel it names; no TPU counterpart: "
+                "jax 0.9.0 cannot reverse-differentiate pallas_call")
+            entry["grad_err_share"] = r["grad_err_share"]
+        if name.startswith(("selective_scan", "rglru_scan")):
+            entry["library_note"] = SCAN_LIBRARY_NOTE
+        elif r["library_ms"] is None:
             entry["library_note"] = (
                 "no single PyTorch call computes attention over int8 "
                 "codes with per-vector scales folded in")
+        if name == "fused_swiglu":
+            t = results[("fused_swiglu_train", "bfloat16")]
+            entry["train_shape"] = dict(
+                shape=list(SWIGLU_TRAIN), max_abs_err=t["max_abs_err"],
+                grad_err_share=t["grad_err_share"], ms=t["ms"],
+                plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                bound_by=t["bound_by"], library_ms=t["library_ms"])
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(smi.splitlines()[0])

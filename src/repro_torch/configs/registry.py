@@ -1,6 +1,7 @@
 """Architecture registry: ``--arch <id>`` -> ModelConfig.
 
-Only the architectures the port serves are listed; the rest of the
+Only the architectures the port runs are listed (the dense family
+serves and trains; the ssm and hybrid families train); the rest of the
 zoo joins as its model families are ported.
 """
 from __future__ import annotations
@@ -12,6 +13,8 @@ from repro_torch.configs.base import ModelConfig
 
 _ARCH_MODULES = {
     "smollm-135m": "repro_torch.configs.smollm_135m",
+    "falcon-mamba-7b": "repro_torch.configs.falcon_mamba_7b",
+    "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
 }
 
 ARCH_IDS: Tuple[str, ...] = tuple(_ARCH_MODULES)

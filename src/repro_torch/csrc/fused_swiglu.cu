@@ -34,9 +34,13 @@ namespace {
 constexpr int kRows = 8;     // token rows per CTA (models.blocking.TOKEN_BLOCK)
 constexpr int kThreads = 256;
 constexpr int kFChunk = kThreads;  // one hidden unit per thread per chunk
-constexpr int kMaxCols = 4;        // output columns per thread: D <= 1024
+// output columns per thread: the kernel is instantiated for 4, 8, 12 and
+// 16 columns (D <= 1024, 2048, 3072, 4096) and the launch takes the
+// fewest that cover D. Column c's sum is the same loop in every
+// instantiation, so its bits do not depend on which one runs.
+constexpr int kMaxCols = 16;
 
-template <typename T>
+template <typename T, int kCols>
 __global__ void __launch_bounds__(kThreads)
     fused_swiglu_kernel(const T* __restrict__ x, const T* __restrict__ wg,
                         const T* __restrict__ wu, const T* __restrict__ wd,
@@ -54,11 +58,11 @@ __global__ void __launch_bounds__(kThreads)
     xs[i] = r < nrows ? acar::to_f32(x[(size_t)(row0 + r) * D + d]) : 0.f;
   }
 
-  float acc[kRows][kMaxCols];
+  float acc[kRows][kCols];
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
 #pragma unroll
-    for (int j = 0; j < kMaxCols; ++j) acc[r][j] = 0.f;
+    for (int j = 0; j < kCols; ++j) acc[r][j] = 0.f;
   }
   __syncthreads();
 
@@ -94,7 +98,7 @@ __global__ void __launch_bounds__(kThreads)
 
     const int nf = min(kFChunk, F - f0);
 #pragma unroll
-    for (int j = 0; j < kMaxCols; ++j) {
+    for (int j = 0; j < kCols; ++j) {
       const int c = tid + j * kThreads;
       if (c < D) {
         for (int ff = 0; ff < nf; ++ff) {
@@ -109,7 +113,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 
 #pragma unroll
-  for (int j = 0; j < kMaxCols; ++j) {
+  for (int j = 0; j < kCols; ++j) {
     const int c = tid + j * kThreads;
     if (c < D) {
       for (int r = 0; r < nrows; ++r)
@@ -118,23 +122,38 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* x, const void* wg, const void* wu,
-                   const void* wd, void* out, int n_tokens, int D, int F,
-                   cudaStream_t st) {
+template <typename T, int kCols>
+cudaError_t launch_cols(const void* x, const void* wg, const void* wu,
+                        const void* wd, void* out, int n_tokens, int D,
+                        int F, cudaStream_t st) {
+  // x rows and one chunk of h in shared memory: 36 KB at D = 1024, 80 KB
+  // of x at D = 2560, 128 KB at D = 4096 (the opt-in covers up to 227 KB)
   const size_t smem = sizeof(float) * ((size_t)kRows * D + kRows * kFChunk);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        fused_swiglu_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        fused_swiglu_kernel<T, kCols>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
   const int grid = (n_tokens + kRows - 1) / kRows;
-  fused_swiglu_kernel<T><<<grid, kThreads, smem, st>>>(
+  fused_swiglu_kernel<T, kCols><<<grid, kThreads, smem, st>>>(
       static_cast<const T*>(x), static_cast<const T*>(wg),
       static_cast<const T*>(wu), static_cast<const T*>(wd),
       static_cast<T*>(out), n_tokens, D, F);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch(const void* x, const void* wg, const void* wu,
+                   const void* wd, void* out, int n_tokens, int D, int F,
+                   cudaStream_t st) {
+  if (D <= 4 * kThreads)
+    return launch_cols<T, 4>(x, wg, wu, wd, out, n_tokens, D, F, st);
+  if (D <= 8 * kThreads)
+    return launch_cols<T, 8>(x, wg, wu, wd, out, n_tokens, D, F, st);
+  if (D <= 12 * kThreads)
+    return launch_cols<T, 12>(x, wg, wu, wd, out, n_tokens, D, F, st);
+  return launch_cols<T, 16>(x, wg, wu, wd, out, n_tokens, D, F, st);
 }
 
 }  // namespace

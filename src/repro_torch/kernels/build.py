@@ -30,7 +30,8 @@ REPO_ROOT = _PKG.parents[1]
 BUILD_DIR = REPO_ROOT / "build" / "kernels"
 SOURCES = ("paged_decode_attention.cu", "chunked_prefill_attention.cu",
            "fused_swiglu.cu", "decode_attention.cu",
-           "decode_attention_quant.cu", "paged_decode_attention_quant.cu")
+           "decode_attention_quant.cu", "paged_decode_attention_quant.cu",
+           "selective_scan.cu", "rglru_scan.cu")
 HEADERS = ("common.cuh", "decode_core.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -51,6 +52,16 @@ _SIGNATURES = {
         [_VP] * 6 + [_I] * 7 + [_VP],
     "acar_paged_decode_attention_quant":
         [_VP] * 8 + [_I] * 7 + [_VP],
+    "acar_selective_scan_chunk": [],
+    "acar_selective_scan_ctas": [_I] * 2,
+    "acar_selective_scan_fwd":
+        [_VP] * 8 + [_I] * 5 + [_VP],
+    "acar_selective_scan_bwd":
+        [_VP] * 16 + [_I] * 5 + [_VP],
+    "acar_rglru_scan_fwd":
+        [_VP] * 4 + [_I] * 5 + [_VP],
+    "acar_rglru_scan_bwd":
+        [_VP] * 6 + [_I] * 5 + [_VP],
 }
 
 _lock = threading.Lock()

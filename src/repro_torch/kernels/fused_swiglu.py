@@ -12,6 +12,13 @@ The plain version rounds silu(x Wg) to x's dtype before multiplying by
 x Wu, as the oracle does; the kernel multiplies in f32, as the Pallas
 kernel does. The two agree to float32 rounding in f32 and differ by
 bf16 rounding in bf16.
+
+The wrapper is differentiable (``_FusedSwiGLU``): its backward
+recomputes g = x Wg and u = x Wu and forms the gradients of the
+function the kernel computes (silu and the multiply in f32, h rounded to
+x's dtype) with four plain matrix products, as the reference's training
+leaves that gradient to XLA outside any kernel. The same backward runs
+after the kernel on the card and after the plain version on the CPU.
 """
 from __future__ import annotations
 
@@ -33,11 +40,52 @@ def fused_swiglu_plain(x: torch.Tensor, w_gate: torch.Tensor,
     return torch.matmul(h, w_down)
 
 
+def fused_swiglu_bwd(x: torch.Tensor, w_gate: torch.Tensor,
+                     w_up: torch.Tensor, w_down: torch.Tensor,
+                     dy: torch.Tensor):
+    """Gradients (dx, dw_gate, dw_up, dw_down) of
+    out = h Wd, h = (silu(g) * u rounded to x's dtype), g = x Wg,
+    u = x Wu, with silu and the multiply in f32. The rounding of h passes
+    the gradient through unchanged."""
+    g = torch.matmul(x, w_gate).float()
+    u = torch.matmul(x, w_up).float()
+    sig = torch.sigmoid(g)
+    s = g * sig
+    h = (s * u).to(x.dtype)
+    dy = dy.to(x.dtype)
+    dw_down = torch.matmul(h.t(), dy)
+    dh = torch.matmul(dy, w_down.t()).float()
+    du = (dh * s).to(x.dtype)
+    dg = (dh * u * (sig * (1.0 + g * (1.0 - sig)))).to(x.dtype)
+    dx = torch.matmul(dg, w_gate.t()) + torch.matmul(du, w_up.t())
+    return dx, torch.matmul(x.t(), dg), torch.matmul(x.t(), du), dw_down
+
+
+class _FusedSwiGLU(torch.autograd.Function):
+    """The kernel (or, on the CPU, the plain version) forward; the
+    recomputing backward of ``fused_swiglu_bwd``."""
+
+    @staticmethod
+    def forward(ctx, x, w_gate, w_up, w_down):
+        ctx.save_for_backward(x, w_gate, w_up, w_down)
+        if x.device.type == "cpu":
+            return fused_swiglu_plain(x, w_gate, w_up, w_down)
+        return _launch(x, w_gate, w_up, w_down)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return fused_swiglu_bwd(*ctx.saved_tensors, dy)
+
+
 def fused_swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
                  w_down: torch.Tensor) -> torch.Tensor:
-    """x: (T, D); w_gate/w_up: (D, F); w_down: (F, D) -> (T, D)."""
-    if x.device.type == "cpu":
-        return fused_swiglu_plain(x, w_gate, w_up, w_down)
+    """x: (T, D); w_gate/w_up: (D, F); w_down: (F, D) -> (T, D),
+    differentiable in every input."""
+    return _FusedSwiGLU.apply(x, w_gate, w_up, w_down)
+
+
+def _launch(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+            w_down: torch.Tensor) -> torch.Tensor:
     name = "fused_swiglu"
     dev = build.check_cuda(name, x=x, w_gate=w_gate, w_up=w_up,
                            w_down=w_down)
@@ -52,8 +100,8 @@ def fused_swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
             f"{name}: shapes x {tuple(x.shape)}, w_gate "
             f"{tuple(w_gate.shape)}, w_up {tuple(w_up.shape)}, w_down "
             f"{tuple(w_down.shape)}")
-    if d > 1024:
-        raise ValueError(f"{name}: the kernel takes d_model <= 1024")
+    if d > 4096:
+        raise ValueError(f"{name}: the kernel takes d_model <= 4096")
     out = torch.empty_like(x)
     if t == 0:
         return out

@@ -20,7 +20,12 @@ from repro_torch.kernels.paged_decode_attention import (
     paged_decode_attention_plain as paged_decode_attention_ref)
 from repro_torch.kernels.paged_decode_attention_quant import (
     paged_decode_attention_quant_plain as paged_decode_attention_quant_ref)
+from repro_torch.kernels.rglru_scan import (
+    rglru_scan_plain as rglru_scan_ref)
+from repro_torch.kernels.selective_scan import (
+    selective_scan_plain as selective_scan_ref)
 
 __all__ = ["chunked_prefill_attention_ref", "decode_attention_quant_ref",
            "decode_attention_ref", "fused_swiglu_ref",
-           "paged_decode_attention_quant_ref", "paged_decode_attention_ref"]
+           "paged_decode_attention_quant_ref", "paged_decode_attention_ref",
+           "rglru_scan_ref", "selective_scan_ref"]

@@ -1,1 +1,2 @@
-"""Entry points of the port: ``serve`` drives the batched ACAR engine."""
+"""Entry points of the port: ``train`` trains a model, ``serve`` drives
+the batched ACAR engine."""

@@ -5,9 +5,11 @@ through the batched engine — one lockstep wave (``run_batch``, the
 default) or the step-level loop (``step_loop=True`` or ``megastep > 1``:
 ``run_stepped``) — and ``serve`` reports accuracy, the routing
 distribution, ensemble calls saved and the compaction savings. The
-fleet's models are given (``ZooModel``s with params on ``device``);
-``build_zoo`` and ``main`` train their models first and come with the
-training slice of the port.
+fleet's models are given (``ZooModel``s with params on ``device``), or
+restored from npz checkpoints by ``build_zoo`` (written by either
+package's trainer). ``build_zoo``'s training branch and ``main`` raise
+``NotImplementedError``: the reference's default ensemble holds
+recurrentgemma-2b, whose serving path is not ported yet.
 
 Fleet members are registry arch names, optionally with a page-layout
 variant suffix (``parse_member``): ``arch:quant`` serves from
@@ -21,13 +23,16 @@ yet).
 from __future__ import annotations
 
 import collections
-from typing import Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
+from repro_torch.checkpoint import restore_checkpoint
 from repro_torch.configs.acar import ACARConfig
 from repro_torch.configs.registry import ARCH_IDS
 from repro_torch.core.extract import extract
 from repro_torch.core.sigma import MODE_NAMES
 from repro_torch.data.tasks import Task
+from repro_torch.launch.train import reduced_for_data
+from repro_torch.models import params as params_lib
 from repro_torch.models.transformer import resolve_layout
 from repro_torch.serving import BatchedACAREngine, MicroBatchPolicy, ZooModel
 
@@ -51,6 +56,35 @@ def parse_member(spec: str):
     raise SystemExit(
         f"unknown member variant {spec!r} "
         "(use arch, arch:quant, or arch:swaN)")
+
+
+def build_zoo(archs: Sequence[str], train_steps: int, seed: int = 0,
+              ckpts: Optional[Dict[str, str]] = None,
+              verbose: bool = True,
+              device: str = "cuda") -> List[ZooModel]:
+    """Restore reduced arithmetic models for each member spec (``arch``
+    or ``arch:variant``) from ``ckpts[spec]`` onto ``device``. Training
+    a member without a checkpoint is not ported yet and raises."""
+    zoo = []
+    for i, spec in enumerate(archs):
+        arch, variant = parse_member(spec)
+        cfg = variant(reduced_for_data(arch, "arithmetic"))
+        if not (ckpts and spec in ckpts):
+            raise NotImplementedError(
+                f"build_zoo: training {spec!r} ({train_steps} steps) "
+                "is not ported yet; pass a checkpoint in ckpts")
+        template = params_lib.init_params(cfg, seed + i, device=device)
+        prm = restore_checkpoint(ckpts[spec], template)
+        if verbose:
+            print(f"-- restored {spec} from {ckpts[spec]}")
+        zoo.append(ZooModel(name=spec, cfg=cfg, params=prm))
+    return zoo
+
+
+def main(argv=None):
+    raise NotImplementedError(
+        "repro_torch.launch.serve.main: the default ensemble holds "
+        "recurrentgemma-2b, whose serving path is not ported yet")
 
 
 def serve(tasks: Sequence[Task], probe: ZooModel,

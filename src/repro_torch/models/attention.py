@@ -1,7 +1,7 @@
-"""GQA attention: one-shot prefill over the whole prompt, single-token
-decode against a contiguous cache (dense or int8), and the paged
-variants the step-level loop runs (chunked prefill and decode over
-dense or int8 pages).
+"""GQA attention: full-sequence attention for training, one-shot
+prefill over the whole prompt, single-token decode against a contiguous
+cache (dense or int8), and the paged variants the step-level loop runs
+(chunked prefill and decode over dense or int8 pages).
 
 The port of the dense GQA functions of ``repro/models/attention.py``.
 Decode and chunked-prefill attention go through ``kernels.ops``: the
@@ -145,6 +145,23 @@ def gqa_project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor):
     k = torch.matmul(x, p["wk"]).reshape(b, s, cfg.num_kv_heads, hd)
     v = torch.matmul(x, p["wv"]).reshape(b, s, cfg.num_kv_heads, hd)
     return q, k, v
+
+
+def gqa_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                  positions: torch.Tensor, *, causal: bool = True,
+                  window: Optional[int] = None) -> torch.Tensor:
+    """Full-sequence GQA attention (training and scoring). x: (B,S,d);
+    positions: (S,) int. Plain PyTorch, as the reference leaves it to
+    XLA outside any kernel."""
+    q, k, v = gqa_project_qkv(cfg, p, x)
+    if cfg.use_rope:
+        q = apply_rope(q, positions[None], cfg.rope_theta)
+        k = apply_rope(k, positions[None], cfg.rope_theta)
+    out = flash_attention(q, k, v, positions, positions, causal=causal,
+                          window=window)
+    b, s = x.shape[:2]
+    out = out.reshape(b, s, cfg.num_heads * cfg.resolved_head_dim)
+    return torch.matmul(out, p["wo"])
 
 
 def _decode_qkv(cfg: ModelConfig, p: dict, x_t: torch.Tensor,

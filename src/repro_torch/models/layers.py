@@ -1,4 +1,5 @@
-"""Shared neural-net layers: norms, RoPE, MLPs, embeddings.
+"""Shared neural-net layers: norms, RoPE, MLPs, the causal conv,
+embeddings.
 
 Pure functions over plain dict params (torch tensors), mirroring the
 reference's ``repro/models/layers.py`` so each counterpart is found by
@@ -6,7 +7,10 @@ name.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models.blocking import blocked_rows
 
@@ -69,6 +73,24 @@ def swiglu_mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
 
     xt = x.reshape(-1, x.shape[-1])
     return blocked_rows(blk, xt).reshape(x.shape)
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
+                  bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Depthwise causal conv via shifted adds, summed in f32 and cast to
+    x's dtype at the end.
+
+    x: (B, S, C); w: (width, C); bias: (C,).
+    """
+    width = w.shape[0]
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for k in range(width):
+        shift = width - 1 - k   # tap k sees x[t - shift]
+        xs = x if shift == 0 else F.pad(x, (0, 0, shift, 0))[:, :x.shape[1]]
+        out = out + xs.float() * w[k].float()
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(x.dtype)
 
 
 def embed_tokens(embedding: torch.Tensor,

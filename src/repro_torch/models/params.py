@@ -5,7 +5,9 @@ Each weight is declared once as a ``WeightDef`` (shape + init kind);
 ``init_params`` materialises the tree and ``from_jax_numpy`` checks a
 converted tree against it leaf for leaf. The tree is the reference's:
 nested dicts with the scanned layer stack under ``"layers"`` carrying a
-leading layers axis. Only the dense family is ported so far.
+leading layers axis (dense and ssm families), or one unstacked
+``layer_{i:02d}`` subtree per layer (the hybrid family's non-uniform
+stack). MoE, MLA, audio and vision trees are not ported yet.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.ssm import ssm_dims
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -31,49 +34,124 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 @dataclasses.dataclass(frozen=True)
 class WeightDef:
     shape: Tuple[int, ...]
-    init: str = "normal"          # normal | zeros | ones
+    init: str = "normal"          # normal | zeros | ones | a_log | lam
     scale: float = 0.02
+
+
+# inits whose leaves stay float32 in a bf16 model (the reference's
+# abstract_params and init_params make them so)
+_F32_INITS = ("a_log", "lam")
+_RG_C = 8.0   # RG-LRU's recurrence constant (models.rglru._C)
 
 
 def _norm_def(d: int) -> Dict[str, WeightDef]:
     return {"scale": WeightDef((d,), "ones")}
 
 
-def _layer_defs(cfg: ModelConfig, n: int) -> dict:
+def _attn_defs(cfg: ModelConfig) -> Dict[str, WeightDef]:
     d, hd = cfg.d_model, cfg.resolved_head_dim
-    h, kv, f = cfg.num_heads, cfg.num_kv_heads, cfg.d_ff
+    h, kv = cfg.num_heads, cfg.num_kv_heads
     return {
-        "attn_norm": {"scale": WeightDef((n, d), "ones")},
-        "attn": {
-            "wq": WeightDef((n, d, h * hd)),
-            "wk": WeightDef((n, d, kv * hd)),
-            "wv": WeightDef((n, d, kv * hd)),
-            "wo": WeightDef((n, h * hd, d)),
-        },
-        "mlp_norm": {"scale": WeightDef((n, d), "ones")},
-        "mlp": {
-            "w_gate": WeightDef((n, d, f)),
-            "w_up": WeightDef((n, d, f)),
-            "w_down": WeightDef((n, f, d)),
-        },
+        "wq": WeightDef((d, h * hd)),
+        "wk": WeightDef((d, kv * hd)),
+        "wv": WeightDef((d, kv * hd)),
+        "wo": WeightDef((h * hd, d)),
     }
 
 
+def _mlp_defs(cfg: ModelConfig) -> Dict[str, WeightDef]:
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "w_gate": WeightDef((d, f)),
+        "w_up": WeightDef((d, f)),
+        "w_down": WeightDef((f, d)),
+    }
+
+
+def _ssm_defs(cfg: ModelConfig) -> Dict[str, WeightDef]:
+    s = cfg.ssm
+    d = cfg.d_model
+    d_in, dt_rank, n = ssm_dims(cfg)
+    return {
+        "w_in_x": WeightDef((d, d_in)),
+        "w_in_z": WeightDef((d, d_in)),
+        "conv_w": WeightDef((s.conv_width, d_in)),
+        "conv_b": WeightDef((d_in,), "zeros"),
+        "w_xproj": WeightDef((d_in, dt_rank + 2 * n)),
+        "w_dt": WeightDef((dt_rank, d_in)),
+        "b_dt": WeightDef((d_in,), "zeros"),
+        "a_log": WeightDef((d_in, n), "a_log"),
+        "d_skip": WeightDef((d_in,), "ones"),
+        "w_out": WeightDef((d_in, d)),
+    }
+
+
+def _rglru_defs(cfg: ModelConfig) -> Dict[str, WeightDef]:
+    r = cfg.rglru
+    d = cfg.d_model
+    w = r.lru_width or d
+    return {
+        "w_x": WeightDef((d, w)),
+        "w_g": WeightDef((d, w)),
+        "conv_w": WeightDef((r.conv_width, w)),
+        "conv_b": WeightDef((w,), "zeros"),
+        "w_a": WeightDef((w, w)),
+        "b_a": WeightDef((w,), "zeros"),
+        "w_i": WeightDef((w, w)),
+        "b_i": WeightDef((w,), "zeros"),
+        "lam": WeightDef((w,), "lam"),
+        "w_out": WeightDef((w, d)),
+    }
+
+
+def layer_defs(cfg: ModelConfig, kind: str) -> dict:
+    """Def tree for one decoder layer of the given kind (attn | ssm |
+    rglru)."""
+    d = cfg.d_model
+    if kind == "ssm":
+        return {"norm": _norm_def(d), "ssm": _ssm_defs(cfg)}
+    if kind == "attn":
+        out = {"attn_norm": _norm_def(d), "attn": _attn_defs(cfg)}
+    elif kind == "rglru":
+        out = {"mix_norm": _norm_def(d), "rglru": _rglru_defs(cfg)}
+    else:
+        raise ValueError(f"unknown layer kind {kind!r}")
+    out["mlp_norm"] = _norm_def(d)
+    out["mlp"] = _mlp_defs(cfg)
+    return out
+
+
+def _stack_defs(defs: dict, n: int) -> dict:
+    """Prepend a (stacked) layers axis to every WeightDef in a tree."""
+    return {k: _stack_defs(v, n) if isinstance(v, dict)
+            else WeightDef((n,) + v.shape, v.init, v.scale)
+            for k, v in defs.items()}
+
+
 def model_defs(cfg: ModelConfig) -> dict:
-    """Full parameter def tree for a dense GQA architecture."""
-    if not (cfg.family == "dense" and cfg.attn_kind == "gqa"
-            and cfg.moe is None and cfg.frontend is None
-            and cfg.layer_pattern is None):
+    """Full parameter def tree for a dense GQA, ssm or hybrid
+    architecture."""
+    if (cfg.family not in ("dense", "ssm", "hybrid")
+            or cfg.attn_kind not in ("gqa", "none") or cfg.moe is not None
+            or cfg.frontend is not None):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense GQA family is ported")
+            f"{cfg.name}: only the dense GQA, ssm and hybrid families are "
+            "ported")
     d, v = cfg.d_model, cfg.vocab_size
     defs: dict = {
         "embedding": WeightDef((v, d)),
         "final_norm": _norm_def(d),
-        "layers": _layer_defs(cfg, cfg.num_layers),
     }
     if not cfg.tie_embeddings:
         defs["lm_head"] = WeightDef((d, v))
+    kinds = cfg.layer_kinds
+    if cfg.family == "hybrid":
+        # non-uniform layer stack: per-layer subtrees
+        for i, kind in enumerate(kinds):
+            defs[f"layer_{i:02d}"] = layer_defs(cfg, kind)
+    else:
+        defs["layers"] = _stack_defs(layer_defs(cfg, kinds[0]),
+                                     cfg.num_layers)
     return defs
 
 
@@ -101,7 +179,9 @@ def init_params(cfg: ModelConfig,
                 device: Union[str, torch.device] = "cuda") -> dict:
     """Materialise random parameters on ``device`` from a seed (or a
     ``torch.Generator`` on that device): normal weights with scale
-    min(0.02, 1/sqrt(fan_in)), norm scales at one."""
+    min(0.02, 1/sqrt(fan_in)), norm scales at one, Mamba's ``a_log`` at
+    log(1..N) and RG-LRU's ``lam`` so that a lies in (0.9, 0.999), the
+    last two in float32 whatever the model's dtype."""
     if isinstance(seed, torch.Generator):
         gen = seed
     else:
@@ -114,6 +194,15 @@ def init_params(cfg: ModelConfig,
             t = torch.zeros(wd.shape, dtype=dtype, device=device)
         elif wd.init == "ones":
             t = torch.ones(wd.shape, dtype=dtype, device=device)
+        elif wd.init == "a_log":
+            # mamba S4D-real init: A = -(1..N) per channel
+            a = torch.arange(1, wd.shape[-1] + 1, dtype=torch.float32,
+                             device=device)
+            t = torch.log(a).expand(wd.shape).contiguous()
+        elif wd.init == "lam":
+            u = torch.empty(wd.shape, dtype=torch.float32, device=device)
+            u.uniform_(0.9 ** 2, 0.999 ** 2, generator=gen)
+            t = torch.log(torch.exp(-torch.log(u) / (2 * _RG_C)) - 1.0)
         else:
             fan_in = wd.shape[-2] if len(wd.shape) >= 2 else wd.shape[-1]
             scale = min(wd.scale, 1.0 / np.sqrt(fan_in))
@@ -151,7 +240,7 @@ def from_jax_numpy(cfg: ModelConfig, tree: dict, *,
             f"{sorted(set(got) - set(defs))}")
     out: dict = {}
     for path, wd in defs.items():
-        t = _to_tensor(got[path], device)
+        t = _to_tensor(got[path], device)    # the leaf's own dtype
         if tuple(t.shape) != wd.shape:
             raise ValueError(f"{cfg.name}: {path} has shape "
                              f"{tuple(t.shape)}, expected {wd.shape}")
@@ -164,4 +253,4 @@ def count_params(params: dict) -> int:
 
 
 __all__ = ["WeightDef", "count_params", "from_jax_numpy", "init_params",
-           "model_defs", "torch_dtype"]
+           "layer_defs", "model_defs", "torch_dtype"]

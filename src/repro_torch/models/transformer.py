@@ -1,9 +1,11 @@
-"""Transformer prefill and decode for serving: one-shot prefill into a
-contiguous cache or into pool pages, one chunk of a paged prefill, and
-one decode step over a contiguous cache or over the page pool.
+"""Transformer forward for training, and prefill and decode for
+serving: the full-sequence forward of the dense, ssm and hybrid
+families; one-shot prefill into a contiguous cache or into pool pages,
+one chunk of a paged prefill, and one decode step over a contiguous
+cache or over the page pool (dense family).
 
-The port of the dense-family serving path of
-``repro/models/transformer.py`` (dense and int8 caches; dense and quant
+The port of ``repro/models/transformer.py`` (``forward``; the
+dense-family serving path with dense and int8 caches, dense and quant
 page layouts). The reference scans the stacked layer params
 (``stack_scan``); here a Python loop walks the stacked tensors layer by
 layer, and each layer's cache or page slice is updated in place.
@@ -14,10 +16,13 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     apply_rope, embed_tokens, lm_head, rms_norm, swiglu_mlp)
 from repro_torch.models.params import torch_dtype
@@ -77,6 +82,69 @@ def _layer(tree: dict, i: int) -> dict:
     """Layer ``i``'s params: a view of every stacked leaf at index i."""
     return {k: _layer(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
+
+
+# ----------------------------------------------------------------------
+# full-sequence forward (training / scoring)
+# ----------------------------------------------------------------------
+def layer_fwd(cfg: ModelConfig, lp: dict, x: torch.Tensor,
+              positions: torch.Tensor, kind: str) -> torch.Tensor:
+    """One decoder layer over a full sequence: an ssm block, or an
+    RG-LRU or causal (optionally windowed) GQA mixer followed by the
+    fused SwiGLU MLP."""
+    if kind == "ssm":
+        h = norm_apply(cfg, lp["norm"], x)
+        return x + ssm_mod.mamba_block(cfg, lp["ssm"], h)
+    if kind == "rglru":
+        h = norm_apply(cfg, lp["mix_norm"], x)
+        x = x + rglru_mod.rglru_block(cfg, lp["rglru"], h)
+    elif kind == "attn":
+        if cfg.attn_kind != "gqa":
+            raise NotImplementedError(
+                f"{cfg.name}: {cfg.attn_kind} attention is not ported yet")
+        h = norm_apply(cfg, lp["attn_norm"], x)
+        x = x + attn.gqa_attention(cfg, lp["attn"], h, positions,
+                                   causal=True, window=cfg.window)
+    else:
+        raise ValueError(f"unknown layer kind {kind!r}")
+    h = norm_apply(cfg, lp["mlp_norm"], x)
+    return x + mlp_apply(cfg, lp["mlp"], h)
+
+
+def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+            frontend_embeds: Optional[torch.Tensor] = None,
+            remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens: (B, S) -> (logits (B, S, V), moe_aux scalar, zero here).
+
+    The dense and ssm stacks walk their stacked layer params, the
+    hybrid stack its per-layer subtrees. ``remat`` recomputes each
+    layer's activations in the backward (``torch.utils.checkpoint``),
+    as the reference's ``jax.checkpoint`` does. MoE, MLA, audio and
+    vision models raise ``NotImplementedError``."""
+    if (cfg.family not in ("dense", "ssm", "hybrid") or cfg.moe is not None
+            or frontend_embeds is not None):
+        raise NotImplementedError(
+            f"{cfg.name}: forward of the {cfg.family} family is not "
+            "ported yet")
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    x = _embed_inputs(cfg, params, tokens)
+
+    def layer_params(i: int) -> dict:
+        if cfg.family == "hybrid":
+            return params[f"layer_{i:02d}"]
+        return _layer(params["layers"], i)
+
+    for i, kind in enumerate(cfg.layer_kinds):
+        def fn(x, i=i, kind=kind):
+            return layer_fwd(cfg, layer_params(i), x, positions, kind)
+
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(fn, x,
+                                                  use_reentrant=False)
+        else:
+            x = fn(x)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _logits(cfg, params, x), aux
 
 
 def _check_dense_family(cfg: ModelConfig) -> None:

@@ -26,7 +26,6 @@ tracing are not ported yet.
 from __future__ import annotations
 
 import inspect
-import os
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
@@ -42,6 +41,7 @@ from repro_torch.core.sigma import (
 from repro_torch.data import tokenizer as tok
 from repro_torch.data.tasks import Task
 from repro_torch.models.transformer import resolve_layout
+from repro_torch.runtime import deterministic_cuda
 from repro_torch.sampling import (
     generate, generate_samples, member_row_keys, probe_row_keys)
 from repro_torch.sampling import prng
@@ -119,17 +119,6 @@ class BatchResult:
     compaction: Optional[CompactionStats] = None
 
 
-def _deterministic_cuda() -> None:
-    """Serving on the card: full-precision float32 matmuls (TF32 off for
-    matmuls and cuDNN) and deterministic algorithms, so a rerun of a
-    stream reproduces its answers."""
-    # cuBLAS is deterministic only with a fixed workspace configuration
-    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.use_deterministic_algorithms(True)
-
-
 class BatchedACAREngine:
     """Batched ACAR engine over real zoo models.
 
@@ -160,7 +149,7 @@ class BatchedACAREngine:
         self.kv_prefix_cache = kv_prefix_cache
         self.device = torch.device(device)
         if self.device.type == "cuda":
-            _deterministic_cuda()
+            deterministic_cuda()
         self._kv_servers: Dict[int, PagedKVServer] = {}
         self._kv_emitted: Dict[tuple, int] = {}
         self.route_fn = route_fn or route_batch

@@ -289,6 +289,26 @@ def test_fused_swiglu_plain_matches_reference(t, d, f, dtype):
     _close(got, want, *SWIGLU_TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t,d,f", [(8, 2560, 7680)])
+def test_fused_swiglu_plain_matches_reference_at_full_width(t, d, f, dtype):
+    """recurrentgemma-2b's MLP width, past the kernel's old d <= 1024.
+    f32 at the tolerance above. In bf16 the outputs reach 17.4 here, and
+    the two frameworks' bf16 roundings of g, u and h move them by up to
+    0.125 (one bf16 step at 16), past the 2e-2 absolute tolerance sized
+    for d <= 192; the bound is 2e-2 of the largest output (about five
+    bf16 roundings of it)."""
+    arrs = _swiglu_inputs(t, d, f)
+    got = tref.fused_swiglu_ref(*[_t(a, dtype) for a in arrs])
+    want = J_SWIGLU(*[_j(a, dtype) for a in arrs])
+    assert got.dtype == _TDT[dtype] and tuple(got.shape) == (t, d)
+    if dtype == "float32":
+        _close(got, want, *SWIGLU_TOL[dtype])
+    else:
+        want = np.asarray(jnp.asarray(want, jnp.float32))
+        _close(got, want, 2e-2 * float(np.abs(want).max()), 0.0)
+
+
 @pytest.mark.parametrize("t,d,f", SWIGLU_CASES[:3])
 def test_fused_swiglu_plain_matches_pallas_interpret(t, d, f):
     arrs = _swiglu_inputs(t, d, f)
@@ -318,7 +338,9 @@ def test_cpu_tensors_take_the_plain_versions_without_launching():
     assert ops.launch_counts() == {
         "paged_decode_attention": 0, "chunked_prefill_attention": 0,
         "fused_swiglu": 0, "decode_attention": 0,
-        "paged_decode_attention_quant": 0, "decode_attention_quant": 0}
+        "paged_decode_attention_quant": 0, "decode_attention_quant": 0,
+        "selective_scan": 0, "selective_scan_bwd": 0, "rglru_scan": 0,
+        "rglru_scan_bwd": 0}
 
 
 def test_wrappers_raise_off_the_cpu_instead_of_falling_back():
