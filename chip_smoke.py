@@ -17,7 +17,13 @@ Phases (each raises on failure, and the script then exits non-zero):
    PyTorch version on the same inputs (float32 and bfloat16; for the
    int8 kernels, q in those types over int8 codes), and time kernel,
    plain version and, where one exists, a PyTorch library call as a
-   yardstick;
+   yardstick; hold each bf16 SwiGLU stage (the gate/up and the down
+   tensor-core GEMMs) against its own plain version and time it; and
+   check bit for bit, in bf16 and f32, that a row's output does not
+   depend on the rows beside it (SwiGLU rows 0-7 of the 256-token call
+   against an 8-token call, and rows 0-255 of the 4096-token call at
+   recurrentgemma-2b's width against a 256-token call; prefill chunk
+   positions 0-7 of the 32-position chunk against an 8-position chunk);
 4. reference — a reduced float32 model on the card agrees with the same
    calls on the CPU, where every kernel runs its plain version: chunked
    prefill and a paged decode step; one-shot prefill and decode steps
@@ -49,8 +55,11 @@ forward and backward; the fused SwiGLU at recurrentgemma-2b's width
 with its gradient), and phase 4 a train step of each reduced f32 family
 on the card against the CPU, every gradient leaf included.
 
-It prints one JSON line describing the kernels, the ``nvidia-smi`` line,
-and last ``{"ok": true, "device": {...}}``.
+The build prints ptxas's registers and spills for the two tensor-core
+kernel sources, and the serve and train profiles count the SwiGLU's
+tensor-core kernels: two for every bf16 wrapper call. It prints one
+JSON line describing the kernels, the ``nvidia-smi`` line, and last
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -169,6 +178,35 @@ def check_close(name: str, got, want, tol) -> float:
             f"err {err.max().item():.3e} (atol {atol}, rtol {rtol}) at "
             f"{int(bad.sum())} elements")
     return float(err.max().item())
+
+
+def check_same_rows(name: str, rows, alone) -> None:
+    """Bitwise: a row's output computed beside other rows equals the
+    same row computed with fewer neighbours."""
+    import torch
+    torch.cuda.synchronize()
+    if rows.shape != alone.shape or not torch.equal(rows, alone):
+        diff = (rows.float() - alone.float()).abs().max().item()
+        raise AssertionError(f"{name}: rows differ from the same rows "
+                             f"computed alone (max abs diff {diff:.3e})")
+
+
+def swiglu_stages(torch, name: str, x, ws, n: int) -> dict:
+    """bf16: each of the SwiGLU's two tensor-core stages against its own
+    plain version on the same inputs (stage 2 from the plain h), each
+    timed alone."""
+    from repro_torch.kernels import fused_swiglu as fs
+    wg, wu, wd = ws
+    tol = TOL[("swiglu", "bfloat16")]
+    h_plain = fs.swiglu_gate_up_plain(x, wg, wu)
+    err_h = check_close(f"{name} gate_up stage", fs._launch_gate_up(x, wg, wu),
+                        h_plain, tol)
+    err_o = check_close(f"{name} down stage", fs._launch_down(h_plain, wd),
+                        fs.swiglu_down_plain(h_plain, wd), tol)
+    return dict(
+        gate_up_err=err_h, down_err=err_o,
+        gate_up_ms=time_ms(torch, lambda: fs._launch_gate_up(x, wg, wu), n),
+        down_ms=time_ms(torch, lambda: fs._launch_down(h_plain, wd), n))
 
 
 # ----------------------------------------------------------------------
@@ -353,6 +391,11 @@ def run_kernel_phase(torch):
         torch.cuda.synchronize()
         err = check_close(f"chunked_prefill_attention[{dname}]", got,
                           want, TOL[("attention", dname)])
+        check_same_rows(
+            f"chunked_prefill_attention[{dname}] positions 0-7 of 32",
+            got[:, :8], ops.chunked_prefill_attention(
+                q[:, :8].contiguous(), kp, vp, table,
+                qpos[:, :8].contiguous(), prompt_len=PROMPT))
         ms = time_ms(torch, lambda: ops.chunked_prefill_attention(
             q, kp, vp, table, qpos, prompt_len=PROMPT))
         plain = time_ms(torch, lambda: chunked_prefill_attention_plain(
@@ -385,6 +428,11 @@ def run_kernel_phase(torch):
         torch.cuda.synchronize()
         err = check_close(f"fused_swiglu[{dname}]", got, want,
                           TOL[("swiglu", dname)])
+        check_same_rows(f"fused_swiglu[{dname}] rows 0-7 of 256", got[:8],
+                        ops.fused_swiglu(x[:8].contiguous(), wg, wu, wd))
+        stages = (swiglu_stages(torch, f"fused_swiglu[{dname}]", x,
+                                (wg, wu, wd), TIMED_LAUNCHES)
+                  if dtype == torch.bfloat16 else {})
         ms = time_ms(torch, lambda: ops.fused_swiglu(x, wg, wu, wd))
         plain = time_ms(torch, lambda: fused_swiglu_plain(x, wg, wu, wd))
         lib = time_ms(torch, lambda: torch.matmul(
@@ -396,7 +444,7 @@ def run_kernel_phase(torch):
         bnd, by = bound_ms(bytes_moved, flops, dname)
         results[("fused_swiglu", dname)] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
-            bound_by=by, library_ms=lib)
+            bound_by=by, library_ms=lib, **stages)
 
         tol = TOL[("attention", dname)]
         n_keys = ROWS_WAVE * S_WAVE
@@ -504,8 +552,18 @@ def run_kernel_phase(torch):
         log(f"kernel {name} [{dname}]: max_abs_err {r['max_abs_err']:.3e}"
             f" (atol {atol}, rtol {rtol})  kernel {r['ms']:.4f} ms  "
             f"plain {r['plain_ms']:.4f} ms  library {lib}  bound "
-            f"{r['bound_ms']:.5f} ms ({r['bound_by']})")
+            f"{r['bound_ms']:.5f} ms ({r['bound_by']}){stage_note(r)}")
+    log("rows: SwiGLU rows 0-7 and prefill positions 0-7 bit-identical to "
+        "calls without their neighbours (float32 and bfloat16)")
     return results
+
+
+def stage_note(r: dict) -> str:
+    if "gate_up_ms" not in r:
+        return ""
+    return (f"; stages: gate_up {r['gate_up_ms']:.4f} ms (err "
+            f"{r['gate_up_err']:.3e}), down {r['down_ms']:.4f} ms (err "
+            f"{r['down_err']:.3e})")
 
 
 # ----------------------------------------------------------------------
@@ -663,6 +721,13 @@ def run_train_kernel_phase(torch):
         torch.cuda.synchronize()
         err = check_close(f"fused_swiglu[{dname}, d {d}]", got, want,
                           TOL[("swiglu", dname)])
+        check_same_rows(f"fused_swiglu[{dname}, d {d}] rows 0-255 of {t}",
+                        got[:256], ops.fused_swiglu(xs[:256].contiguous(),
+                                                    *ws))
+        del want
+        stages = (swiglu_stages(torch, f"fused_swiglu[{dname}, d {d}]", xs,
+                                ws, 5)
+                  if dtype == torch.bfloat16 else {})
         ms = time_ms(torch, lambda: ops.fused_swiglu(xs, *ws), 5)
         plain = time_ms(torch, lambda: fused_swiglu_plain(xs, *ws), 5)
         lib = time_ms(torch, lambda: torch.matmul(
@@ -681,7 +746,7 @@ def run_train_kernel_phase(torch):
                             want, dname)
         results[("fused_swiglu_train", dname)] = dict(
             max_abs_err=err, grad_err_share=share, ms=ms, plain_ms=plain,
-            bound_ms=bnd, bound_by=by, library_ms=lib)
+            bound_ms=bnd, bound_by=by, library_ms=lib, **stages)
         del xs, ws, xr, wr, dy, got, want
         torch.cuda.empty_cache()
 
@@ -693,7 +758,9 @@ def run_train_kernel_phase(torch):
         log(f"kernel {name} [{dname}]: max_abs_err {r['max_abs_err']:.3e}"
             f"{extra}  kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} "
             f"ms  library {lib}  bound {r['bound_ms']:.5f} ms "
-            f"({r['bound_by']})")
+            f"({r['bound_by']}){stage_note(r)}")
+    log(f"rows: SwiGLU rows 0-255 of the {SWIGLU_TRAIN[0]}-token call "
+        "bit-identical to a 256-token call (float32 and bfloat16)")
     return results
 
 
@@ -982,10 +1049,18 @@ def check_no_leaks(engine) -> None:
                 f"{len(held - live)} cache pages missing")
 
 
-def report_profile(prof, wall: float, wall_profiled: float) -> None:
+# the port's tensor-core kernels, reported by the profiles even when they
+# fall out of the top ten
+TENSOR_CORE_KERNELS = ("swiglu_gemm_kernel", "chunked_prefill_mma_kernel")
+
+
+def report_profile(prof, wall: float, wall_profiled: float,
+                   swiglu_calls: int = None) -> None:
     """Device time by kernel over one serve run. ``wall`` is the
     unprofiled run's wall time: the device work is the same, so its
-    busy share there is busy / wall."""
+    busy share there is busy / wall. With ``swiglu_calls`` (the bf16
+    fused_swiglu wrapper calls the profiled run made), check that each
+    ran as the two tensor-core stages."""
     def dev_us(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
@@ -1001,6 +1076,23 @@ def report_profile(prof, wall: float, wall_profiled: float) -> None:
             break
         log(f"profile:   {dev_us(e) / 1e3:10.2f} ms {e.count:8d} calls  "
             f"{e.key[:90]}")
+    for e in events[10:]:
+        if any(k in e.key for k in TENSOR_CORE_KERNELS) and dev_us(e) > 0:
+            log(f"profile:   {dev_us(e) / 1e3:10.2f} ms {e.count:8d} calls  "
+                f"{e.key[:90]}")
+    if swiglu_calls is not None:
+        stages = sum(e.count for e in events
+                     if "swiglu_gemm_kernel" in e.key)
+        old = sum(e.count for e in events
+                  if "fused_swiglu_kernel" in e.key)
+        if stages != 2 * swiglu_calls or old:
+            raise AssertionError(
+                f"profile: {swiglu_calls} bf16 fused_swiglu calls ran "
+                f"{stages} tensor-core stage kernels and {old} CUDA-core "
+                "ones")
+        log(f"profile: {swiglu_calls} fused_swiglu calls = {stages} "
+            "tensor-core stage kernels (gate_up + down), no other kernel "
+            "under the wrapper")
 
 
 def full_width_params(torch):
@@ -1078,9 +1170,11 @@ def run_serve_phase(torch, gpu_name: str, cfg, params):
     # the rerun, under the profiler: device busy time and the kernels
     # that take it
     from torch.profiler import ProfilerActivity, profile
+    ops.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         eng2, res2, wall2 = serve()
-    report_profile(prof, wall, wall2)
+    report_profile(prof, wall, wall2,
+                   swiglu_calls=ops.launch_counts()["fused_swiglu"])
     same = (np.array_equal(res.sigma, res2.sigma)
             and np.array_equal(res.modes, res2.modes)
             and res.final_answers == res2.final_answers
@@ -1202,11 +1296,13 @@ def run_wave_phase(torch, gpu_name: str, cfg, params) -> dict:
         log(f"wave[{path}]: decode tokens/s {tokens / wall:.1f} "
             f"({tokens} decode tokens)")
         profiled = path != "stepped_int8"
+        ops.reset_launch_counts()
         with (profile(activities=[ProfilerActivity.CUDA]) if profiled
               else contextlib.nullcontext()) as prof:
             eng2, res2, wall2, _ = serve(path)
         if profiled:
-            report_profile(prof, wall, wall2)
+            report_profile(prof, wall, wall2, swiglu_calls=ops.launch_counts()
+                           ["fused_swiglu"])
         if not _same_results(res, res2):
             raise AssertionError(f"wave[{path}]: a rerun changed sigma, "
                                  "modes, answers or probe texts")
@@ -1323,12 +1419,14 @@ def run_train_phase(torch, gpu_name: str) -> dict:
         step(p2, st2, batches[0])
         torch.cuda.synchronize()
         wall_step = time.perf_counter() - t
+        ops.reset_launch_counts()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
             step(p2, st2, batches[0])
             torch.cuda.synchronize()
             wall_prof = time.perf_counter() - t
-        report_profile(prof, wall_step, wall_prof)
+        report_profile(prof, wall_step, wall_prof,
+                       swiglu_calls=ops.launch_counts()["fused_swiglu"])
         del p2, st2, batches, prof
         torch.cuda.empty_cache()
     return launches_by_path
@@ -1379,6 +1477,25 @@ def run_train_entry_phase(torch) -> dict:
     return launches
 
 
+def report_ptxas(build) -> None:
+    """ptxas's registers and spills for each kernel of the two
+    tensor-core sources (the build compiles with ``-Xptxas=-v``)."""
+    import re
+    for src in ("fused_swiglu.cu", "chunked_prefill_attention.cu"):
+        name, spills = None, ""
+        for line in build.log_path(src).read_text().splitlines():
+            m = re.search(r"Compiling entry function '\w*?([a-z_]+_kernel)"
+                          r"(I\w*?E)?", line)
+            if m:
+                name = m.group(1) + (m.group(2) or "")
+            elif name and "spill" in line:
+                spills = line.split(",", 1)[-1].strip()
+            elif name and "registers" in line:
+                regs = re.search(r"Used (\d+) registers", line).group(1)
+                log(f"ptxas: {src} {name}: {regs} registers, {spills}")
+                name = None
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1400,6 +1517,7 @@ def main() -> int:
     lib = build.build()
     build.load()
     log(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s")
+    report_ptxas(build)
 
     def phase_done(name):
         log(f"phase {name}: done {time.perf_counter() - t0:.1f} s after "
@@ -1470,7 +1588,12 @@ def main() -> int:
                 shape=list(SWIGLU_TRAIN), max_abs_err=t["max_abs_err"],
                 grad_err_share=t["grad_err_share"], ms=t["ms"],
                 plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-                bound_by=t["bound_by"], library_ms=t["library_ms"])
+                bound_by=t["bound_by"], library_ms=t["library_ms"],
+                gate_up_ms=t["gate_up_ms"], down_ms=t["down_ms"])
+            entry["gate_up_ms"] = r["gate_up_ms"]
+            entry["down_ms"] = r["down_ms"]
+            entry["note"] = ("a bf16 call is two tensor-core kernels, "
+                             "gate_up then down; ms is the pair's")
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(smi.splitlines()[0])

@@ -6,7 +6,8 @@ with ``ctypes``. Each ``.cu`` compiles to its own object in a separate
 ``nvcc`` process, all started together, and one link step joins them.
 The library lands in ``build/kernels/`` at the repository root, named by
 a hash of the sources and flags, so a process builds at most once and a
-changed source never loads a stale library.
+changed source never loads a stale library; each source's compiler
+output (ptxas's registers and spills per kernel) lands beside it.
 
 Nothing is built when this module is imported: ``load()`` builds on the
 first kernel launch.
@@ -32,9 +33,9 @@ SOURCES = ("paged_decode_attention.cu", "chunked_prefill_attention.cu",
            "fused_swiglu.cu", "decode_attention.cu",
            "decode_attention_quant.cu", "paged_decode_attention_quant.cu",
            "selective_scan.cu", "rglru_scan.cu")
-HEADERS = ("common.cuh", "decode_core.cuh")
+HEADERS = ("common.cuh", "decode_core.cuh", "hopper.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -45,7 +46,11 @@ _SIGNATURES = {
     "acar_chunked_prefill_attention":
         [_VP] * 6 + [_I] * 9 + [_VP],
     "acar_fused_swiglu":
-        [_VP] * 5 + [_I] * 4 + [_VP],
+        [_VP] * 5 + [_I] * 3 + [_VP],
+    "acar_swiglu_gate_up":
+        [_VP] * 4 + [_I] * 3 + [_VP],
+    "acar_swiglu_down":
+        [_VP] * 3 + [_I] * 3 + [_VP],
     "acar_decode_attention":
         [_VP] * 4 + [_I] * 7 + [_VP],
     "acar_decode_attention_quant":
@@ -97,6 +102,12 @@ def library_path() -> Path:
     return BUILD_DIR / f"libacar_kernels_{_digest()}.so"
 
 
+def log_path(source: str) -> Path:
+    """nvcc's output for one source of this build: ptxas's registers,
+    shared memory and spills for each kernel (``-Xptxas=-v``)."""
+    return BUILD_DIR / f"{library_path().stem}_{Path(source).stem}.log"
+
+
 def build() -> Path:
     """Compile the kernels (if this exact build is not there yet) and
     return the shared library's path. Raises with nvcc's output on a
@@ -120,6 +131,8 @@ def build() -> Path:
         out, _ = proc.communicate()
         if proc.returncode != 0:
             failed.append(f"--- nvcc {name} (exit {proc.returncode})\n{out}")
+        else:
+            log_path(name).write_text(out)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     tmp = so.with_suffix(f".{os.getpid()}.tmp")

@@ -9,7 +9,10 @@ in ``csrc/chunked_prefill_attention.cu`` (it replaces the Pallas kernel
 tensor it runs ``chunked_prefill_attention_plain``, the PyTorch port of
 the reference oracle
 ``kernels/ref.py::chunked_prefill_attention_ref``.
-``chunked_prefill_attention.launches`` counts kernel launches.
+``chunked_prefill_attention.launches`` counts kernel launches. In bf16
+the kernel runs on the tensor cores (mma.sync: q.k and p.v in bf16 with
+f32 sums, p rounded to bf16 for the second product); in f32 on the CUDA
+cores.
 """
 from __future__ import annotations
 
@@ -69,8 +72,6 @@ def chunked_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
             q, k_pages, v_pages, block_table, q_positions,
             prompt_len=prompt_len)
     name = "chunked_prefill_attention"
-    dev = build.check_cuda(name, q=q, k_pages=k_pages, v_pages=v_pages,
-                           block_table=block_table, q_positions=q_positions)
     code = build.dtype_code(q.dtype, name)
     if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
         raise TypeError(f"{name}: q, k_pages and v_pages must share a "
@@ -92,6 +93,11 @@ def chunked_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
             f"{tuple(q_positions.shape)}, prompt_len {prompt_len}")
     if d > 128:
         raise ValueError(f"{name}: the kernel takes head_dim <= 128")
+    if q.dtype == torch.bfloat16 and d != 64:
+        raise ValueError(f"{name}: the bf16 kernel takes head_dim 64, got "
+                         f"{d}")
+    dev = build.check_cuda(name, q=q, k_pages=k_pages, v_pages=v_pages,
+                           block_table=block_table, q_positions=q_positions)
     out = torch.empty_like(q)
     if b == 0 or c == 0:
         return out

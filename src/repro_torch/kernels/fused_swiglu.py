@@ -1,15 +1,21 @@
-"""Fused SwiGLU MLP: the Hopper kernel and its plain version.
+"""Fused SwiGLU MLP: the Hopper kernels and their plain versions.
 
 ``fused_swiglu`` is the wrapper the model calls (the prefill MLP,
 ``models.transformer.mlp_apply``, through ``kernels.ops``). On a CUDA
-tensor it launches the hand-written kernel in ``csrc/fused_swiglu.cu``
-(it replaces the Pallas kernel ``repro/kernels/fused_swiglu.py``) or
+tensor it launches the hand-written kernels in ``csrc/fused_swiglu.cu``
+(they replace the Pallas kernel ``repro/kernels/fused_swiglu.py``) or
 raises; on a CPU tensor it runs ``fused_swiglu_plain``, the PyTorch port
 of the reference oracle ``kernels/ref.py::fused_swiglu_ref``.
-``fused_swiglu.launches`` counts kernel launches.
+``fused_swiglu.launches`` counts wrapper calls that reached the card. A
+bf16 call is two CUDA launches, one tensor-core GEMM kernel per stage:
+``swiglu_gate_up`` (h = silu(x Wg) * (x Wu) in f32, rounded to bf16
+into a (T, F) scratch) and ``swiglu_down`` (h Wd). Each stage has its
+plain version beside it (``swiglu_gate_up_plain``,
+``swiglu_down_plain``), which rounds where the kernel and the Pallas
+kernel round. An f32 call is one launch of the CUDA-core kernel.
 
-The plain version rounds silu(x Wg) to x's dtype before multiplying by
-x Wu, as the oracle does; the kernel multiplies in f32, as the Pallas
+``fused_swiglu_plain`` rounds silu(x Wg) to x's dtype before multiplying
+by x Wu, as the oracle does; the kernels multiply in f32, as the Pallas
 kernel does. The two agree to float32 rounding in f32 and differ by
 bf16 rounding in bf16.
 
@@ -38,6 +44,21 @@ def fused_swiglu_plain(x: torch.Tensor, w_gate: torch.Tensor,
     u = torch.matmul(x, w_up)
     h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
     return torch.matmul(h, w_down)
+
+
+def swiglu_gate_up_plain(x: torch.Tensor, w_gate: torch.Tensor,
+                         w_up: torch.Tensor) -> torch.Tensor:
+    """Stage 1 of the kernels: h = silu(x Wg) * (x Wu), both products
+    and the multiply in f32, h rounded once to x's dtype. (T, F)."""
+    g = torch.matmul(x.float(), w_gate.float())
+    u = torch.matmul(x.float(), w_up.float())
+    return (torch.nn.functional.silu(g) * u).to(x.dtype)
+
+
+def swiglu_down_plain(h: torch.Tensor, w_down: torch.Tensor) -> torch.Tensor:
+    """Stage 2 of the kernels: h Wd summed in f32, rounded once to h's
+    dtype. (T, D)."""
+    return torch.matmul(h.float(), w_down.float()).to(h.dtype)
 
 
 def fused_swiglu_bwd(x: torch.Tensor, w_gate: torch.Tensor,
@@ -84,12 +105,11 @@ def fused_swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     return _FusedSwiGLU.apply(x, w_gate, w_up, w_down)
 
 
-def _launch(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-            w_down: torch.Tensor) -> torch.Tensor:
-    name = "fused_swiglu"
-    dev = build.check_cuda(name, x=x, w_gate=w_gate, w_up=w_up,
-                           w_down=w_down)
-    code = build.dtype_code(x.dtype, name)
+def _check_shapes(name: str, x: torch.Tensor, w_gate: torch.Tensor,
+                  w_up: torch.Tensor, w_down: torch.Tensor) -> None:
+    """The shapes and dtypes the kernels take, checked before the
+    device."""
+    build.dtype_code(x.dtype, name)
     if any(w.dtype != x.dtype for w in (w_gate, w_up, w_down)):
         raise TypeError(f"{name}: x and the weights must share a dtype")
     t, d = x.shape
@@ -100,17 +120,74 @@ def _launch(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
             f"{name}: shapes x {tuple(x.shape)}, w_gate "
             f"{tuple(w_gate.shape)}, w_up {tuple(w_up.shape)}, w_down "
             f"{tuple(w_down.shape)}")
-    if d > 4096:
-        raise ValueError(f"{name}: the kernel takes d_model <= 4096")
-    out = torch.empty_like(x)
-    if t == 0:
-        return out
+    if x.dtype == torch.bfloat16:
+        if d % 8 or f % 8:
+            raise ValueError(
+                f"{name}: the bf16 kernels take d_model and d_ff that are "
+                f"multiples of 8 (TMA's 16-byte rows), got {d} and {f}")
+    elif d > 4096:
+        raise ValueError(f"{name}: the f32 kernel takes d_model <= 4096")
+
+
+def _check_aligned(name: str, *tensors: torch.Tensor) -> None:
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: TMA needs 16-byte-aligned tensors")
+
+
+def _launch_gate_up(x: torch.Tensor, w_gate: torch.Tensor,
+                    w_up: torch.Tensor) -> torch.Tensor:
+    """Stage 1 on the card (bf16): h (T, F). Counts no launch."""
+    name = "swiglu_gate_up"
+    dev = build.check_cuda(name, x=x, w_gate=w_gate, w_up=w_up)
+    t, d = x.shape
+    f = w_gate.shape[1]
+    h = torch.empty((t, f), dtype=x.dtype, device=dev)
+    _check_aligned(name, x, w_gate, w_up, h)
     with torch.cuda.device(dev):
-        err = build.load().acar_fused_swiglu(
-            x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
-            w_down.data_ptr(), out.data_ptr(), t, d, f, code,
+        err = build.load().acar_swiglu_gate_up(
+            x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), h.data_ptr(),
+            t, d, f, build.stream_handle(dev))
+    build.check(err, name)
+    return h
+
+
+def _launch_down(h: torch.Tensor, w_down: torch.Tensor) -> torch.Tensor:
+    """Stage 2 on the card (bf16): h Wd (T, D). Counts no launch."""
+    name = "swiglu_down"
+    dev = build.check_cuda(name, h=h, w_down=w_down)
+    t, f = h.shape
+    d = w_down.shape[1]
+    out = torch.empty((t, d), dtype=h.dtype, device=dev)
+    _check_aligned(name, h, w_down, out)
+    with torch.cuda.device(dev):
+        err = build.load().acar_swiglu_down(
+            h.data_ptr(), w_down.data_ptr(), out.data_ptr(), t, d, f,
             build.stream_handle(dev))
     build.check(err, name)
+    return out
+
+
+def _launch(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+            w_down: torch.Tensor) -> torch.Tensor:
+    name = "fused_swiglu"
+    _check_shapes(name, x, w_gate, w_up, w_down)
+    dev = build.check_cuda(name, x=x, w_gate=w_gate, w_up=w_up,
+                           w_down=w_down)
+    t, d = x.shape
+    f = w_gate.shape[1]
+    if t == 0:
+        return torch.empty_like(x)
+    if x.dtype == torch.bfloat16:
+        out = _launch_down(_launch_gate_up(x, w_gate, w_up), w_down)
+    else:
+        out = torch.empty_like(x)
+        with torch.cuda.device(dev):
+            err = build.load().acar_fused_swiglu(
+                x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
+                w_down.data_ptr(), out.data_ptr(), t, d, f,
+                build.stream_handle(dev))
+        build.check(err, name)
     fused_swiglu.launches += 1
     return out
 
