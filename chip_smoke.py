@@ -23,7 +23,14 @@ Phases (each raises on failure, and the script then exits non-zero):
    depend on the rows beside it (SwiGLU rows 0-7 of the 256-token call
    against an 8-token call, and rows 0-255 of the 4096-token call at
    recurrentgemma-2b's width against a 256-token call; prefill chunk
-   positions 0-7 of the 32-position chunk against an 8-position chunk);
+   positions 0-7 of the 32-position chunk against an 8-position chunk;
+   paged-decode rows 0-7 alone and beside a row of 2,048, and every row
+   with NaN in its stale slots and with spare table slots; dense-cache
+   decode rows 0-7 alone and every row in a 2,048-position cache); check
+   the wrappers' ``split_ranges`` against the kernels' own key ranges;
+   and check and time the paged and dense-cache decodes at smollm-135m's
+   2,048-token context too (there also within 1% of the largest
+   output), from a cold L2;
 4. reference — a reduced float32 model on the card agrees with the same
    calls on the CPU, where every kernel runs its plain version: chunked
    prefill and a paged decode step; one-shot prefill and decode steps
@@ -56,10 +63,11 @@ with its gradient), and phase 4 a train step of each reduced f32 family
 on the card against the CPU, every gradient leaf included.
 
 The build prints ptxas's registers and spills for the two tensor-core
-kernel sources, and the serve and train profiles count the SwiGLU's
-tensor-core kernels: two for every bf16 wrapper call. It prints one
-JSON line describing the kernels, the ``nvidia-smi`` line, and last
-``{"ok": true, "device": {...}}``.
+kernel sources and the two split-KV decodes, and the serve and train
+profiles count the SwiGLU's tensor-core kernels (two for every bf16
+wrapper call) and the decodes' (one for every wrapper call).
+It prints one JSON line describing the kernels, the ``nvidia-smi``
+line, and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -116,13 +124,15 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(torch, fn, n: int = TIMED_LAUNCHES, warmup: int = 5) -> float:
+def time_ms(torch, fn, n: int = TIMED_LAUNCHES, warmup: int = 5,
+            flush=None) -> float:
     """Median device time of ``fn`` over ``n`` calls, by CUDA events.
     A spin kernel holds the stream while the host queues all ``n``
     calls, so each event pair brackets the device work of one call and
     not the host's launch overhead (a plain version that issues
     thousands of kernels a call may outrun the spin, and then its time
-    includes the host's)."""
+    includes the host's). ``flush``, where given, runs before each call,
+    outside its events (an L2 flush: inputs read cold from HBM)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -130,6 +140,8 @@ def time_ms(torch, fn, n: int = TIMED_LAUNCHES, warmup: int = 5) -> float:
            torch.cuda.Event(enable_timing=True)) for _ in range(n)]
     torch.cuda._sleep(SPIN_CYCLES)
     for start, end in ev:
+        if flush is not None:
+            flush()
         start.record()
         fn()
         end.record()
@@ -332,22 +344,344 @@ def _gather(torch, pages, table):
     return pages[table.long()].reshape(b, nb * PAGE, KV, D)
 
 
+# ----------------------------------------------------------------------
+# phase 3, the split-KV decodes (kernels 1 and 4): the serving shape, the
+# long shape, bitwise row invariance, stale pages, other geometries
+# ----------------------------------------------------------------------
+LONG_ROWS, LONG_LEN = 32, 2048        # smollm-135m's published context
+# at the long shape outputs average 2,048 random values: about 0.04 in
+# size (0.15 at most), where TOL's bf16 2e-2 + 2e-2 is loose (one 16-key
+# tile dropped from a row moves its outputs by ~3e-3, ~1e-2 at most); so
+# there the error is also held to a share of the largest output, which
+# a one-step bf16 difference keeps under (2^-7 = 7.8e-3 of a value)
+LONG_ERR_SHARE = 1e-2
+
+
+def check_scaled(name: str, got, want, share: float = LONG_ERR_SHARE):
+    """The max abs error within ``share`` of the largest output; returns
+    the error as a share of it."""
+    scale = float(want.float().abs().max())
+    got_share = float((got.float() - want.float()).abs().max()) / max(
+        scale, 1e-30)
+    if got_share > share:
+        raise AssertionError(
+            f"{name}: max abs err {got_share:.3e} of the largest output "
+            f"{scale:.3e} (limit {share})")
+    return got_share
+
+
+def _l2_flush(torch):
+    """A call that reads 128 MB, evicting the inputs from L2."""
+    buf = torch.empty(128 << 18, device="cuda")        # 128 MB of f32
+    return lambda: buf.sum()
+
+
+def _sdpa(torch, q, kc, vc, lengths):
+    """``scaled_dot_product_attention`` over caches kc/vc (B, S, KV, D)
+    expanded to H heads, one query a row, masked past the length: the
+    yardstick for kernels 1 and 4. ``lengths`` is a (B,) tensor (kernel
+    1: one mask row per batch row, (B, 1, 1, S)) or an int (kernel 4's
+    scalar length: one mask broadcast over the batch, (1, 1, 1, S))."""
+    import torch.nn.functional as F
+    s = kc.shape[1]
+    kc = kc.repeat_interleave(H // KV, 2).transpose(1, 2)
+    vc = vc.repeat_interleave(H // KV, 2).transpose(1, 2)
+    pos = torch.arange(s, device="cuda")
+    if isinstance(lengths, int):
+        mask = (pos < lengths)[None, None, None]
+    else:
+        mask = (pos[None] < lengths[:, None])[:, None, None]
+    q4 = q[:, :, None]
+    return lambda: F.scaled_dot_product_attention(q4, kc, vc, attn_mask=mask)
+
+
+def _measure(torch, kernel, plain, library, flush=None) -> dict:
+    return dict(ms=time_ms(torch, kernel, flush=flush),
+                plain_ms=time_ms(torch, plain, flush=flush),
+                library_ms=time_ms(torch, library, flush=flush))
+
+
+def long_paged_case(torch, gen, dtype):
+    """32 rows at lengths 2,041..2,048 (smollm-135m's 2,048-token
+    context, as decode steps near its end), 256 pages each."""
+    b, nb = LONG_ROWS, LONG_LEN // PAGE
+    k_pages, v_pages = _pages(torch, gen, b * nb, dtype)
+    table = torch.randperm(b * nb, generator=gen, device="cuda").reshape(
+        b, nb).to(torch.int32).contiguous()
+    lengths = (LONG_LEN - 7 + torch.arange(b, device="cuda") % 8).to(
+        torch.int32)
+    q = torch.randn((b, H, D), generator=gen, device="cuda").to(dtype)
+    return q, k_pages, v_pages, table, lengths
+
+
+def _poison_past_lengths(torch, kp, vp, table, lengths):
+    """Copies of the pages with NaN in every slot that a row's table
+    reaches at or past its length (each page belongs to one row)."""
+    nb = table.shape[1]
+    pos = torch.arange(nb * PAGE, device="cuda")
+    stale = pos[None] >= lengths.long()[:, None]
+    pages = table.long().repeat_interleave(PAGE, dim=1)[stale]
+    slots = (pos % PAGE).expand_as(stale)[stale]
+    kp, vp = kp.clone(), vp.clone()
+    kp[pages, slots] = float("nan")
+    vp[pages, slots] = float("nan")
+    return kp, vp
+
+
+def paged_invariance(torch, gen, name, q, kp, vp, table, lengths, got):
+    """Bitwise: rows 0-7 alone; every row with NaN in the slots past the
+    lengths; every row with 4 spare table slots onto NaN pages; rows 0-7
+    beside a last row stretched to LONG_LEN over pages of its own."""
+    from repro_torch.kernels import ops
+    b, nb = table.shape
+    check_same_rows(f"{name} rows 0-7 of {b} alone", got[:8],
+                    ops.paged_decode_attention(
+                        q[:8].contiguous(), kp, vp, table[:8].contiguous(),
+                        lengths[:8].contiguous()))
+    kp, vp = _poison_past_lengths(torch, kp, vp, table, lengths)
+    check_same_rows(f"{name} with NaN in every stale slot", got,
+                    ops.paged_decode_attention(q, kp, vp, table, lengths))
+    n_pages = kp.shape[0]
+    nan = torch.full((4, PAGE, KV, D), float("nan"), dtype=kp.dtype,
+                     device="cuda")
+    kp, vp = torch.cat([kp, nan]), torch.cat([vp, nan])
+    spare = torch.arange(n_pages, n_pages + 4, dtype=torch.int32,
+                         device="cuda").expand(b, 4)
+    wide = torch.cat([table, spare], dim=1).contiguous()
+    check_same_rows(f"{name} with 4 spare table slots onto NaN pages", got,
+                    ops.paged_decode_attention(q, kp, vp, wide, lengths))
+    nb_long = LONG_LEN // PAGE
+    new_k, new_v = _pages(torch, gen, nb_long, q.dtype)
+    stretched = torch.cat([table, spare[:, :1].expand(b, nb_long - nb)],
+                          dim=1).contiguous()
+    stretched[-1] = torch.arange(n_pages + 4, n_pages + 4 + nb_long,
+                                 dtype=torch.int32, device="cuda")
+    longer = lengths.clone()
+    longer[-1] = LONG_LEN
+    out = ops.paged_decode_attention(
+        q, torch.cat([kp, new_k]), torch.cat([vp, new_v]), stretched,
+        longer)
+    check_same_rows(f"{name} rows 0-7 beside a row of {LONG_LEN} (NaN "
+                    "stale slots)", got[:8], out[:8])
+
+
+def paged_decode_checks(torch, gen, dname, q, kp, vp, table,
+                        lengths) -> dict:
+    """Kernel 1 against its plain version at the serving shape, timed
+    beside its bound and SDPA; its rows checked bit for bit; and the
+    same at the long shape (timed from a cold L2)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_decode_attention import (
+        paged_decode_attention_plain as plain)
+    tol = TOL[("attention", dname)]
+    item = q.element_size()
+    res = {}
+    for shape in ("serve", "long"):
+        if shape == "long":
+            q, kp, vp, table, lengths = long_paged_case(torch, gen, q.dtype)
+        name = f"paged_decode_attention[{dname}, {shape}]"
+        got = ops.paged_decode_attention(q, kp, vp, table, lengths)
+        want = plain(q, kp, vp, table, lengths)
+        err = check_close(name, got, want, tol)
+        if shape == "serve":
+            paged_invariance(torch, gen, name, q, kp, vp, table, lengths,
+                             got)
+        else:
+            share = check_scaled(name, got, want)
+        n_keys = unique_keys(torch, table, lengths)
+        bnd, by = bound_ms(
+            2 * q.numel() * item + 2 * n_keys * KV * D * item
+            + 4 * (table.numel() + lengths.numel()),
+            4.0 * H * D * float(lengths.sum()), dname)
+        r = dict(max_abs_err=err, bound_ms=bnd, bound_by=by, **_measure(
+            torch, lambda: ops.paged_decode_attention(
+                q, kp, vp, table, lengths),
+            lambda: plain(q, kp, vp, table, lengths),
+            _sdpa(torch, q, _gather(torch, kp, table),
+                  _gather(torch, vp, table), lengths),
+            _l2_flush(torch) if shape == "long" else None))
+        if shape == "serve":
+            res.update(r)
+        else:
+            res["long_shape"] = dict(
+                rows=LONG_ROWS, lengths=[int(lengths.min()),
+                                         int(lengths.max())],
+                err_share=share, l2="flushed before each call", **r)
+        del got, want
+    return res
+
+
+def dense_decode_checks(torch, gen, dname, q, k, v) -> dict:
+    """Kernel 4 against its plain version at the wave's shape (full and
+    a shorter length), timed beside its bound and SDPA; rows 0-7 alone
+    and every row in a cache stretched to LONG_LEN positions with NaN
+    past the length, bit for bit; and the long shape: 32 rows x 2,048
+    positions, timed from a cold L2."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_plain as plain)
+    tol = TOL[("attention", dname)]
+    item = q.element_size()
+    name = f"decode_attention[{dname}]"
+    err = 0.0
+    for length in (60, S_WAVE):                       # and a length < S
+        got = ops.decode_attention(q, k, v, length)
+        err = max(err, check_close(f"{name} length {length}", got,
+                                   plain(q, k, v, length), tol))
+    check_same_rows(f"{name} rows 0-7 of {q.shape[0]} alone", got[:8],
+                    ops.decode_attention(q[:8].contiguous(),
+                                         k[:8].contiguous(),
+                                         v[:8].contiguous(), S_WAVE))
+    nan = torch.full((q.shape[0], LONG_LEN - S_WAVE, KV, D), float("nan"),
+                     dtype=k.dtype, device="cuda")
+    check_same_rows(f"{name} in a {LONG_LEN}-position cache, NaN past "
+                    "the length", got, ops.decode_attention(
+                        q, torch.cat([k, nan], 1), torch.cat([v, nan], 1),
+                        S_WAVE))
+    del nan
+    res = {}
+    for shape in ("serve", "long"):
+        if shape == "long":
+            b, s = LONG_ROWS, LONG_LEN
+            q = torch.randn((b, H, D), generator=gen, device="cuda").to(
+                q.dtype)
+            k = torch.randn((b, s, KV, D), generator=gen, device="cuda").to(
+                q.dtype)
+            v = torch.randn((b, s, KV, D), generator=gen, device="cuda").to(
+                q.dtype)
+            got, want = ops.decode_attention(q, k, v, s), plain(q, k, v, s)
+            err = check_close(f"{name} long", got, want, tol)
+            share = check_scaled(f"{name} long", got, want)
+            del got, want
+        b, s = q.shape[0], k.shape[1]
+        bnd, by = bound_ms(2 * q.numel() * item + 2 * b * s * KV * D * item,
+                           4.0 * H * D * b * s, dname)
+        r = dict(max_abs_err=err, bound_ms=bnd, bound_by=by, **_measure(
+            torch, lambda: ops.decode_attention(q, k, v, s),
+            lambda: plain(q, k, v, s), _sdpa(torch, q, k, v, s),
+            _l2_flush(torch) if shape == "long" else None))
+        if shape == "serve":
+            res.update(r)
+        else:
+            res["long_shape"] = dict(rows=b, lengths=[s, s],
+                                     err_share=share,
+                                     l2="flushed before each call", **r)
+    return res
+
+
+def check_split_ranges() -> None:
+    """``split_ranges`` (the wrappers' mirror of the split, used by the
+    CPU tests) against the ranges the kernels compute: the library's
+    ``range_start`` from ``decode_split.cuh``, for every length up to
+    the geometry checks' longest row."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.paged_decode_attention import split_ranges
+    lib = build.load()
+    ctas = lib.acar_decode_split_ctas()
+    for length in range(4101):
+        want = [(lib.acar_decode_split_start(length, r),
+                 lib.acar_decode_split_start(length, r + 1))
+                for r in range(ctas)]
+        if split_ranges(length) != want:
+            raise AssertionError(
+                f"split_ranges({length}) = {split_ranges(length)}, the "
+                f"kernels' ranges {want}")
+    log(f"split_ranges matches the kernels' {ctas} ranges a row at every "
+        "length 0..4,100")
+
+
+def launch_floor_ms(torch) -> float:
+    """The same timing of the smallest launch there is: one fill kernel
+    on a one-element tensor. Part of every kernel time above."""
+    x = torch.empty(1, device="cuda")
+    return time_ms(torch, lambda: x.zero_())
+
+
+def log_decode_checks(results: dict) -> None:
+    for name in ("paged_decode_attention", "decode_attention"):
+        for dname in ("float32", "bfloat16"):
+            r = results[(name, dname)]["long_shape"]
+            log(f"kernel {name} [{dname}] long shape ({r['rows']} rows at "
+                f"{r['lengths'][0]}-{r['lengths'][1]} positions, cold L2): "
+                f"max_abs_err {r['max_abs_err']:.3e} = {r['err_share']:.3e} "
+                f"of the largest output  kernel {r['ms']:.4f} "
+                f"ms  plain {r['plain_ms']:.4f} ms  library "
+                f"{r['library_ms']:.4f} ms  bound {r['bound_ms']:.5f} ms "
+                f"({r['bound_by']})")
+    log("rows: paged decode rows 0-7 of 32 bit-identical alone and beside a "
+        f"row of {LONG_LEN}, every row with NaN stale slots and with spare "
+        "table slots onto NaN pages; dense-cache decode rows 0-7 of 48 "
+        f"alone and every row in a {LONG_LEN}-position cache with NaN past "
+        "the length (float32 and bfloat16)")
+
+
+# (H, KV, D): G = 8 at D 128 (the f32 tiles take more than 48 KB of
+# shared memory), G = 1 at D 42 (rows not 16-byte aligned: loads element
+# by element), G = 7 at D 16, G = 2 at D 80 (padded lanes)
+DECODE_GEOMETRIES = ((16, 2, 128), (4, 4, 42), (14, 2, 16), (6, 3, 80))
+
+
+def run_decode_geometry_checks(torch) -> None:
+    """Kernels 1 and 4 against their plain versions at other head
+    geometries, each register budget and load path of the kernels, at
+    lengths across the split's edges and past one window of page ids a
+    rank."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import decode_attention_plain
+    from repro_torch.kernels.paged_decode_attention import (
+        paged_decode_attention_plain)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    lens = (1, 17, 129, 300, 4100)   # 4,100: three windows of page ids
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        tol = TOL[("attention", dname)]
+        for h, kv, d in DECODE_GEOMETRIES:
+            b, nb = len(lens), -(-max(lens) // PAGE)
+
+            def rnd(*shape):
+                return torch.randn(shape, generator=gen,
+                                   device="cuda").to(dtype)
+            q, kp, vp = rnd(b, h, d), rnd(b * nb, PAGE, kv, d), rnd(
+                b * nb, PAGE, kv, d)
+            table = torch.randperm(b * nb, generator=gen, device="cuda").to(
+                torch.int32).reshape(b, nb).contiguous()
+            lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            check_close(f"paged_decode_attention[{dname}, H {h} KV {kv} "
+                        f"D {d}]",
+                        ops.paged_decode_attention(q, kp, vp, table,
+                                                   lengths),
+                        paged_decode_attention_plain(q, kp, vp, table,
+                                                     lengths), tol)
+            k, v = rnd(b, max(lens), kv, d), rnd(b, max(lens), kv, d)
+            for length in lens:
+                check_close(f"decode_attention[{dname}, H {h} KV {kv} D {d}"
+                            f", length {length}]",
+                            ops.decode_attention(q, k, v, length),
+                            decode_attention_plain(q, k, v, length), tol)
+    log(f"kernels 1 and 4 agree with their plain versions at (H, KV, D) in "
+        f"{list(DECODE_GEOMETRIES)}, lengths {list(lens)} (float32 and "
+        "bfloat16)")
+
+
+
 def run_kernel_phase(torch):
     import torch.nn.functional as F
     from repro_torch.kernels import ops
     from repro_torch.kernels.chunked_prefill_attention import (
         chunked_prefill_attention_plain)
-    from repro_torch.kernels.decode_attention import decode_attention_plain
     from repro_torch.kernels.decode_attention_quant import (
         decode_attention_quant_plain)
     from repro_torch.kernels.fused_swiglu import fused_swiglu_plain
-    from repro_torch.kernels.paged_decode_attention import (
-        paged_decode_attention_plain)
     from repro_torch.kernels.paged_decode_attention_quant import (
         paged_decode_attention_quant_plain)
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
+    # the decode kernels' invariance and long-shape inputs: a stream of
+    # their own, so the other kernels' inputs stay as they were
+    gen_split = torch.Generator(device="cuda")
+    gen_split.manual_seed(2)
     results = {}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
@@ -355,32 +689,8 @@ def run_kernel_phase(torch):
 
         # -- paged decode --------------------------------------------
         q, kp, vp, table, lengths = decode_case(torch, gen, dtype)
-        got = ops.paged_decode_attention(q, kp, vp, table, lengths)
-        want = paged_decode_attention_plain(q, kp, vp, table, lengths)
-        torch.cuda.synchronize()
-        err = check_close(f"paged_decode_attention[{dname}]", got, want,
-                          TOL[("attention", dname)])
-        ms = time_ms(torch, lambda: ops.paged_decode_attention(
-            q, kp, vp, table, lengths))
-        plain = time_ms(torch, lambda: paged_decode_attention_plain(
-            q, kp, vp, table, lengths))
-        s = table.shape[1] * PAGE
-        kc = _gather(torch, kp, table).repeat_interleave(H // KV, 2)
-        vc = _gather(torch, vp, table).repeat_interleave(H // KV, 2)
-        kc, vc = kc.transpose(1, 2), vc.transpose(1, 2)
-        mask = (torch.arange(s, device="cuda")[None]
-                < lengths[:, None])[:, None, None]
-        q4 = q[:, :, None]
-        lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q4, kc, vc, attn_mask=mask))
-        n_keys = unique_keys(torch, table, lengths)
-        bytes_moved = (2 * q.numel() * item + 2 * n_keys * KV * D * item
-                       + 4 * (table.numel() + lengths.numel()))
-        flops = 4.0 * H * D * float(lengths.sum())
-        bnd, by = bound_ms(bytes_moved, flops, dname)
-        results[("paged_decode_attention", dname)] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
-            bound_by=by, library_ms=lib)
+        results[("paged_decode_attention", dname)] = paged_decode_checks(
+            torch, gen_split, dname, q, kp, vp, table, lengths)
 
         # -- chunked prefill -----------------------------------------
         q, kp, vp, table, qpos = prefill_case(torch, gen, dtype)
@@ -453,29 +763,8 @@ def run_kernel_phase(torch):
 
         # -- decode over a contiguous cache --------------------------
         q, k, v = dense_cache_case(torch, gen, dtype)
-        err = 0.0
-        for length in (S_WAVE, 60):                   # and a length < S
-            got = ops.decode_attention(q, k, v, length)
-            want = decode_attention_plain(q, k, v, length)
-            torch.cuda.synchronize()
-            err = max(err, check_close(
-                f"decode_attention[{dname}, length {length}]", got, want,
-                tol))
-        ms = time_ms(torch, lambda: ops.decode_attention(q, k, v, S_WAVE))
-        plain = time_ms(torch, lambda: decode_attention_plain(
-            q, k, v, S_WAVE))
-        kc = k.repeat_interleave(H // KV, 2).transpose(1, 2)
-        vc = v.repeat_interleave(H // KV, 2).transpose(1, 2)
-        mask = (torch.arange(S_WAVE, device="cuda")
-                < S_WAVE)[None, None, None]
-        q4 = q[:, :, None]
-        lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q4, kc, vc, attn_mask=mask))
-        bnd, by = bound_ms(qo_bytes + 2 * n_keys * KV * D * item, flops,
-                           dname)
-        results[("decode_attention", dname)] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
-            bound_by=by, library_ms=lib)
+        results[("decode_attention", dname)] = dense_decode_checks(
+            torch, gen_split, dname, q, k, v)
 
         # -- decode over an int8 cache -------------------------------
         q, kc8, ks, vc8, vs = quant_cache_case(torch, gen, dtype)
@@ -555,6 +844,12 @@ def run_kernel_phase(torch):
             f"{r['bound_ms']:.5f} ms ({r['bound_by']}){stage_note(r)}")
     log("rows: SwiGLU rows 0-7 and prefill positions 0-7 bit-identical to "
         "calls without their neighbours (float32 and bfloat16)")
+    log_decode_checks(results)
+    check_split_ranges()
+    run_decode_geometry_checks(torch)
+    results[("launch_floor", "")] = launch_floor_ms(torch)
+    log(f"launch floor: a one-element fill kernel times "
+        f"{results[('launch_floor', '')]:.4f} ms")
     return results
 
 
@@ -1049,18 +1344,24 @@ def check_no_leaks(engine) -> None:
                 f"{len(held - live)} cache pages missing")
 
 
-# the port's tensor-core kernels, reported by the profiles even when they
-# fall out of the top ten
-TENSOR_CORE_KERNELS = ("swiglu_gemm_kernel", "chunked_prefill_mma_kernel")
+# the port's tensor-core and split-KV kernels, reported by the profiles
+# even when they fall out of the top ten
+REPORTED_KERNELS = ("swiglu_gemm_kernel", "chunked_prefill_mma_kernel",
+                    "paged_decode_split_kernel", "dense_decode_split_kernel")
+# wrapper -> its kernel's name: one launch per wrapper call
+SPLIT_KERNELS = {"paged_decode_attention": "paged_decode_split_kernel",
+                 "decode_attention": "dense_decode_split_kernel"}
 
 
 def report_profile(prof, wall: float, wall_profiled: float,
-                   swiglu_calls: int = None) -> None:
+                   swiglu_calls: int = None, launches: dict = None) -> None:
     """Device time by kernel over one serve run. ``wall`` is the
     unprofiled run's wall time: the device work is the same, so its
     busy share there is busy / wall. With ``swiglu_calls`` (the bf16
     fused_swiglu wrapper calls the profiled run made), check that each
-    ran as the two tensor-core stages."""
+    ran as the two tensor-core stages; with ``launches`` (the wrappers'
+    counts over the profiled run), that each call of the split-KV
+    decodes ran as exactly one kernel."""
     def dev_us(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
@@ -1077,9 +1378,21 @@ def report_profile(prof, wall: float, wall_profiled: float,
         log(f"profile:   {dev_us(e) / 1e3:10.2f} ms {e.count:8d} calls  "
             f"{e.key[:90]}")
     for e in events[10:]:
-        if any(k in e.key for k in TENSOR_CORE_KERNELS) and dev_us(e) > 0:
+        if any(k in e.key for k in REPORTED_KERNELS) and dev_us(e) > 0:
             log(f"profile:   {dev_us(e) / 1e3:10.2f} ms {e.count:8d} calls  "
                 f"{e.key[:90]}")
+    for wrapper, kernel in SPLIT_KERNELS.items():
+        if launches is None:
+            break
+        ran = sum(e.count for e in events if kernel in e.key)
+        ms = sum(dev_us(e) for e in events if kernel in e.key) / 1e3
+        if ran != launches[wrapper]:
+            raise AssertionError(
+                f"profile: {launches[wrapper]} {wrapper} calls ran {ran} "
+                f"{kernel}s")
+        if ran:
+            log(f"profile: {ran} {wrapper} calls = {ran} {kernel}s, "
+                f"{ms:.2f} ms of device time")
     if swiglu_calls is not None:
         stages = sum(e.count for e in events
                      if "swiglu_gemm_kernel" in e.key)
@@ -1174,7 +1487,8 @@ def run_serve_phase(torch, gpu_name: str, cfg, params):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         eng2, res2, wall2 = serve()
     report_profile(prof, wall, wall2,
-                   swiglu_calls=ops.launch_counts()["fused_swiglu"])
+                   swiglu_calls=ops.launch_counts()["fused_swiglu"],
+                   launches=ops.launch_counts())
     same = (np.array_equal(res.sigma, res2.sigma)
             and np.array_equal(res.modes, res2.modes)
             and res.final_answers == res2.final_answers
@@ -1302,7 +1616,7 @@ def run_wave_phase(torch, gpu_name: str, cfg, params) -> dict:
             eng2, res2, wall2, _ = serve(path)
         if profiled:
             report_profile(prof, wall, wall2, swiglu_calls=ops.launch_counts()
-                           ["fused_swiglu"])
+                           ["fused_swiglu"], launches=ops.launch_counts())
         if not _same_results(res, res2):
             raise AssertionError(f"wave[{path}]: a rerun changed sigma, "
                                  "modes, answers or probe texts")
@@ -1479,9 +1793,11 @@ def run_train_entry_phase(torch) -> dict:
 
 def report_ptxas(build) -> None:
     """ptxas's registers and spills for each kernel of the two
-    tensor-core sources (the build compiles with ``-Xptxas=-v``)."""
+    tensor-core sources and the two split-KV decodes (the build compiles
+    with ``-Xptxas=-v``)."""
     import re
-    for src in ("fused_swiglu.cu", "chunked_prefill_attention.cu"):
+    for src in ("fused_swiglu.cu", "chunked_prefill_attention.cu",
+                "paged_decode_attention.cu", "decode_attention.cu"):
         name, spills = None, ""
         for line in build.log_path(src).read_text().splitlines():
             m = re.search(r"Compiling entry function '\w*?([a-z_]+_kernel)"
@@ -1594,8 +1910,11 @@ def main() -> int:
             entry["down_ms"] = r["down_ms"]
             entry["note"] = ("a bf16 call is two tensor-core kernels, "
                              "gate_up then down; ms is the pair's")
+        if "long_shape" in r:
+            entry["long_shape"] = r["long_shape"]
         kernels.append(entry)
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels,
+                      "launch_floor_ms": results[("launch_floor", "")]}))
     print(smi.splitlines()[0])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": gpu_name,

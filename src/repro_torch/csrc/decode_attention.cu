@@ -14,51 +14,62 @@
 // and value of its row once and does 4*D flops per key and query head, far
 // below the card's ~295 flop/byte ridge; at serving shapes (a few dozen
 // rows, a hundred-odd positions) the call moves a few megabytes at most, so
-// launch latency and the per-tile barriers dominate.
+// latency bounds it: the launch, the K/V round trip and the combine.
 //
-// Design: decode_core.cuh's loop, one CTA per (row, kv head) with all G
-// query heads, over 32-key tiles read straight from the row's cache. Any S
-// works (no padding to a block grid): the last tile is masked by length, and
-// positions at or past length are never read. Split-KV and TMA loads are
-// later work.
-#include "decode_core.cuh"
+// Design: decode_split.cuh's loop, one launch of a grid (kSplit, KV, B) in
+// clusters of kSplit CTAs, each cluster one (row, kv head) with all G query
+// heads, its ranks splitting [0, length) by the length alone and combining
+// over distributed shared memory in rank order. Any S works (no padding to
+// a block grid); positions at or past length are never read. Left for
+// later: TMA tile loads, and more rows per CTA at short lengths.
+#include "decode_split.cuh"
 
 namespace {
 
-using acar::decode::kMaxD;
-using acar::decode::kMaxG;
-using acar::decode::kThreads;
+using acar::split::kSplit;
+using acar::split::kThreads;
 
 template <typename T>
-struct CacheLoader {
+struct CacheRows {
+  static constexpr bool kPaged = false;
   const T* k;  // this (row, kv head)'s position 0
   const T* v;
-  int stride;  // elements between consecutive positions (KV * D)
-  __device__ __forceinline__ void load(int pos, int d, float& kf,
-                                       float& vf) const {
-    const size_t off = (size_t)pos * stride + d;
-    kf = acar::to_f32(k[off]);
-    vf = acar::to_f32(v[off]);
-  }
-  __device__ __forceinline__ void scales(int, float& ks, float& vs) const {
-    ks = 1.f;
-    vs = 1.f;
-  }
+  long long stride;  // elements between consecutive positions (KV * D)
 };
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    decode_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
-                  const T* __restrict__ v_cache, T* __restrict__ out, int S,
-                  int KV, int G, int D, int length, float scale) {
-  __shared__ acar::decode::Smem sm;
-  const int b = blockIdx.x;
-  const int kv = blockIdx.y;
+template <typename T, int G>
+__global__ void __cluster_dims__(kSplit, 1, 1) __launch_bounds__(kThreads)
+    dense_decode_split_kernel(const T* __restrict__ q,
+                              const T* __restrict__ k_cache,
+                              const T* __restrict__ v_cache,
+                              T* __restrict__ out, int S, int KV, int D,
+                              int length, float scale, bool vec16) {
+  const int kv = blockIdx.y, b = blockIdx.z;
   const size_t row = ((size_t)b * S * KV + kv) * D;
-  const CacheLoader<T> ld{k_cache + row, v_cache + row, KV * D};
-  const size_t head0 = ((size_t)b * KV * G + kv * G) * D;
-  acar::decode::attend(sm, q + head0, out + head0, G, D, length, scale, ld);
+  const CacheRows<T> ld{k_cache + row, v_cache + row, (long long)KV * D};
+  const size_t head0 = ((size_t)b * KV + kv) * G * D;
+  acar::split::attend<T, G>(q + head0, out + head0, D, length, scale, vec16,
+                            ld);
 }
+
+template <typename T, int G>
+struct Launch {
+  static cudaError_t run(const void* q, const void* k_cache,
+                         const void* v_cache, void* out, int B, int S,
+                         int KV, int D, int length, float scale, bool vec16,
+                         cudaStream_t st) {
+    const int bytes = acar::split::Layout<T>(G, D, false).total;
+    const cudaError_t err = acar::split::reserve_smem(
+        dense_decode_split_kernel<T, G>, bytes);
+    if (err != cudaSuccess) return err;
+    dense_decode_split_kernel<T, G><<<dim3(kSplit, KV, B), kThreads, bytes,
+                                      st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k_cache),
+        static_cast<const T*>(v_cache), static_cast<T*>(out), S, KV, D,
+        length, scale, vec16);
+    return cudaGetLastError();
+  }
+};
 
 }  // namespace
 
@@ -67,22 +78,19 @@ extern "C" int acar_decode_attention(const void* q, const void* k_cache,
                                      int H, int KV, int D, int S, int length,
                                      int dtype, void* stream) {
   const int G = H / KV;
-  if (G > kMaxG || D > kMaxD || H % KV != 0 || length < 0 || length > S)
+  if (G > acar::split::kMaxG || D > acar::split::kMaxD || H % KV != 0 ||
+      length < 0 || length > S || B > 65535 || KV > 65535)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(B, KV);
-  const float scale = 1.0f / sqrtf((float)D);
+  const float scale = 1.4426950408889634f / sqrtf((float)D);  // log2(e)
+  const size_t item = dtype == acar::kBF16 ? 2 : 4;
+  const bool vec16 =
+      (D * item) % 16 == 0 &&
+      ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k_cache) |
+        reinterpret_cast<uintptr_t>(v_cache)) % 16) == 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == acar::kBF16) {
-    using T = __nv_bfloat16;
-    decode_kernel<T><<<grid, kThreads, 0, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k_cache),
-        static_cast<const T*>(v_cache), static_cast<T*>(out), S, KV, G, D,
-        length, scale);
-  } else {
-    decode_kernel<float><<<grid, kThreads, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k_cache),
-        static_cast<const float*>(v_cache), static_cast<float*>(out), S, KV,
-        G, D, length, scale);
-  }
-  return (int)cudaGetLastError();
+  if (dtype == acar::kBF16)
+    return (int)acar::split::dispatch_g<Launch, __nv_bfloat16>(
+        G, q, k_cache, v_cache, out, B, S, KV, D, length, scale, vec16, st);
+  return (int)acar::split::dispatch_g<Launch, float>(
+      G, q, k_cache, v_cache, out, B, S, KV, D, length, scale, vec16, st);
 }

@@ -1,6 +1,7 @@
-// The single-token GQA decode loop shared by the dense-cache, int8-cache
-// and int8-page decode kernels (decode_attention.cu,
-// decode_attention_quant.cu, paged_decode_attention_quant.cu).
+// The single-token GQA decode loop shared by the int8-cache and int8-page
+// decode kernels (decode_attention_quant.cu,
+// paged_decode_attention_quant.cu). The bf16/f32 paged and dense-cache
+// decodes run the split-KV cluster loop of decode_split.cuh instead.
 //
 // One CTA serves one (row, kv head) and carries all G query heads of that
 // kv head, so each cached key and value is read from device memory once and
@@ -11,9 +12,9 @@
 //   scores_s = (q . k_s) * k_scale_s
 //   out      = sum_s (p_s * v_scale_s) * v_s / sum_s p_s
 //
-// which is plain attention for a dense cache (both scales 1, and x * 1.0f
-// is exact) and the folded-scale int8 attention of the reference's
-// decode_attention_quant for code caches. The online-softmax state (m, l,
+// which is the folded-scale int8 attention of the reference's
+// decode_attention_quant (a Loader with both scales 1 would give plain
+// attention: x * 1.0f is exact). The online-softmax state (m, l,
 // acc) stays in shared memory in float32; the key sum runs in one fixed
 // order with no atomics and no split across CTAs, so a row's result does
 // not depend on the batch. It finishes with acc / max(l, 1e-30), as the

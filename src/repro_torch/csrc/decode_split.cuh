@@ -1,0 +1,470 @@
+// The split-KV single-token GQA decode shared by the paged decode
+// (paged_decode_attention.cu) and the dense-cache decode
+// (decode_attention.cu), for Hopper (sm_90a).
+//
+// Computes, for the G query heads h = kv * G + g of one (row, kv head):
+//   out[h] = softmax_s(q[h] . k[s] / sqrt(D)) @ v[s]    over s < len
+// with an f32 online softmax (in base 2: log2(e) is folded into q's scale),
+// finished as acc / max(l, 1e-30), as the Pallas kernels do. A Loader gives the key row of a position (D contiguous
+// elements; the value row sits at the same offset of v): through the block
+// table (paged) or at a fixed stride (a contiguous cache).
+//
+// One launch, one cluster of kSplit CTAs per (row, kv head):
+// - Key ranges. Rank r of the cluster takes the positions
+//   [r * chunk, (r + 1) * chunk) clipped to len, chunk = ceil(len / kSplit)
+//   rounded up to kGran. The ranges depend on the row's own length and on
+//   constants only (never on the batch, the block table's width or the
+//   longest row), so a row's bits do not depend on its neighbours. A rank
+//   whose range is empty contributes m = -inf, l = 0. The kernels' Python
+//   wrappers mirror this arithmetic as split_ranges(); the library exports
+//   range_start() itself (paged_decode_attention.cu) to check them.
+// - Inside a CTA. q and tiles of kTile keys go to shared memory by 16-byte
+//   cp.async, kStages tiles in flight, one barrier a tile; one lane per key
+//   computes a tile's row offsets kStages tiles ahead. A paged Loader
+//   copies the page ids of a window of kWin positions once per page (4-byte
+//   cp.async), the next window's in flight with the current one's tiles.
+//   Each lane holds 16 bytes of a key row (kVec elements) and the matching
+//   slice of q, prescaled, in registers for all G heads; lpk lanes (a power
+//   of two) cover a row, so a warp scores 32 / lpk keys at once, each dot
+//   product reduced by a fixed xor-shuffle butterfly. The running max is
+//   one per warp (a shuffle max over the keys of each step), so the lanes'
+//   sums l and acc share it and add up across the warp at the end with no
+//   exponentials; warps merge through shared memory in warp order. There
+//   is no serial phase on a few threads.
+// - Cluster combine. Each rank stores its (m, l, acc[G][D]) into rank 0's
+//   shared memory over distributed shared memory and arrives on an
+//   mbarrier there; rank 0 waits for all kSplit ranks, merges the partials
+//   in rank order 0..kSplit-1 and writes the G * D outputs. A cluster
+//   barrier arrived at the start and waited before the first remote store
+//   makes sure rank 0's mbarrier is initialised and every CTA has started.
+//   No atomics on data, no workspace in device memory, no second kernel.
+//
+// Tensor cores are not the lever: with a few query heads per kv head an
+// mma tile would be mostly empty, and the bound is bytes and latency.
+#pragma once
+
+#include "common.cuh"
+#include "hopper.cuh"
+
+#include <cooperative_groups.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace acar {
+namespace split {
+
+constexpr int kSplit = 8;    // CTAs per cluster: key ranges of a (row, kv)
+constexpr int kGran = 16;    // a range's length is a multiple of this
+constexpr int kWarps = 2;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kTile = 16;    // keys per pipeline stage
+constexpr int kStages = 3;   // tiles in shared memory; kStages - 1 in flight
+constexpr int kWin = 256;    // positions per window of page ids
+constexpr int kMaxD = 128;
+constexpr int kMaxG = 8;
+
+// the length of every non-final range of a row of len positions
+__host__ __device__ __forceinline__ int chunk_len(int len) {
+  return ((len + kSplit - 1) / kSplit + kGran - 1) / kGran * kGran;
+}
+
+// the first position of rank r's range (r = kSplit gives len): rank r
+// takes [range_start(len, r), range_start(len, r + 1)); len >= 0
+__host__ __device__ __forceinline__ int range_start(int len, int r) {
+  const int s = r * chunk_len(len);
+  return s < len ? s : len;
+}
+
+// lanes per key row: 16 bytes a lane, rounded up to a power of two
+template <typename T>
+__host__ __device__ __forceinline__ int lanes_per_key(int D) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int chunks = (D + kVec - 1) / kVec;
+  int lpk = 1;
+  while (lpk < chunks) lpk *= 2;
+  return lpk;
+}
+
+// Dynamic shared memory of one CTA, in bytes from its start:
+//   [0, kv)         K and V tiles, kStages each, rows padded to lpk * kVec
+//                   elements (after the key loop: the warps' partials)
+//   [kv, inbox)     q, G * D elements
+//   [inbox, pid)    rank 0's inbox: kSplit partials of G * D + 2 * G floats
+//   [pid, total)    paged: two windows of page ids
+template <typename T>
+struct Layout {
+  int dp, kv, inbox, pid, total;
+  __host__ __device__ Layout(int G, int D, bool paged) {
+    dp = lanes_per_key<T>(D) * (16 / (int)sizeof(T));
+    kv = 2 * kStages * kTile * dp * (int)sizeof(T);
+    inbox = kv + (G * D * (int)sizeof(T) + 15) / 16 * 16;
+    pid = inbox + kSplit * (G * D + 2 * G) * 4;
+    total = pid + (paged ? 2 * (kWin + 1) * 4 : 0);
+  }
+};
+
+__device__ __forceinline__ float merge_scale(float m, float m_new) {
+  return m == -INFINITY ? 0.f : exp2f(m - m_new);
+}
+
+template <typename T>
+__device__ __forceinline__ void unpack(const uint4& raw, float* f);
+template <>
+__device__ __forceinline__ void unpack<float>(const uint4& raw, float* f) {
+  f[0] = __uint_as_float(raw.x);
+  f[1] = __uint_as_float(raw.y);
+  f[2] = __uint_as_float(raw.z);
+  f[3] = __uint_as_float(raw.w);
+}
+template <>
+__device__ __forceinline__ void unpack<__nv_bfloat16>(const uint4& raw,
+                                                      float* f) {
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// q and out point at the G query heads of this (row, kv head): G * D
+// values each; scale is log2(e) / sqrt(D), so that scores are in base 2
+// and every exponential is one exp2f. vec16: rows and q are 16-byte aligned (D * sizeof(T) % 16
+// == 0, aligned bases), so they load by cp.async; otherwise element by
+// element. Loader: pointers k, v (this kv head's row 0), stride (elements
+// from one row to the next) and, where kPaged, bt (the row's block table)
+// and page_size.
+template <typename T, int G, typename Loader>
+__device__ __forceinline__ void attend(const T* __restrict__ q,
+                                       T* __restrict__ out, int D, int len,
+                                       float scale, bool vec16,
+                                       const Loader& ld) {
+  namespace cg = cooperative_groups;
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr bool kPaged = Loader::kPaged;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ uint64_t inbox_full;  // rank 0's: every thread has delivered
+  __shared__ long long roff[kStages][kTile];  // tile u's rows: roff[u % S]
+
+  const int rank = (int)cg::this_cluster().block_rank();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const Layout<T> lay(G, D, kPaged);
+  const int lpk = lanes_per_key<T>(D), dp = lay.dp, kpw = 32 / lpk;
+  const int kg = lane / lpk, j = lane % lpk;
+  T* kbuf = reinterpret_cast<T*>(smem);  // [kStages][kTile][dp]
+  T* vbuf = kbuf + kStages * kTile * dp;
+  T* qs = reinterpret_cast<T*>(smem + lay.kv);
+  float* inbox = reinterpret_cast<float*>(smem + lay.inbox);
+  int* pid = reinterpret_cast<int*>(smem + lay.pid);  // [2][kWin + 1]
+
+  if (rank == 0 && tid == 0) {
+    hopper::mbar_init(&inbox_full, kSplit * kThreads);
+    hopper::mbar_init_fence();
+  }
+  hopper::cluster_arrive_relaxed();
+
+  len = max(len, 0);
+  const int lo = range_start(len, rank);
+  const int n = range_start(len, rank + 1) - lo;
+  const int ntiles = (n + kTile - 1) / kTile;
+
+  float qr[G][kVec], acc[G][kVec], m[G], l[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) acc[g][e] = 0.f;
+    m[g] = -INFINITY;
+    l[g] = 0.f;
+  }
+
+  // the page ids of window w: pages [first, last] of positions
+  // [lo + w * kWin, lo + (w + 1) * kWin) below lo + n
+  auto issue_pids = [&](int w) {
+    if constexpr (kPaged) {
+      const int p0 = lo + w * kWin;
+      const int first = p0 / ld.page_size;
+      const int last = (min(p0 + kWin, lo + n) - 1) / ld.page_size;
+      int* dst = pid + (w & 1) * (kWin + 1);
+      for (int i = tid; i <= last - first; i += kThreads)
+        hopper::cp_async4(dst + i, ld.bt + first + i);
+    }
+  };
+  // the element offset of position pos's row, pos in tile t
+  auto row_offset = [&](int pos, int t) -> long long {
+    if constexpr (kPaged) {
+      const int w = t * kTile / kWin;
+      const int first = (lo + w * kWin) / ld.page_size;
+      const int pg = pos / ld.page_size;
+      const int page = pid[(w & 1) * (kWin + 1) + pg - first];
+      return ((long long)page * ld.page_size + (pos - pg * ld.page_size)) *
+             ld.stride;
+    } else {
+      return (long long)pos * ld.stride;
+    }
+  };
+  // one lane per key computes the rows of tile u
+  auto tile_rows = [&](int u) {
+    const int pos = lo + u * kTile + tid;
+    if (u < ntiles && tid < kTile)
+      roff[u % kStages][tid] = pos < lo + n ? row_offset(pos, u) : 0;
+  };
+  const int cpk = D / kVec;  // 16-byte chunks per row (vec16)
+  auto issue_tile = [&](int t) {
+    if (t >= ntiles) return;
+    if constexpr (kPaged) {
+      constexpr int kTilesPerWin = kWin / kTile;
+      if (t % kTilesPerWin == 0 && (t / kTilesPerWin + 1) * kWin < n)
+        issue_pids(t / kTilesPerWin + 1);
+    }
+    const int st = t % kStages;
+    const int nk = min(kTile, n - t * kTile);
+    T* kd = kbuf + st * kTile * dp;
+    T* vd = vbuf + st * kTile * dp;
+    if (vec16) {
+      for (int c = tid; c < nk * cpk; c += kThreads) {
+        const int key = c / cpk, col = (c - key * cpk) * kVec;
+        const long long off = roff[st][key] + col;
+        hopper::cp_async16(kd + key * dp + col, ld.k + off, 16);
+        hopper::cp_async16(vd + key * dp + col, ld.v + off, 16);
+      }
+    } else {
+      for (int c = tid; c < nk * D; c += kThreads) {
+        const int key = c / D, d = c - key * D;
+        const long long off = roff[st][key] + d;
+        kd[key * dp + d] = ld.k[off];
+        vd[key * dp + d] = ld.v[off];
+      }
+    }
+  };
+
+  if (ntiles > 0) {
+    // pad columns [D, dp) are never loaded: zero them so that q's zero
+    // pad meets finite values
+    const int pad = dp - D;
+    for (int i = tid; i < 2 * kStages * kTile * pad; i += kThreads)
+      kbuf[(i / pad) * dp + D + i % pad] = from_f32<T>(0.f);
+    if (vec16) {
+      for (int c = tid; c < G * cpk; c += kThreads)
+        hopper::cp_async16(qs + c * kVec, q + c * kVec, 16);
+    } else {
+      for (int i = tid; i < G * D; i += kThreads) qs[i] = q[i];
+    }
+    if constexpr (kPaged) {
+      issue_pids(0);
+      hopper::cp_async_commit();
+      hopper::cp_async_wait<0>();
+      __syncthreads();
+    }
+#pragma unroll
+    for (int u = 0; u < kStages; ++u) tile_rows(u);
+    __syncthreads();
+#pragma unroll
+    for (int s = 0; s < kStages - 1; ++s) {
+      issue_tile(s);
+      hopper::cp_async_commit();
+    }
+
+    for (int t = 0; t < ntiles; ++t) {
+      hopper::cp_async_wait<kStages - 2>();
+      __syncthreads();  // tile t is in; tile t - 1's stage is free
+      issue_tile(t + kStages - 1);
+      hopper::cp_async_commit();
+      tile_rows(t + kStages);  // into tile t's slot, issued long ago
+      if (t == 0) {
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          float f[kVec];
+          if (j * kVec < D) {
+            if (vec16) {
+              unpack<T>(*reinterpret_cast<const uint4*>(qs + g * D +
+                                                        j * kVec),
+                        f);
+            } else {
+#pragma unroll
+              for (int e = 0; e < kVec; ++e)
+                f[e] = j * kVec + e < D ? to_f32(qs[g * D + j * kVec + e])
+                                        : 0.f;
+            }
+          } else {
+#pragma unroll
+            for (int e = 0; e < kVec; ++e) f[e] = 0.f;
+          }
+#pragma unroll
+          for (int e = 0; e < kVec; ++e) qr[g][e] = f[e] * scale;
+        }
+      }
+
+      const T* ks = kbuf + (t % kStages) * kTile * dp;
+      const T* vs = vbuf + (t % kStages) * kTile * dp;
+      const int nk = min(kTile, n - t * kTile);
+      for (int k0 = warp * kpw; k0 < nk; k0 += kWarps * kpw) {
+        const int key = k0 + kg;
+        const bool valid = key < nk;
+        float kf[kVec], s[G], mx[G];
+        uint4 raw = make_uint4(0, 0, 0, 0);
+        if (valid)
+          raw = *reinterpret_cast<const uint4*>(ks + key * dp + j * kVec);
+        unpack<T>(raw, kf);
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          float a = 0.f;
+#pragma unroll
+          for (int e = 0; e < kVec; ++e) a = fmaf(qr[g][e], kf[e], a);
+          s[g] = a;
+        }
+        for (int off = lpk / 2; off > 0; off >>= 1) {
+#pragma unroll
+          for (int g = 0; g < G; ++g)
+            s[g] += __shfl_xor_sync(0xffffffffu, s[g], off);
+        }
+        // the warp's max over this step's keys
+#pragma unroll
+        for (int g = 0; g < G; ++g) mx[g] = valid ? s[g] : -INFINITY;
+        for (int off = lpk; off < 32; off <<= 1) {
+#pragma unroll
+          for (int g = 0; g < G; ++g)
+            mx[g] = fmaxf(mx[g], __shfl_xor_sync(0xffffffffu, mx[g], off));
+        }
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          if (mx[g] > m[g]) {  // warp-uniform: rescale when the max moves
+            const float a = merge_scale(m[g], mx[g]);
+            l[g] *= a;
+#pragma unroll
+            for (int e = 0; e < kVec; ++e) acc[g][e] *= a;
+            m[g] = mx[g];
+          }
+        }
+        if (valid) {
+          float vf[kVec];
+          unpack<T>(*reinterpret_cast<const uint4*>(vs + key * dp + j * kVec),
+                    vf);
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            const float p = exp2f(s[g] - m[g]);
+            l[g] += p;
+#pragma unroll
+            for (int e = 0; e < kVec; ++e)
+              acc[g][e] = fmaf(p, vf[e], acc[g][e]);
+          }
+        }
+      }
+    }
+    hopper::cp_async_wait<0>();
+  }
+
+  // the warp's key groups add up into lanes 0..lpk-1 in a fixed order (one
+  // max for the warp: no rescaling)
+  for (int off = 16; off >= lpk; off >>= 1) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      l[g] += __shfl_down_sync(0xffffffffu, l[g], off);
+#pragma unroll
+      for (int e = 0; e < kVec; ++e)
+        acc[g][e] += __shfl_down_sync(0xffffffffu, acc[g][e], off);
+    }
+  }
+  // the warps' partials, over the free K/V tiles: [kWarps][G * D + 2 * G]
+  __syncthreads();
+  float* wpart = reinterpret_cast<float*>(smem);
+  const int psize = G * D + 2 * G;
+  if (lane < lpk) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        const int d = lane * kVec + e;
+        if (d < D) wpart[warp * psize + g * D + d] = acc[g][e];
+      }
+      if (lane == 0) {
+        wpart[warp * psize + G * D + g] = m[g];
+        wpart[warp * psize + G * D + G + g] = l[g];
+      }
+    }
+  }
+  __syncthreads();
+
+  // this CTA's partial, merged over its warps in warp order, into rank
+  // 0's inbox
+  hopper::cluster_wait();
+  const uint32_t dst = hopper::cluster_map(inbox + rank * psize, 0);
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    float mw[kWarps], c[kWarps], mx = -INFINITY, lsum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      mw[w] = wpart[w * psize + G * D + g];
+      mx = fmaxf(mx, mw[w]);
+    }
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      c[w] = merge_scale(mw[w], mx);
+      lsum = fmaf(wpart[w * psize + G * D + G + g], c[w], lsum);
+    }
+    for (int d = tid; d < D; d += kThreads) {
+      float a = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w)
+        a = fmaf(wpart[w * psize + g * D + d], c[w], a);
+      hopper::st_cluster(dst + 4 * (g * D + d), a);
+    }
+    if (tid == 0) {
+      hopper::st_cluster(dst + 4 * (G * D + g), mx);
+      hopper::st_cluster(dst + 4 * (G * D + G + g), lsum);
+    }
+  }
+  hopper::mbar_arrive_cluster(hopper::cluster_map(&inbox_full, 0));
+  if (rank != 0) return;
+
+  // rank 0: every rank's partial, merged in rank order
+  hopper::mbar_wait_cluster(&inbox_full, 0);
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    float mr[kSplit], c[kSplit], mx = -INFINITY, lsum = 0.f;
+#pragma unroll
+    for (int r = 0; r < kSplit; ++r) {
+      mr[r] = inbox[r * psize + G * D + g];
+      mx = fmaxf(mx, mr[r]);
+    }
+#pragma unroll
+    for (int r = 0; r < kSplit; ++r) {
+      c[r] = merge_scale(mr[r], mx);
+      lsum = fmaf(inbox[r * psize + G * D + G + g], c[r], lsum);
+    }
+    for (int d = tid; d < D; d += kThreads) {
+      float a = 0.f;
+#pragma unroll
+      for (int r = 0; r < kSplit; ++r)
+        a = fmaf(inbox[r * psize + g * D + d], c[r], a);
+      out[g * D + d] = from_f32<T>(a / fmaxf(lsum, 1e-30f));
+    }
+  }
+}
+
+// The kernels' host side: the instantiation for G query heads.
+template <template <typename, int> class Launch, typename T, typename... A>
+cudaError_t dispatch_g(int G, A... args) {
+  switch (G) {
+    case 1: return Launch<T, 1>::run(args...);
+    case 2: return Launch<T, 2>::run(args...);
+    case 3: return Launch<T, 3>::run(args...);
+    case 4: return Launch<T, 4>::run(args...);
+    case 5: return Launch<T, 5>::run(args...);
+    case 6: return Launch<T, 6>::run(args...);
+    case 7: return Launch<T, 7>::run(args...);
+    case 8: return Launch<T, 8>::run(args...);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// allow more than 48 KB of dynamic shared memory where a shape needs it
+template <typename K>
+cudaError_t reserve_smem(K kernel, int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
+}
+
+}  // namespace split
+}  // namespace acar

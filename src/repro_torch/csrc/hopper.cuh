@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks for the port's tensor-core kernels, as
 // inline PTX: mbarriers, TMA tile loads and tensor maps, wgmma with shared-
 // memory descriptors (fused_swiglu.cu); cp.async, ldmatrix and
-// mma.sync.m16n8k16 (chunked_prefill_attention.cu).
+// mma.sync.m16n8k16 (chunked_prefill_attention.cu); the cluster barrier and
+// distributed shared memory (decode_split.cuh).
 //
 // Everything here is bf16 in, f32 accumulate: the port keeps TF32 off, so
 // f32 operands never go through the tensor cores.
@@ -231,6 +232,66 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 4-byte async copy (cached at all levels)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// ---------------------------------------------------------------------
+// thread block clusters: the cluster barrier, distributed shared memory
+// ---------------------------------------------------------------------
+// every thread of every CTA of the cluster arrives, then waits; the
+// relaxed arrive orders nothing, the wait acquires
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+// the shared::cluster address of `p`'s counterpart in CTA `rank`
+__device__ __forceinline__ uint32_t cluster_map(const void* p,
+                                                uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(smem_u32(p)), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ void st_cluster(uint32_t addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v)
+               : "memory");
+}
+// arrive on an mbarrier of another CTA of the cluster, releasing this
+// thread's earlier writes to the cluster
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+          bar)
+      : "memory");
+}
+// spin until phase `parity` of a local mbarrier completes, acquiring what
+// the cluster's arrivals released
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
+                                                  uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
 }
 
 // four 8x8 bf16 matrices; lane l gives the address of row l%8 of matrix

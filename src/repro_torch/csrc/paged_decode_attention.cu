@@ -12,128 +12,77 @@
 // What bounds it on the H100: bytes. One decode token reads every cached key
 // and value of its row once and does 4*D flops per key and query head, far
 // below the card's ~295 flop/byte ridge. At serving shapes (a few dozen rows,
-// a hundred-odd positions) the whole call moves well under a megabyte, so in
-// practice launch latency and the per-tile barriers dominate.
+// a hundred-odd positions) the call moves well under a megabyte, so latency
+// bounds it: the launch, the block-table and K/V round trips, the combine.
 //
-// Design: one CTA per (row, kv head) carries all G query heads, so each K/V
-// element is read from device memory once and used G times. The CTA walks
-// the row's positions in tiles of kTile keys, translating each position to
-// (page id, slot) through the block table itself: only positions below
-// lengths[b] are ever loaded, so spare block-table slots and stale bytes past
-// the row's length are never read. The online-softmax state (m, l, acc) stays
-// in shared memory in float32 across tiles; the sum over keys runs in a fixed
-// order with no atomics and no split across CTAs, so the result does not
-// depend on the batch. It finishes with acc / max(l, 1e-30) as the Pallas
-// kernel does. Split-KV, TMA page loads and wgmma are later work.
-#include "common.cuh"
-
-#include <math.h>
+// Design: decode_split.cuh's loop, one launch of a grid (kSplit, KV, B) in
+// clusters of kSplit CTAs. A cluster serves one (row, kv head) with all G
+// query heads, so each K/V byte is read once and used G times; its ranks
+// split the row's positions by the row's own length and combine their
+// partial softmax states over distributed shared memory in rank order. A
+// CTA copies the page ids of its positions from the block table once per
+// page, a window of 256 positions at a time, and translates positions to
+// rows from them: only positions below lengths[b] are loaded, so spare
+// block-table slots and stale bytes past the row's length are never read.
+// Left for later: TMA page loads, and more rows per CTA where a row's
+// range is shorter than a tile.
+#include "decode_split.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kTile = 32;  // key positions per iteration
-constexpr int kMaxD = 128;
-constexpr int kMaxG = 8;
+using acar::split::kSplit;
+using acar::split::kThreads;
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
-                        const T* __restrict__ v_pages,
-                        const int* __restrict__ block_table,
-                        const int* __restrict__ lengths, T* __restrict__ out,
-                        int KV, int G, int D, int page_size, int NB,
-                        float scale) {
-  __shared__ float qs[kMaxG][kMaxD];
-  __shared__ float ks[kTile][kMaxD + 1];
-  __shared__ float vs[kTile][kMaxD + 1];
-  __shared__ float ps[kMaxG][kTile];
-  __shared__ float acc[kMaxG][kMaxD];
-  __shared__ float m_run[kMaxG];
-  __shared__ float l_run[kMaxG];
-  __shared__ float alpha_s[kMaxG];
+struct PageRows {
+  static constexpr bool kPaged = true;
+  const T* k;  // this kv head's row of slot 0 of page 0
+  const T* v;
+  long long stride;  // elements between consecutive slots (KV * D)
+  const int* bt;     // this row's block table
+  int page_size;
+};
 
-  const int b = blockIdx.x;
-  const int kv = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int H = KV * G;
-
-  int len = lengths[b];
-  if (len > NB * page_size) len = NB * page_size;
-
-  for (int i = tid; i < G * D; i += kThreads) {
-    const int g = i / D, d = i % D;
-    qs[g][d] = acar::to_f32(q[((size_t)b * H + kv * G + g) * D + d]) * scale;
-    acc[g][d] = 0.f;
-  }
-  if (tid < G) {
-    m_run[tid] = -INFINITY;
-    l_run[tid] = 0.f;
-  }
-  __syncthreads();
-
-  const int* bt = block_table + (size_t)b * NB;
-  for (int t0 = 0; t0 < len; t0 += kTile) {
-    const int nk = min(kTile, len - t0);
-    // K/V tile: positions [t0, t0 + nk), each through its page id
-    for (int i = tid; i < nk * D; i += kThreads) {
-      const int s = i / D, d = i % D;
-      const int pos = t0 + s;
-      const size_t page = (size_t)bt[pos / page_size];
-      const size_t off =
-          ((page * page_size + pos % page_size) * KV + kv) * D + d;
-      ks[s][d] = acar::to_f32(k_pages[off]);
-      vs[s][d] = acar::to_f32(v_pages[off]);
-    }
-    __syncthreads();
-
-    for (int i = tid; i < G * kTile; i += kThreads) {
-      const int g = i / kTile, s = i % kTile;
-      float sc = -INFINITY;
-      if (s < nk) {
-        float a = 0.f;
-        for (int d = 0; d < D; ++d) a = fmaf(qs[g][d], ks[s][d], a);
-        sc = a;
-      }
-      ps[g][s] = sc;
-    }
-    __syncthreads();
-
-    if (tid < G) {
-      const int g = tid;
-      float mt = -INFINITY;
-      for (int s = 0; s < nk; ++s) mt = fmaxf(mt, ps[g][s]);
-      const float m_old = m_run[g];
-      const float m_new = fmaxf(m_old, mt);
-      const float alpha = (m_old == -INFINITY) ? 0.f : expf(m_old - m_new);
-      float lsum = 0.f;
-      for (int s = 0; s < nk; ++s) {
-        const float p = expf(ps[g][s] - m_new);
-        ps[g][s] = p;
-        lsum += p;
-      }
-      l_run[g] = l_run[g] * alpha + lsum;
-      m_run[g] = m_new;
-      alpha_s[g] = alpha;
-    }
-    __syncthreads();
-
-    for (int i = tid; i < G * D; i += kThreads) {
-      const int g = i / D, d = i % D;
-      float a = acc[g][d] * alpha_s[g];
-      for (int s = 0; s < nk; ++s) a = fmaf(ps[g][s], vs[s][d], a);
-      acc[g][d] = a;
-    }
-    __syncthreads();
-  }
-
-  for (int i = tid; i < G * D; i += kThreads) {
-    const int g = i / D, d = i % D;
-    const float l = fmaxf(l_run[g], 1e-30f);
-    out[((size_t)b * H + kv * G + g) * D + d] =
-        acar::from_f32<T>(acc[g][d] / l);
-  }
+template <typename T, int G>
+__global__ void __cluster_dims__(kSplit, 1, 1) __launch_bounds__(kThreads)
+    paged_decode_split_kernel(const T* __restrict__ q,
+                              const T* __restrict__ k_pages,
+                              const T* __restrict__ v_pages,
+                              const int* __restrict__ block_table,
+                              const int* __restrict__ lengths,
+                              T* __restrict__ out, int KV, int D,
+                              int page_size, int NB, float scale,
+                              bool vec16) {
+  const int kv = blockIdx.y, b = blockIdx.z;
+  const int len = min(lengths[b], NB * page_size);
+  const PageRows<T> ld{k_pages + (size_t)kv * D, v_pages + (size_t)kv * D,
+                       (long long)KV * D, block_table + (size_t)b * NB,
+                       page_size};
+  const size_t head0 = ((size_t)b * KV + kv) * G * D;
+  acar::split::attend<T, G>(q + head0, out + head0, D, len, scale, vec16,
+                            ld);
 }
+
+template <typename T, int G>
+struct Launch {
+  static cudaError_t run(const void* q, const void* k_pages,
+                         const void* v_pages, const void* block_table,
+                         const void* lengths, void* out, int B, int KV,
+                         int D, int page_size, int NB, float scale,
+                         bool vec16, cudaStream_t st) {
+    const int bytes = acar::split::Layout<T>(G, D, true).total;
+    const cudaError_t err = acar::split::reserve_smem(
+        paged_decode_split_kernel<T, G>, bytes);
+    if (err != cudaSuccess) return err;
+    paged_decode_split_kernel<T, G><<<dim3(kSplit, KV, B), kThreads, bytes,
+                                      st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k_pages),
+        static_cast<const T*>(v_pages), static_cast<const int*>(block_table),
+        static_cast<const int*>(lengths), static_cast<T*>(out), KV, D,
+        page_size, NB, scale, vec16);
+    return cudaGetLastError();
+  }
+};
 
 }  // namespace
 
@@ -142,25 +91,32 @@ extern "C" int acar_paged_decode_attention(
     const void* block_table, const void* lengths, void* out, int B, int H,
     int KV, int D, int page_size, int NB, int dtype, void* stream) {
   const int G = H / KV;
-  if (G > kMaxG || D > kMaxD || H % KV != 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid(B, KV);
-  const float scale = 1.0f / sqrtf((float)D);
+  if (G > acar::split::kMaxG || D > acar::split::kMaxD || H % KV != 0 ||
+      B > 65535 || KV > 65535)
+    return (int)cudaErrorInvalidValue;
+  const float scale = 1.4426950408889634f / sqrtf((float)D);  // log2(e)
+  const size_t item = dtype == acar::kBF16 ? 2 : 4;
+  const bool vec16 =
+      (D * item) % 16 == 0 &&
+      ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k_pages) |
+        reinterpret_cast<uintptr_t>(v_pages)) % 16) == 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == acar::kBF16) {
-    using T = __nv_bfloat16;
-    paged_decode_kernel<T><<<grid, kThreads, 0, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k_pages),
-        static_cast<const T*>(v_pages), static_cast<const int*>(block_table),
-        static_cast<const int*>(lengths), static_cast<T*>(out), KV, G, D,
-        page_size, NB, scale);
-  } else {
-    paged_decode_kernel<float><<<grid, kThreads, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k_pages),
-        static_cast<const float*>(v_pages),
-        static_cast<const int*>(block_table), static_cast<const int*>(lengths),
-        static_cast<float*>(out), KV, G, D, page_size, NB, scale);
-  }
-  return (int)cudaGetLastError();
+  if (dtype == acar::kBF16)
+    return (int)acar::split::dispatch_g<Launch, __nv_bfloat16>(
+        G, q, k_pages, v_pages, block_table, lengths, out, B, KV, D,
+        page_size, NB, scale, vec16, st);
+  return (int)acar::split::dispatch_g<Launch, float>(
+      G, q, k_pages, v_pages, block_table, lengths, out, B, KV, D,
+      page_size, NB, scale, vec16, st);
+}
+
+// the split's geometry as the kernels compute it, for checking the
+// wrappers' split_ranges(): the CTAs of a row's cluster, and where rank
+// r's key range starts in a row of len positions
+extern "C" int acar_decode_split_ctas() { return kSplit; }
+
+extern "C" int acar_decode_split_start(int len, int rank) {
+  return acar::split::range_start(len < 0 ? 0 : len, rank);
 }
 
 extern "C" const char* acar_error_string(int err) {

@@ -33,7 +33,8 @@ SOURCES = ("paged_decode_attention.cu", "chunked_prefill_attention.cu",
            "fused_swiglu.cu", "decode_attention.cu",
            "decode_attention_quant.cu", "paged_decode_attention_quant.cu",
            "selective_scan.cu", "rglru_scan.cu")
-HEADERS = ("common.cuh", "decode_core.cuh", "hopper.cuh")
+HEADERS = ("common.cuh", "decode_core.cuh", "decode_split.cuh",
+           "hopper.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -57,6 +58,8 @@ _SIGNATURES = {
         [_VP] * 6 + [_I] * 7 + [_VP],
     "acar_paged_decode_attention_quant":
         [_VP] * 8 + [_I] * 7 + [_VP],
+    "acar_decode_split_ctas": [],
+    "acar_decode_split_start": [_I] * 2,
     "acar_selective_scan_chunk": [],
     "acar_selective_scan_ctas": [_I] * 2,
     "acar_selective_scan_fwd":

@@ -8,7 +8,10 @@ in ``csrc/decode_attention.cu`` (it replaces the Pallas kernel
 ``repro/kernels/decode_attention.py``) or raises; on a CPU tensor it
 runs ``decode_attention_plain``, the PyTorch port of the reference
 oracle ``kernels/ref.py::decode_attention_ref``.
-``decode_attention.launches`` counts kernel launches.
+``decode_attention.launches`` counts kernel launches: one per call.
+``split_ranges`` (shared with the paged decode, whose kernel runs the
+same split-KV loop) gives the key range each CTA of a row's cluster
+takes.
 """
 from __future__ import annotations
 
@@ -16,6 +19,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.paged_decode_attention import (  # noqa: F401
+    split_ranges)  # re-exported: the dense-cache kernel splits alike
 
 
 def _scale(dk: int) -> float:

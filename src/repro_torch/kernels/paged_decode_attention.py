@@ -7,14 +7,39 @@ CUDA tensor it launches the hand-written kernel in
 ``repro/kernels/paged_decode_attention.py``) or raises; on a CPU tensor
 it runs ``paged_decode_attention_plain``, the PyTorch port of the
 reference oracle ``kernels/ref.py::paged_decode_attention_ref``.
-``paged_decode_attention.launches`` counts kernel launches.
+``paged_decode_attention.launches`` counts kernel launches: one per
+call, whatever the shape (the kernel splits each row's keys over a
+cluster of CTAs and combines them inside the same launch).
+
+``split_ranges`` gives the key range each CTA of a row's cluster takes,
+as ``csrc/decode_split.cuh`` computes it (the library exports that
+arithmetic as ``acar_decode_split_start``, and ``chip_smoke.py`` holds
+the two together); the dense-cache decode shares it.
 """
 from __future__ import annotations
+
+from typing import List, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import build
+
+# csrc/decode_split.cuh: CTAs per cluster, and the granule of a range
+SPLIT = 8
+SPLIT_GRANULE = 16
+
+
+def split_ranges(length: int) -> List[Tuple[int, int]]:
+    """The positions ``[lo, hi)`` that each of the ``SPLIT`` ranks of a
+    row's cluster takes, in rank order, for a row of ``length`` valid
+    positions: ``ceil(length / SPLIT)`` rounded up to ``SPLIT_GRANULE``
+    positions a rank, the last ones clipped (possibly empty). A function
+    of the row's own length alone."""
+    length = max(int(length), 0)
+    chunk = -(-(-(-length // SPLIT)) // SPLIT_GRANULE) * SPLIT_GRANULE
+    return [(min(r * chunk, length), min((r + 1) * chunk, length))
+            for r in range(SPLIT)]
 
 
 def paged_decode_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,

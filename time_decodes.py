@@ -1,0 +1,83 @@
+#!/usr/bin/env python3
+"""Check and time the port's split-KV decodes (the paged decode and the
+dense-cache decode) of one source tree on one NVIDIA GPU, with
+``chip_smoke.py``'s phase-3 checks and timings for those two kernels.
+
+    python3 time_decodes.py [--src DIR]
+
+``--src`` is the ``src`` directory whose ``repro_torch`` is imported and
+built (default: this checkout's). To compare two commits on one card,
+unpack the parent with ``git archive`` into a directory that
+``.gitignore`` lists and time parent, change, change, parent in one
+call to the card:
+
+    for s in build/parent/src src src build/parent/src; do
+        python3 time_decodes.py --src $s; done
+
+Prints one JSON object (the tree it imported, and for each kernel and
+dtype its error, kernel, plain and SDPA times, bound and long-shape
+figures, and the launch floor of the timing), then the ``nvidia-smi``
+name and power-limit line.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+
+def main() -> int:
+    import torch
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--src", type=Path, default=ROOT / "src",
+                    help="the src directory whose repro_torch to import")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("time_decodes: no CUDA device visible", file=sys.stderr)
+        return 2
+    src = args.src.resolve()
+    sys.path.insert(0, str(src))
+    import chip_smoke as cs
+    from repro_torch.kernels import build
+    if not Path(build.__file__).resolve().is_relative_to(src):
+        raise RuntimeError(f"imported {build.__file__}, not from {src}")
+    cs.log(f"src: {src}")
+    build.build()
+    build.load()
+    cs.report_ptxas(build)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    gen_split = torch.Generator(device="cuda")
+    gen_split.manual_seed(2)
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        results[("paged_decode_attention", dname)] = cs.paged_decode_checks(
+            torch, gen_split, dname, *cs.decode_case(torch, gen, dtype))
+        results[("decode_attention", dname)] = cs.dense_decode_checks(
+            torch, gen_split, dname, *cs.dense_cache_case(torch, gen, dtype))
+    for (name, dname), r in results.items():
+        cs.log(f"kernel {name} [{dname}]: max_abs_err "
+               f"{r['max_abs_err']:.3e}  kernel {r['ms']:.4f} ms  plain "
+               f"{r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} ms  "
+               f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
+    cs.log_decode_checks(results)
+    cs.run_decode_geometry_checks(torch)
+    out = {f"{name}[{dname}]": r for (name, dname), r in results.items()}
+    out["launch_floor_ms"] = cs.launch_floor_ms(torch)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader", "--id=0"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(json.dumps({"src": str(src), "decode": out}))
+    print(smi.splitlines()[0], flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
