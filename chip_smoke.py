@@ -60,12 +60,21 @@ Phase 3 also holds the training path's kernels against their plain
 versions at the phase-7 shapes (the selective scan and the RG-LRU scan,
 forward and backward; the fused SwiGLU at recurrentgemma-2b's width
 with its gradient), and phase 4 a train step of each reduced f32 family
-on the card against the CPU, every gradient leaf included.
+on the card against the CPU, every gradient leaf included. For the
+selective scan it also checks, in f32 and bf16, that h_final and every
+checkpoint equal the plain version's states bit for bit, that batch row
+1 computed alone equals its bits inside the batch (y, h_final,
+checkpoints, dx, ddt, dB, dC), the wrapper's ``scan_plan`` against the
+compiled tile constants, and a sweep of small shapes off the tile grid
+(every state size; the element-copy path TMA cannot take); its bound
+adds the exponentials on the special-function units at the SM clock
+``nvidia-smi`` reads under load.
 
-The build prints ptxas's registers and spills for the two tensor-core
-kernel sources and the two split-KV decodes, and the serve and train
-profiles count the SwiGLU's tensor-core kernels (two for every bf16
-wrapper call) and the decodes' (one for every wrapper call).
+The build prints ptxas's registers, static shared memory and spills
+for the two tensor-core kernel sources, the two split-KV decodes and
+the selective scan, and the serve and train profiles count the
+SwiGLU's tensor-core kernels (two for every bf16 wrapper call), the
+decodes' and the selective scan's (one for every wrapper call).
 It prints one JSON line describing the kernels, the ``nvidia-smi``
 line, and last ``{"ok": true, "device": {...}}``.
 """
@@ -873,16 +882,23 @@ SWIGLU_TRAIN = (4096, 2560, 7680)     # recurrentgemma-2b's MLP, B*S tokens
 # d a_log, dB, dC and the carry. Counted on the CUDA cores' f32 rate:
 # all of the scans' arithmetic is f32.
 SS_FWD_OPS, SS_BWD_OPS = 7, 28
+# exponentials per (b, t, d, n) that the function needs, each one ex2 on
+# the special-function units (16 an SM a clock): one decay in either
+# direction. The backward kernel takes that exp twice (in the window's
+# recomputation and again in the reverse walk, to save registers); the
+# second is its design's cost, not the function's, so the bound counts one.
+SS_FWD_SFU, SS_BWD_SFU = 1, 1
+SFU_PER_SM_CLOCK, SMS = 16, 132
 RG_FWD_OPS, RG_BWD_OPS = 2, 4
 SCAN_LIBRARY_NOTE = ("no single PyTorch call computes either scan (a "
                      "linear recurrence over the sequence)")
 
 
-def _scan_case(torch, gen, dtype):
+def _scan_case(torch, gen, dtype, shape=SS_SHAPE):
     """The selective scan's inputs as ``mamba_block`` gives them in a
     model of this dtype: x, B, C in it; dt (a softplus in f32) and a_log
     (log 1..N, the model's init) in f32."""
-    b, s, d, n = SS_SHAPE
+    b, s, d, n = shape
     x = (torch.randn((b, s, d), generator=gen, device="cuda") * 0.5)
     dt = torch.nn.functional.softplus(
         torch.randn((b, s, d), generator=gen, device="cuda")) * 0.1
@@ -891,6 +907,213 @@ def _scan_case(torch, gen, dtype):
     bm = torch.randn((b, s, n), generator=gen, device="cuda")
     cm = torch.randn((b, s, n), generator=gen, device="cuda")
     return x.to(dtype), dt, a_log, bm.to(dtype), cm.to(dtype)
+
+
+def sm_clock_mhz(torch) -> float:
+    """The SM clock (MHz) ``nvidia-smi`` reads while a spin kernel keeps
+    the card busy; logged beside the card's maximum."""
+    torch.cuda.synchronize()
+    torch.cuda._sleep(4 * SPIN_CYCLES)
+    time.sleep(0.2)
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits", "--id=0"],
+        capture_output=True, text=True, check=True).stdout
+    torch.cuda.synchronize()
+    sm, top = (float(v) for v in out.splitlines()[0].split(","))
+    log(f"SM clock under load {sm:.0f} MHz (maximum {top:.0f} MHz)")
+    return sm
+
+
+def scan_bound(bytes_moved: float, ops: float, exps: float,
+               clock_mhz: float):
+    """The least time of a scan: the largest of its bytes over the HBM
+    rate, its f32 operations over the CUDA cores' f32 peak, and its
+    exponentials over the special-function units (16 an SM a clock at
+    ``clock_mhz``). Returns (ms, the term that bounds it, every term)."""
+    terms = {"bytes": bytes_moved / HBM_BYTES_PER_S * 1e3,
+             "operations": ops / PEAK_FLOPS["float32"] * 1e3,
+             "sfu": exps / (SFU_PER_SM_CLOCK * SMS * clock_mhz * 1e6) * 1e3}
+    by = max(terms, key=terms.get)
+    return terms[by], by, terms
+
+
+def check_scan_states(name: str, ss, h, ckpt, x, dt, a_log, bm, cm) -> None:
+    """Bitwise: h_final and every checkpoint (the state before each
+    chunk-th step) equal the plain version's states."""
+    import torch
+    from repro_torch.kernels import build
+    chunk = build.load().acar_selective_scan_chunk()
+    hs, _ = ss._states(x, dt, a_log, bm, cm, with_y=False)
+    torch.cuda.synchronize()
+    if not torch.equal(h, hs[-1]):
+        raise AssertionError(f"{name}: h_final differs from the plain "
+                             "version's last state")
+    for c in range(ckpt.shape[1]):
+        want = hs[c * chunk - 1] if c else torch.zeros_like(hs[0])
+        if not torch.equal(ckpt[:, c], want):
+            diff = (ckpt[:, c] - want).abs().max().item()
+            raise AssertionError(f"{name}: checkpoint {c} differs from the "
+                                 f"plain version's state (max {diff:.3e})")
+
+
+def selective_scan_checks(torch, gen, dtype, clock_mhz: float) -> dict:
+    """Kernels 7 and 7b at falcon-mamba-7b's width (``SS_SHAPE``)
+    against their plain versions: y within TOL; h_final and every
+    checkpoint bit for bit the plain version's states; batch row 1
+    computed alone bit-identical to itself inside the batch (y,
+    h_final, checkpoints; dx, ddt, dB, dC); gradients by
+    ``check_grads``. Times, bounds (with the SFU term) and errors."""
+    from repro_torch.kernels import selective_scan as ss
+    dname = str(dtype).split(".")[-1]
+    item = torch.tensor([], dtype=dtype).element_size()
+    x, dt, a_log, bm, cm = _scan_case(torch, gen, dtype)
+    b, s, d, n = SS_SHAPE
+    y, h, ckpt = ss._launch_fwd(x, dt, a_log, bm, cm)
+    yp, hp = ss.selective_scan_plain(x, dt, a_log, bm, cm)
+    torch.cuda.synchronize()
+    err = max(check_close(f"selective_scan[{dname}] y", y, yp,
+                          TOL[("scan_y", dname)]),
+              check_close(f"selective_scan[{dname}] h_final", h, hp,
+                          TOL[("scan_h", dname)]))
+    del yp, hp
+    check_scan_states(f"selective_scan[{dname}]", ss, h, ckpt, x, dt, a_log,
+                      bm, cm)
+    torch.cuda.empty_cache()
+    row = [t[1:2].contiguous() for t in (x, dt, bm, cm)]
+    y1, h1, ck1 = ss._launch_fwd(row[0], row[1], a_log, row[2], row[3])
+    for what, got, alone in (("y", y, y1), ("h_final", h, h1),
+                             ("checkpoints", ckpt, ck1)):
+        check_same_rows(f"selective_scan[{dname}] {what} of batch row 1",
+                        got[1:2], alone)
+    ms = time_ms(torch, lambda: ss._launch_fwd(x, dt, a_log, bm, cm), 20)
+    plain = time_ms(torch, lambda: ss.selective_scan_plain(
+        x, dt, a_log, bm, cm), 2, warmup=1)
+    elems = float(b * s * d * n)
+    bytes_fwd = (2 * b * s * d * item + 4 * b * s * d
+                 + 2 * b * s * n * item + 4 * d * n + 4 * b * d * n)
+    bnd, by, terms = scan_bound(bytes_fwd, SS_FWD_OPS * elems,
+                                SS_FWD_SFU * elems, clock_mhz)
+    out = {("selective_scan", dname): dict(
+        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+        bound_terms=terms, library_ms=None, sm_clock_mhz=clock_mhz)}
+
+    dy = torch.randn((b, s, d), generator=gen, device="cuda").to(dtype)
+    dh = torch.randn((b, d, n), generator=gen, device="cuda")
+    got = ss.selective_scan_bwd(x, dt, a_log, bm, cm, ckpt, dy, dh)
+    want = ss.selective_scan_bwd_plain(x, dt, a_log, bm, cm, dy, dh)
+    torch.cuda.synchronize()
+    if [g.dtype for g in got] != [t.dtype for t in (x, dt, a_log, bm, cm)]:
+        raise AssertionError("selective_scan_bwd: gradient dtypes")
+    share = check_grads(f"selective_scan_bwd[{dname}]", got, want, dname)
+    err = max(float((g.float() - w.float()).abs().max())
+              for g, w in zip(got, want))
+    del want
+    alone = ss.selective_scan_bwd(row[0], row[1], a_log, row[2], row[3], ck1,
+                                  dy[1:2].contiguous(),
+                                  dh[1:2].contiguous())
+    for i, what in ((0, "dx"), (1, "ddt"), (3, "dB"), (4, "dC")):
+        check_same_rows(f"selective_scan_bwd[{dname}] {what} of batch row "
+                        "1", got[i][1:2], alone[i])
+    del got, alone
+    ms = time_ms(torch, lambda: ss.selective_scan_bwd(
+        x, dt, a_log, bm, cm, ckpt, dy, dh), 20)
+    plain = time_ms(torch, lambda: ss.selective_scan_bwd_plain(
+        x, dt, a_log, bm, cm, dy, dh), 2, warmup=1)
+    # reads x, dt, B, C, a_log, dy, dh_final; writes dx, ddt, dB, dC,
+    # d a_log
+    bytes_bwd = (3 * b * s * d * item + 2 * 4 * b * s * d
+                 + 4 * b * s * n * item + 2 * 4 * d * n + 4 * b * d * n)
+    bnd, by, terms = scan_bound(bytes_bwd, SS_BWD_OPS * elems,
+                                SS_BWD_SFU * elems, clock_mhz)
+    out[("selective_scan_bwd", dname)] = dict(
+        max_abs_err=err, grad_err_share=share, ms=ms, plain_ms=plain,
+        bound_ms=bnd, bound_by=by, bound_terms=terms, library_ms=None,
+        sm_clock_mhz=clock_mhz)
+    del x, dt, a_log, bm, cm, ckpt, dy, dh, y, h, row, y1, h1, ck1
+    torch.cuda.empty_cache()
+    return out
+
+
+def log_scan_checks() -> None:
+    log(f"selective scan at {SS_SHAPE} (float32, bfloat16): h_final "
+        "and every checkpoint bit-identical to the plain version's states; "
+        "batch row 1 alone bit-identical to itself in the batch (y, "
+        "h_final, checkpoints, dx, ddt, dB, dC)")
+
+
+# acar_selective_scan_plan's field for each of ScanPlan's, and the fields
+# only the kernels read (logged)
+SCAN_PLAN_FIELDS = {"channels": 0, "steps": 1, "chunk": 2, "per_thread": 3,
+                    "lanes": 4, "blocks": 7}
+SCAN_PLAN_KERNEL_FIELDS = {"threads": 5, "stages": 6, "fwd_smem": 8,
+                           "bwd_smem": 9}
+
+
+def check_scan_plan() -> None:
+    """``scan_plan`` (the tile constants the wrapper sizes its scratch
+    by) against the compiled kernels' constants, the library's
+    ``acar_selective_scan_plan``, at every N the kernels take and D up
+    to 300 and 8,192; logs the thread count, ring depth and dynamic
+    shared memory that only the kernels read."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.selective_scan import scan_plan
+    lib = build.load()
+    for n in (1, 2, 4, 8, 16, 32):
+        for d in (*range(1, 301), 8192):
+            p = scan_plan(d, n)
+            want = tuple(getattr(p, k) for k in SCAN_PLAN_FIELDS)
+            got = tuple(lib.acar_selective_scan_plan(d, n, f)
+                        for f in SCAN_PLAN_FIELDS.values())
+            if got != want:
+                raise AssertionError(f"scan_plan({d}, {n}) = {p}, the "
+                                     f"kernels' constants {got}")
+    for n in (8, 16):
+        kern = {k: lib.acar_selective_scan_plan(8192, n, f)
+                for k, f in SCAN_PLAN_KERNEL_FIELDS.items()}
+        log(f"scan plan at D 8,192, N {n}: {scan_plan(8192, n)}; kernels "
+            f"only: {kern} (shared memory in bytes)")
+    log("scan_plan matches the kernels' compiled constants at N in 1..32, "
+        "D in 1..300 and 8,192")
+
+
+# (B, S, D, N), each in f32 and bf16: ragged tiles and channel blocks,
+# every state size, and the shapes TMA cannot take (bf16 rows of 72 or 8
+# bytes), which copy element by element
+SCAN_GEOMETRIES = ((2, 37, 200, 16), (1, 50, 36, 8), (2, 17, 70, 32),
+                   (1, 33, 64, 4), (1, 21, 96, 2), (2, 16, 40, 1),
+                   (1, 1, 64, 16))
+
+
+def run_scan_geometry_checks(torch) -> None:
+    """Kernels 7 and 7b against their plain versions at small shapes
+    off the tile grid: y within TOL, h_final and checkpoints bitwise,
+    gradients by ``check_grads``."""
+    from repro_torch.kernels import selective_scan as ss
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for shape in SCAN_GEOMETRIES:
+            b, s, d, n = shape
+            name = f"selective_scan[{dname}, {shape}]"
+            x, dt, _, bm, cm = _scan_case(torch, gen, dtype, shape)
+            a_log = torch.randn((d, n), generator=gen, device="cuda") * 0.3
+            y, h, ckpt = ss._launch_fwd(x, dt, a_log, bm, cm)
+            yp, hp = ss.selective_scan_plain(x, dt, a_log, bm, cm)
+            torch.cuda.synchronize()
+            check_close(f"{name} y", y, yp, TOL[("scan_y", dname)])
+            check_scan_states(name, ss, h, ckpt, x, dt, a_log, bm, cm)
+            dy = torch.randn((b, s, d), generator=gen,
+                             device="cuda").to(dtype)
+            dh = torch.randn((b, d, n), generator=gen, device="cuda")
+            got = ss.selective_scan_bwd(x, dt, a_log, bm, cm, ckpt, dy, dh)
+            want = ss.selective_scan_bwd_plain(x, dt, a_log, bm, cm, dy, dh)
+            torch.cuda.synchronize()
+            check_grads(f"{name} gradients", got, want, dname)
+    log("selective scan agrees with its plain version at (B, S, D, N) in "
+        f"{list(SCAN_GEOMETRIES)}: y within TOL, states bitwise, gradients "
+        "(float32 and bfloat16)")
 
 
 def run_train_kernel_phase(torch):
@@ -904,61 +1127,13 @@ def run_train_kernel_phase(torch):
     gen.manual_seed(1)
     results = {}
     f32_peak = PEAK_FLOPS["float32"]
+    clock = sm_clock_mhz(torch)
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         item = torch.tensor([], dtype=dtype).element_size()
 
         # -- selective scan, forward and backward --------------------
-        x, dt, a_log, bm, cm = _scan_case(torch, gen, dtype)
-        b, s, d, n = SS_SHAPE
-        y, h, ckpt = ss._launch_fwd(x, dt, a_log, bm, cm)
-        yp, hp = ss.selective_scan_plain(x, dt, a_log, bm, cm)
-        torch.cuda.synchronize()
-        err = max(check_close(f"selective_scan[{dname}] y", y, yp,
-                              TOL[("scan_y", dname)]),
-                  check_close(f"selective_scan[{dname}] h_final", h, hp,
-                              TOL[("scan_h", dname)]))
-        del yp, hp
-        ms = time_ms(torch, lambda: ss._launch_fwd(x, dt, a_log, bm, cm), 20)
-        plain = time_ms(torch, lambda: ss.selective_scan_plain(
-            x, dt, a_log, bm, cm), 2, warmup=1)
-        elems = float(b * s * d * n)
-        bytes_fwd = (2 * b * s * d * item + 4 * b * s * d
-                     + 2 * b * s * n * item + 4 * d * n + 4 * b * d * n)
-        bnd, by = max((bytes_fwd / HBM_BYTES_PER_S * 1e3, "bytes"),
-                      (SS_FWD_OPS * elems / f32_peak * 1e3, "operations"))
-        results[("selective_scan", dname)] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
-            bound_by=by, library_ms=None)
-
-        dy = torch.randn((b, s, d), generator=gen, device="cuda").to(dtype)
-        dh = torch.randn((b, d, n), generator=gen, device="cuda")
-        got = ss.selective_scan_bwd(x, dt, a_log, bm, cm, ckpt, dy, dh)
-        want = ss.selective_scan_bwd_plain(x, dt, a_log, bm, cm, dy, dh)
-        torch.cuda.synchronize()
-        if [g.dtype for g in got] != [t.dtype for t in
-                                      (x, dt, a_log, bm, cm)]:
-            raise AssertionError("selective_scan_bwd: gradient dtypes")
-        share = check_grads(f"selective_scan_bwd[{dname}]", got, want,
-                            dname)
-        err = max(float((g.float() - w.float()).abs().max())
-                  for g, w in zip(got, want))
-        del got, want
-        ms = time_ms(torch, lambda: ss.selective_scan_bwd(
-            x, dt, a_log, bm, cm, ckpt, dy, dh), 20)
-        plain = time_ms(torch, lambda: ss.selective_scan_bwd_plain(
-            x, dt, a_log, bm, cm, dy, dh), 2, warmup=1)
-        # reads x, dt, B, C, a_log, dy, dh_final; writes dx, ddt, dB,
-        # dC, d a_log
-        bytes_bwd = (3 * b * s * d * item + 2 * 4 * b * s * d
-                     + 4 * b * s * n * item + 2 * 4 * d * n
-                     + 4 * b * d * n)
-        bnd, by = max((bytes_bwd / HBM_BYTES_PER_S * 1e3, "bytes"),
-                      (SS_BWD_OPS * elems / f32_peak * 1e3, "operations"))
-        results[("selective_scan_bwd", dname)] = dict(
-            max_abs_err=err, grad_err_share=share, ms=ms, plain_ms=plain,
-            bound_ms=bnd, bound_by=by, library_ms=None)
-        del x, dt, a_log, bm, cm, ckpt, dy, dh, y, h
+        results.update(selective_scan_checks(torch, gen, dtype, clock))
 
         # -- RG-LRU scan, forward and backward -----------------------
         b, s, w = RG_SHAPE
@@ -1050,12 +1225,18 @@ def run_train_kernel_phase(torch):
                else f"{r['library_ms']:.4f} ms")
         extra = (f"  gradient err {r['grad_err_share']:.3e} of max"
                  if "grad_err_share" in r else "")
+        if "bound_terms" in r:
+            extra += "  bound terms " + ", ".join(
+                f"{k} {v:.5f} ms" for k, v in r["bound_terms"].items())
         log(f"kernel {name} [{dname}]: max_abs_err {r['max_abs_err']:.3e}"
             f"{extra}  kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} "
             f"ms  library {lib}  bound {r['bound_ms']:.5f} ms "
             f"({r['bound_by']}){stage_note(r)}")
     log(f"rows: SwiGLU rows 0-255 of the {SWIGLU_TRAIN[0]}-token call "
         "bit-identical to a 256-token call (float32 and bfloat16)")
+    log_scan_checks()
+    check_scan_plan()
+    run_scan_geometry_checks(torch)
     return results
 
 
@@ -1347,10 +1528,17 @@ def check_no_leaks(engine) -> None:
 # the port's tensor-core and split-KV kernels, reported by the profiles
 # even when they fall out of the top ten
 REPORTED_KERNELS = ("swiglu_gemm_kernel", "chunked_prefill_mma_kernel",
-                    "paged_decode_split_kernel", "dense_decode_split_kernel")
+                    "paged_decode_split_kernel", "dense_decode_split_kernel",
+                    "scan_fwd_kernel", "scan_bwd_kernel")
+# the selective scan's kernels: the forward, the backward and its two
+# summing kernels (the RG-LRU's are rglru_*_kernel)
+SCAN_KERNELS = ("scan_fwd_kernel", "scan_bwd_kernel", "sum_parts_kernel",
+                "alog_grad_kernel")
 # wrapper -> its kernel's name: one launch per wrapper call
 SPLIT_KERNELS = {"paged_decode_attention": "paged_decode_split_kernel",
-                 "decode_attention": "dense_decode_split_kernel"}
+                 "decode_attention": "dense_decode_split_kernel",
+                 "selective_scan": "scan_fwd_kernel",
+                 "selective_scan_bwd": "scan_bwd_kernel"}
 
 
 def report_profile(prof, wall: float, wall_profiled: float,
@@ -1361,7 +1549,8 @@ def report_profile(prof, wall: float, wall_profiled: float,
     fused_swiglu wrapper calls the profiled run made), check that each
     ran as the two tensor-core stages; with ``launches`` (the wrappers'
     counts over the profiled run), that each call of the split-KV
-    decodes ran as exactly one kernel."""
+    decodes and of the selective scan (forward, backward) ran as
+    exactly one kernel of its name."""
     def dev_us(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
@@ -1381,6 +1570,13 @@ def report_profile(prof, wall: float, wall_profiled: float,
         if any(k in e.key for k in REPORTED_KERNELS) and dev_us(e) > 0:
             log(f"profile:   {dev_us(e) / 1e3:10.2f} ms {e.count:8d} calls  "
                 f"{e.key[:90]}")
+    scan = [e for e in events
+            if any(k in e.key for k in SCAN_KERNELS) and dev_us(e) > 0]
+    if scan:
+        ms = sum(dev_us(e) for e in scan) / 1e3
+        log(f"profile: the selective scan's kernels {ms:.2f} ms of device "
+            f"time = {100 * ms / 1e3 / busy:.1f}% of the busy time "
+            f"({', '.join(f'{e.count} {e.key[:40]}' for e in scan)})")
     for wrapper, kernel in SPLIT_KERNELS.items():
         if launches is None:
             break
@@ -1740,7 +1936,8 @@ def run_train_phase(torch, gpu_name: str) -> dict:
             torch.cuda.synchronize()
             wall_prof = time.perf_counter() - t
         report_profile(prof, wall_step, wall_prof,
-                       swiglu_calls=ops.launch_counts()["fused_swiglu"])
+                       swiglu_calls=ops.launch_counts()["fused_swiglu"],
+                       launches=ops.launch_counts())
         del p2, st2, batches, prof
         torch.cuda.empty_cache()
     return launches_by_path
@@ -1792,12 +1989,14 @@ def run_train_entry_phase(torch) -> dict:
 
 
 def report_ptxas(build) -> None:
-    """ptxas's registers and spills for each kernel of the two
-    tensor-core sources and the two split-KV decodes (the build compiles
-    with ``-Xptxas=-v``)."""
+    """ptxas's registers, static shared memory and spills for each
+    kernel of the two tensor-core sources, the two split-KV decodes and
+    the selective scan (the build compiles with ``-Xptxas=-v``; the
+    scan's dynamic shared memory is ``check_scan_plan``'s line)."""
     import re
     for src in ("fused_swiglu.cu", "chunked_prefill_attention.cu",
-                "paged_decode_attention.cu", "decode_attention.cu"):
+                "paged_decode_attention.cu", "decode_attention.cu",
+                "selective_scan.cu"):
         name, spills = None, ""
         for line in build.log_path(src).read_text().splitlines():
             m = re.search(r"Compiling entry function '\w*?([a-z_]+_kernel)"
@@ -1808,7 +2007,10 @@ def report_ptxas(build) -> None:
                 spills = line.split(",", 1)[-1].strip()
             elif name and "registers" in line:
                 regs = re.search(r"Used (\d+) registers", line).group(1)
-                log(f"ptxas: {src} {name}: {regs} registers, {spills}")
+                smem = re.search(r"(\d+) bytes smem", line)
+                log(f"ptxas: {src} {name}: {regs} registers, "
+                    f"{smem.group(1) if smem else 0} bytes static smem, "
+                    f"{spills}")
                 name = None
 
 
@@ -1898,6 +2100,9 @@ def main() -> int:
             entry["library_note"] = (
                 "no single PyTorch call computes attention over int8 "
                 "codes with per-vector scales folded in")
+        if "bound_terms" in r:
+            entry["bound_terms_ms"] = r["bound_terms"]
+            entry["sm_clock_mhz"] = r["sm_clock_mhz"]
         if name == "fused_swiglu":
             t = results[("fused_swiglu_train", "bfloat16")]
             entry["train_shape"] = dict(

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks for the port's tensor-core kernels, as
 // inline PTX: mbarriers, TMA tile loads and tensor maps, wgmma with shared-
-// memory descriptors (fused_swiglu.cu); cp.async, ldmatrix and
+// memory descriptors (fused_swiglu.cu); 3-D TMA tile loads and stores
+// (selective_scan.cu); cp.async, ldmatrix and
 // mma.sync.m16n8k16 (chunked_prefill_attention.cu); the cluster barrier and
 // distributed shared memory (decode_split.cuh).
 //
@@ -133,6 +134,68 @@ inline cudaError_t make_tmap_bf16(CUtensorMap* map, const void* base,
                         CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// 3-D tile load global -> shared (selective_scan.cu): c0 the contiguous
+// dimension, c1 the rows, c2 the planes; zero-fill past every edge.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// 3-D tile store shared -> global in the current bulk group; the parts of
+// the box past the tensor's edges are not written.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// wait until the bulk stores committed before the last N groups have read
+// their shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// make this thread's shared-memory writes visible to the async proxy (a
+// TMA store that reads them)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Tensor map of a row-major (planes, rows, w) f32 or bf16 tensor, w
+// contiguous, read in unswizzled boxes of (1, box_rows, box_w). Needs a
+// 16-byte-aligned base and w * element size a multiple of 16 bytes.
+inline cudaError_t make_tmap_3d(CUtensorMap* map, const void* base,
+                                bool bf16, uint64_t w, uint64_t rows,
+                                uint64_t planes, uint32_t box_w,
+                                uint32_t box_rows) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const uint64_t e = bf16 ? 2 : 4;
+  const cuuint64_t dims[3] = {w, rows, planes};
+  const cuuint64_t strides[2] = {w * e, w * rows * e};
+  const cuuint32_t box[3] = {box_w, box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = fn(
+      map,
+      bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+      3, const_cast<void*>(base), dims, strides, box, elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 

@@ -61,7 +61,7 @@ _SIGNATURES = {
     "acar_decode_split_ctas": [],
     "acar_decode_split_start": [_I] * 2,
     "acar_selective_scan_chunk": [],
-    "acar_selective_scan_ctas": [_I] * 2,
+    "acar_selective_scan_plan": [_I] * 3,
     "acar_selective_scan_fwd":
         [_VP] * 8 + [_I] * 5 + [_VP],
     "acar_selective_scan_bwd":

@@ -14,16 +14,69 @@ reference oracle ``kernels/ref.py::selective_scan_ref``, and
 kernel launches.
 
 Both versions round each step as h = exp(dt a) h + (dt x) b, every
-operation on its own, so their states agree closely; y sums over the
-state axis in another order (a shuffle butterfly in the kernel).
+operation on its own, so their states agree bit for bit; y sums over
+the state axis in another order (in the thread, then a shuffle
+butterfly in the kernel). ``scan_plan`` gives the kernels' tile
+constants, which depend on the state size alone, and the scratch the
+wrappers allocate follows it.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build
+
+@dataclass(frozen=True)
+class ScanPlan:
+    """The kernels' tile constants for (D, N) that a Python caller reads:
+    the scratch sizes and the CPU emulation of the kernels' order of work.
+    ``csrc/selective_scan.cu``'s ``Plan<N>`` owns them, with the thread
+    count, ring depth and shared memory besides; its query
+    ``acar_selective_scan_plan`` reports each field."""
+    channels: int     # channels a CTA (Dc)
+    steps: int        # steps a tile (T)
+    chunk: int        # checkpoint interval (K), the backward's window
+    per_thread: int   # states a thread holds (k)
+    lanes: int        # lanes of one channel (N / k)
+    blocks: int       # channel blocks: CTAs along D
+
+
+def scan_plan(d: int, n: int) -> ScanPlan:
+    """The tile constants of ``csrc/selective_scan.cu``'s ``Plan<N>``
+    for D channels and state size N (a power of two <= 32): functions
+    of D and N alone, never of B or S."""
+    if n < 1 or n > 32 or n & (n - 1):
+        raise ValueError(f"selective_scan: the kernel takes a state size "
+                         f"that is a power of two <= 32, got {n}")
+    k = min(n, 4)
+    dc = 32 if n == 32 else 64
+    return ScanPlan(channels=dc, steps=16, chunk=16, per_thread=k,
+                    lanes=n // k, blocks=-(-d // dc))
+
+
+def scratch_shapes(bsz: int, s: int, d: int, n: int
+                   ) -> Dict[str, Tuple[int, ...]]:
+    """The f32 scratch of one call, by ``scan_plan(d, n)``: the
+    forward's checkpoints (the state before every ``chunk``-th step,
+    kept for the backward), the backward's per-row d a_log sums and its
+    per-channel-block dB / dC partials."""
+    p = scan_plan(d, n)
+    return {"ckpt": (bsz, -(-s // p.chunk), d, n),
+            "da_part": (bsz, d, n),
+            "db_part": (bsz, s, p.blocks, n),
+            "dc_part": (bsz, s, p.blocks, n)}
+
+
+def scratch(names, bsz: int, s: int, d: int, n: int,
+            device) -> Tuple[torch.Tensor, ...]:
+    """Uninitialised f32 scratch tensors ``names`` of
+    ``scratch_shapes``."""
+    shapes = scratch_shapes(bsz, s, d, n)
+    return tuple(torch.empty(shapes[k], dtype=torch.float32, device=device)
+                 for k in names)
 
 
 def selective_scan_plain(x: torch.Tensor, dt: torch.Tensor,
@@ -113,9 +166,7 @@ def _check(name: str, x, dt, a_log, b_in, c_in) -> torch.device:
             f"{name}: shapes x {tuple(x.shape)}, dt {tuple(dt.shape)}, "
             f"a_log {tuple(a_log.shape)}, b_in {tuple(b_in.shape)}, "
             f"c_in {tuple(c_in.shape)}")
-    if n < 1 or n > 32 or n & (n - 1):
-        raise ValueError(f"{name}: the kernel takes a state size that is a "
-                         f"power of two <= 32, got {n}")
+    scan_plan(d, n)         # raises on a state size it does not take
     return dev
 
 
@@ -127,11 +178,9 @@ def _launch_fwd(x, dt, a_log, b_in, c_in):
     bsz, s, d = x.shape
     n = a_log.shape[1]
     lib = build.load()
-    n_chunks = -(-s // lib.acar_selective_scan_chunk())
     y = torch.empty_like(x)
     h_final = torch.empty((bsz, d, n), dtype=torch.float32, device=dev)
-    ckpt = torch.empty((bsz, n_chunks, d, n), dtype=torch.float32,
-                       device=dev)
+    ckpt, = scratch(("ckpt",), bsz, s, d, n, dev)
     with torch.cuda.device(dev):
         err = lib.acar_selective_scan_fwd(
             x.data_ptr(), dt.data_ptr(), a_log.data_ptr(),
@@ -161,14 +210,15 @@ def selective_scan_bwd(x: torch.Tensor, dt: torch.Tensor,
         dh_final = dh_final.float().contiguous()
     build.check_cuda(name, ckpt=ckpt, dy=dy,
                      **({} if dh_final is None else {"dh_final": dh_final}))
+    want = scratch_shapes(bsz, s, d, n)["ckpt"]
+    if tuple(ckpt.shape) != want or ckpt.dtype != torch.float32:
+        raise ValueError(f"{name}: ckpt {tuple(ckpt.shape)} {ckpt.dtype}, "
+                         f"the forward's checkpoints are {want} f32")
     lib = build.load()
-    n_cta = lib.acar_selective_scan_ctas(d, n)
     dx, ddt, da_log = (torch.empty_like(t) for t in (x, dt, a_log))
     db, dc = torch.empty_like(b_in), torch.empty_like(c_in)
-    f32 = dict(dtype=torch.float32, device=dev)
-    da_part = torch.empty((bsz, d, n), **f32)
-    db_part = torch.empty((bsz, s, n_cta, n), **f32)
-    dc_part = torch.empty((bsz, s, n_cta, n), **f32)
+    da_part, db_part, dc_part = scratch(("da_part", "db_part", "dc_part"),
+                                        bsz, s, d, n, dev)
     with torch.cuda.device(dev):
         err = lib.acar_selective_scan_bwd(
             x.data_ptr(), dt.data_ptr(), a_log.data_ptr(),

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Check and time the port's split-KV decodes (the paged decode and the
-dense-cache decode) of one source tree on one NVIDIA GPU, with
-``chip_smoke.py``'s phase-3 checks and timings for those two kernels.
+"""Check and time some of the port's kernels of one source tree on one
+NVIDIA GPU, with ``chip_smoke.py``'s phase-3 checks and timings for
+them: the split-KV decodes (the paged decode and the dense-cache
+decode; the default) or the selective scan, forward and backward.
 
-    python3 time_decodes.py [--src DIR]
+    python3 time_decodes.py [--src DIR] [--kernels decodes|selective_scan]
 
 ``--src`` is the ``src`` directory whose ``repro_torch`` is imported and
 built (default: this checkout's). To compare two commits on one card,
@@ -12,12 +13,12 @@ unpack the parent with ``git archive`` into a directory that
 call to the card:
 
     for s in build/parent/src src src build/parent/src; do
-        python3 time_decodes.py --src $s; done
+        python3 time_decodes.py --src $s --kernels selective_scan; done
 
 Prints one JSON object (the tree it imported, and for each kernel and
-dtype its error, kernel, plain and SDPA times, bound and long-shape
-figures, and the launch floor of the timing), then the ``nvidia-smi``
-name and power-limit line.
+dtype its error, kernel and plain times, bound, and for the decodes the
+SDPA and long-shape figures and the launch floor of the timing), then
+the ``nvidia-smi`` name and power-limit line.
 """
 from __future__ import annotations
 
@@ -35,6 +36,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the src directory whose repro_torch to import")
+    ap.add_argument("--kernels", choices=("decodes", "selective_scan"),
+                    default="decodes", help="which kernels to time")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("time_decodes: no CUDA device visible", file=sys.stderr)
@@ -50,6 +53,43 @@ def main() -> int:
     build.load()
     cs.report_ptxas(build)
 
+    if args.kernels == "selective_scan":
+        out = time_selective_scan(torch, cs)
+    else:
+        out = time_split_decodes(torch, cs)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader", "--id=0"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(json.dumps({"src": str(src), args.kernels: out}))
+    print(smi.splitlines()[0], flush=True)
+    return 0
+
+
+def time_selective_scan(torch, cs) -> dict:
+    """Kernels 7 and 7b at ``SS_SHAPE``, f32 and bf16 (chip_smoke's
+    ``selective_scan_checks``), the small-shape sweep, and where the
+    tree has it, ``scan_plan`` against the compiled constants."""
+    from repro_torch.kernels import selective_scan as ss
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    clock = cs.sm_clock_mhz(torch)
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        results.update(cs.selective_scan_checks(torch, gen, dtype, clock))
+    for (name, dname), r in results.items():
+        cs.log(f"kernel {name} [{dname}]: max_abs_err {r['max_abs_err']:.3e}"
+               f"  kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
+               f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
+    cs.log_scan_checks()
+    if hasattr(ss, "scan_plan"):
+        cs.check_scan_plan()
+    cs.run_scan_geometry_checks(torch)
+    return {f"{name}[{dname}]": r for (name, dname), r in results.items()}
+
+
+def time_split_decodes(torch, cs) -> dict:
+    """Kernels 1 and 4 (chip_smoke's phase-3 checks and timings)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     gen_split = torch.Generator(device="cuda")
@@ -70,13 +110,7 @@ def main() -> int:
     cs.run_decode_geometry_checks(torch)
     out = {f"{name}[{dname}]": r for (name, dname), r in results.items()}
     out["launch_floor_ms"] = cs.launch_floor_ms(torch)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader", "--id=0"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    print(json.dumps({"src": str(src), "decode": out}))
-    print(smi.splitlines()[0], flush=True)
-    return 0
+    return out
 
 
 if __name__ == "__main__":
