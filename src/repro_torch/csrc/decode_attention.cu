@@ -29,14 +29,6 @@ namespace {
 using acar::split::kSplit;
 using acar::split::kThreads;
 
-template <typename T>
-struct CacheRows {
-  static constexpr bool kPaged = false;
-  const T* k;  // this (row, kv head)'s position 0
-  const T* v;
-  long long stride;  // elements between consecutive positions (KV * D)
-};
-
 template <typename T, int G>
 __global__ void __cluster_dims__(kSplit, 1, 1) __launch_bounds__(kThreads)
     dense_decode_split_kernel(const T* __restrict__ q,
@@ -46,7 +38,8 @@ __global__ void __cluster_dims__(kSplit, 1, 1) __launch_bounds__(kThreads)
                               int length, float scale, bool vec16) {
   const int kv = blockIdx.y, b = blockIdx.z;
   const size_t row = ((size_t)b * S * KV + kv) * D;
-  const CacheRows<T> ld{k_cache + row, v_cache + row, (long long)KV * D};
+  const acar::split::Rows<T, false> ld{k_cache + row, v_cache + row,
+                                       (long long)KV * D};
   const size_t head0 = ((size_t)b * KV + kv) * G * D;
   acar::split::attend<T, G>(q + head0, out + head0, D, length, scale, vec16,
                             ld);
@@ -58,7 +51,7 @@ struct Launch {
                          const void* v_cache, void* out, int B, int S,
                          int KV, int D, int length, float scale, bool vec16,
                          cudaStream_t st) {
-    const int bytes = acar::split::Layout<T>(G, D, false).total;
+    const int bytes = acar::split::Layout<T, T>(G, D, false).total;
     const cudaError_t err = acar::split::reserve_smem(
         dense_decode_split_kernel<T, G>, bytes);
     if (err != cudaSuccess) return err;
@@ -82,11 +75,8 @@ extern "C" int acar_decode_attention(const void* q, const void* k_cache,
       length < 0 || length > S || B > 65535 || KV > 65535)
     return (int)cudaErrorInvalidValue;
   const float scale = 1.4426950408889634f / sqrtf((float)D);  // log2(e)
-  const size_t item = dtype == acar::kBF16 ? 2 : 4;
-  const bool vec16 =
-      (D * item) % 16 == 0 &&
-      ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k_cache) |
-        reinterpret_cast<uintptr_t>(v_cache)) % 16) == 0;
+  const bool vec16 = acar::split::vec16(D, dtype == acar::kBF16 ? 2 : 4, q,
+                                        k_cache, v_cache);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == acar::kBF16)
     return (int)acar::split::dispatch_g<Launch, __nv_bfloat16>(

@@ -11,66 +11,78 @@
 // per-vector scales (B, S, KV):
 //   scores_s = (q[b, h] / sqrt(D) . k[b, s]) * k_scale[b, s]
 //   out[b, h] = sum_s (softmax(scores)_s * v_scale[b, s]) * v[b, s]
-// length is one scalar for the whole batch (the lockstep wave's pos + 1),
-// passed as a launch argument.
+// length is one scalar for the whole batch (the lockstep wave's pos + 1)
+// and arrives as a launch argument, so a call copies nothing to the card.
 //
-// What bounds it on the H100: bytes — D + 4 bytes per cached vector, about
-// half the bf16 cache's 2 * D, and far below the flop ridge.
+// What bounds it on the H100: bytes — D + 4 bytes per cached vector and
+// head (the codes and one f32 scale), about half of the bf16 cache's 2 * D
+// at D 64 or more, far below the flop ridge; at serving shapes (a few dozen
+// rows, a hundred-odd positions) the call moves about two megabytes, so
+// latency bounds it: the launch, the K/V round trip and the combine.
 //
-// Design: decode_core.cuh's loop (one CTA per (row, kv head) carrying all G
-// query heads, 32-key tiles, float32 online softmax, fixed order, no
-// atomics). Device memory sees only the int8 codes and the float32 scales:
-// the codes widen to float32 in registers on their way into shared memory,
-// and no dequantised copy of the cache exists anywhere.
-#include "decode_core.cuh"
-
-#include <stdint.h>
+// Design: decode_split.cuh's loop, as the bf16/f32 dense-cache decode
+// (decode_attention.cu) runs it, with an int8 loader: one launch of a grid
+// (kSplit, KV, B) in clusters of kSplit CTAs, each cluster one (row, kv
+// head) with all G query heads, its ranks splitting [0, length) by the
+// length alone and combining over distributed shared memory in rank
+// order. Codes go to shared memory by 16-byte cp.async (element by element
+// where D is not a multiple of 16), a tile's scales by 4-byte cp.async
+// beside them; a lane widens 8 codes in registers, and no dequantised copy
+// of the cache exists anywhere. Any S works; positions at or past length
+// are never read, codes and scales alike. Left for later: TMA tile loads,
+// and more rows per CTA at short lengths.
+#include "decode_split.cuh"
 
 namespace {
 
-using acar::decode::kMaxD;
-using acar::decode::kMaxG;
-using acar::decode::kThreads;
+using acar::split::kSplit;
+using acar::split::kThreads;
 
-struct QuantCacheLoader {
-  const int8_t* k;  // this (row, kv head)'s position 0
-  const int8_t* v;
-  const float* k_scale;
-  const float* v_scale;
-  int KV;
-  int D;
-  __device__ __forceinline__ void load(int pos, int d, float& kf,
-                                       float& vf) const {
-    const size_t off = (size_t)pos * KV * D + d;
-    kf = (float)k[off];
-    vf = (float)v[off];
-  }
-  __device__ __forceinline__ void scales(int pos, float& ks,
-                                         float& vs) const {
-    const size_t off = (size_t)pos * KV;
-    ks = k_scale[off];
-    vs = v_scale[off];
+// (kThreads, 1): without the second bound ptxas capped the dense G 6
+// instantiation at 168 registers and spilled 16 bytes
+template <typename TQ, int G>
+__global__ void __cluster_dims__(kSplit, 1, 1) __launch_bounds__(kThreads, 1)
+    dense_decode_quant_split_kernel(const TQ* __restrict__ q,
+                                    const int8_t* __restrict__ k_codes,
+                                    const float* __restrict__ k_scale,
+                                    const int8_t* __restrict__ v_codes,
+                                    const float* __restrict__ v_scale,
+                                    TQ* __restrict__ out, int S, int KV,
+                                    int D, int length, float scale,
+                                    bool vec16) {
+  const int kv = blockIdx.y, b = blockIdx.z;
+  const size_t srow = (size_t)b * S * KV + kv;  // (row, kv head) index 0
+  acar::split::Rows<int8_t, false> ld{
+      k_codes + srow * D, v_codes + srow * D, (long long)KV * D};
+  ld.ks = k_scale + srow;
+  ld.vs = v_scale + srow;
+  ld.sstride = KV;
+  const size_t head0 = ((size_t)b * KV + kv) * G * D;
+  acar::split::attend<TQ, G>(q + head0, out + head0, D, length, scale,
+                             vec16, ld);
+}
+
+template <typename TQ, int G>
+struct Launch {
+  static cudaError_t run(const void* q, const void* k_codes,
+                         const void* k_scale, const void* v_codes,
+                         const void* v_scale, void* out, int B, int S,
+                         int KV, int D, int length, float scale, bool vec16,
+                         cudaStream_t st) {
+    const int bytes = acar::split::Layout<TQ, int8_t>(G, D, false).total;
+    const cudaError_t err = acar::split::reserve_smem(
+        dense_decode_quant_split_kernel<TQ, G>, bytes);
+    if (err != cudaSuccess) return err;
+    dense_decode_quant_split_kernel<TQ, G><<<dim3(kSplit, KV, B), kThreads,
+                                             bytes, st>>>(
+        static_cast<const TQ*>(q), static_cast<const int8_t*>(k_codes),
+        static_cast<const float*>(k_scale),
+        static_cast<const int8_t*>(v_codes),
+        static_cast<const float*>(v_scale), static_cast<TQ*>(out), S, KV, D,
+        length, scale, vec16);
+    return cudaGetLastError();
   }
 };
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    decode_quant_kernel(const T* __restrict__ q,
-                        const int8_t* __restrict__ k_codes,
-                        const float* __restrict__ k_scale,
-                        const int8_t* __restrict__ v_codes,
-                        const float* __restrict__ v_scale, T* __restrict__ out,
-                        int S, int KV, int G, int D, int length, float scale) {
-  __shared__ acar::decode::Smem sm;
-  const int b = blockIdx.x;
-  const int kv = blockIdx.y;
-  const size_t row = ((size_t)b * S * KV + kv) * D;
-  const size_t srow = (size_t)b * S * KV + kv;
-  const QuantCacheLoader ld{k_codes + row, v_codes + row, k_scale + srow,
-                            v_scale + srow, KV, D};
-  const size_t head0 = ((size_t)b * KV * G + kv * G) * D;
-  acar::decode::attend(sm, q + head0, out + head0, G, D, length, scale, ld);
-}
 
 }  // namespace
 
@@ -79,24 +91,17 @@ extern "C" int acar_decode_attention_quant(
     const void* v_codes, const void* v_scale, void* out, int B, int H, int KV,
     int D, int S, int length, int dtype, void* stream) {
   const int G = H / KV;
-  if (G > kMaxG || D > kMaxD || H % KV != 0 || length < 0 || length > S)
+  if (G > acar::split::kMaxG || D > acar::split::kMaxD || H % KV != 0 ||
+      length < 0 || length > S || B > 65535 || KV > 65535)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(B, KV);
-  const float scale = 1.0f / sqrtf((float)D);
+  const float scale = 1.4426950408889634f / sqrtf((float)D);  // log2(e)
+  const bool vec16 = acar::split::vec16(D, 1, q, k_codes, v_codes);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int8_t* kc = static_cast<const int8_t*>(k_codes);
-  const int8_t* vc = static_cast<const int8_t*>(v_codes);
-  const float* ks = static_cast<const float*>(k_scale);
-  const float* vs = static_cast<const float*>(v_scale);
-  if (dtype == acar::kBF16) {
-    using T = __nv_bfloat16;
-    decode_quant_kernel<T><<<grid, kThreads, 0, st>>>(
-        static_cast<const T*>(q), kc, ks, vc, vs, static_cast<T*>(out), S, KV,
-        G, D, length, scale);
-  } else {
-    decode_quant_kernel<float><<<grid, kThreads, 0, st>>>(
-        static_cast<const float*>(q), kc, ks, vc, vs,
-        static_cast<float*>(out), S, KV, G, D, length, scale);
-  }
-  return (int)cudaGetLastError();
+  if (dtype == acar::kBF16)
+    return (int)acar::split::dispatch_g<Launch, __nv_bfloat16>(
+        G, q, k_codes, k_scale, v_codes, v_scale, out, B, S, KV, D, length,
+        scale, vec16, st);
+  return (int)acar::split::dispatch_g<Launch, float>(
+      G, q, k_codes, k_scale, v_codes, v_scale, out, B, S, KV, D, length,
+      scale, vec16, st);
 }

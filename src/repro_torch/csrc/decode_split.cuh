@@ -1,13 +1,20 @@
-// The split-KV single-token GQA decode shared by the paged decode
-// (paged_decode_attention.cu) and the dense-cache decode
-// (decode_attention.cu), for Hopper (sm_90a).
+// The split-KV single-token GQA decode shared by the four decode kernels,
+// for Hopper (sm_90a): the paged decode (paged_decode_attention.cu), the
+// dense-cache decode (decode_attention.cu) and their int8 counterparts
+// (paged_decode_attention_quant.cu, decode_attention_quant.cu).
 //
 // Computes, for the G query heads h = kv * G + g of one (row, kv head):
 //   out[h] = softmax_s(q[h] . k[s] / sqrt(D)) @ v[s]    over s < len
+// or, over int8 codes with f32 per-vector scales (Rows::kQuant),
+//   scores_s = (q[h] / sqrt(D) . k_codes[s]) * k_scale[s]
+//   out[h]   = sum_s (softmax(scores)_s * v_scale[s]) * v_codes[s]
 // with an f32 online softmax (in base 2: log2(e) is folded into q's scale),
-// finished as acc / max(l, 1e-30), as the Pallas kernels do. A Loader gives the key row of a position (D contiguous
-// elements; the value row sits at the same offset of v): through the block
-// table (paged) or at a fixed stride (a contiguous cache).
+// finished as acc / max(l, 1e-30), as the Pallas kernels do. q and out are
+// TQ (f32 or bf16); the cache holds TKV (TQ, or int8_t codes). A Rows
+// loader gives the slot index of a position (through the block table when
+// paged, the position itself in a contiguous cache); the key and value
+// rows (D contiguous elements) sit at index * stride of k and v, the two
+// scales at index * sstride of k_scale and v_scale.
 //
 // One launch, one cluster of kSplit CTAs per (row, kv head):
 // - Key ranges. Rank r of the cluster takes the positions
@@ -19,18 +26,21 @@
 //   wrappers mirror this arithmetic as split_ranges(); the library exports
 //   range_start() itself (paged_decode_attention.cu) to check them.
 // - Inside a CTA. q and tiles of kTile keys go to shared memory by 16-byte
-//   cp.async, kStages tiles in flight, one barrier a tile; one lane per key
-//   computes a tile's row offsets kStages tiles ahead. A paged Loader
-//   copies the page ids of a window of kWin positions once per page (4-byte
-//   cp.async), the next window's in flight with the current one's tiles.
-//   Each lane holds 16 bytes of a key row (kVec elements) and the matching
-//   slice of q, prescaled, in registers for all G heads; lpk lanes (a power
-//   of two) cover a row, so a warp scores 32 / lpk keys at once, each dot
-//   product reduced by a fixed xor-shuffle butterfly. The running max is
-//   one per warp (a shuffle max over the keys of each step), so the lanes'
-//   sums l and acc share it and add up across the warp at the end with no
-//   exponentials; warps merge through shared memory in warp order. There
-//   is no serial phase on a few threads.
+//   cp.async, kStages tiles in flight, one barrier a tile; a tile's kTile
+//   k- and v-scales (int8) go by 4-byte cp.async in the same commit group.
+//   One lane per key computes a tile's slot indices kStages tiles ahead. A
+//   paged loader copies the page ids of a window of kWin positions once
+//   per page (4-byte cp.async), the next window's in flight with the
+//   current one's tiles. Each lane holds kVec elements of a key row (16
+//   bytes of f32 or bf16; 8 int8 codes, an 8-byte shared load widened in
+//   registers, so that q and acc take as many registers as bf16's) and the
+//   matching slice of q, prescaled, in registers for all G heads; lpk
+//   lanes (a power of two) cover a row, so a warp scores 32 / lpk keys at
+//   once, each dot product reduced by a fixed xor-shuffle butterfly. The
+//   running max is one per warp (a shuffle max over the keys of each
+//   step), so the lanes' sums l and acc share it and add up across the
+//   warp at the end with no exponentials; warps merge through shared
+//   memory in warp order. There is no serial phase on a few threads.
 // - Cluster combine. Each rank stores its (m, l, acc[G][D]) into rank 0's
 //   shared memory over distributed shared memory and arrives on an
 //   mbarrier there; rank 0 waits for all kSplit ranks, merges the partials
@@ -49,6 +59,8 @@
 #include <cooperative_groups.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace acar {
 namespace split {
@@ -75,29 +87,98 @@ __host__ __device__ __forceinline__ int range_start(int len, int r) {
   return s < len ? s : len;
 }
 
-// lanes per key row: 16 bytes a lane, rounded up to a power of two
+// What one lane reads of a row in shared memory: kVec elements in one Raw
+// load, widened to f32 by unpack.
 template <typename T>
+struct Lane;
+template <>
+struct Lane<float> {
+  using Raw = uint4;
+  static constexpr int kVec = 4;
+  static __device__ __forceinline__ void unpack(const Raw& raw, float* f) {
+    f[0] = __uint_as_float(raw.x);
+    f[1] = __uint_as_float(raw.y);
+    f[2] = __uint_as_float(raw.z);
+    f[3] = __uint_as_float(raw.w);
+  }
+};
+template <>
+struct Lane<__nv_bfloat16> {
+  using Raw = uint4;
+  static constexpr int kVec = 8;
+  static __device__ __forceinline__ void unpack(const Raw& raw, float* f) {
+    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+};
+template <>
+struct Lane<int8_t> {
+  using Raw = uint2;
+  static constexpr int kVec = 8;
+  // exact: byte c ^ 0x80 = c + 128 goes under the exponent of 2^23, and
+  // 2^23 + 128 comes off (a byte permute and an add, no conversion unit)
+  static __device__ __forceinline__ void unpack(const Raw& raw, float* f) {
+    const uint32_t w[2] = {raw.x ^ 0x80808080u, raw.y ^ 0x80808080u};
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      f[i] = __uint_as_float(__byte_perm(w[i / 4], 0x4b000000u,
+                                         0x7440u | (i % 4))) -
+             8388736.f;
+  }
+};
+
+// lanes per key row: kVec elements a lane, rounded up to a power of two
+template <typename TKV>
 __host__ __device__ __forceinline__ int lanes_per_key(int D) {
-  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kVec = Lane<TKV>::kVec;
   const int chunks = (D + kVec - 1) / kVec;
   int lpk = 1;
   while (lpk < chunks) lpk *= 2;
   return lpk;
 }
 
+// Where a (row, kv head)'s keys live. k, v: this kv head's row of slot
+// index 0, stride elements from one index to the next; int8 codes
+// (kQuant): ks, vs its scale of index 0, sstride floats from one index to
+// the next; kPaged: bt the row's block table, index = page * page_size +
+// slot.
+template <typename T, bool Paged>
+struct Rows {
+  using TKV = T;
+  static constexpr bool kPaged = Paged;
+  static constexpr bool kQuant = std::is_same<T, int8_t>::value;
+  const T* k;
+  const T* v;
+  long long stride;
+  const float* ks = nullptr;
+  const float* vs = nullptr;
+  long long sstride = 0;
+  const int* bt = nullptr;
+  int page_size = 0;
+};
+
 // Dynamic shared memory of one CTA, in bytes from its start:
 //   [0, kv)         K and V tiles, kStages each, rows padded to lpk * kVec
 //                   elements (after the key loop: the warps' partials)
-//   [kv, inbox)     q, G * D elements
+//   [kv, sc)        q, G * D elements
+//   [sc, inbox)     int8: the tiles' k- and v-scales, kStages * kTile each
 //   [inbox, pid)    rank 0's inbox: kSplit partials of G * D + 2 * G floats
 //   [pid, total)    paged: two windows of page ids
-template <typename T>
+template <typename TQ, typename TKV>
 struct Layout {
-  int dp, kv, inbox, pid, total;
+  int dp, kv, sc, inbox, pid, total;
   __host__ __device__ Layout(int G, int D, bool paged) {
-    dp = lanes_per_key<T>(D) * (16 / (int)sizeof(T));
-    kv = 2 * kStages * kTile * dp * (int)sizeof(T);
-    inbox = kv + (G * D * (int)sizeof(T) + 15) / 16 * 16;
+    constexpr bool quant = std::is_same<TKV, int8_t>::value;
+    dp = lanes_per_key<TKV>(D) * Lane<TKV>::kVec;
+    const int tiles = 2 * kStages * kTile * dp * (int)sizeof(TKV);
+    const int parts = kWarps * (G * D + 2 * G) * 4;
+    kv = ((tiles > parts ? tiles : parts) + 15) / 16 * 16;
+    sc = kv + (G * D * (int)sizeof(TQ) + 15) / 16 * 16;
+    inbox = sc + (quant ? 2 * kStages * kTile * 4 : 0);
     pid = inbox + kSplit * (G * D + 2 * G) * 4;
     total = pid + (paged ? 2 * (kWin + 1) * 4 : 0);
   }
@@ -107,53 +188,38 @@ __device__ __forceinline__ float merge_scale(float m, float m_new) {
   return m == -INFINITY ? 0.f : exp2f(m - m_new);
 }
 
-template <typename T>
-__device__ __forceinline__ void unpack(const uint4& raw, float* f);
-template <>
-__device__ __forceinline__ void unpack<float>(const uint4& raw, float* f) {
-  f[0] = __uint_as_float(raw.x);
-  f[1] = __uint_as_float(raw.y);
-  f[2] = __uint_as_float(raw.z);
-  f[3] = __uint_as_float(raw.w);
-}
-template <>
-__device__ __forceinline__ void unpack<__nv_bfloat16>(const uint4& raw,
-                                                      float* f) {
-  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[2 * i] = __uint_as_float(w[i] << 16);
-    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-
 // q and out point at the G query heads of this (row, kv head): G * D
 // values each; scale is log2(e) / sqrt(D), so that scores are in base 2
-// and every exponential is one exp2f. vec16: rows and q are 16-byte aligned (D * sizeof(T) % 16
-// == 0, aligned bases), so they load by cp.async; otherwise element by
-// element. Loader: pointers k, v (this kv head's row 0), stride (elements
-// from one row to the next) and, where kPaged, bt (the row's block table)
-// and page_size.
-template <typename T, int G, typename Loader>
-__device__ __forceinline__ void attend(const T* __restrict__ q,
-                                       T* __restrict__ out, int D, int len,
+// and every exponential is one exp2f. vec16: K/V rows and q rows are whole
+// 16-byte chunks at 16-byte aligned bases (D * sizeof(TKV) % 16 == 0),
+// so they load by cp.async; otherwise element by element.
+template <typename TQ, int G, typename Loader>
+__device__ __forceinline__ void attend(const TQ* __restrict__ q,
+                                       TQ* __restrict__ out, int D, int len,
                                        float scale, bool vec16,
                                        const Loader& ld) {
   namespace cg = cooperative_groups;
-  constexpr int kVec = 16 / sizeof(T);
+  using TKV = typename Loader::TKV;
+  constexpr int kVec = Lane<TKV>::kVec;          // K/V elements a lane
+  constexpr int kCopy = 16 / (int)sizeof(TKV);   // K/V elements a cp.async
+  constexpr int kQVec = Lane<TQ>::kVec;          // q elements a 16-byte load
   constexpr bool kPaged = Loader::kPaged;
+  constexpr bool kQuant = Loader::kQuant;
+  using Raw = typename Lane<TKV>::Raw;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ uint64_t inbox_full;  // rank 0's: every thread has delivered
-  __shared__ long long roff[kStages][kTile];  // tile u's rows: roff[u % S]
+  __shared__ long long ridx[kStages][kTile];  // tile u's slots: ridx[u % S]
 
   const int rank = (int)cg::this_cluster().block_rank();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const Layout<T> lay(G, D, kPaged);
-  const int lpk = lanes_per_key<T>(D), dp = lay.dp, kpw = 32 / lpk;
+  const Layout<TQ, TKV> lay(G, D, kPaged);
+  const int lpk = lanes_per_key<TKV>(D), dp = lay.dp, kpw = 32 / lpk;
   const int kg = lane / lpk, j = lane % lpk;
-  T* kbuf = reinterpret_cast<T*>(smem);  // [kStages][kTile][dp]
-  T* vbuf = kbuf + kStages * kTile * dp;
-  T* qs = reinterpret_cast<T*>(smem + lay.kv);
+  TKV* kbuf = reinterpret_cast<TKV*>(smem);  // [kStages][kTile][dp]
+  TKV* vbuf = kbuf + kStages * kTile * dp;
+  TQ* qs = reinterpret_cast<TQ*>(smem + lay.kv);
+  float* ksc = reinterpret_cast<float*>(smem + lay.sc);  // [kStages][kTile]
+  float* vsc = ksc + kStages * kTile;
   float* inbox = reinterpret_cast<float*>(smem + lay.inbox);
   int* pid = reinterpret_cast<int*>(smem + lay.pid);  // [2][kWin + 1]
 
@@ -189,26 +255,25 @@ __device__ __forceinline__ void attend(const T* __restrict__ q,
         hopper::cp_async4(dst + i, ld.bt + first + i);
     }
   };
-  // the element offset of position pos's row, pos in tile t
-  auto row_offset = [&](int pos, int t) -> long long {
+  // the slot index of position pos, pos in tile t
+  auto slot_index = [&](int pos, int t) -> long long {
     if constexpr (kPaged) {
       const int w = t * kTile / kWin;
       const int first = (lo + w * kWin) / ld.page_size;
       const int pg = pos / ld.page_size;
       const int page = pid[(w & 1) * (kWin + 1) + pg - first];
-      return ((long long)page * ld.page_size + (pos - pg * ld.page_size)) *
-             ld.stride;
+      return (long long)page * ld.page_size + (pos - pg * ld.page_size);
     } else {
-      return (long long)pos * ld.stride;
+      return pos;
     }
   };
-  // one lane per key computes the rows of tile u
+  // one lane per key computes the slots of tile u
   auto tile_rows = [&](int u) {
     const int pos = lo + u * kTile + tid;
     if (u < ntiles && tid < kTile)
-      roff[u % kStages][tid] = pos < lo + n ? row_offset(pos, u) : 0;
+      ridx[u % kStages][tid] = pos < lo + n ? slot_index(pos, u) : 0;
   };
-  const int cpk = D / kVec;  // 16-byte chunks per row (vec16)
+  const int cpk = D / kCopy;  // 16-byte chunks per K/V row (vec16)
   auto issue_tile = [&](int t) {
     if (t >= ntiles) return;
     if constexpr (kPaged) {
@@ -218,21 +283,28 @@ __device__ __forceinline__ void attend(const T* __restrict__ q,
     }
     const int st = t % kStages;
     const int nk = min(kTile, n - t * kTile);
-    T* kd = kbuf + st * kTile * dp;
-    T* vd = vbuf + st * kTile * dp;
+    TKV* kd = kbuf + st * kTile * dp;
+    TKV* vd = vbuf + st * kTile * dp;
     if (vec16) {
       for (int c = tid; c < nk * cpk; c += kThreads) {
-        const int key = c / cpk, col = (c - key * cpk) * kVec;
-        const long long off = roff[st][key] + col;
+        const int key = c / cpk, col = (c - key * cpk) * kCopy;
+        const long long off = ridx[st][key] * ld.stride + col;
         hopper::cp_async16(kd + key * dp + col, ld.k + off, 16);
         hopper::cp_async16(vd + key * dp + col, ld.v + off, 16);
       }
     } else {
       for (int c = tid; c < nk * D; c += kThreads) {
         const int key = c / D, d = c - key * D;
-        const long long off = roff[st][key] + d;
+        const long long off = ridx[st][key] * ld.stride + d;
         kd[key * dp + d] = ld.k[off];
         vd[key * dp + d] = ld.v[off];
+      }
+    }
+    if constexpr (kQuant) {
+      if (tid < nk) {
+        const long long off = ridx[st][tid] * ld.sstride;
+        hopper::cp_async4(ksc + st * kTile + tid, ld.ks + off);
+        hopper::cp_async4(vsc + st * kTile + tid, ld.vs + off);
       }
     }
   };
@@ -241,11 +313,15 @@ __device__ __forceinline__ void attend(const T* __restrict__ q,
     // pad columns [D, dp) are never loaded: zero them so that q's zero
     // pad meets finite values
     const int pad = dp - D;
-    for (int i = tid; i < 2 * kStages * kTile * pad; i += kThreads)
-      kbuf[(i / pad) * dp + D + i % pad] = from_f32<T>(0.f);
+    for (int i = tid; i < 2 * kStages * kTile * pad; i += kThreads) {
+      if constexpr (kQuant)
+        kbuf[(i / pad) * dp + D + i % pad] = 0;
+      else
+        kbuf[(i / pad) * dp + D + i % pad] = from_f32<TKV>(0.f);
+    }
     if (vec16) {
-      for (int c = tid; c < G * cpk; c += kThreads)
-        hopper::cp_async16(qs + c * kVec, q + c * kVec, 16);
+      for (int c = tid; c < G * D / kQVec; c += kThreads)
+        hopper::cp_async16(qs + c * kQVec, q + c * kQVec, 16);
     } else {
       for (int i = tid; i < G * D; i += kThreads) qs[i] = q[i];
     }
@@ -276,9 +352,11 @@ __device__ __forceinline__ void attend(const T* __restrict__ q,
           float f[kVec];
           if (j * kVec < D) {
             if (vec16) {
-              unpack<T>(*reinterpret_cast<const uint4*>(qs + g * D +
-                                                        j * kVec),
-                        f);
+#pragma unroll
+              for (int c = 0; c < kVec / kQVec; ++c)
+                Lane<TQ>::unpack(*reinterpret_cast<const uint4*>(
+                                     qs + g * D + j * kVec + c * kQVec),
+                                 f + c * kQVec);
             } else {
 #pragma unroll
               for (int e = 0; e < kVec; ++e)
@@ -294,17 +372,18 @@ __device__ __forceinline__ void attend(const T* __restrict__ q,
         }
       }
 
-      const T* ks = kbuf + (t % kStages) * kTile * dp;
-      const T* vs = vbuf + (t % kStages) * kTile * dp;
+      const int st = t % kStages;
+      const TKV* ks = kbuf + st * kTile * dp;
+      const TKV* vs = vbuf + st * kTile * dp;
       const int nk = min(kTile, n - t * kTile);
       for (int k0 = warp * kpw; k0 < nk; k0 += kWarps * kpw) {
         const int key = k0 + kg;
         const bool valid = key < nk;
         float kf[kVec], s[G], mx[G];
-        uint4 raw = make_uint4(0, 0, 0, 0);
+        Raw raw{};
         if (valid)
-          raw = *reinterpret_cast<const uint4*>(ks + key * dp + j * kVec);
-        unpack<T>(raw, kf);
+          raw = *reinterpret_cast<const Raw*>(ks + key * dp + j * kVec);
+        Lane<TKV>::unpack(raw, kf);
 #pragma unroll
         for (int g = 0; g < G; ++g) {
           float a = 0.f;
@@ -316,6 +395,11 @@ __device__ __forceinline__ void attend(const T* __restrict__ q,
 #pragma unroll
           for (int g = 0; g < G; ++g)
             s[g] += __shfl_xor_sync(0xffffffffu, s[g], off);
+        }
+        if constexpr (kQuant) {  // fold the k scale into the key's score
+          const float ksk = valid ? ksc[st * kTile + key] : 0.f;
+#pragma unroll
+          for (int g = 0; g < G; ++g) s[g] *= ksk;
         }
         // the warp's max over this step's keys
 #pragma unroll
@@ -337,15 +421,18 @@ __device__ __forceinline__ void attend(const T* __restrict__ q,
         }
         if (valid) {
           float vf[kVec];
-          unpack<T>(*reinterpret_cast<const uint4*>(vs + key * dp + j * kVec),
-                    vf);
+          Lane<TKV>::unpack(
+              *reinterpret_cast<const Raw*>(vs + key * dp + j * kVec), vf);
 #pragma unroll
           for (int g = 0; g < G; ++g) {
             const float p = exp2f(s[g] - m[g]);
             l[g] += p;
+            // int8: the v scale folds into the probability
+            float pv = p;
+            if constexpr (kQuant) pv = p * vsc[st * kTile + key];
 #pragma unroll
             for (int e = 0; e < kVec; ++e)
-              acc[g][e] = fmaf(p, vf[e], acc[g][e]);
+              acc[g][e] = fmaf(pv, vf[e], acc[g][e]);
           }
         }
       }
@@ -436,7 +523,7 @@ __device__ __forceinline__ void attend(const T* __restrict__ q,
 #pragma unroll
       for (int r = 0; r < kSplit; ++r)
         a = fmaf(inbox[r * psize + g * D + d], c[r], a);
-      out[g * D + d] = from_f32<T>(a / fmaxf(lsum, 1e-30f));
+      out[g * D + d] = from_f32<TQ>(a / fmaxf(lsum, 1e-30f));
     }
   }
 }
@@ -464,6 +551,16 @@ cudaError_t reserve_smem(K kernel, int bytes) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               bytes);
+}
+
+// vec16 of a call: K/V rows whole 16-byte chunks (D * kv_item % 16 == 0;
+// q's rows follow, its items being at least kv_item) and every base
+// 16-byte aligned
+inline bool vec16(int D, size_t kv_item, const void* q, const void* k,
+                  const void* v) {
+  return (D * kv_item) % 16 == 0 &&
+         ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+           reinterpret_cast<uintptr_t>(v)) % 16) == 0;
 }
 
 }  // namespace split

@@ -33,16 +33,6 @@ namespace {
 using acar::split::kSplit;
 using acar::split::kThreads;
 
-template <typename T>
-struct PageRows {
-  static constexpr bool kPaged = true;
-  const T* k;  // this kv head's row of slot 0 of page 0
-  const T* v;
-  long long stride;  // elements between consecutive slots (KV * D)
-  const int* bt;     // this row's block table
-  int page_size;
-};
-
 template <typename T, int G>
 __global__ void __cluster_dims__(kSplit, 1, 1) __launch_bounds__(kThreads)
     paged_decode_split_kernel(const T* __restrict__ q,
@@ -55,9 +45,10 @@ __global__ void __cluster_dims__(kSplit, 1, 1) __launch_bounds__(kThreads)
                               bool vec16) {
   const int kv = blockIdx.y, b = blockIdx.z;
   const int len = min(lengths[b], NB * page_size);
-  const PageRows<T> ld{k_pages + (size_t)kv * D, v_pages + (size_t)kv * D,
-                       (long long)KV * D, block_table + (size_t)b * NB,
-                       page_size};
+  acar::split::Rows<T, true> ld{k_pages + (size_t)kv * D,
+                                v_pages + (size_t)kv * D, (long long)KV * D};
+  ld.bt = block_table + (size_t)b * NB;
+  ld.page_size = page_size;
   const size_t head0 = ((size_t)b * KV + kv) * G * D;
   acar::split::attend<T, G>(q + head0, out + head0, D, len, scale, vec16,
                             ld);
@@ -70,7 +61,7 @@ struct Launch {
                          const void* lengths, void* out, int B, int KV,
                          int D, int page_size, int NB, float scale,
                          bool vec16, cudaStream_t st) {
-    const int bytes = acar::split::Layout<T>(G, D, true).total;
+    const int bytes = acar::split::Layout<T, T>(G, D, true).total;
     const cudaError_t err = acar::split::reserve_smem(
         paged_decode_split_kernel<T, G>, bytes);
     if (err != cudaSuccess) return err;
@@ -95,11 +86,8 @@ extern "C" int acar_paged_decode_attention(
       B > 65535 || KV > 65535)
     return (int)cudaErrorInvalidValue;
   const float scale = 1.4426950408889634f / sqrtf((float)D);  // log2(e)
-  const size_t item = dtype == acar::kBF16 ? 2 : 4;
-  const bool vec16 =
-      (D * item) % 16 == 0 &&
-      ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k_pages) |
-        reinterpret_cast<uintptr_t>(v_pages)) % 16) == 0;
+  const bool vec16 = acar::split::vec16(D, dtype == acar::kBF16 ? 2 : 4, q,
+                                        k_pages, v_pages);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == acar::kBF16)
     return (int)acar::split::dispatch_g<Launch, __nv_bfloat16>(

@@ -16,71 +16,85 @@
 //   out[b, h] = sum_s (softmax(scores)_s * v_scale_s) * v_s
 //
 // What bounds it on the H100: bytes — D + 4 bytes per cached vector and
-// head, about half the bf16 pages' 2 * D, far below the flop ridge.
+// head (the codes and one f32 scale), about half of the bf16 pages' 2 * D
+// at D 64 or more, far below the flop ridge. At serving shapes (a few dozen
+// rows, a hundred-odd positions) the call moves well under a megabyte, so
+// latency bounds it: the launch, the block-table and K/V round trips, the
+// combine.
 //
-// Design: decode_core.cuh's loop (one CTA per (row, kv head) carrying all G
-// query heads, 32-key tiles, float32 online softmax, fixed order, no
-// atomics). Each position is translated to (page id, slot) through the
-// block table inside the loader, and only positions below lengths[b] are
-// loaded: spare block-table slots hold valid page ids whose bytes are stale,
-// and they are never read. The codes widen to float32 in registers; device
-// memory sees only codes and scales.
-#include "decode_core.cuh"
-
-#include <stdint.h>
+// Design: decode_split.cuh's loop, as the bf16/f32 paged decode
+// (paged_decode_attention.cu) runs it, with an int8 loader: one launch of
+// a grid (kSplit, KV, B) in clusters of kSplit CTAs, a cluster one (row,
+// kv head) with all G query heads, its ranks splitting the row's positions
+// by the row's own length and combining in rank order over distributed
+// shared memory. Codes go to shared memory by 16-byte cp.async (element
+// by element where D is not a multiple of 16), a tile's scales by 4-byte
+// cp.async beside them; a lane widens 8 codes in registers. Only positions
+// below lengths[b] are loaded, codes and scales alike: spare block-table
+// slots and stale slots past a row's length are never read. Device memory
+// sees only codes and scales; no dequantised copy of the cache exists.
+// Left for later: TMA page loads, and more rows per CTA where a row's
+// range is shorter than a tile.
+#include "decode_split.cuh"
 
 namespace {
 
-using acar::decode::kMaxD;
-using acar::decode::kMaxG;
-using acar::decode::kThreads;
+using acar::split::kSplit;
+using acar::split::kThreads;
 
-struct QuantPageLoader {
-  const int8_t* k_pages;
-  const int8_t* v_pages;
-  const float* k_scale;
-  const float* v_scale;
-  const int* table;  // this row's block table
-  int kv;
-  int KV;
-  int D;
-  int page_size;
-  __device__ __forceinline__ size_t vec(int pos) const {
-    const size_t page = (size_t)table[pos / page_size];
-    return (page * page_size + pos % page_size) * KV + kv;
-  }
-  __device__ __forceinline__ void load(int pos, int d, float& kf,
-                                       float& vf) const {
-    const size_t off = vec(pos) * D + d;
-    kf = (float)k_pages[off];
-    vf = (float)v_pages[off];
-  }
-  __device__ __forceinline__ void scales(int pos, float& ks,
-                                         float& vs) const {
-    const size_t off = vec(pos);
-    ks = k_scale[off];
-    vs = v_scale[off];
+// (kThreads, 1), as decode_attention_quant.cu has it (there ptxas spilled
+// the G 6 instantiation without the second bound)
+template <typename TQ, int G>
+__global__ void __cluster_dims__(kSplit, 1, 1) __launch_bounds__(kThreads, 1)
+    paged_decode_quant_split_kernel(const TQ* __restrict__ q,
+                                    const int8_t* __restrict__ k_pages,
+                                    const float* __restrict__ k_scale,
+                                    const int8_t* __restrict__ v_pages,
+                                    const float* __restrict__ v_scale,
+                                    const int* __restrict__ block_table,
+                                    const int* __restrict__ lengths,
+                                    TQ* __restrict__ out, int KV, int D,
+                                    int page_size, int NB, float scale,
+                                    bool vec16) {
+  const int kv = blockIdx.y, b = blockIdx.z;
+  const int len = min(lengths[b], NB * page_size);
+  acar::split::Rows<int8_t, true> ld{k_pages + (size_t)kv * D,
+                                     v_pages + (size_t)kv * D,
+                                     (long long)KV * D};
+  ld.ks = k_scale + kv;
+  ld.vs = v_scale + kv;
+  ld.sstride = KV;
+  ld.bt = block_table + (size_t)b * NB;
+  ld.page_size = page_size;
+  const size_t head0 = ((size_t)b * KV + kv) * G * D;
+  acar::split::attend<TQ, G>(q + head0, out + head0, D, len, scale, vec16,
+                             ld);
+}
+
+template <typename TQ, int G>
+struct Launch {
+  static cudaError_t run(const void* q, const void* k_pages,
+                         const void* k_scale, const void* v_pages,
+                         const void* v_scale, const void* block_table,
+                         const void* lengths, void* out, int B, int KV,
+                         int D, int page_size, int NB, float scale,
+                         bool vec16, cudaStream_t st) {
+    const int bytes = acar::split::Layout<TQ, int8_t>(G, D, true).total;
+    const cudaError_t err = acar::split::reserve_smem(
+        paged_decode_quant_split_kernel<TQ, G>, bytes);
+    if (err != cudaSuccess) return err;
+    paged_decode_quant_split_kernel<TQ, G><<<dim3(kSplit, KV, B), kThreads,
+                                             bytes, st>>>(
+        static_cast<const TQ*>(q), static_cast<const int8_t*>(k_pages),
+        static_cast<const float*>(k_scale),
+        static_cast<const int8_t*>(v_pages),
+        static_cast<const float*>(v_scale),
+        static_cast<const int*>(block_table),
+        static_cast<const int*>(lengths), static_cast<TQ*>(out), KV, D,
+        page_size, NB, scale, vec16);
+    return cudaGetLastError();
   }
 };
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads) paged_decode_quant_kernel(
-    const T* __restrict__ q, const int8_t* __restrict__ k_pages,
-    const float* __restrict__ k_scale, const int8_t* __restrict__ v_pages,
-    const float* __restrict__ v_scale, const int* __restrict__ block_table,
-    const int* __restrict__ lengths, T* __restrict__ out, int KV, int G,
-    int D, int page_size, int NB, float scale) {
-  __shared__ acar::decode::Smem sm;
-  const int b = blockIdx.x;
-  const int kv = blockIdx.y;
-  int len = lengths[b];
-  if (len > NB * page_size) len = NB * page_size;
-  const QuantPageLoader ld{k_pages, v_pages, k_scale, v_scale,
-                           block_table + (size_t)b * NB,
-                           kv, KV, D, page_size};
-  const size_t head0 = ((size_t)b * KV * G + kv * G) * D;
-  acar::decode::attend(sm, q + head0, out + head0, G, D, len, scale, ld);
-}
 
 }  // namespace
 
@@ -90,25 +104,17 @@ extern "C" int acar_paged_decode_attention_quant(
     const void* lengths, void* out, int B, int H, int KV, int D,
     int page_size, int NB, int dtype, void* stream) {
   const int G = H / KV;
-  if (G > kMaxG || D > kMaxD || H % KV != 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid(B, KV);
-  const float scale = 1.0f / sqrtf((float)D);
+  if (G > acar::split::kMaxG || D > acar::split::kMaxD || H % KV != 0 ||
+      B > 65535 || KV > 65535)
+    return (int)cudaErrorInvalidValue;
+  const float scale = 1.4426950408889634f / sqrtf((float)D);  // log2(e)
+  const bool vec16 = acar::split::vec16(D, 1, q, k_pages, v_pages);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int8_t* kp = static_cast<const int8_t*>(k_pages);
-  const int8_t* vp = static_cast<const int8_t*>(v_pages);
-  const float* ks = static_cast<const float*>(k_scale);
-  const float* vs = static_cast<const float*>(v_scale);
-  const int* bt = static_cast<const int*>(block_table);
-  const int* ln = static_cast<const int*>(lengths);
-  if (dtype == acar::kBF16) {
-    using T = __nv_bfloat16;
-    paged_decode_quant_kernel<T><<<grid, kThreads, 0, st>>>(
-        static_cast<const T*>(q), kp, ks, vp, vs, bt, ln,
-        static_cast<T*>(out), KV, G, D, page_size, NB, scale);
-  } else {
-    paged_decode_quant_kernel<float><<<grid, kThreads, 0, st>>>(
-        static_cast<const float*>(q), kp, ks, vp, vs, bt, ln,
-        static_cast<float*>(out), KV, G, D, page_size, NB, scale);
-  }
-  return (int)cudaGetLastError();
+  if (dtype == acar::kBF16)
+    return (int)acar::split::dispatch_g<Launch, __nv_bfloat16>(
+        G, q, k_pages, k_scale, v_pages, v_scale, block_table, lengths, out,
+        B, KV, D, page_size, NB, scale, vec16, st);
+  return (int)acar::split::dispatch_g<Launch, float>(
+      G, q, k_pages, k_scale, v_pages, v_scale, block_table, lengths, out, B,
+      KV, D, page_size, NB, scale, vec16, st);
 }

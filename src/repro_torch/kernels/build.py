@@ -33,8 +33,7 @@ SOURCES = ("paged_decode_attention.cu", "chunked_prefill_attention.cu",
            "fused_swiglu.cu", "decode_attention.cu",
            "decode_attention_quant.cu", "paged_decode_attention_quant.cu",
            "selective_scan.cu", "rglru_scan.cu")
-HEADERS = ("common.cuh", "decode_core.cuh", "decode_split.cuh",
-           "hopper.cuh")
+HEADERS = ("common.cuh", "decode_split.cuh", "hopper.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -9,7 +9,10 @@ in ``csrc/decode_attention_quant.cu`` (it replaces the Pallas kernel
 it runs ``decode_attention_quant_plain``, the PyTorch port of what the
 reference runs off the TPU for this op (``repro/kernels/ops.py``):
 ``models/attention.py::decode_attention_quant`` over the linear
-positions. ``decode_attention_quant.launches`` counts kernel launches.
+positions. ``decode_attention_quant.launches`` counts kernel launches:
+one per call. The kernel runs the dense-cache decode's split-KV loop
+(``csrc/decode_split.cuh``) over int8 codes, so ``split_ranges`` gives
+the key range each CTA of a row's cluster takes here too.
 """
 from __future__ import annotations
 
@@ -17,6 +20,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention import _scale
+from repro_torch.kernels.paged_decode_attention import (  # noqa: F401
+    split_ranges)  # re-exported: the int8 kernel splits alike
 
 # the masking constant of the reference's jnp quant path
 _NEG_INF = -1e30

@@ -9,7 +9,10 @@ On a CUDA tensor it launches the hand-written kernel in
 tensor it runs ``paged_decode_attention_quant_plain``, the PyTorch port
 of the reference oracle
 ``kernels/ref.py::paged_decode_attention_quant_ref``.
-``paged_decode_attention_quant.launches`` counts kernel launches.
+``paged_decode_attention_quant.launches`` counts kernel launches: one
+per call. The kernel runs the paged decode's split-KV loop
+(``csrc/decode_split.cuh``) over int8 codes, so ``split_ranges`` gives
+the key range each CTA of a row's cluster takes here too.
 """
 from __future__ import annotations
 
@@ -17,6 +20,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention import _scale
+from repro_torch.kernels.paged_decode_attention import (  # noqa: F401
+    split_ranges)  # re-exported: the int8 kernel splits alike
 
 
 def paged_decode_attention_quant_plain(q: torch.Tensor,

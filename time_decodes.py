@@ -2,9 +2,11 @@
 """Check and time some of the port's kernels of one source tree on one
 NVIDIA GPU, with ``chip_smoke.py``'s phase-3 checks and timings for
 them: the split-KV decodes (the paged decode and the dense-cache
-decode; the default) or the selective scan, forward and backward.
+decode; the default), the int8 decodes (the int8 paged decode and the
+int8 dense-cache decode) or the selective scan, forward and backward.
 
-    python3 time_decodes.py [--src DIR] [--kernels decodes|selective_scan]
+    python3 time_decodes.py [--src DIR]
+        [--kernels decodes|int8_decodes|selective_scan]
 
 ``--src`` is the ``src`` directory whose ``repro_torch`` is imported and
 built (default: this checkout's). To compare two commits on one card,
@@ -17,8 +19,10 @@ call to the card:
 
 Prints one JSON object (the tree it imported, and for each kernel and
 dtype its error, kernel and plain times, bound, and for the decodes the
-SDPA and long-shape figures and the launch floor of the timing), then
-the ``nvidia-smi`` name and power-limit line.
+SDPA (none for int8) and long-shape figures, a hash of the serving-shape
+output (equal hashes: two trees' kernels agree bit for bit) and the
+launch floor of the timing), then the ``nvidia-smi`` name and
+power-limit line.
 """
 from __future__ import annotations
 
@@ -36,7 +40,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the src directory whose repro_torch to import")
-    ap.add_argument("--kernels", choices=("decodes", "selective_scan"),
+    ap.add_argument("--kernels",
+                    choices=("decodes", "int8_decodes", "selective_scan"),
                     default="decodes", help="which kernels to time")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -55,6 +60,8 @@ def main() -> int:
 
     if args.kernels == "selective_scan":
         out = time_selective_scan(torch, cs)
+    elif args.kernels == "int8_decodes":
+        out = time_int8_decodes(torch, cs)
     else:
         out = time_split_decodes(torch, cs)
     smi = subprocess.run(
@@ -101,13 +108,39 @@ def time_split_decodes(torch, cs) -> dict:
             torch, gen_split, dname, *cs.decode_case(torch, gen, dtype))
         results[("decode_attention", dname)] = cs.dense_decode_checks(
             torch, gen_split, dname, *cs.dense_cache_case(torch, gen, dtype))
+    return _decode_results(torch, cs, results, cs.run_decode_geometry_checks)
+
+
+def time_int8_decodes(torch, cs) -> dict:
+    """Kernels 5 and 6 (chip_smoke's phase-3 checks and timings)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    gen_quant = torch.Generator(device="cuda")
+    gen_quant.manual_seed(4)
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        results[("paged_decode_attention_quant", dname)] = (
+            cs.paged_quant_checks(torch, gen_quant, dname,
+                                  *cs.quant_pages_case(torch, gen, dtype)))
+        results[("decode_attention_quant", dname)] = cs.dense_quant_checks(
+            torch, gen_quant, dname, *cs.quant_cache_case(torch, gen, dtype))
+    return _decode_results(torch, cs, results,
+                           cs.run_quant_decode_geometry_checks)
+
+
+def _decode_results(torch, cs, results: dict, geometry_checks) -> dict:
+    """Log the decodes' figures, run their geometry sweep and return the
+    JSON: one entry a kernel and dtype, and the launch floor."""
     for (name, dname), r in results.items():
+        lib = ("none" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms")
         cs.log(f"kernel {name} [{dname}]: max_abs_err "
                f"{r['max_abs_err']:.3e}  kernel {r['ms']:.4f} ms  plain "
-               f"{r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} ms  "
+               f"{r['plain_ms']:.4f} ms  library {lib}  "
                f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
     cs.log_decode_checks(results)
-    cs.run_decode_geometry_checks(torch)
+    geometry_checks(torch)
     out = {f"{name}[{dname}]": r for (name, dname), r in results.items()}
     out["launch_floor_ms"] = cs.launch_floor_ms(torch)
     return out
