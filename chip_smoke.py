@@ -71,13 +71,18 @@ checkpoints, dx, ddt, dB, dC), the wrapper's ``scan_plan`` against the
 compiled tile constants, and a sweep of small shapes off the tile grid
 (every state size; the element-copy path TMA cannot take); its bound
 adds the exponentials on the special-function units at the SM clock
-``nvidia-smi`` reads under load.
+``nvidia-smi`` reads under load. For the RG-LRU scan it checks, in f32
+and bf16, that hs, h_final, da and du equal the plain versions' bit for
+bit, at recurrentgemma-2b's width and over a sweep of shapes at the
+tile edges and off the channel grid (the element-copy path too), that
+batch row 1 computed alone equals its bits inside the batch, and the
+wrapper's ``rglru_plan`` against the compiled tile constants.
 
 The build prints ptxas's registers, static shared memory and spills
 for the two tensor-core kernel sources, the four split-KV decodes and
-the selective scan, and the serve and train profiles count the
-SwiGLU's tensor-core kernels (two for every bf16 wrapper call), the
-decodes' and the selective scan's (one for every wrapper call).
+the two scans, and the serve and train profiles count the SwiGLU's
+tensor-core kernels (two for every bf16 wrapper call), the decodes'
+and the scans' (one for every wrapper call).
 It prints one JSON line describing the kernels, the ``nvidia-smi``
 line, and last ``{"ok": true, "device": {...}}``.
 """
@@ -1240,7 +1245,8 @@ def selective_scan_checks(torch, gen, dtype, clock_mhz: float) -> dict:
                                 SS_FWD_SFU * elems, clock_mhz)
     out = {("selective_scan", dname): dict(
         max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
-        bound_terms=terms, library_ms=None, sm_clock_mhz=clock_mhz)}
+        bound_terms=terms, library_ms=None, sm_clock_mhz=clock_mhz,
+        out_sha256=out_sha256(y))}
 
     dy = torch.randn((b, s, d), generator=gen, device="cuda").to(dtype)
     dh = torch.randn((b, d, n), generator=gen, device="cuda")
@@ -1259,6 +1265,8 @@ def selective_scan_checks(torch, gen, dtype, clock_mhz: float) -> dict:
     for i, what in ((0, "dx"), (1, "ddt"), (3, "dB"), (4, "dC")):
         check_same_rows(f"selective_scan_bwd[{dname}] {what} of batch row "
                         "1", got[i][1:2], alone[i])
+    sha = {k: out_sha256(g) for k, g in zip(("dx", "ddt", "da_log", "dB",
+                                               "dC"), got)}
     del got, alone
     ms = time_ms(torch, lambda: ss.selective_scan_bwd(
         x, dt, a_log, bm, cm, ckpt, dy, dh), 20)
@@ -1273,7 +1281,7 @@ def selective_scan_checks(torch, gen, dtype, clock_mhz: float) -> dict:
     out[("selective_scan_bwd", dname)] = dict(
         max_abs_err=err, grad_err_share=share, ms=ms, plain_ms=plain,
         bound_ms=bnd, bound_by=by, bound_terms=terms, library_ms=None,
-        sm_clock_mhz=clock_mhz)
+        sm_clock_mhz=clock_mhz, out_sha256=sha)
     del x, dt, a_log, bm, cm, ckpt, dy, dh, y, h, row, y1, h1, ck1
     torch.cuda.empty_cache()
     return out
@@ -1360,17 +1368,215 @@ def run_scan_geometry_checks(torch) -> None:
         "(float32 and bfloat16)")
 
 
+def same_bits(got, want) -> bool:
+    """Bitwise equality of two tensors' bytes (so -0 differs from +0, and
+    a NaN equals a NaN of the same bits)."""
+    import torch
+    torch.cuda.synchronize()
+    return (got.dtype == want.dtype and got.shape == want.shape
+            and torch.equal(got.contiguous().view(torch.uint8),
+                            want.contiguous().view(torch.uint8)))
+
+
+def require_bits(name: str, got, want) -> None:
+    if not same_bits(got, want):
+        diff = (got.float() - want.float()).abs().max().item()
+        raise AssertionError(f"{name}: differs from the plain version's bits"
+                             f" (max abs diff {diff:.3e})")
+
+
+def _rglru_case(torch, gen, dtype, shape):
+    """The RG-LRU's inputs in the model's range: decays a in [0.69, 0.99),
+    inputs u ~ 0.1 N(0, 1), both in ``dtype`` (the model feeds f32)."""
+    b, s, w = shape
+    a = (torch.rand((b, s, w), generator=gen, device="cuda") * 0.3
+         + 0.69).to(dtype)
+    u = (torch.randn((b, s, w), generator=gen, device="cuda")
+         * 0.1).to(dtype)
+    return a, u
+
+
+def _rglru_bwd_checks(name: str, rg, a, u, hs, hsp, dhs, dh, exact: bool,
+                      dname: str):
+    """The backward kernel against the plain backward: da and du bit for
+    bit (with ``exact`` false, within ``check_grads``). Returns (the
+    kernel's (da, du), the plain one's, whether both are bitwise, the
+    largest error as a share of each gradient's max)."""
+    import torch
+    got = rg.rglru_scan_bwd(a, u, hs, dhs, dh)
+    want = rg.rglru_scan_bwd_plain(a, u, hsp, dhs, dh)
+    torch.cuda.synchronize()
+    if [g.dtype for g in got] != [a.dtype, u.dtype]:
+        raise AssertionError(f"{name}: gradient dtypes")
+    share = check_grads(name, got, want, dname)
+    bits = all(same_bits(g, w) for g, w in zip(got, want))
+    if exact:
+        for what, g, w in zip(("da", "du"), got, want):
+            require_bits(f"{name} {what}", g, w)
+    return got, want, bits, share
+
+
+def rglru_checks(torch, gen, dtype, exact: bool = True) -> dict:
+    """Kernels 8 and 8b at recurrentgemma-2b's width (``RG_SHAPE``)
+    against their plain versions: hs and h_final bit for bit, da and du
+    bit for bit (with ``exact`` false, for a tree whose backward is not
+    bitwise, within ``check_grads``, whether bitwise recorded). Times,
+    bounds (bytes, or f32 operations), errors and hashes of hs, da and
+    du (``out_sha256``: equal hashes, equal bits across trees)."""
+    from repro_torch.kernels import rglru_scan as rg
+    dname = str(dtype).split(".")[-1]
+    item = torch.tensor([], dtype=dtype).element_size()
+    b, s, w = RG_SHAPE
+    a, u = _rglru_case(torch, gen, dtype, RG_SHAPE)
+    hs, hf = rg._launch_fwd(a, u)
+    hsp, hfp = rg.rglru_scan_plain(a, u)
+    torch.cuda.synchronize()
+    tol = TOL[("rglru", dname)]
+    err = max(check_close(f"rglru_scan[{dname}] hs", hs, hsp, tol),
+              check_close(f"rglru_scan[{dname}] h_final", hf, hfp, tol))
+    require_bits(f"rglru_scan[{dname}] hs", hs, hsp)
+    require_bits(f"rglru_scan[{dname}] h_final", hf, hfp)
+    ms = time_ms(torch, lambda: rg._launch_fwd(a, u), 20)
+    plain = time_ms(torch, lambda: rg.rglru_scan_plain(a, u), 3, warmup=1)
+    elems = float(b * s * w)
+    # reads a, u; writes hs, h_final
+    bnd, by = bound_ms((2 * item + 4) * elems + 4 * b * w,
+                       RG_FWD_OPS * elems, "float32")
+    out = {("rglru_scan", dname): dict(
+        max_abs_err=err, bitwise=True, ms=ms, plain_ms=plain, bound_ms=bnd,
+        bound_by=by, library_ms=None, out_sha256=out_sha256(hs))}
+
+    dhs = torch.randn((b, s, w), generator=gen, device="cuda")
+    dhf = torch.randn((b, w), generator=gen, device="cuda")
+    got, want, bits, share = _rglru_bwd_checks(
+        f"rglru_scan_bwd[{dname}]", rg, a, u, hs, hsp, dhs, dhf, exact,
+        dname)
+    err = max(float((g.float() - wt.float()).abs().max())
+              for g, wt in zip(got, want))
+    sha = {k: out_sha256(g) for k, g in zip(("da", "du"), got)}
+    del got, want
+    ms = time_ms(torch, lambda: rg.rglru_scan_bwd(a, u, hs, dhs, dhf), 20)
+    plain = time_ms(torch, lambda: rg.rglru_scan_bwd_plain(
+        a, u, hsp, dhs, dhf), 3, warmup=1)
+    # reads a, hs, dhs, dh_final; writes da, du
+    bnd, by = bound_ms((3 * item + 8) * elems + 4 * b * w,
+                       RG_BWD_OPS * elems, "float32")
+    out[("rglru_scan_bwd", dname)] = dict(
+        max_abs_err=err, bitwise=bits, grad_err_share=share, ms=ms,
+        plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=None,
+        out_sha256=sha)
+    del a, u, hs, hf, hsp, hfp, dhs, dhf
+    torch.cuda.empty_cache()
+    return out
+
+
+def log_rglru_checks() -> None:
+    log(f"RG-LRU scan at {RG_SHAPE} (float32, bfloat16): hs, h_final, da "
+        "and du bit-identical to the plain versions'")
+
+
+# rglru_plan's fields and the library's acar_rglru_scan_plan field of
+# each, and the fields only the kernels read (logged)
+RGLRU_PLAN_FIELDS = {"channels": 0, "steps": 1, "blocks": 2}
+RGLRU_PLAN_KERNEL_FIELDS = {"fwd_stages": 3, "bwd_stages": 4, "threads": 5,
+                            "fwd_smem": 6, "bwd_smem": 7}
+
+
+def check_rglru_plan() -> None:
+    """``rglru_plan`` (the tile constants the CPU tests emulate) against
+    the compiled kernels' constants, ``acar_rglru_scan_plan``, at W up to
+    300 and recurrentgemma-2b's 2,560; logs the ring depth, threads,
+    shared memory and the CTAs at ``RG_SHAPE`` against the SMs."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.rglru_scan import rglru_plan
+    lib = build.load()
+    for w in (*range(1, 301), RG_SHAPE[2]):
+        p = rglru_plan(w)
+        want = tuple(getattr(p, k) for k in RGLRU_PLAN_FIELDS)
+        got = tuple(lib.acar_rglru_scan_plan(w, f)
+                    for f in RGLRU_PLAN_FIELDS.values())
+        if got != want:
+            raise AssertionError(f"rglru_plan({w}) = {p}, the kernels' "
+                                 f"constants {got}")
+    b, _, w = RG_SHAPE
+    kern = {k: lib.acar_rglru_scan_plan(w, f)
+            for k, f in RGLRU_PLAN_KERNEL_FIELDS.items()}
+    ctas = b * rglru_plan(w).blocks
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log(f"rglru plan at W {w}: {rglru_plan(w)}; kernels only: {kern} "
+        f"(shared memory in bytes); {ctas} CTAs at {RG_SHAPE} on {sms} SMs; "
+        "rglru_plan matches the compiled constants at W in 1..300 and "
+        f"{w}")
+
+
+# (B, S, W), each in f32 and bf16: S at the tile edges (1, T - 1, T,
+# T + 1, 2T + 3 for T = 64), W off the 32-channel grid, and rows TMA
+# cannot take (W not a multiple of 4, or of 8 in bf16), which copy
+# element by element
+RG_GEOMETRIES = ((2, 1, 40), (2, 63, 21), (2, 64, 2568), (2, 65, 1),
+                 (2, 131, 15), (2, 131, 2560), (2, 200, 36))
+
+
+def run_rglru_geometry_checks(torch, exact: bool = True) -> bool:
+    """Kernels 8 and 8b against their plain versions at
+    ``RG_GEOMETRIES``: hs and h_final bit for bit; da and du bit for bit
+    with h_final's gradient and without (with ``exact`` false, within
+    ``check_grads``); batch row 1 computed alone bit-identical to itself
+    in the batch, forward and backward. Returns whether every gradient
+    was bitwise."""
+    from repro_torch.kernels import rglru_scan as rg
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    all_bits = True
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for shape in RG_GEOMETRIES:
+            b, s, w = shape
+            name = f"rglru_scan[{dname}, {shape}]"
+            a, u = _rglru_case(torch, gen, dtype, shape)
+            hs, hf = rg._launch_fwd(a, u)
+            hsp, hfp = rg.rglru_scan_plain(a, u)
+            require_bits(f"{name} hs", hs, hsp)
+            require_bits(f"{name} h_final", hf, hfp)
+            dhs = torch.randn((b, s, w), generator=gen, device="cuda")
+            dhf = torch.randn((b, w), generator=gen, device="cuda")
+            grads = {}
+            for dh in (dhf, None):
+                given = dh is not None
+                grads[given], _, bits, _ = _rglru_bwd_checks(
+                    f"rglru_scan_bwd[{dname}, {shape}, dh_final "
+                    f"{'given' if given else 'none'}]", rg, a, u, hs, hsp,
+                    dhs, dh, exact, dname)
+                all_bits = all_bits and bits
+            row = [t[1:2].contiguous() for t in (a, u, dhs, dhf)]
+            hs1, hf1 = rg._launch_fwd(row[0], row[1])
+            da1, du1 = rg.rglru_scan_bwd(row[0], row[1], hs1, row[2], row[3])
+            da, du = grads[True]
+            for what, x, alone in (("hs", hs, hs1), ("h_final", hf, hf1),
+                                   ("da", da, da1), ("du", du, du1)):
+                if not same_bits(x[1:2], alone):
+                    raise AssertionError(f"{name} {what} of batch row 1 "
+                                         "differs from the row computed "
+                                         "alone")
+    grads = ("bit for bit" if all_bits
+             else "within check_grads, not all bitwise")
+    log(f"RG-LRU scan agrees with its plain versions at (B, S, W) in "
+        f"{list(RG_GEOMETRIES)}, float32 and bfloat16: hs and h_final bit "
+        f"for bit, da and du {grads} (with and without h_final's "
+        "gradient); batch row 1 alone bit-identical to itself in the "
+        "batch")
+    return all_bits
+
+
 def run_train_kernel_phase(torch):
     import torch.nn.functional as F
     from repro_torch.kernels import ops
-    from repro_torch.kernels import rglru_scan as rg
-    from repro_torch.kernels import selective_scan as ss
     from repro_torch.kernels.fused_swiglu import fused_swiglu_plain
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     results = {}
-    f32_peak = PEAK_FLOPS["float32"]
     clock = sm_clock_mhz(torch)
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
@@ -1380,49 +1586,7 @@ def run_train_kernel_phase(torch):
         results.update(selective_scan_checks(torch, gen, dtype, clock))
 
         # -- RG-LRU scan, forward and backward -----------------------
-        b, s, w = RG_SHAPE
-        a = (torch.rand((b, s, w), generator=gen, device="cuda") * 0.3
-             + 0.69).to(dtype)
-        u = (torch.randn((b, s, w), generator=gen, device="cuda")
-             * 0.1).to(dtype)
-        hs, hf = rg._launch_fwd(a, u)
-        hsp, hfp = rg.rglru_scan_plain(a, u)
-        torch.cuda.synchronize()
-        err = max(check_close(f"rglru_scan[{dname}] hs", hs, hsp,
-                              TOL[("rglru", dname)]),
-                  check_close(f"rglru_scan[{dname}] h_final", hf, hfp,
-                              TOL[("rglru", dname)]))
-        ms = time_ms(torch, lambda: rg._launch_fwd(a, u), 20)
-        plain = time_ms(torch, lambda: rg.rglru_scan_plain(a, u), 3,
-                        warmup=1)
-        elems = float(b * s * w)
-        bnd, by = max(((2 * item + 4) * elems / HBM_BYTES_PER_S * 1e3
-                       + 4 * b * w / HBM_BYTES_PER_S * 1e3, "bytes"),
-                      (RG_FWD_OPS * elems / f32_peak * 1e3, "operations"))
-        results[("rglru_scan", dname)] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
-            bound_by=by, library_ms=None)
-
-        dhs = torch.randn((b, s, w), generator=gen, device="cuda")
-        dhf = torch.randn((b, w), generator=gen, device="cuda")
-        got = rg.rglru_scan_bwd(a, u, hs, dhs, dhf)
-        want = rg.rglru_scan_bwd_plain(a, u, hsp, dhs, dhf)
-        torch.cuda.synchronize()
-        share = check_grads(f"rglru_scan_bwd[{dname}]", got, want, dname)
-        err = max(float((g.float() - wt.float()).abs().max())
-                  for g, wt in zip(got, want))
-        ms = time_ms(torch, lambda: rg.rglru_scan_bwd(a, u, hs, dhs, dhf),
-                     20)
-        plain = time_ms(torch, lambda: rg.rglru_scan_bwd_plain(
-            a, u, hsp, dhs, dhf), 3, warmup=1)
-        # reads a, hs, dhs, dh_final; writes da, du
-        bnd, by = max(((3 * item + 8) * elems / HBM_BYTES_PER_S * 1e3
-                       + 4 * b * w / HBM_BYTES_PER_S * 1e3, "bytes"),
-                      (RG_BWD_OPS * elems / f32_peak * 1e3, "operations"))
-        results[("rglru_scan_bwd", dname)] = dict(
-            max_abs_err=err, grad_err_share=share, ms=ms, plain_ms=plain,
-            bound_ms=bnd, bound_by=by, library_ms=None)
-        del a, u, hs, hf, hsp, hfp, dhs, dhf, got, want
+        results.update(rglru_checks(torch, gen, dtype))
 
         # -- fused SwiGLU at recurrentgemma-2b's width, and its gradient
         t, d, f = SWIGLU_TRAIN
@@ -1469,6 +1633,8 @@ def run_train_kernel_phase(torch):
                else f"{r['library_ms']:.4f} ms")
         extra = (f"  gradient err {r['grad_err_share']:.3e} of max"
                  if "grad_err_share" in r else "")
+        if "bitwise" in r:
+            extra += f"  bitwise {r['bitwise']}"
         if "bound_terms" in r:
             extra += "  bound terms " + ", ".join(
                 f"{k} {v:.5f} ms" for k, v in r["bound_terms"].items())
@@ -1481,6 +1647,9 @@ def run_train_kernel_phase(torch):
     log_scan_checks()
     check_scan_plan()
     run_scan_geometry_checks(torch)
+    log_rglru_checks()
+    check_rglru_plan()
+    run_rglru_geometry_checks(torch)
     return results
 
 
@@ -1794,11 +1963,16 @@ REPORTED_KERNELS = ("swiglu_gemm_kernel", "chunked_prefill_mma_kernel",
                     "paged_decode_split_kernel", "dense_decode_split_kernel",
                     "paged_decode_quant_split_kernel",
                     "dense_decode_quant_split_kernel",
-                    "scan_fwd_kernel", "scan_bwd_kernel")
-# the selective scan's kernels: the forward, the backward and its two
-# summing kernels (the RG-LRU's are rglru_*_kernel)
-SCAN_KERNELS = ("scan_fwd_kernel", "scan_bwd_kernel", "sum_parts_kernel",
-                "alog_grad_kernel")
+                    "scan_fwd_kernel", "scan_bwd_kernel",
+                    "rglru_fwd_kernel", "rglru_bwd_kernel")
+# each scan's kernels, whose share of the busy time a profile logs: the
+# selective scan's forward, backward and its two summing kernels; the
+# RG-LRU's forward and backward
+SCAN_KERNELS = {"the selective scan's": ("scan_fwd_kernel",
+                                          "scan_bwd_kernel",
+                                          "sum_parts_kernel",
+                                          "alog_grad_kernel"),
+                "the RG-LRU's": ("rglru_fwd_kernel", "rglru_bwd_kernel")}
 # wrapper -> its kernel's name: one launch per wrapper call
 SPLIT_KERNELS = {"paged_decode_attention": "paged_decode_split_kernel",
                  "decode_attention": "dense_decode_split_kernel",
@@ -1806,7 +1980,9 @@ SPLIT_KERNELS = {"paged_decode_attention": "paged_decode_split_kernel",
                      "paged_decode_quant_split_kernel",
                  "decode_attention_quant": "dense_decode_quant_split_kernel",
                  "selective_scan": "scan_fwd_kernel",
-                 "selective_scan_bwd": "scan_bwd_kernel"}
+                 "selective_scan_bwd": "scan_bwd_kernel",
+                 "rglru_scan": "rglru_fwd_kernel",
+                 "rglru_scan_bwd": "rglru_bwd_kernel"}
 
 
 def report_profile(prof, wall: float, wall_profiled: float,
@@ -1817,8 +1993,8 @@ def report_profile(prof, wall: float, wall_profiled: float,
     fused_swiglu wrapper calls the profiled run made), check that each
     ran as the two tensor-core stages; with ``launches`` (the wrappers'
     counts over the profiled run), that each call of the split-KV
-    decodes and of the selective scan (forward, backward) ran as
-    exactly one kernel of its name."""
+    decodes and of the two scans (forward, backward) ran as exactly one
+    kernel of its name."""
     def dev_us(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
@@ -1846,13 +2022,14 @@ def report_profile(prof, wall: float, wall_profiled: float,
         if any(k in e.key for k in REPORTED_KERNELS) and dev_us(e) > 0:
             log(f"profile:   {dev_us(e) / 1e3:10.2f} ms {e.count:8d} calls  "
                 f"{e.key[:90]}")
-    scan = [e for e in events
-            if any(k in e.key for k in SCAN_KERNELS) and dev_us(e) > 0]
-    if scan:
-        ms = sum(dev_us(e) for e in scan) / 1e3
-        log(f"profile: the selective scan's kernels {ms:.2f} ms of device "
-            f"time = {100 * ms / 1e3 / busy:.1f}% of the busy time "
-            f"({', '.join(f'{e.count} {e.key[:40]}' for e in scan)})")
+    for label, names in SCAN_KERNELS.items():
+        scan = [e for e in events
+                if any(k in e.key for k in names) and dev_us(e) > 0]
+        if scan:
+            ms = sum(dev_us(e) for e in scan) / 1e3
+            log(f"profile: {label} kernels {ms:.2f} ms of device time = "
+                f"{100 * ms / 1e3 / busy:.1f}% of the busy time "
+                f"({', '.join(f'{e.count} {e.key[:60]}' for e in scan)})")
     for wrapper, kernel in SPLIT_KERNELS.items():
         if launches is None:
             break
@@ -2114,14 +2291,15 @@ TRAIN_CELLS = {
 TRAIN_STEPS = 4
 
 
-def run_train_phase(torch, gpu_name: str) -> dict:
+def run_train_phase(torch, gpu_name: str, cells=tuple(TRAIN_CELLS)) -> dict:
     """Each cell's model at its published width (depth cut to fit one
     card with AdamW's f32 moments), bf16, ``remat="layer"``: 4 steps of
     ``make_train_step`` on synthetic batches from a seed, twice from the
     same seed-initialised params. Every loss finite, every param moved,
     the rerun bit-identical in losses and params, the cell's kernels
     launched forward and backward. Then one profiled step. Returns each
-    path's launch counts (the first run's)."""
+    path's launch counts (the first run's). ``cells`` names the paths
+    to run."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
@@ -2133,7 +2311,8 @@ def run_train_phase(torch, gpu_name: str) -> dict:
     from repro_torch.optim import init as opt_init
 
     launches_by_path = {}
-    for path, (arch, layers, bsz, seq, kernels) in TRAIN_CELLS.items():
+    for path in cells:
+        arch, layers, bsz, seq, kernels = TRAIN_CELLS[path]
         cfg = get_config(arch).replace(num_layers=layers)
         # bf16 params take AdamW's f32 update rounded back to bf16, as
         # the reference's do: a norm scale at 1.0 moves only by a step
@@ -2271,19 +2450,22 @@ def run_train_entry_phase(torch) -> dict:
 def report_ptxas(build) -> None:
     """ptxas's registers, static shared memory and spills for each
     kernel of the two tensor-core sources, the four split-KV decodes and
-    the selective scan (the build compiles with ``-Xptxas=-v``; the
-    scan's dynamic shared memory is ``check_scan_plan``'s line)."""
+    the two scans (the build compiles with ``-Xptxas=-v``; the scans'
+    dynamic shared memory is ``check_scan_plan``'s and
+    ``check_rglru_plan``'s line). A kernel's name keeps its mangled
+    template arguments (``13__nv_bfloat16`` shown as ``bf16``)."""
     import re
     for src in ("fused_swiglu.cu", "chunked_prefill_attention.cu",
                 "paged_decode_attention.cu", "decode_attention.cu",
                 "paged_decode_attention_quant.cu", "decode_attention_quant.cu",
-                "selective_scan.cu"):
+                "selective_scan.cu", "rglru_scan.cu"):
         name, spills = None, ""
         for line in build.log_path(src).read_text().splitlines():
             m = re.search(r"Compiling entry function '\w*?([a-z_]+_kernel)"
-                          r"(I\w*?E)?", line)
+                          r"(I\w*?E(?=Ev))?", line)
             if m:
-                name = m.group(1) + (m.group(2) or "")
+                name = (m.group(1) + (m.group(2) or "")).replace(
+                    "13__nv_bfloat16", "bf16")
             elif name and "spill" in line:
                 spills = line.split(",", 1)[-1].strip()
             elif name and "registers" in line:
@@ -2377,6 +2559,14 @@ def main() -> int:
             entry["grad_err_share"] = r["grad_err_share"]
         if name.startswith(("selective_scan", "rglru_scan")):
             entry["library_note"] = SCAN_LIBRARY_NOTE
+        if name.startswith("rglru_scan"):
+            # the model feeds the RG-LRU f32 a and u whatever its dtype
+            f = results[(name, "float32")]
+            entry["bitwise"] = r["bitwise"]
+            entry["f32"] = {k: f[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+                "bitwise", "out_sha256")}
+            entry["f32_note"] = "f32 is the dtype the model feeds the scan"
         elif r["library_ms"] is None:
             entry["library_note"] = (
                 "no single PyTorch call computes attention over int8 "

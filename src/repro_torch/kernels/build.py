@@ -65,6 +65,7 @@ _SIGNATURES = {
         [_VP] * 8 + [_I] * 5 + [_VP],
     "acar_selective_scan_bwd":
         [_VP] * 16 + [_I] * 5 + [_VP],
+    "acar_rglru_scan_plan": [_I] * 2,
     "acar_rglru_scan_fwd":
         [_VP] * 4 + [_I] * 5 + [_VP],
     "acar_rglru_scan_bwd":

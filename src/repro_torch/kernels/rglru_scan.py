@@ -12,16 +12,39 @@ oracle ``kernels/ref.py::rglru_scan_ref``, and ``rglru_scan_bwd_plain``,
 the explicit reverse recurrence. ``rglru_scan.launches`` and
 ``rglru_scan_bwd.launches`` count kernel launches.
 
-The kernel rounds a*h and the add on their own, as the plain version
-does, so the two agree bit for bit.
+Both kernels round every operation on their own, in the plain versions'
+order, so hs, h_final, da and du all agree with them bit for bit.
+``rglru_plan`` gives the kernels' tile constants: a CTA walks
+``channels`` channels of one batch row along S in tiles of ``steps``
+steps, taking only the steps inside S.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build
+
+
+@dataclass(frozen=True)
+class RGLRUPlan:
+    """The kernels' tile constants for W channels that a Python caller
+    reads (the CPU emulation of their order of work). ``csrc/
+    rglru_scan.cu`` owns them (``kDc``, ``kT``), with the ring depths,
+    thread count and shared memory besides; its query
+    ``acar_rglru_scan_plan`` reports each field."""
+    channels: int     # channels a CTA, one walking lane each
+    steps: int        # steps a tile
+    blocks: int       # channel blocks: CTAs along W
+
+
+def rglru_plan(w: int) -> RGLRUPlan:
+    """The tile constants of ``csrc/rglru_scan.cu`` for W channels: fixed
+    but for the block count, and never functions of B or S."""
+    dc = 32
+    return RGLRUPlan(channels=dc, steps=64, blocks=-(-w // dc))
 
 
 def rglru_scan_plain(a: torch.Tensor, u: torch.Tensor
@@ -62,12 +85,16 @@ def _bf16_flags(name: str, a, u):
     return (build.dtype_code(a.dtype, name), build.dtype_code(u.dtype, name))
 
 
-def _launch_fwd(a, u):
-    name = "rglru_scan"
-    dev = build.check_cuda(name, a=a, u=u)
+def _check_shapes(name: str, a, u) -> None:
     if a.shape != u.shape or a.dim() != 3:
         raise ValueError(f"{name}: shapes a {tuple(a.shape)}, u "
                          f"{tuple(u.shape)}")
+
+
+def _launch_fwd(a, u):
+    name = "rglru_scan"
+    dev = build.check_cuda(name, a=a, u=u)
+    _check_shapes(name, a, u)
     bsz, s, w = a.shape
     flags = _bf16_flags(name, a, u)
     hs = torch.empty((bsz, s, w), dtype=torch.float32, device=dev)
@@ -84,8 +111,8 @@ def _launch_fwd(a, u):
 def rglru_scan_bwd(a: torch.Tensor, u: torch.Tensor, hs: torch.Tensor,
                    dhs: torch.Tensor,
                    dh_final: Optional[torch.Tensor] = None):
-    """The backward kernel: (da, du) from a, the saved hs, hs's gradient
-    and h_final's (or None)."""
+    """The backward kernel: (da, du) from a, the saved hs (f32), hs's
+    gradient and h_final's (or None)."""
     name = "rglru_scan_bwd"
     dhs = dhs.float().contiguous()
     if dh_final is not None:
@@ -93,7 +120,15 @@ def rglru_scan_bwd(a: torch.Tensor, u: torch.Tensor, hs: torch.Tensor,
     dev = build.check_cuda(
         name, a=a, u=u, hs=hs, dhs=dhs,
         **({} if dh_final is None else {"dh_final": dh_final}))
+    _check_shapes(name, a, u)
     bsz, s, w = a.shape
+    if (hs.shape != a.shape or hs.dtype != torch.float32
+            or dhs.shape != a.shape
+            or (dh_final is not None and dh_final.shape != (bsz, w))):
+        raise ValueError(
+            f"{name}: a {tuple(a.shape)}, hs {tuple(hs.shape)} {hs.dtype}, "
+            f"dhs {tuple(dhs.shape)}, dh_final "
+            f"{None if dh_final is None else tuple(dh_final.shape)}")
     flags = _bf16_flags(name, a, u)
     da, du = torch.empty_like(a), torch.empty_like(u)
     with torch.cuda.device(dev):
