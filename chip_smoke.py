@@ -50,7 +50,11 @@ Phases (each raises on failure, and the script then exits non-zero):
    ``launch.serve``), by the wave engine over contiguous caches
    (``paged=False``) and by the stepped engine: on each path every task
    is answered, the path's kernels launch, no page leaks, and a rerun
-   reproduces sigma, modes, answers and probe texts;
+   reproduces sigma, modes, answers and probe texts; on every path of
+   phases 5 and 6 each run's results become TraceRecords chained in an
+   ``ArtifactStore`` (``engine_traces``, the reference harness's
+   materialisation), each chain audits OK and the rerun's head is
+   byte-identical to the run's;
 7. train — ``make_train_step`` trains falcon-mamba-7b (2 of its 64
    layers) and recurrentgemma-2b (3 of its 26 layers) at their
    published widths, bf16, ``remat="layer"``, 4 optimizer steps each,
@@ -58,6 +62,18 @@ Phases (each raises on failure, and the script then exits non-zero):
    losses and params bit for bit, and the scan kernels launch forward
    and backward; then ``train()``, the entry point, trains reduced
    smollm-135m on arithmetic and its checkpoint restores bit for bit.
+8. audit (run after phase 6) — the paper's Algorithm 1 through
+   ``ACAROrchestrator`` (probe -> EXTRACT -> sigma -> route by sigma ->
+   ensemble -> judge -> an appended TraceRecord) over four
+   ``TorchModelBackend``s (phase 5's full-width bf16 params after 20
+   arithmetic training steps, so that they answer in the tokenizer's
+   vocabulary: the probe, two members, the probe's twin), the 16 tasks
+   one by one: 16 records, the audit OK with the
+   head equal to the chain recomputed from the records' hashes, some
+   task escalated, the dense-cache decode and the fused SwiGLU launched
+   and no paged kernel, a rerun into a fresh store giving every record
+   hash and a byte-identical head; then leave-one-out values against
+   the three attribution proxies over the full-arena records (printed).
 
 Phase 3 also holds the training path's kernels against their plain
 versions at the phase-7 shapes (the selective scan and the RG-LRU scan,
@@ -1918,6 +1934,55 @@ def forced_modes(n_tasks: int, seed: int = 0) -> np.ndarray:
     return np.asarray(modes[:n_tasks], np.int32)
 
 
+def engine_traces(run_id: str, tasks, res, member_names, store):
+    """One TraceRecord per served task from an engine result, appended
+    to ``store`` (the port's ``ArtifactStore``) in admission order: the
+    materialisation of the reference harness's ``_engine_traces``
+    (``tests/harness/simulate.py``). Probe samples, member answers,
+    sigma, mode and the final answer — the judge-visible state — are
+    hashed. Returns the records."""
+    from repro_torch.core.extract import extract
+    from repro_torch.core.sigma import MODE_NAMES
+    from repro_torch.teamllm.fingerprint import prompt_hash, render_prompt
+    from repro_torch.teamllm.trace import (
+        ModelResponse, ProbeSample, TraceRecord)
+
+    traces = []
+    for i, task in enumerate(tasks):
+        probe_samples = tuple(
+            ProbeSample(response=txt, answer=extract(txt, task.kind),
+                        cost=0.0)
+            for txt in res.probe_texts[i])
+        responses = tuple(
+            ModelResponse(model=member_names[mi], response="", answer=a,
+                          cost=0.0)
+            for mi, a in enumerate(res.member_answers[i]) if a is not None)
+        final = res.final_answers[i]
+        trace = TraceRecord(
+            run_id=run_id, task_id=task.task_id, benchmark=task.benchmark,
+            prompt_hash=prompt_hash(render_prompt(task.text)), seed=0,
+            sigma=float(res.sigma[i]), mode=MODE_NAMES[int(res.modes[i])],
+            probe_samples=probe_samples, responses=responses,
+            final_answer=final, correct=final == task.gold, cost=0.0,
+            logical_time=i)
+        store.append(trace)
+        traces.append(trace)
+    return traces
+
+
+def chain_head(run_id: str, tasks, res, member_names, path) -> str:
+    """Chain one engine run's records into a fresh ``ArtifactStore`` at
+    ``path`` and audit it; returns the chain head."""
+    from repro_torch.teamllm.artifacts import ArtifactStore
+    store = ArtifactStore(path)
+    engine_traces(run_id, tasks, res, member_names, store)
+    audit = ArtifactStore(path).audit()
+    if not (audit["ok"] and audit["records"] == len(tasks)
+            and audit["head"] == store.head):
+        raise AssertionError(f"{path}: chain audit failed: {audit}")
+    return store.head
+
+
 def check_no_leaks(engine) -> None:
     """After a run only the scratch pages and the prefix cache's pages
     may still be referenced, each exactly once."""
@@ -2150,7 +2215,27 @@ def run_serve_phase(torch, gpu_name: str, cfg, params):
     check_no_leaks(eng2)
     log(f"serve: rerun identical (sigma, modes, answers, probe texts); "
         f"rerun wall {wall2:.3f} s")
+    check_rerun_heads("serve", "stepped", tasks, res, res2,
+                      [m.name for m in ensemble])
     return launches
+
+
+def check_rerun_heads(label: str, run_id: str, tasks, res, res2,
+                      member_names) -> None:
+    """Chain a run's and its rerun's records (``engine_traces``) into
+    fresh stores in a temporary directory; both audit OK and the heads
+    must be byte-identical."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="acar-chain-") as d:
+        head = chain_head(run_id, tasks, res, member_names,
+                          Path(d) / "run1.jsonl")
+        head2 = chain_head(run_id, tasks, res2, member_names,
+                           Path(d) / "run2.jsonl")
+    if head2 != head:
+        raise AssertionError(f"{label}: the rerun's chain head {head2} is "
+                             f"not the run's {head}")
+    log(f"{label}: chain head {head} ({len(tasks)} records, audit OK); "
+        f"rerun head {head2}: byte-identical")
 
 
 # ----------------------------------------------------------------------
@@ -2275,7 +2360,183 @@ def run_wave_phase(torch, gpu_name: str, cfg, params) -> dict:
         check_no_leaks(eng2)
         log(f"wave[{path}]: rerun identical (sigma, modes, answers, "
             f"probe texts); rerun wall {wall2:.3f} s")
+        check_rerun_heads(f"wave[{path}]", path, tasks, res, res2,
+                          [m.name for m in ensemble])
     return launches_by_path
+
+
+# ----------------------------------------------------------------------
+# phase 8: the audit substrate — Algorithm 1 through the orchestrator
+# ----------------------------------------------------------------------
+# the kernels a TorchModelBackend's generate launches: the one-shot
+# prefill's MLP and the decode over its contiguous cache
+AUDIT_KERNELS = ("fused_swiglu", "decode_attention")
+
+
+def link_chain(record_hashes) -> str:
+    """The chain head over record hashes, recomputed from GENESIS as
+    ``ArtifactStore`` links them: H(prev | record_hash)."""
+    import hashlib
+
+    from repro_torch.teamllm.artifacts import GENESIS
+    head = GENESIS
+    for rh in record_hashes:
+        head = hashlib.sha256(f"{head}|{rh}".encode()).hexdigest()
+    return head
+
+
+# AdamW steps of arithmetic that teach phase 5's seed weights the
+# tokenizer's vocabulary before phase 8 (see arithmetic_fleet)
+AUDIT_TRAIN_STEPS = 20
+
+
+def arithmetic_fleet(torch, cfg, params):
+    """Phase 5's three full-width param sets after ``AUDIT_TRAIN_STEPS``
+    AdamW steps of ``make_train_step`` on arithmetic batches (64 x 24 tokens, lr
+    3e-3 after one warmup step, a data seed per model); the inputs are
+    left as they were. On the seed weights alone a sample lands in the
+    tokenizer's 19 ids with probability about 4e-4 a token, so every
+    probe sample decodes to the empty answer, sigma is 0 on every task
+    and the route never escalates; after these steps the models answer
+    in digits, and their samples disagree where they are unsure."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import arithmetic_batches
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import init as opt_init
+
+    steps = AUDIT_TRAIN_STEPS
+    step = make_train_step(cfg, TrainConfig(
+        learning_rate=3e-3, warmup_steps=1, total_steps=steps))
+    t = time.perf_counter()
+    trained, losses = [], []
+    for seed, p in enumerate(params):
+        st = opt_init(p)
+        it = arithmetic_batches(64, 24, seed=seed)
+        for _ in range(steps):
+            b = next(it)
+            p, st, m = step(p, st, {
+                n: torch.from_numpy(getattr(b, n)).cuda()
+                for n in ("tokens", "labels", "loss_mask")})
+        trained.append(p)
+        losses.append(round(float(m["loss"]), 4))
+        del st
+    torch.cuda.synchronize()
+    log(f"audit: phase 5's 3 models after {steps} arithmetic steps each "
+        f"in {time.perf_counter() - t:.2f} s: losses {losses}")
+    return trained
+
+
+def run_audit_phase(torch, smi: str, cfg, params) -> dict:
+    """The paper's Algorithm 1 as ``core.orchestrator.ACAROrchestrator``
+    runs it, task by task: 3 probe samples at temperature 0.9 -> EXTRACT
+    -> sigma -> route (by sigma) -> the routed members at temperature 0
+    -> judge -> one TraceRecord appended to a hash-chained
+    ``ArtifactStore``. The backends are ``TorchModelBackend``s over
+    ``params`` (the probe, two members and the probe's twin) on the
+    card; the stream is phase 5's. Two runs, each into a fresh store:
+    16 records, the audit OK with its head equal to the chain
+    recomputed from the records' hashes, some task escalated, the
+    backends' two kernels launched and no other, and the rerun's record
+    hashes and head equal to the first run's. Then leave-one-out values
+    and the three attribution proxies over the full-arena records.
+    ``smi`` is the card's name and power limit. Returns the first run's
+    launch counts."""
+    import tempfile
+
+    from repro_torch.configs import ACARConfig
+    from repro_torch.core import ACAROrchestrator, attribution
+    from repro_torch.kernels import ops
+    from repro_torch.serving import TorchModelBackend
+    from repro_torch.teamllm import ArtifactStore
+
+    p_probe, p_m1, p_m2 = params
+    probe = TorchModelBackend("smollm-probe", cfg, p_probe,
+                              max_new_tokens=MAX_NEW)
+    ensemble = {b.name: b for b in (
+        TorchModelBackend("smollm-m1", cfg, p_m1, max_new_tokens=MAX_NEW),
+        TorchModelBackend("smollm-m2", cfg, p_m2, max_new_tokens=MAX_NEW),
+        TorchModelBackend("smollm-probe-twin", cfg, p_probe,
+                          max_new_tokens=MAX_NEW))}
+    tasks = long_prompt_tasks(16, prompt_chars=PROMPT)
+
+    def run(path):
+        orch = ACAROrchestrator(ACARConfig(probe_temperature=0.9, seed=0),
+                                probe, ensemble, store=ArtifactStore(path),
+                                run_id="audit")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        outs = orch.run_suite(tasks)
+        torch.cuda.synchronize()
+        return orch.store, outs, time.perf_counter() - t
+
+    with tempfile.TemporaryDirectory(prefix="acar-audit-") as d:
+        ops.reset_launch_counts()
+        store, outs, wall = run(Path(d) / "run1.jsonl")
+        launches = ops.launch_counts()
+        store2, outs2, wall2 = run(Path(d) / "run2.jsonl")
+        audits = [ArtifactStore(Path(d) / f"run{i}.jsonl").audit()
+                  for i in (1, 2)]
+    log(f"audit: launches during the run {launches}")
+    for name in AUDIT_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"audit: {name} never launched")
+    stray = {k: v for k, v in launches.items()
+             if k not in AUDIT_KERNELS and v}
+    if stray:
+        raise AssertionError(f"audit: kernels off this path launched: "
+                             f"{stray}")
+    for st, audit in ((store, audits[0]), (store2, audits[1])):
+        if not (audit["ok"] and audit["records"] == len(st) == len(tasks)
+                and audit["head"] == st.head):
+            raise AssertionError(f"audit: chain audit failed: {audit}")
+    hashes = [o.trace.record_hash() for o in outs]
+    if link_chain(hashes) != store.head:
+        raise AssertionError("audit: the head is not the chain of the "
+                             "records' hashes")
+    modes = [o.trace.mode for o in outs]
+    if all(m == "single_agent" for m in modes):
+        raise AssertionError("audit: no task escalated past single_agent")
+    hashes2 = [o.trace.record_hash() for o in outs2]
+    differ = [t.task_id for t, a, b in zip(tasks, hashes, hashes2)
+              if a != b]
+    if differ or store2.head != store.head:
+        raise AssertionError(f"audit: the rerun changed records {differ} "
+                             "or the head")
+    calls = sum(len(o.trace.probe_samples) + len(o.trace.responses)
+                for o in outs)
+    counts = {m: modes.count(m) for m in ("single_agent", "arena_lite",
+                                          "full_arena")}
+    log(f"audit: {len(tasks)} records, audit OK, head {store.head} = the "
+        f"chain of the records' hashes; modes {counts}; sigma "
+        f"{[o.trace.sigma for o in outs]}")
+    log(f"audit: rerun into a fresh store: every record hash equal, head "
+        f"{store2.head} byte-identical")
+    log(f"audit: {len(tasks)} tasks on {smi}: walls {wall:.3f} s / "
+        f"{wall2:.3f} s, tasks/s {len(tasks) / wall:.3f} / "
+        f"{len(tasks) / wall2:.3f}; {calls} generate calls = "
+        f"{calls / len(tasks):.3f} per task")
+
+    # the paper's third finding on real outputs: proxies against
+    # counterfactual leave-one-out values over the full-arena records
+    full = [(t, o.trace) for t, o in zip(tasks, outs)
+            if o.trace.mode == "full_arena"]
+    truth = [attribution.leave_one_out(tr.responses, t.task_id, t.gold)
+             for t, tr in full]
+    proxies = {
+        "similarity": [attribution.proxy_similarity(tr.responses,
+                                                    tr.final_answer)
+                       for _, tr in full],
+        "entropy": [attribution.proxy_entropy(tr.responses)
+                    for _, tr in full],
+        "agreement": [attribution.proxy_agreement(tr.responses)
+                      for _, tr in full]}
+    corr = {k: attribution.proxy_vs_truth_correlation(truth, v)
+            for k, v in proxies.items()}
+    log(f"audit: attribution over {len(full)} full-arena records: "
+        f"leave-one-out non-zero in "
+        f"{sum(any(v != 0 for v in row.values()) for row in truth)}; "
+        f"proxy_vs_truth_correlation {corr}")
+    return launches
 
 
 # ----------------------------------------------------------------------
@@ -2516,6 +2777,10 @@ def main() -> int:
     phase_done("serve")
     by_path.update(run_wave_phase(torch, gpu_name, cfg, params))
     phase_done("wave")
+    by_path["audit"] = run_audit_phase(
+        torch, smi.splitlines()[0], cfg,
+        arithmetic_fleet(torch, cfg, params))
+    phase_done("audit")
     del params
     torch.cuda.empty_cache()
     by_path.update(run_train_phase(torch, gpu_name))

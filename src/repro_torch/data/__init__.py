@@ -1,3 +1,8 @@
-from repro_torch.data.tasks import Task
+from repro_torch.data.tasks import (
+    BENCHMARKS, PAPER_MIX, Task, arithmetic_suite, paper_suite,
+    split_by_benchmark)
 
-__all__ = ["Task"]
+__all__ = [
+    "BENCHMARKS", "PAPER_MIX", "Task", "arithmetic_suite", "paper_suite",
+    "split_by_benchmark",
+]

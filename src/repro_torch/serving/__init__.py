@@ -13,6 +13,7 @@ from repro_torch.serving.queue import (
 from repro_torch.serving.scheduler import StepPlanner
 from repro_torch.serving.step_loop import (
     ShardedStepLoopRunner, StepLoopRunner, StepStats)
+from repro_torch.serving.torch_backend import TorchModelBackend
 
 __all__ = [
     "AdmissionQueue", "BatchResult", "BatchedACAREngine", "CompactionPlan",
@@ -21,6 +22,6 @@ __all__ = [
     "PagePoolError", "PagedKVServer", "PoolExhausted", "ProbeHandle",
     "PromCounters", "QueuedServeResult", "Request",
     "ShardedStepLoopRunner", "StepLoopRunner", "StepPlanner", "StepStats",
-    "ZooModel", "bucket_size", "dense_tile_slots", "intern_answers",
-    "judge_batch", "pages_for", "plan_compaction",
+    "TorchModelBackend", "ZooModel", "bucket_size", "dense_tile_slots",
+    "intern_answers", "judge_batch", "pages_for", "plan_compaction",
 ]

@@ -21,7 +21,9 @@ Both engage only where they cannot change a row's tokens. With
 ``paged=False`` the wave decodes over contiguous caches instead of
 pool pages, as the reference's A/B baseline and pool-exhaustion
 fallback do. ``run_queued``, fault injection, journaling, recovery and
-tracing are not ported yet.
+tracing are not ported yet; the engine keeps no artifact store of its
+own (a caller chains its results through ``teamllm``, as the
+orchestrator does).
 """
 from __future__ import annotations
 

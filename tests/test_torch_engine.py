@@ -10,7 +10,9 @@ port on params converted by ``from_jax_numpy`` (once per params
 object, so the probe twin shares the probe's pages). Sigma, modes,
 final answers, member answers and probe texts must agree with zero
 mismatches, and so must the prefill-chunk and tick counts and the
-probe server's page high-water.
+probe server's page high-water; each package's results, turned into
+TraceRecords through its own ``teamllm``, must give equal record
+hashes and chains with byte-identical heads.
 """
 import jax.numpy as jnp
 import numpy as np

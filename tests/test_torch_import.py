@@ -27,7 +27,7 @@ def _port_modules():
 def test_port_has_every_subpackage():
     names = set(_port_modules())
     for sub in ("configs", "data", "core", "kernels", "models",
-                "sampling", "serving"):
+                "sampling", "serving", "teamllm"):
         assert f"repro_torch.{sub}" in names, sub
 
 

@@ -10,8 +10,10 @@ Both engines serve the same 16-task long-prompt stream (21-token
 prompts, off the page grid, with duplicates) as two waves of 8 on one
 engine, with forced routes keyed by admission index so every mode and
 every member path runs. Sigma, modes, final answers, member answers
-and probe texts must agree with zero mismatches, and the compaction
-and paged-KV accounting must be equal.
+and probe texts must agree with zero mismatches, the compaction and
+paged-KV accounting must be equal, and the two waves' results, turned
+into TraceRecords through each package's own ``teamllm``, must give
+equal record hashes and chains with byte-identical heads.
 """
 import pytest
 
