@@ -33,7 +33,8 @@ Phases (each raises on failure, and the script then exits non-zero):
    and time the four decodes at smollm-135m's 2,048-token context too
    (there also within 1% of the largest output), from a cold L2; and
    hold the four decodes against their plain versions at other head
-   geometries and lengths;
+   geometries and lengths; and time kernels 4 and 3 at the shapes phase
+   8 gives them (one row over 105 positions; a 97-token prompt);
 4. reference — a reduced float32 model on the card agrees with the same
    calls on the CPU, where every kernel runs its plain version: chunked
    prefill and a paged decode step; one-shot prefill and decode steps
@@ -74,6 +75,17 @@ Phases (each raises on failure, and the script then exits non-zero):
    and no paged kernel, a rerun into a fresh store giving every record
    hash and a byte-identical head; then leave-one-out values against
    the three attribution proxies over the full-arena records (printed).
+9. faults (run after phase 5) — phase 5's fleet, stream and routes
+   under the port's fault tolerance and span tracing: a run traced into
+   a span file and journaled (its record chain head equal to phase 5's,
+   the span file verified, the lineage of every task OK, the journal's
+   16 retired rows, one attribution span per full-arena row equal to
+   leave-one-out), a run killed at 3/4 of phase 5's ticks and recovered
+   from its journal (rows restored, one restore span each, the head
+   equal to phase 5's), and the reference harness's degraded-fleet plan
+   twice (every task answered or abort-traced, equal fault events and
+   heads, a route degraded, two members quarantined, no page leaks);
+   each run's wall is printed, the traced one beside phase 5's.
 
 Phase 3 also holds the training path's kernels against their plain
 versions at the phase-7 shapes (the selective scan and the RG-LRU scan,
@@ -1002,6 +1014,61 @@ def run_quant_decode_geometry_checks(torch) -> None:
         "bfloat16)")
 
 
+def audit_shape_checks(torch, gen) -> dict:
+    """bf16, kernels 4 and 3 at the shapes phase 8's orchestrator gives
+    them: the dense-cache decode of one row over the 105-position cache
+    (the prompt and 8 new tokens) at its full length, and the SwiGLU of
+    one 97-token prompt's prefill. Each is held against its plain
+    version and timed beside its bound and its library call (SDPA;
+    three matmuls and silu). Returns {kernel: result}."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import decode_attention_plain
+    from repro_torch.kernels.fused_swiglu import fused_swiglu_plain
+
+    dname, dtype, item = "bfloat16", torch.bfloat16, 2
+    out = {}
+    q = torch.randn((1, H, D), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((1, S_WAVE, KV, D), generator=gen,
+                        device="cuda").to(dtype) for _ in range(2))
+    err = check_close("decode_attention[bfloat16] phase-8 shape",
+                      ops.decode_attention(q, k, v, S_WAVE),
+                      decode_attention_plain(q, k, v, S_WAVE),
+                      TOL[("attention", dname)])
+    bnd, by = bound_ms(2 * q.numel() * item + 2 * S_WAVE * KV * D * item,
+                       4.0 * H * D * S_WAVE, dname)
+    out["decode_attention"] = dict(
+        rows=1, positions=S_WAVE, max_abs_err=err, bound_ms=bnd,
+        bound_by=by, **_measure(
+            torch, lambda: ops.decode_attention(q, k, v, S_WAVE),
+            lambda: decode_attention_plain(q, k, v, S_WAVE),
+            _sdpa(torch, q, k, v, S_WAVE)))
+    t, d, f = PROMPT, 576, 1536
+    x = (torch.randn((t, d), generator=gen, device="cuda") * 0.5).to(dtype)
+    wg, wu, wd = ((torch.randn(sh, generator=gen, device="cuda")
+                   * 0.05).to(dtype) for sh in ((d, f), (d, f), (f, d)))
+    err = check_close("fused_swiglu[bfloat16] phase-8 shape",
+                      ops.fused_swiglu(x, wg, wu, wd),
+                      fused_swiglu_plain(x, wg, wu, wd),
+                      TOL[("swiglu", dname)])
+    bnd, by = bound_ms((2 * t * d + 3 * d * f) * item, 6.0 * t * d * f,
+                       dname)
+    out["fused_swiglu"] = dict(
+        tokens=t, max_abs_err=err, bound_ms=bnd, bound_by=by, **_measure(
+            torch, lambda: ops.fused_swiglu(x, wg, wu, wd),
+            lambda: fused_swiglu_plain(x, wg, wu, wd),
+            lambda: torch.matmul(F.silu(torch.matmul(x, wg))
+                                 * torch.matmul(x, wu), wd)))
+    for name, r in out.items():
+        log(f"kernel {name} [bfloat16] at phase 8's shape "
+            f"({'1 row x %d positions' % S_WAVE if name == 'decode_attention' else 'T %d' % t}): "
+            f"max_abs_err {r['max_abs_err']:.3e}  kernel {r['ms']:.4f} ms"
+            f"  plain {r['plain_ms']:.4f} ms  library "
+            f"{r['library_ms']:.4f} ms  bound {r['bound_ms']:.5f} ms "
+            f"({r['bound_by']})")
+    return out
+
+
 def run_kernel_phase(torch):
     import torch.nn.functional as F
     from repro_torch.kernels import ops
@@ -1117,6 +1184,11 @@ def run_kernel_phase(torch):
             f"{r['bound_ms']:.5f} ms ({r['bound_by']}){stage_note(r)}")
     log("rows: SwiGLU rows 0-7 and prefill positions 0-7 bit-identical to "
         "calls without their neighbours (float32 and bfloat16)")
+    # phase 8's shapes: inputs of their own stream, so the others' stay
+    gen_audit = torch.Generator(device="cuda")
+    gen_audit.manual_seed(6)
+    for name, r in audit_shape_checks(torch, gen_audit).items():
+        results[(name, "bfloat16")]["audit_shape"] = r
     log_decode_checks(results)
     check_split_ranges()
     run_decode_geometry_checks(torch)
@@ -2050,6 +2122,26 @@ SPLIT_KERNELS = {"paged_decode_attention": "paged_decode_split_kernel",
                  "rglru_scan_bwd": "rglru_bwd_kernel"}
 
 
+def kernel_totals(prof) -> list:
+    """Calls (``count``) and device microseconds (``dev_us``) by name
+    (``key``) of every kernel, copy and fill the card ran under
+    ``prof``, read from the profiler's raw events.
+    ``key_averages`` gives the same sums for them but first builds a
+    Python event tree over every event, host ones too: minutes for a
+    serve run's million kernels."""
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+    totals: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CPU:
+            continue
+        calls, us = totals.get(e.name(), (0, 0.0))
+        totals[e.name()] = (calls + 1, us + e.duration_ns() / 1e3)
+    return [SimpleNamespace(key=name, count=calls, dev_us=us)
+            for name, (calls, us) in totals.items()]
+
+
 def report_profile(prof, wall: float, wall_profiled: float,
                    swiglu_calls: int = None, launches: dict = None) -> None:
     """Device time by kernel over one serve run. ``wall`` is the
@@ -2061,9 +2153,10 @@ def report_profile(prof, wall: float, wall_profiled: float,
     decodes and of the two scans (forward, backward) ran as exactly one
     kernel of its name."""
     def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-    events = sorted(prof.key_averages(), key=dev_us, reverse=True)
+        return e.dev_us
+    t_read = time.perf_counter()
+    events = sorted(kernel_totals(prof), key=dev_us, reverse=True)
+    t_read = time.perf_counter() - t_read
     markers = sum(e.count for e in events if MARKER_KERNEL in e.key)
     events = [e for e in events if MARKER_KERNEL not in e.key]
     if launches is not None and markers == 0:
@@ -2077,7 +2170,7 @@ def report_profile(prof, wall: float, wall_profiled: float,
         f"= {100 * busy / wall:.1f}% of the unprofiled wall {wall:.3f} s "
         f"({100 * busy / wall_profiled:.1f}% of the profiled wall "
         f"{wall_profiled:.3f} s); {markers} of the {TAIL_MARKERS} tail "
-        "markers recorded after them")
+        f"markers recorded after them; events read in {t_read:.1f} s")
     for e in events[:10]:
         if dev_us(e) <= 0:
             break
@@ -2145,9 +2238,16 @@ STEPPED_KERNELS = ("paged_decode_attention", "chunked_prefill_attention",
                    "fused_swiglu")
 
 
-def run_serve_phase(torch, gpu_name: str, cfg, params):
+def stepped_fleet(cfg, params):
+    """Phase 5's fleet (the probe, two members, the probe's twin), its
+    16-task stream and its forced routes. Returns (tasks, member names,
+    serve): ``serve(method="run_stepped", **kw)`` serves the stream
+    through a fresh stepped engine on the card with phase 5's knobs
+    (``method="recover"`` resumes a journal) and returns (engine,
+    result, wall seconds)."""
+    import torch
+
     from repro_torch.configs import ACARConfig
-    from repro_torch.kernels import ops
     from repro_torch.serving import (
         BatchedACAREngine, MicroBatchPolicy, ZooModel)
 
@@ -2166,16 +2266,30 @@ def run_serve_phase(torch, gpu_name: str, cfg, params):
 
     policy = MicroBatchPolicy(max_batch_size=8, max_batch_tokens=1 << 20)
 
-    def serve():
+    def serve(method="run_stepped", **kw):
         eng = BatchedACAREngine(
             ACARConfig(probe_temperature=0.9, seed=0), probe, ensemble,
             max_new_tokens=MAX_NEW, route_fn=route, device="cuda")
         torch.cuda.synchronize()
         t = time.perf_counter()
-        res = eng.run_stepped(tasks, policy, chunk_tokens=32, megastep=4)
-        torch.cuda.synchronize()
+        try:
+            res = getattr(eng, method)(tasks, policy, chunk_tokens=32,
+                                       megastep=4, **kw)
+        finally:
+            torch.cuda.synchronize()
         return eng, res, time.perf_counter() - t
 
+    return tasks, [m.name for m in ensemble], serve
+
+
+def run_serve_phase(torch, gpu_name: str, cfg, params):
+    """Serve phase 5's stream twice, the rerun under the profiler.
+    Returns the first run's launch counts and what phase 9 holds its
+    runs to: the chain head of the run's records, its loop ticks and
+    its wall."""
+    from repro_torch.kernels import ops
+
+    tasks, member_names, serve = stepped_fleet(cfg, params)
     ops.reset_launch_counts()
     eng, res, wall = serve()
     launches = ops.launch_counts()
@@ -2215,16 +2329,16 @@ def run_serve_phase(torch, gpu_name: str, cfg, params):
     check_no_leaks(eng2)
     log(f"serve: rerun identical (sigma, modes, answers, probe texts); "
         f"rerun wall {wall2:.3f} s")
-    check_rerun_heads("serve", "stepped", tasks, res, res2,
-                      [m.name for m in ensemble])
-    return launches
+    head = check_rerun_heads("serve", "stepped", tasks, res, res2,
+                             member_names)
+    return launches, dict(head=head, ticks=res.step.ticks, wall=wall)
 
 
 def check_rerun_heads(label: str, run_id: str, tasks, res, res2,
-                      member_names) -> None:
+                      member_names) -> str:
     """Chain a run's and its rerun's records (``engine_traces``) into
     fresh stores in a temporary directory; both audit OK and the heads
-    must be byte-identical."""
+    must be byte-identical. Returns the head."""
     import tempfile
     with tempfile.TemporaryDirectory(prefix="acar-chain-") as d:
         head = chain_head(run_id, tasks, res, member_names,
@@ -2236,6 +2350,197 @@ def check_rerun_heads(label: str, run_id: str, tasks, res, res2,
                              f"not the run's {head}")
     log(f"{label}: chain head {head} ({len(tasks)} records, audit OK); "
         f"rerun head {head2}: byte-identical")
+    return head
+
+
+# ----------------------------------------------------------------------
+# phase 9: faults, the journal, recovery and span tracing (run after 5)
+# ----------------------------------------------------------------------
+# the reference harness's degraded-fleet plan on one device
+# (``run_degraded_fleet`` less its shard loss): (site, member, tick of a
+# 16-tick run), scaled to phase 5's ticks
+DEGRADED_PLAN = (("member_launch", 0, 2), ("member_nan", 0, 4),
+                 ("member_nan", 1, 7))
+
+
+def degraded_plan(member_names, ticks: int):
+    from repro_torch.serving import FaultPlan, FaultSpec
+    return FaultPlan(specs=tuple(
+        FaultSpec(tick=t * ticks // 16, site=site, model=member_names[m])
+        for site, m, t in DEGRADED_PLAN))
+
+
+def check_attribution(tasks, res, member_names) -> tuple[int, int]:
+    """One ``attribution`` span per full-arena row, naming the members
+    that answered, its values equal to ``core.attribution.leave_one_out``
+    over the row's member answers; returns the rows and how many of them
+    have a non-zero value. Seed weights never answer the gold, so every
+    value is 0 here: the check holds the spans' rows and members, not
+    their values, which the CPU tests hold against the reference under
+    a stream keyed to make them non-zero."""
+    from repro_torch.core.attribution import leave_one_out
+    from repro_torch.teamllm.trace import ModelResponse
+    spans: dict = {}
+    for sp in res.spans:
+        if sp["phase"] == "attribution":
+            adm = int(sp["trace"].rsplit("#", 1)[1])
+            spans.setdefault(adm, []).append(sp)
+    full = [i for i in range(len(tasks)) if int(res.modes[i]) == 2]
+    nonzero = 0
+    if sorted(spans) != full or any(len(v) != 1 for v in spans.values()):
+        raise AssertionError(f"faults: attribution spans on rows "
+                             f"{sorted(spans)}, full-arena rows {full}")
+    for i in full:
+        want = {m: float(v) for m, v in leave_one_out(
+            [ModelResponse(model=member_names[mi], response="", answer=a,
+                           cost=0.0)
+             for mi, a in enumerate(res.member_answers[i])
+             if a is not None], tasks[i].task_id, tasks[i].gold).items()}
+        if spans[i][0]["values"] != want:
+            raise AssertionError(f"faults: row {i}'s attribution span "
+                                 f"{spans[i][0]['values']} is not "
+                                 f"leave-one-out's {want}")
+        nonzero += any(v != 0 for v in want.values())
+    return len(full), nonzero
+
+
+def run_fault_phase(torch, smi: str, cfg, params, served: dict) -> dict:
+    """Phase 5's fleet, stream and routes under the port's fault
+    tolerance and span tracing, held to phase 5's run (``served``: its
+    chain head, ticks and wall):
+
+    (a) traced (a ``SpanTracer`` with a span file) and journaled: the
+        record chain head equals phase 5's; the span file verifies
+        with the result's span head; the PROV lineage of all 16 tasks
+        walks OK; the journal loads with 16 retired rows; every
+        full-arena row has one attribution span equal to leave-one-out
+        (``check_attribution``);
+    (b) killed at 3/4 of phase 5's ticks with the journal and a tracer
+        (``SimulatedCrash``), then ``recover`` with a tracer: rows
+        restored, one restore span each, the head equal to phase 5's;
+    (c) the harness's degraded plan (a launch retry and NaN quarantines
+        of members 0 and 1), twice: every task answered or
+        abort-traced, equal fault events and heads, a route degraded,
+        two members quarantined, no page leaks.
+
+    Prints each run's wall and the traced-and-journaled wall beside
+    phase 5's (the armed overhead on the card; phase 5's walls spread
+    by 1.5x, so it is a finding, not a gate). Returns the launch counts
+    of all the phase's runs."""
+    import tempfile
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving import (
+        FaultPlan, SimulatedCrash, SpanTracer, StepJournal)
+    from repro_torch.serving.metrics import (
+        MEMBER_QUARANTINED, ROUTES_DEGRADED)
+    from repro_torch.teamllm.prov import lineage, verify_span_file
+
+    tasks, names, serve = stepped_fleet(cfg, params)
+    walls = {}
+    ops.reset_launch_counts()
+    with tempfile.TemporaryDirectory(prefix="acar-faults-") as d:
+        d = Path(d)
+        # (a) traced and journaled
+        _, res, walls["traced+journaled"] = serve(
+            tracer=SpanTracer(d / "spans.jsonl"),
+            journal_path=d / "journal.jsonl")
+        head = chain_head("stepped", tasks, res, names, d / "a.jsonl")
+        if head != served["head"]:
+            raise AssertionError(f"faults: the traced, journaled run's "
+                                 f"head {head} is not phase 5's")
+        audit = verify_span_file(d / "spans.jsonl")
+        if not (audit["ok"] and audit["head"] == res.span_head
+                and audit["records"] == len(res.spans)):
+            raise AssertionError(f"faults: span file audit {audit}")
+        walked = [lineage(res.spans, t.task_id) for t in tasks]
+        if not all(lin["ok"] and lin["verified"] > 0 for lin in walked):
+            raise AssertionError("faults: a task's lineage failed")
+        state = StepJournal.load(d / "journal.jsonl")
+        if sorted(state.retired) != list(range(len(tasks))):
+            raise AssertionError(f"faults: the journal retires "
+                                 f"{sorted(state.retired)}")
+        n_full, n_nonzero = check_attribution(tasks, res, names)
+        log(f"faults: traced and journaled run: head {head} = phase 5's; "
+            f"{len(res.spans)} spans, span file verified (head "
+            f"{res.span_head}); lineage OK for {len(tasks)} tasks "
+            f"({sum(lin['verified'] for lin in walked)} span hashes "
+            f"verified); journal of {state.records} records, "
+            f"{len(state.retired)} rows retired; {n_full} full-arena "
+            f"attribution spans equal to leave-one-out (non-zero in "
+            f"{n_nonzero})")
+
+        # (b) kill at 3/4, recover
+        kill = served["ticks"] * 3 // 4
+        t = time.perf_counter()
+        try:
+            serve(tracer=SpanTracer(), journal_path=d / "crash.jsonl",
+                  faults=FaultPlan.crash_at(kill))
+            raise AssertionError(f"faults: no crash at tick {kill}")
+        except SimulatedCrash:
+            walls[f"killed@{kill}"] = time.perf_counter() - t
+        _, rec, walls["recovered"] = serve(
+            "recover", journal_path=d / "crash.jsonl", tracer=SpanTracer())
+        restores = sum(1 for sp in rec.spans if sp["phase"] == "restore")
+        head_r = chain_head("stepped", tasks, rec, names, d / "b.jsonl")
+        if not (rec.restored_rows > 0 and restores == rec.restored_rows
+                and head_r == served["head"]):
+            raise AssertionError(
+                f"faults: recovery restored {rec.restored_rows} rows "
+                f"with {restores} restore spans, head {head_r}")
+        log(f"faults: killed at tick {kill} of {served['ticks']}, "
+            f"recovered: {rec.restored_rows} rows restored, one restore "
+            f"span each, head {head_r} = phase 5's")
+
+        # (c) the degraded fleet, twice
+        plan = degraded_plan(names, served["ticks"])
+        runs = []
+        for k in (1, 2):
+            eng, res_d, walls[f"degraded {k}"] = serve(faults=plan)
+            check_no_leaks(eng)
+            aborted = {f["admission"] for f in res_d.faults or []
+                       if f["kind"] == "row_aborted"}
+            if any(a is None and i not in aborted
+                   for i, a in enumerate(res_d.final_answers)):
+                raise AssertionError("faults: a degraded row neither "
+                                     "answered nor abort-traced")
+            runs.append((res_d, chain_head("degraded", tasks, res_d, names,
+                                           d / f"c{k}.jsonl")))
+        (res_d, head_d), (res_d2, head_d2) = runs
+        degraded = sum(res_d.metrics.get(ROUTES_DEGRADED,
+                                         **{"from": str(f), "to": str(t)})
+                       for f, t in ((1, 0), (2, 0), (2, 1)))
+        quarantined = [m for m in names
+                       if res_d.metrics.get(MEMBER_QUARANTINED, model=m)]
+        if not (res_d.faults == res_d2.faults and head_d == head_d2):
+            raise AssertionError("faults: the degraded replay differs")
+        if degraded < 1 or len(quarantined) != 2:
+            raise AssertionError(f"faults: {degraded} routes degraded, "
+                                 f"quarantined {quarantined}")
+        kinds: dict = {}
+        for f in res_d.faults:
+            kinds[f["kind"]] = kinds.get(f["kind"], 0) + 1
+        log(f"faults: degraded plan {[(sp.site, sp.model, sp.tick) for sp in plan.specs]}"
+            f" twice: {len(res_d.faults)} fault events {kinds}, equal; "
+            f"{int(degraded)} routes degraded, quarantined {quarantined}; "
+            f"heads {head_d} equal; no page leaks")
+    launches = ops.launch_counts()
+    log(f"faults: launches during the phase {launches}")
+    for name in STEPPED_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"faults: {name} never launched")
+    stray = {k: v for k, v in launches.items()
+             if k not in STEPPED_KERNELS and v}
+    if stray:
+        raise AssertionError(f"faults: kernels off this path "
+                             f"launched: {stray}")
+    log(f"faults: {len(tasks)} tasks on {smi}: walls " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in walls.items()))
+    log(f"faults: armed overhead: traced and journaled wall "
+        f"{walls['traced+journaled']:.3f} s beside phase 5's "
+        f"{served['wall']:.3f} s "
+        f"({walls['traced+journaled'] / served['wall']:.3f}x)")
+    return launches
 
 
 # ----------------------------------------------------------------------
@@ -2773,8 +3078,12 @@ def main() -> int:
     run_train_reference_phase(torch)
     phase_done("reference")
     cfg, params = full_width_params(torch)
-    by_path = {"stepped": run_serve_phase(torch, gpu_name, cfg, params)}
+    launches, served = run_serve_phase(torch, gpu_name, cfg, params)
+    by_path = {"stepped": launches}
     phase_done("serve")
+    by_path["faults"] = run_fault_phase(torch, smi.splitlines()[0], cfg,
+                                        params, served)
+    phase_done("faults")
     by_path.update(run_wave_phase(torch, gpu_name, cfg, params))
     phase_done("wave")
     by_path["audit"] = run_audit_phase(
@@ -2832,7 +3141,7 @@ def main() -> int:
                 "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
                 "bitwise", "out_sha256")}
             entry["f32_note"] = "f32 is the dtype the model feeds the scan"
-        elif r["library_ms"] is None:
+        elif name.endswith("_quant"):
             entry["library_note"] = (
                 "no single PyTorch call computes attention over int8 "
                 "codes with per-vector scales folded in")
@@ -2853,6 +3162,8 @@ def main() -> int:
                              "gate_up then down; ms is the pair's")
         if "long_shape" in r:
             entry["long_shape"] = r["long_shape"]
+        if "audit_shape" in r:
+            entry["audit_shape"] = r["audit_shape"]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels,
                       "launch_floor_ms": results[("launch_floor", "")]}))

@@ -103,17 +103,26 @@ def serve(tasks: Sequence[Task], probe: ZooModel,
     ``step_loop=True`` or ``megastep > 1`` it runs the step-level loop
     (streaming admission, chunked prefill, mixed decode ticks; needs a
     paged-capable probe) with micro-batches of at most ``batch_size``
-    rows and up to ``megastep`` decode ticks per launch. The queued
-    wave engine (``scheduler=True``), the sharded loop
-    (``data_shards``) and span tracing (``trace_path``,
-    ``lineage_task``) are not ported yet and raise
-    ``NotImplementedError``. Returns the report dict of the
+    rows and up to ``megastep`` decode ticks per launch.
+
+    ``trace_path`` arms the deterministic span tracer and flushes the
+    hash-chained span JSONL there; ``lineage_task`` (implies tracing)
+    walks the PROV graph backwards from that task's final answer and
+    reports the verified lineage. Both need the step-level loop: the
+    reference serves a traced stream without it through ``run_queued``,
+    which is not ported yet, as are the queued wave engine
+    (``scheduler=True``) and the sharded loop (``data_shards``); they
+    raise ``NotImplementedError``. Returns the report dict of the
     reference's ``serve``."""
-    if trace_path is not None or lineage_task is not None:
-        raise NotImplementedError(
-            "serve(trace_path/lineage_task=...): span tracing is not "
-            "ported yet")
     stepped = step_loop or data_shards is not None or megastep > 1
+    tracer = None
+    if trace_path is not None or lineage_task is not None:
+        if not stepped:
+            raise NotImplementedError(
+                "serve(trace_path/lineage_task=...) without the step "
+                "loop runs run_queued, which is not ported yet")
+        from repro_torch.serving.tracing import SpanTracer
+        tracer = SpanTracer(trace_path)
     if scheduler and not stepped:
         raise NotImplementedError(
             "serve(scheduler=True): run_queued is not ported yet")
@@ -126,7 +135,8 @@ def serve(tasks: Sequence[Task], probe: ZooModel,
     if stepped:
         res = engine.run_stepped(
             list(tasks), MicroBatchPolicy(max_batch_size=batch_size),
-            data_shards=data_shards, megastep=megastep)
+            data_shards=data_shards, megastep=megastep,
+            tracer=tracer)
         scheduler = True          # report the queued-shape extras
     else:
         res = engine.run_batch(list(tasks))
@@ -171,4 +181,34 @@ def serve(tasks: Sequence[Task], probe: ZooModel,
                       f"{res.step.invocations} program launches, "
                       f"{res.step.prefill_chunks} prefill chunks")
             print(res.metrics.render())
+    if tracer is not None and getattr(res, "spans", None) is not None:
+        out["spans"] = len(res.spans)
+        out["span_head"] = res.span_head
+        if verbose:
+            print(f"spans             : {len(res.spans)} "
+                  f"(head {res.span_head[:16]}...)"
+                  + (f" -> {trace_path}" if trace_path else ""))
+        if lineage_task is not None:
+            from repro_torch.teamllm.prov import lineage
+            lin = lineage(res.spans, lineage_task)
+            out["lineage_ok"] = lin["ok"]
+            out["lineage_verified"] = lin["verified"]
+            if verbose:
+                print(f"lineage           : task {lineage_task} "
+                      f"trace {lin['trace']} — "
+                      f"{lin['verified']} span hashes verified, "
+                      f"{'OK' if lin['ok'] else 'FAILED'}")
+                for rec in lin["records"]:
+                    if rec["kind"] == "entity":
+                        print(f"  entity   {rec['id']}")
+                    elif rec["kind"] == "wasDerivedFrom":
+                        via = f" via {rec['via']}" if "via" in rec \
+                            else ""
+                        print(f"  derived  {rec['entity']} <- "
+                              f"{rec['source']}{via}")
+                    elif rec["kind"] == "wasGeneratedBy":
+                        print(f"  genBy    {rec['entity']} <- "
+                              f"{rec['activity']}")
+                for f in lin["hash_failures"]:
+                    print(f"  FAIL     {f}")
     return out

@@ -4,6 +4,9 @@ from repro_torch.serving.compaction import (
 from repro_torch.serving.engine import (
     BatchedACAREngine, BatchResult, QueuedServeResult, ZooModel,
     intern_answers, judge_batch)
+from repro_torch.serving.faults import (
+    SITES, FaultInjector, FaultPlan, FaultSpec, SimulatedCrash)
+from repro_torch.serving.journal import RecoveryState, StepJournal
 from repro_torch.serving.kv_pool import (
     KVStats, PageAccountingError, PagePool, PagePoolError, PagedKVServer,
     PoolExhausted, ProbeHandle, dense_tile_slots, pages_for)
@@ -14,14 +17,17 @@ from repro_torch.serving.scheduler import StepPlanner
 from repro_torch.serving.step_loop import (
     ShardedStepLoopRunner, StepLoopRunner, StepStats)
 from repro_torch.serving.torch_backend import TorchModelBackend
+from repro_torch.serving.tracing import NullTracer, SpanTracer
 
 __all__ = [
     "AdmissionQueue", "BatchResult", "BatchedACAREngine", "CompactionPlan",
-    "CompactionStats", "KVStats", "MemberPlan", "MicroBatch",
-    "MicroBatchPolicy", "PageAccountingError", "PagePool",
-    "PagePoolError", "PagedKVServer", "PoolExhausted", "ProbeHandle",
-    "PromCounters", "QueuedServeResult", "Request",
-    "ShardedStepLoopRunner", "StepLoopRunner", "StepPlanner", "StepStats",
+    "CompactionStats", "FaultInjector", "FaultPlan", "FaultSpec",
+    "KVStats", "MemberPlan", "MicroBatch", "MicroBatchPolicy",
+    "NullTracer", "PageAccountingError", "PagePool", "PagePoolError",
+    "PagedKVServer", "PoolExhausted", "ProbeHandle", "PromCounters",
+    "QueuedServeResult", "RecoveryState", "Request", "SITES",
+    "ShardedStepLoopRunner", "SimulatedCrash", "SpanTracer",
+    "StepJournal", "StepLoopRunner", "StepPlanner", "StepStats",
     "TorchModelBackend", "ZooModel", "bucket_size", "dense_tile_slots",
     "intern_answers", "judge_batch", "pages_for", "plan_compaction",
 ]

@@ -20,10 +20,15 @@ needed for, gathered into power-of-two buckets — ``compaction.py``).
 Both engage only where they cannot change a row's tokens. With
 ``paged=False`` the wave decodes over contiguous caches instead of
 pool pages, as the reference's A/B baseline and pool-exhaustion
-fallback do. ``run_queued``, fault injection, journaling, recovery and
-tracing are not ported yet; the engine keeps no artifact store of its
-own (a caller chains its results through ``teamllm``, as the
-orchestrator does).
+fallback do.
+
+The stepped engine takes a fault plan, a write-ahead journal and a span
+tracer, and ``recover`` resumes a killed journaled run to the same
+outputs and record hashes; ``run_batch`` takes a tracer too and emits
+the wave's spans after it resolves. ``run_queued`` and the sharded loop
+(``data_shards``) are not ported yet. The engine keeps no artifact
+store of its own (a caller chains its results through ``teamllm``, as
+the orchestrator does).
 """
 from __future__ import annotations
 
@@ -301,13 +306,18 @@ class BatchedACAREngine:
         index of the first row — the stable per-task identity that
         seeds every row's sampling key stream, so a task emits the
         same tokens whether it is served in this wave, another wave,
-        or the step-level loop. ``request_ids`` names traces; the
-        ``tracer`` is not ported yet and raises
-        ``NotImplementedError``."""
-        if tracer is not None:
-            raise NotImplementedError(
-                "run_batch(tracer=...) is not ported yet")
+        or the step-level loop.
+
+        ``tracer`` (serving/tracing.py) emits the wave path's
+        lifecycle spans post-hoc after the wave resolves — the wave is
+        lockstep, so per-phase spans at ``tick = admission index``
+        carry the same decision fields the step loop records live.
+        ``request_ids`` names the traces (one per task); absent, a
+        task-derived id is used."""
         t0 = time.perf_counter()
+        tracer = tracer if (tracer is not None
+                            and getattr(tracer, "armed", False)) \
+            else None
         b = len(tasks)
         n = self.acfg.n_probe_samples
         ids = tok.encode_aligned([t.text for t in tasks])
@@ -365,6 +375,7 @@ class BatchedACAREngine:
             member_cols = []
             member_answers: List[List[Optional[str]]] = \
                 [[None] * len(self.ensemble) for _ in range(b)]
+            reused_rows: set = set()     # (mi, row): probe-page seed
             for mi, zm in enumerate(self.ensemble):
                 mp = plan.members[mi]
                 col = np.full(b, -1, np.int32)
@@ -387,6 +398,8 @@ class BatchedACAREngine:
                             temperature=self.acfg.ensemble_temperature,
                             key=mkey, eos_id=tok.EOS, pad_id=tok.PAD,
                             row_keys=mrk)
+                        reused_rows.update(
+                            (mi, int(r)) for r in mp.rows)
                     else:
                         mout = self._member_decode(zm, srv_m, ids[rows],
                                                    mkey, row_keys=mrk)
@@ -424,6 +437,11 @@ class BatchedACAREngine:
                 np.where(modes_np == 1, self.acfg.arena_lite_size,
                          len(self.ensemble)))))
             probe_texts = [texts[i * n:(i + 1) * n] for i in range(b)]
+            if tracer is not None:
+                self._trace_wave(
+                    tracer, tasks, start_index, request_ids,
+                    int(ids.shape[1]), n, sig.numpy(), modes_np,
+                    member_answers, final_answers, reused_rows)
             return BatchResult(
                 sigma=sig.numpy(), modes=modes_np,
                 final_answers=final_answers, probe_texts=probe_texts,
@@ -436,6 +454,66 @@ class BatchedACAREngine:
             if handle is not None:
                 handle.close()
 
+    def _trace_wave(self, tracer, tasks, start_index, request_ids,
+                    prompt_tokens, n, sig, modes_np, member_answers,
+                    final_answers, reused_rows) -> None:
+        """Post-hoc span emission for one resolved wave: the lockstep
+        wave has no per-tick interleaving, so each task's lifecycle
+        spans are stamped at ``tick = admission index`` with the same
+        decision fields the step loop records live (structure stays a
+        pure function of the admission-ordered run)."""
+        from repro_torch.core.attribution import leave_one_out
+        from repro_torch.teamllm.spans import make_trace_id
+        from repro_torch.teamllm.trace import ModelResponse
+        for i, task in enumerate(tasks):
+            adm = start_index + i
+            rid = request_ids[i] if request_ids is not None \
+                else f"task-{task.task_id}"
+            trace = make_trace_id(rid, adm)
+            sigma = float(sig[i])
+            mode = int(modes_np[i])
+            tracer.span("admit", trace, adm,
+                        prompt_tokens=prompt_tokens, arrival=adm)
+            tracer.span("probe_decode", trace, adm,
+                        model=self.probe.name, n_samples=n)
+            tracer.span("route", trace, adm, sigma=sigma, mode=mode,
+                        n_samples=n)
+            members = []
+            for mi, zm in enumerate(self.ensemble):
+                if member_answers[i][mi] is None:
+                    continue
+                members.append(mi)
+                reuse = (mi, i) in reused_rows
+                tracer.span("member_launch", trace, adm,
+                            key=("m", mi), member=mi, model=zm.name,
+                            reuse=int(reuse))
+                if reuse:
+                    tracer.span("kv_reuse", trace, adm, key=("m", mi),
+                                kind="probe", model=zm.name,
+                                source=trace)
+                tracer.span("member_decode", trace, adm,
+                            key=("m", mi), member=mi, model=zm.name,
+                            done=1)
+            tracer.span("judge", trace, adm, mode=mode,
+                        members=members)
+            tracer.span("retire", trace, adm, task_id=task.task_id,
+                        final_answer=final_answers[i], sigma=sigma,
+                        mode=mode, aborted=None)
+            if (getattr(tracer, "attribution", False) and mode >= 2
+                    and members):
+                responses = [
+                    ModelResponse(model=self.ensemble[mi].name,
+                                  response="",
+                                  answer=member_answers[i][mi],
+                                  cost=0.0)
+                    for mi in members]
+                loo = leave_one_out(responses, task.task_id,
+                                    task.gold)
+                tracer.span("attribution", trace, adm,
+                            task_id=task.task_id, mode=mode,
+                            values={m: float(v)
+                                    for m, v in loo.items()})
+
     # ------------------------------------------------------------------
     # step-level continuous batching entry point
     # ------------------------------------------------------------------
@@ -447,6 +525,7 @@ class BatchedACAREngine:
                     megastep=1,
                     faults=None,
                     journal_path=None,
+                    recovered: Optional[Dict[int, dict]] = None,
                     tracer=None) -> "QueuedServeResult":
         """Serve a request stream through the step-level loop: rows
         admitted from ``AdmissionQueue.ready()`` the moment the page
@@ -461,18 +540,33 @@ class BatchedACAREngine:
         ``megastep="auto"`` runs up to 16 ticks but caps each group's
         span at its shortest remaining lane budget.
 
-        ``data_shards``, ``faults``, ``journal_path`` and ``tracer``
-        are not ported yet and raise ``NotImplementedError``."""
+        Fault tolerance: ``faults`` (a ``FaultPlan``) attaches a
+        deterministic fault injector; ``journal_path`` attaches a
+        hash-chained write-ahead ``StepJournal``; ``recovered`` (an
+        admission-index -> retire-payload map from
+        ``StepJournal.load``) restores already-retired rows verbatim
+        while everything else re-executes from scratch — see
+        ``recover``. ``tracer`` (serving/tracing.py) attaches span
+        tracing: one hashed span per lifecycle transition and fault
+        event, which cannot move record hashes or chain heads. Each
+        hook costs one attribute check when unset.
+
+        ``data_shards`` (the sharded loop) is not ported yet and
+        raises ``NotImplementedError``."""
         from repro_torch.serving.scheduler import StepPlanner
         from repro_torch.serving.step_loop import StepLoopRunner
-        for name, value in (("data_shards", data_shards),
-                            ("faults", faults),
-                            ("journal_path", journal_path),
-                            ("tracer", tracer)):
-            if value is not None:
-                raise NotImplementedError(
-                    f"run_stepped({name}=...) is not ported yet")
+        if data_shards is not None:
+            raise NotImplementedError(
+                "run_stepped(data_shards=...) is not ported yet")
         t0 = time.perf_counter()
+        injector = None
+        if faults is not None:
+            from repro_torch.serving.faults import FaultInjector
+            injector = FaultInjector(faults)
+        journal = None
+        if journal_path is not None:
+            from repro_torch.serving.journal import StepJournal
+            journal = StepJournal(journal_path, injector=injector)
         queue = AdmissionQueue(policy)
         for t in tasks:
             queue.submit(t)
@@ -486,7 +580,9 @@ class BatchedACAREngine:
                                   max_active_rows=rows_cap,
                                   megastep=megastep)
         metrics = PromCounters()
-        runner = StepLoopRunner(self, queue, planner, metrics)
+        runner = StepLoopRunner(self, queue, planner, metrics,
+                                faults=injector, journal=journal,
+                                recovered=recovered, tracer=tracer)
         step_stats = runner.run()
         self._emit_kv_metrics(metrics)
 
@@ -513,7 +609,34 @@ class BatchedACAREngine:
                             [None] * len(self.ensemble)
                             for r in rows],
             kv=runner.kv_stats() or None,
-            step=step_stats)
+            step=step_stats,
+            faults=runner.fault_events or None,
+            restored_rows=step_stats.restored,
+            spans=runner.tracer.records()
+            if runner.tracer is not None else None,
+            span_head=runner.tracer.flush()
+            if runner.tracer is not None else None)
+
+    def recover(self, tasks: Sequence[Task],
+                policy: MicroBatchPolicy = MicroBatchPolicy(), *,
+                journal_path, chunk_tokens: int = 8,
+                max_active_rows: Optional[int] = None,
+                data_shards: Optional[int] = None,
+                megastep=1, tracer=None) -> "QueuedServeResult":
+        """Resume a killed ``run_stepped`` run from its write-ahead
+        journal: rows with a durable ``retire`` event are restored
+        verbatim; in-flight and unadmitted rows re-execute from
+        scratch with their original admission indices, so the
+        recovered run's record hashes and artifact-chain heads are
+        byte-identical to an uninterrupted run's. Must be called with
+        the same task stream, policy and engine config as the killed
+        run."""
+        from repro_torch.serving.journal import StepJournal
+        state = StepJournal.load(journal_path)
+        return self.run_stepped(
+            tasks, policy, chunk_tokens=chunk_tokens,
+            max_active_rows=max_active_rows, data_shards=data_shards,
+            megastep=megastep, recovered=state.retired, tracer=tracer)
 
     def _emit_kv_metrics(self, metrics: PromCounters) -> None:
         """Paged-KV exposition: pool gauges plus monotonic prefill-reuse
@@ -559,3 +682,12 @@ class QueuedServeResult:
     kv: Optional[Dict[str, KVStats]] = None
     # step-loop accounting
     step: Optional[object] = None
+    # fault-path events (retries, quarantines, degraded routes,
+    # aborts) in firing order; None on fault-free runs
+    faults: Optional[List[dict]] = None
+    # rows restored verbatim from a step journal by ``recover``
+    restored_rows: int = 0
+    # deterministic span records + chain head when a tracer was armed
+    # (serving/tracing.py); None otherwise
+    spans: Optional[List[dict]] = None
+    span_head: Optional[str] = None

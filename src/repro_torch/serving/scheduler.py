@@ -2,9 +2,9 @@
 
 The port of ``StepPlanner`` from ``repro/serving/scheduler.py``: the
 per-tick admission, chunk-sizing, bucket and megastep decisions of the
-step-level serving loop (serving/step_loop.py). The wave scheduler
-(``ContinuousBatchingScheduler``), shard placement and on-capacity
-attribution are not ported yet.
+step-level serving loop (serving/step_loop.py), and its on-capacity
+attribution budget. The wave scheduler (``ContinuousBatchingScheduler``)
+and shard placement are not ported yet.
 """
 from __future__ import annotations
 
@@ -69,3 +69,15 @@ class StepPlanner:
                   reserved_pages: int, row_need: int) -> bool:
         return (active_rows < self.max_active_rows
                 and free_pages - reserved_pages >= row_need)
+
+    def attribution_quota(self, tick_cost: int, pending: int) -> int:
+        """On-capacity attribution budget for this tick: how many
+        retired full-arena rows the step loop may recompute
+        leave-one-out counterfactuals for (serving/step_loop.py drains
+        its queue with it). The policy is strict idleness — a tick
+        that launched any device program gets no budget, an idle tick
+        drains everything pending. Attribution is host-side recompute
+        over already-journaled answers, so the quota can never perturb
+        the virtual clock or the decision trace; the remainder flushes
+        after the stream drains."""
+        return pending if tick_cost == 0 else 0

@@ -4,15 +4,18 @@ fixture models, converted once per params object, configs carried
 across field by field, and the engine gates (ladder rung 4: equal
 judge-visible outputs, record hashes and chain heads).
 
-Run as a script, it serves the 200-task legs of the engine gate that
-tier-1 runs at 16 tasks (stepped at megastep 1, 4 and "auto"; waves
-paged and ``paged=False``) and prints each leg's wall and mismatch
-counts::
+Run as a script, it serves the 200-task legs of the gates that tier-1
+runs at small scale and prints each leg's wall and mismatch counts:
+``engine`` (stepped at megastep 1, 4 and "auto"; waves paged and
+``paged=False``) and ``faults`` (the crash legs kill@mid, kill@3/4 and
+torn@3/4, the degraded fleet, and the observability legs)::
 
-    PYTHONPATH=src:tests:. JAX_PLATFORMS=cpu python tests/_torch_port.py
+    PYTHONPATH=src:tests:. JAX_PLATFORMS=cpu python tests/_torch_port.py \
+        [engine] [faults]
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import sys
 import tempfile
@@ -21,6 +24,7 @@ from pathlib import Path
 
 import jax
 import numpy as np
+import torch
 
 from repro_torch.configs.base import ModelConfig as TorchModelConfig
 from repro_torch.data.tasks import Task as TorchTask
@@ -75,14 +79,10 @@ def torch_zoo(probe, ensemble, device="cpu"):
 def engine_fleets(prompt_chars: int = 24, n_tasks: int = 16):
     """The reference's and the port's ``paged_zoo`` fleets and the
     long-prompt stream (16 tasks) the engine tests serve."""
-    from harness.simulate import long_prompt_workload, paged_zoo
-    probe, ensemble = paged_zoo(seed=0)
-    jprobe, jens = pallas_zoo(probe, ensemble)
-    tprobe, tens = torch_zoo(probe, ensemble)
-    assert tens[2].params is tprobe.params
+    from harness.simulate import long_prompt_workload
     tasks = long_prompt_workload(n_tasks, prompt_chars=prompt_chars,
                                  seed=0)
-    return (jprobe, jens), (tprobe, tens), tasks
+    return (*paged_fleets(), tasks)
 
 
 def quant_fleets(n_tasks: int = 16, prompt_chars: int = 24):
@@ -225,33 +225,16 @@ def check_run_stepped_against_reference(fleets, megastep) -> None:
     same knobs and require zero mismatches in sigma, mode, final
     answer, member answers and probe texts, equal prefill-chunk, tick
     and page accounting, and equal record hashes and chain heads."""
-    from repro.configs.acar import ACARConfig as JACARConfig
-    from repro.serving import BatchedACAREngine as JEngine
-    from repro.serving import MicroBatchPolicy as JPolicy
-    from repro_torch.configs import ACARConfig
-    from repro_torch.serving import BatchedACAREngine, MicroBatchPolicy
-
     (jprobe, jens), (tprobe, tens), tasks = fleets
-    policy = dict(max_batch_size=8, max_batch_tokens=1 << 20)
-    jeng = JEngine(JACARConfig(probe_temperature=0.9, seed=0), jprobe,
-                   jens, max_new_tokens=6)
-    jres = jeng.run_stepped(tasks, JPolicy(**policy), chunk_tokens=8,
-                            megastep=megastep)
-    teng = BatchedACAREngine(ACARConfig(probe_temperature=0.9, seed=0),
-                             tprobe, tens, max_new_tokens=6, device="cpu")
-    tres = teng.run_stepped([torch_task(t) for t in tasks],
-                            MicroBatchPolicy(**policy), chunk_tokens=8,
-                            megastep=megastep)
-    mism = _mismatches(jres, tres, len(tasks))
-    assert all(not v for v in mism.values()), mism
-    check_records_against_reference(
-        f"stepped-{megastep}", [m.name for m in jens],
-        [(tasks, jres, tres)])
+    ref, port = stepped_pair(fleets[:2], tasks, max_new_tokens=6,
+                             chunk_tokens=8, batch_size=8)
+    jeng, jres = ref(megastep=megastep)
+    teng, tres = port(megastep=megastep)
+    check_served_equal(f"stepped-{megastep}", tasks, jres, tres,
+                       [m.name for m in jens])
     # the stream exercises every route and the twin's page reuse
     assert set(tres.modes.tolist()) >= {1, 2}
     assert tres.step.prefill_chunks == jres.step.prefill_chunks
-    assert tres.step.ticks == jres.step.ticks
-    assert tres.step.decode_tokens == jres.step.decode_tokens
     jkv, tkv = jeng.kv_stats()[jprobe.name], teng.kv_stats()[tprobe.name]
     assert tkv.pages_highwater == jkv.pages_highwater
     assert tkv.prefill_tokens_reused_probe == \
@@ -261,35 +244,433 @@ def check_run_stepped_against_reference(fleets, megastep) -> None:
     assert tkv.cow_forks == jkv.cow_forks
 
 
-def main() -> int:
-    """The 200-task legs of the engine gate, each once."""
-    legs = [("stepped megastep 1", "stepped", 1),
-            ("stepped megastep 4", "stepped", 4),
-            ('stepped megastep "auto"', "stepped", "auto"),
-            ("wave paged", "wave", None),
-            ("wave paged=False", "wave", False)]
+# ----------------------------------------------------------------------
+# faults, the journal, recovery and span tracing on the stepped engine
+# ----------------------------------------------------------------------
+@contextlib.contextmanager
+def one_torch_thread():
+    """One intra-op torch thread while the block runs. The engines of
+    the fault, recovery and tracing tests run tiny shapes, where extra
+    threads only contend with the other test workers' for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+def paged_fleets():
+    """The reference's (``use_pallas=True``) and the port's
+    ``paged_zoo`` fleets, with no stream."""
+    from harness.simulate import paged_zoo
+    probe, ensemble = paged_zoo(seed=0)
+    jfleet, tfleet = pallas_zoo(probe, ensemble), torch_zoo(probe, ensemble)
+    assert tfleet[1][2].params is tfleet[0].params
+    return jfleet, tfleet
+
+
+def stream(n_tasks: int, seed: int, prompt_chars: int = 20,
+           duplicate_rate: float = 0.2):
+    """``long_prompt_workload`` at ``tests/test_faults.py``'s scale."""
+    from harness.simulate import long_prompt_workload
+    return long_prompt_workload(n_tasks, prompt_chars, seed=seed,
+                                duplicate_rate=duplicate_rate)
+
+
+def fault_plans(*specs, **plan_kw):
+    """The same ``FaultPlan`` in both packages; ``specs`` are
+    ``FaultSpec`` keyword dicts."""
+    from repro.serving.faults import FaultPlan as JPlan
+    from repro.serving.faults import FaultSpec as JSpec
+    from repro_torch.serving import FaultPlan, FaultSpec
+    return (JPlan(specs=tuple(JSpec(**sp) for sp in specs), **plan_kw),
+            FaultPlan(specs=tuple(FaultSpec(**sp) for sp in specs),
+                      **plan_kw))
+
+
+def stepped_pair(fleets, tasks, *, max_new_tokens: int = 4,
+                 chunk_tokens: int = 7, batch_size: int = 4,
+                 route_fn=None):
+    """Two callables, ``ref(**kw)`` and ``port(**kw)``, that each serve
+    ``tasks`` (or ``keyed=``, the same prompts under other golds)
+    through a fresh engine of their package with the same knobs
+    (``tests/test_faults.py``'s by default) and return ``(engine,
+    result)``. ``recover=path`` calls ``recover`` on the journal at
+    ``path``; every other keyword goes to the entry point, each
+    package's own objects to its own engine."""
+    from repro.configs.acar import ACARConfig as JACARConfig
+    from repro.serving import BatchedACAREngine as JEngine
+    from repro.serving import MicroBatchPolicy as JPolicy
+    from repro_torch.configs import ACARConfig
+    from repro_torch.serving import BatchedACAREngine, MicroBatchPolicy
+
+    (jprobe, jens), (tprobe, tens) = fleets
+    policy = dict(max_batch_size=batch_size, max_batch_tokens=1 << 20)
+    acfg = dict(probe_temperature=0.9, seed=0)
+    ttasks = [torch_task(t) for t in tasks]
+
+    def serve(eng, tasks_, pol, kw):
+        if "recover" in kw:
+            kw = dict(kw)
+            return eng, eng.recover(tasks_, pol,
+                                    journal_path=kw.pop("recover"),
+                                    chunk_tokens=chunk_tokens, **kw)
+        return eng, eng.run_stepped(tasks_, pol,
+                                    chunk_tokens=chunk_tokens, **kw)
+
+    def ref(keyed=None, **kw):
+        eng = JEngine(JACARConfig(**acfg), jprobe, jens,
+                      max_new_tokens=max_new_tokens, route_fn=route_fn)
+        return serve(eng, keyed or tasks, JPolicy(**policy), kw)
+
+    def port(keyed=None, **kw):
+        eng = BatchedACAREngine(ACARConfig(**acfg), tprobe, tens,
+                                max_new_tokens=max_new_tokens,
+                                route_fn=route_fn, device="cpu")
+        return serve(eng, [torch_task(t) for t in keyed] if keyed
+                     else ttasks, MicroBatchPolicy(**policy), kw)
+
+    return ref, port
+
+
+def check_served_equal(run_id, tasks, jres, tres, member_names) -> None:
+    """Both packages' results of one stream: zero mismatches in sigma,
+    mode, answer, member answers and probe texts; equal record hashes
+    and chain heads; equal fault-event lists, restored rows, ticks and
+    step accounting; and, when traced, equal span records and span
+    chain heads."""
+    mism = _mismatches(jres, tres, len(tasks))
+    assert all(not v for v in mism.values()), mism
+    check_records_against_reference(run_id, member_names,
+                                    [(tasks, jres, tres)])
+    assert tres.faults == jres.faults
+    assert tres.restored_rows == jres.restored_rows
+    for f in ("ticks", "retired", "requeues", "retries", "aborted",
+              "restored", "decode_tokens", "timeline"):
+        assert getattr(tres.step, f) == getattr(jres.step, f), f
+    assert (tres.spans is None) == (jres.spans is None)
+    if jres.spans is not None:
+        assert tres.spans == jres.spans
+        assert tres.span_head == jres.span_head
+
+
+def assert_no_leaks(eng) -> None:
+    """``tests/test_faults.py``'s drain-time accounting: with the
+    prefix cache dropped every server holds exactly its scratch
+    pages."""
+    for srv in eng._kv_servers.values():
+        srv.drop_prefix_cache()
+        assert srv.pool.pages_in_use == srv._scratch.size
+
+
+def journal_state(state) -> dict:
+    """A ``RecoveryState`` of either package as a plain dict."""
+    return dict(retired=state.retired, admitted=state.admitted,
+                faults=state.faults, records=state.records,
+                torn_recovered=state.torn_recovered, head=state.head)
+
+
+def crash_ticks(ticks: int):
+    """The harness's kill ticks of a run of ``ticks`` loop ticks: the
+    midpoint and 3/4 (``run_crash_recovery_equivalence``)."""
+    return max(1, ticks // 2), max(1, ticks * 3 // 4)
+
+
+def check_crash_leg(ref, port, tasks, base, member_names, workdir,
+                    tick: int, torn: bool, tracers=None) -> int:
+    """Kill both packages' journaled runs at loop tick ``tick``
+    (``torn``: mid-journal-append at that virtual-clock instant), load
+    each journal with both packages' loaders (equal states: retired
+    rows, records, torn tail, head), recover each package from its own
+    journal, and hold the recovered runs to each other and their
+    records to the reference's uninterrupted run ``base``. ``tracers``
+    (a factory of a (reference, port) pair) traces the killed and the
+    recovered runs. Returns the rows restored."""
+    from repro.serving.faults import FaultPlan as JPlan
+    from repro.serving.faults import SimulatedCrash as JCrash
+    from repro.serving.journal import StepJournal as JJournal
+    from repro_torch.serving import FaultPlan, SimulatedCrash, StepJournal
+
+    workdir = Path(workdir)
+    leg = f"{'torn' if torn else 'kill'}@{tick}"
+    jpath, tpath = workdir / f"{leg}-ref.jsonl", workdir / f"{leg}-port.jsonl"
+    jt, tt = tracers() if tracers else (None, None)
+    try:
+        ref(journal_path=jpath, tracer=jt,
+            faults=JPlan.crash_at(tick, torn=torn))
+        raise AssertionError(f"{leg}: the reference did not crash")
+    except JCrash:
+        pass
+    try:
+        port(journal_path=tpath, tracer=tt,
+             faults=FaultPlan.crash_at(tick, torn=torn))
+        raise AssertionError(f"{leg}: the port did not crash")
+    except SimulatedCrash:
+        pass
+    # every journal through every loader, each on its own copy (a load
+    # truncates a torn tail in place)
+    states = []
+    for path in (jpath, tpath):
+        for k, loader in enumerate((JJournal.load, StepJournal.load)):
+            copy = path.with_suffix(f".load{k}.jsonl")
+            copy.write_bytes(path.read_bytes())
+            states.append(journal_state(loader(copy)))
+    want = states[0]
+    assert all(st == want for st in states), leg
+    assert want["torn_recovered"] == torn, leg
+    jt, tt = tracers() if tracers else (None, None)
+    _, jres = ref(recover=jpath, tracer=jt)
+    _, tres = port(recover=tpath, tracer=tt)
+    assert tres.restored_rows == len(want["retired"])
+    if tracers:
+        # span continuity: every restored row re-materialises
+        assert sum(1 for sp in tres.spans if sp["phase"] == "restore") \
+            == tres.restored_rows
+    check_served_equal(f"recovered-{leg}", tasks, jres, tres,
+                       member_names)
+    check_records_against_reference(f"uninterrupted-{leg}", member_names,
+                                    [(tasks, base, tres)])
+    return tres.restored_rows
+
+
+def degraded_plans(member_names, scale: float = 1.0):
+    """The reference harness's degraded-fleet plan on one device
+    (``run_degraded_fleet`` less its shard loss): a transient launch
+    failure and a NaN quarantine of member 0, then a NaN quarantine of
+    member 1, at ticks 2, 4 and 7 times ``scale``."""
+    return fault_plans(
+        dict(tick=int(2 * scale), site="member_launch",
+             model=member_names[0]),
+        dict(tick=int(4 * scale), site="member_nan",
+             model=member_names[0]),
+        dict(tick=int(7 * scale), site="member_nan",
+             model=member_names[1]))
+
+
+def check_degraded(ref, port, tasks, member_names, scale: float = 1.0):
+    """Serve the degraded plan through both packages, twice in the
+    port: equal results, records, heads and fault events; the port's
+    replay equal to its first run; equal degraded-route and
+    quarantine counters; every task answered or abort-traced; two
+    members quarantined, at least one route degraded; no page leaks.
+    Returns the port's result."""
+    from repro_torch.serving.metrics import (
+        MEMBER_QUARANTINED, ROUTES_DEGRADED)
+    jplan, tplan = degraded_plans(member_names, scale)
+    _, jres = ref(faults=jplan)
+    teng, tres = port(faults=tplan)
+    teng2, tres2 = port(faults=tplan)
+    check_served_equal("degraded", tasks, jres, tres, member_names)
+    check_served_equal("degraded-replay", tasks, tres, tres2,
+                       member_names)
+    for res in (jres, tres2):
+        for f, t in ((1, 0), (2, 0), (2, 1)):
+            lab = {"from": str(f), "to": str(t)}
+            assert tres.metrics.get(ROUTES_DEGRADED, **lab) == \
+                res.metrics.get(ROUTES_DEGRADED, **lab)
+        for m in member_names:
+            assert tres.metrics.get(MEMBER_QUARANTINED, model=m) == \
+                res.metrics.get(MEMBER_QUARANTINED, model=m)
+    aborted = {f["admission"] for f in tres.faults or []
+               if f["kind"] == "row_aborted"}
+    assert all(a is not None or i in aborted
+               for i, a in enumerate(tres.final_answers))
+    assert sum(1 for m in member_names
+               if tres.metrics.get(MEMBER_QUARANTINED, model=m)) == 2
+    assert any(f["kind"] == "route_degraded" for f in tres.faults)
+    assert_no_leaks(teng)
+    assert_no_leaks(teng2)
+    return tres
+
+
+def attribution_key(tasks, base, member_names):
+    """``tasks`` under golds that let leave-one-out discriminate: the
+    zoo never answers a stream's own gold, so every value would be 0
+    whatever member answers an engine used. Each full-arena row's gold
+    becomes the first of its member answers in ``base`` (an untraced
+    run) that the reference's leave-one-out credits with a non-zero
+    value; serving does not read the gold."""
+    from repro.core.attribution import leave_one_out
+    from repro.teamllm.trace import ModelResponse
+    keyed = list(tasks)
+    for i, task in enumerate(tasks):
+        if int(base.modes[i]) < 2:
+            continue
+        responses = [ModelResponse(model=member_names[mi], response="",
+                                   answer=a, cost=0.0)
+                     for mi, a in enumerate(base.member_answers[i])
+                     if a is not None]
+        for r in responses:
+            if any(leave_one_out(responses, task.task_id,
+                                 r.answer).values()):
+                keyed[i] = dataclasses.replace(task, gold=r.answer)
+                break
+    return keyed
+
+
+def attribution_oracle_mismatches(tasks, res, member_names):
+    """The port's on-capacity ``attribution`` spans against its offline
+    leave-one-out oracle, row by row (exact float equality); returns
+    (full-arena rows, rows with a non-zero value, mismatches), as the
+    harness's ``_attribution_oracle_check``."""
+    from repro_torch.core.attribution import leave_one_out
+    from repro_torch.teamllm.trace import ModelResponse
+    spans = {int(s["trace"].rsplit("#", 1)[1]): s for s in res.spans
+             if s["phase"] == "attribution"}
+    rows, nonzero, bad = 0, 0, []
+    for i, task in enumerate(tasks):
+        if int(res.modes[i]) < 2:
+            continue
+        rows += 1
+        responses = [ModelResponse(model=member_names[mi], response="",
+                                   answer=a, cost=0.0)
+                     for mi, a in enumerate(res.member_answers[i])
+                     if a is not None]
+        want = {m: float(v) for m, v in leave_one_out(
+            responses, task.task_id, task.gold).items()}
+        nonzero += any(want.values())
+        if i not in spans or spans[i]["values"] != want:
+            bad.append(i)
+    bad += sorted(set(spans) - {i for i in range(len(tasks))
+                                if int(res.modes[i]) >= 2})
+    return rows, nonzero, bad
+
+
+def check_obs(ref, port, tasks, base, member_names, workdir) -> dict:
+    """``run_obs_equivalence``'s single-device legs, port against
+    reference: each package traced (the port into a span file) over the
+    stream under ``attribution_key`` against the reference's untraced
+    run ``base`` (records and heads equal); equal span records and span
+    heads; the port's span file verified with its head; the lineage of
+    every task OK and equal to the reference's; the attribution spans
+    equal to the oracle, some of them non-zero; a traced
+    crash at 3/4 recovered with a tracer: one restore span per
+    restored row and span heads equal to the reference's. Returns the
+    counts."""
+    from repro.serving.tracing import SpanTracer as JTracer
+    from repro.teamllm.prov import lineage as jlineage
+    from repro_torch.serving import SpanTracer
+    from repro_torch.teamllm.prov import lineage, verify_span_file
+
+    path = Path(workdir) / "spans-port.jsonl"
+    keyed = attribution_key(tasks, base, member_names)
+    _, jres = ref(keyed=keyed, tracer=JTracer())
+    _, tres = port(keyed=keyed, tracer=SpanTracer(path))
+    check_served_equal("traced", keyed, jres, tres, member_names)
+    check_records_against_reference("traced-vs-untraced", member_names,
+                                     [(keyed, base, tres)])
+    audit = verify_span_file(path)
+    assert audit["ok"] and audit["head"] == tres.span_head, audit
+    walked = 0
+    for tid in sorted({t.task_id for t in tasks}):
+        lin = lineage(tres.spans, tid)
+        assert lin["ok"] and lin["verified"] > 0, (tid, lin)
+        assert lin == jlineage(jres.spans, tid), tid
+        walked += 1
+    rows, nonzero, bad = attribution_oracle_mismatches(keyed, tres,
+                                                       member_names)
+    assert rows > 0 and nonzero > 0 and not bad, (rows, nonzero, bad)
+    kill = crash_ticks(base.step.ticks)[1]
+    restored = check_crash_leg(
+        ref, port, tasks, base, member_names, workdir, kill, False,
+        tracers=lambda: (JTracer(), SpanTracer()))
+    return dict(spans=len(tres.spans), lineage=walked,
+                attribution_rows=rows, attribution_nonzero=nonzero,
+                restored=restored)
+
+
+def engine_legs():
+    """The 200-task legs of the engine gate: (name, callable)."""
     # the prompt lengths of tier-1's legs: 24 characters stepped, 21
     # (a tail page off the page grid, COW-forked per sample) in waves
     fleets = {"stepped": engine_fleets(n_tasks=200),
               "wave": engine_fleets(prompt_chars=21, n_tasks=200)}
+    legs = []
+    for knob in (1, 4, "auto"):
+        legs.append((f"stepped megastep {knob!r}", lambda k=knob:
+                     check_run_stepped_against_reference(
+                         fleets["stepped"], megastep=k)))
+    for paged in (None, False):
+        # waves of 8 tasks, as tier-1's two waves of 16 tasks
+        legs.append((f"wave paged={paged}", lambda pg=paged:
+                     check_run_batch_against_reference(
+                         fleets["wave"], pg, waves=25)))
+    return legs
+
+
+def fault_legs(workdir):
+    """The 200-task single-device legs of the reference harness's
+    crash-recovery, degraded-fleet and observability checks
+    (``run_crash_recovery_equivalence``, ``run_degraded_fleet`` without
+    its shard loss, ``run_obs_equivalence``), port against reference at
+    the harness's knobs."""
+    from harness.simulate import long_prompt_workload
+    fleets = paged_fleets()
+    names = [m.name for m in fleets[0][1]]
+    tasks = long_prompt_workload(200, 24, seed=0, duplicate_rate=0.15)
+    ref, port = stepped_pair(fleets, tasks, max_new_tokens=6,
+                             chunk_tokens=8, batch_size=8)
+    state = {}
+
+    def base():
+        if "base" not in state:
+            _, state["base"] = ref()
+            _, tres = port()
+            check_served_equal("uninterrupted", tasks, state["base"],
+                               tres, names)
+        return state["base"]
+
+    def crash(which, torn):
+        b = base()
+        tick = crash_ticks(b.step.ticks)[which]
+        restored = check_crash_leg(ref, port, tasks, b, names, workdir,
+                                   tick, torn)
+        return f"tick {tick} of {b.step.ticks}, restored {restored}"
+
+    def degraded():
+        res = check_degraded(ref, port, tasks, names)
+        kinds: dict = {}
+        for f in res.faults:
+            kinds[f["kind"]] = kinds.get(f["kind"], 0) + 1
+        return f"fault events {kinds}"
+
+    def obs():
+        got = check_obs(ref, port, tasks, base(), names, workdir)
+        return ", ".join(f"{k} {v}" for k, v in got.items())
+
+    return [("crash kill@mid", lambda: crash(0, False)),
+            ("crash kill@3/4", lambda: crash(1, False)),
+            ("crash torn@3/4", lambda: crash(1, True)),
+            ("degraded fleet (no shard loss)", degraded),
+            ("obs (step, recover@3/4, lineage, attribution)", obs)]
+
+
+def main(argv=None) -> int:
+    """The 200-task legs, each once: ``engine`` (the engine gate),
+    ``faults`` (crash recovery, the degraded fleet, spans), or both
+    when no group is named."""
+    groups = list(argv if argv is not None else sys.argv[1:]) \
+        or ["engine", "faults"]
     failed = 0
-    for name, kind, knob in legs:
-        t = time.perf_counter()
-        try:
-            if kind == "stepped":
-                check_run_stepped_against_reference(fleets[kind],
-                                                    megastep=knob)
-            else:
-                # waves of 8 tasks, as tier-1's two waves of 16 tasks
-                check_run_batch_against_reference(fleets[kind], knob,
-                                                  waves=25)
-            verdict = "0 mismatches (sigma, mode, answer, member, " \
-                "probe text, record hash); chains audit OK; heads equal"
-        except AssertionError as e:
-            failed += 1
-            verdict = f"MISMATCH {str(e)[:2000]}"
-        print(f"{name}: 200 tasks, wall {time.perf_counter() - t:.1f} s: "
-              f"{verdict}", flush=True)
+    with tempfile.TemporaryDirectory(prefix="acar-port-legs-") as d:
+        legs = []
+        if "engine" in groups:
+            legs += engine_legs()
+        if "faults" in groups:
+            legs += fault_legs(d)
+        for name, leg in legs:
+            t = time.perf_counter()
+            try:
+                note = leg()
+                verdict = ("0 mismatches (sigma, mode, answer, member, "
+                           "probe text, record hash); heads equal"
+                           + (f"; {note}" if note else ""))
+            except AssertionError as e:
+                failed += 1
+                verdict = f"MISMATCH {str(e)[:2000]}"
+            print(f"{name}: 200 tasks, wall "
+                  f"{time.perf_counter() - t:.1f} s: {verdict}", flush=True)
     return 1 if failed else 0
 
 
