@@ -86,6 +86,24 @@ Phases (each raises on failure, and the script then exits non-zero):
    twice (every task answered or abort-traced, equal fault events and
    heads, a route degraded, two members quarantined, no page leaks);
    each run's wall is printed, the traced one beside phase 5's.
+10. queued (run after phase 8, on its arithmetic-trained fleet) — the
+   queued wave engine (``run_queued``: the admission queue's
+   micro-batches of 8, each a wave) over phase 5's stream and forced
+   routes from pool pages, over contiguous caches and as the masked
+   baseline (``compact=False, shared_prefix=False``), each run twice:
+   batch sizes [8, 8], every task answered, no page leaks, each path's
+   kernels and no other, the rerun's head byte-identical, the masked
+   head equal to the compacted one (the stepped engine's head is
+   printed beside it, a finding); traced over 24 tasks, the members
+   sampled at 0.9, with golds keyed to their answers (the head equal
+   to the untraced run's, the span file verified, every lineage OK,
+   one attribution span per full-arena row equal to leave-one-out,
+   some value non-zero); ``ContinuousBatchingScheduler`` over phase 8's four
+   ``TorchModelBackend``s with the probe wave prefetched on a worker
+   thread (every record hash and the head equal to phase 8's
+   orchestrator run, ``logical_time`` the admission order, kernels 3
+   and 4 only); and ``serve(scheduler=True)`` traced with a lineage
+   walk (batch sizes [8, 8], lineage OK).
 
 Phase 3 also holds the training path's kernels against their plain
 versions at the phase-7 shapes (the selective scan and the RG-LRU scan,
@@ -2055,6 +2073,15 @@ def chain_head(run_id: str, tasks, res, member_names, path) -> str:
     return store.head
 
 
+def check_path_launches(label: str, launches: dict, needed) -> None:
+    """Each of ``needed`` launched, and no other kernel."""
+    missing = [k for k in needed if launches[k] <= 0]
+    stray = {k: v for k, v in launches.items() if k not in needed and v}
+    if missing or stray:
+        raise AssertionError(f"{label}: never launched {missing}; "
+                             f"launched off this path {stray}")
+
+
 def check_no_leaks(engine) -> None:
     """After a run only the scratch pages and the prefix cache's pages
     may still be referenced, each exactly once."""
@@ -2083,15 +2110,45 @@ def check_no_leaks(engine) -> None:
 # its own work (close_profile_window), more than a window was seen to
 # lose; report_profile leaves them out of every figure and counts a
 # wrapper's kernels only after it has found some of them recorded,
-# which shows that the window's own records are whole.
+# which shows that the window's own records are whole. A dense-wave
+# window once lost all 20,000 (PR 21), so ``profiled`` runs a window
+# that lost them all again, up to PROFILE_ATTEMPTS times.
 TAIL_MARKERS = 20_000
 MARKER_KERNEL = "spin_kernel"
+PROFILE_ATTEMPTS = 3
 
 
 def close_profile_window(torch) -> None:
     for _ in range(TAIL_MARKERS):
         torch.cuda._sleep(1)
     torch.cuda.synchronize()
+
+
+def profiled(torch, fn):
+    """Run ``fn`` under the profiler (CUDA activity), the window closed
+    by the tail markers and the launch counts set to 0 just before.
+    Returns (``fn``'s result, the window's ``kernel_totals``, the
+    seconds they took to read, the launch counts). A window in which no
+    tail marker was recorded runs again, up to ``PROFILE_ATTEMPTS``
+    times; ``report_profile`` refuses the last one if it lost them
+    too."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        ops.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            close_profile_window(torch)
+        t = time.perf_counter()
+        events = kernel_totals(prof)
+        read = time.perf_counter() - t
+        del prof
+        if (attempt == PROFILE_ATTEMPTS
+                or any(MARKER_KERNEL in e.key for e in events)):
+            return out, events, read, ops.launch_counts()
+        log(f"profile: window {attempt} recorded none of its tail "
+            "markers; profiling the run again")
 
 
 # the port's tensor-core and split-KV kernels, reported by the profiles
@@ -2142,9 +2199,11 @@ def kernel_totals(prof) -> list:
             for name, (calls, us) in totals.items()]
 
 
-def report_profile(prof, wall: float, wall_profiled: float,
-                   swiglu_calls: int = None, launches: dict = None) -> None:
-    """Device time by kernel over one serve run. ``wall`` is the
+def report_profile(events, t_read: float, wall: float,
+                   wall_profiled: float, swiglu_calls: int = None,
+                   launches: dict = None) -> None:
+    """Device time by kernel over one profiled window (``events``: its
+    ``kernel_totals``, read in ``t_read`` seconds). ``wall`` is the
     unprofiled run's wall time: the device work is the same, so its
     busy share there is busy / wall. With ``swiglu_calls`` (the bf16
     fused_swiglu wrapper calls the profiled run made), check that each
@@ -2154,9 +2213,7 @@ def report_profile(prof, wall: float, wall_profiled: float,
     kernel of its name."""
     def dev_us(e):
         return e.dev_us
-    t_read = time.perf_counter()
-    events = sorted(kernel_totals(prof), key=dev_us, reverse=True)
-    t_read = time.perf_counter() - t_read
+    events = sorted(events, key=dev_us, reverse=True)
     markers = sum(e.count for e in events if MARKER_KERNEL in e.key)
     events = [e for e in events if MARKER_KERNEL not in e.key]
     if launches is not None and markers == 0:
@@ -2310,14 +2367,9 @@ def run_serve_phase(torch, gpu_name: str, cfg, params):
 
     # the rerun, under the profiler: device busy time and the kernels
     # that take it
-    from torch.profiler import ProfilerActivity, profile
-    ops.reset_launch_counts()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        eng2, res2, wall2 = serve()
-        close_profile_window(torch)
-    report_profile(prof, wall, wall2,
-                   swiglu_calls=ops.launch_counts()["fused_swiglu"],
-                   launches=ops.launch_counts())
+    (eng2, res2, wall2), events, t_read, counts = profiled(torch, serve)
+    report_profile(events, t_read, wall, wall2,
+                   swiglu_calls=counts["fused_swiglu"], launches=counts)
     same = (np.array_equal(res.sigma, res2.sigma)
             and np.array_equal(res.modes, res2.modes)
             and res.final_answers == res2.final_answers
@@ -2370,14 +2422,17 @@ def degraded_plan(member_names, ticks: int):
         for site, m, t in DEGRADED_PLAN))
 
 
-def check_attribution(tasks, res, member_names) -> tuple[int, int]:
+def check_attribution(tasks, res, member_names,
+                      label: str = "faults") -> tuple[int, int]:
     """One ``attribution`` span per full-arena row, naming the members
     that answered, its values equal to ``core.attribution.leave_one_out``
     over the row's member answers; returns the rows and how many of them
-    have a non-zero value. Seed weights never answer the gold, so every
-    value is 0 here: the check holds the spans' rows and members, not
-    their values, which the CPU tests hold against the reference under
-    a stream keyed to make them non-zero."""
+    have a non-zero value. In phase 9 seed weights never answer the
+    gold, so every value is 0 there and the check holds the spans' rows
+    and members, not their values. Phase 10 holds the values on the
+    card: its arithmetic-trained fleet serves traced under golds keyed
+    to the members' answers (``attribution_key``), and at least one
+    value must be non-zero."""
     from repro_torch.core.attribution import leave_one_out
     from repro_torch.teamllm.trace import ModelResponse
     spans: dict = {}
@@ -2388,7 +2443,7 @@ def check_attribution(tasks, res, member_names) -> tuple[int, int]:
     full = [i for i in range(len(tasks)) if int(res.modes[i]) == 2]
     nonzero = 0
     if sorted(spans) != full or any(len(v) != 1 for v in spans.values()):
-        raise AssertionError(f"faults: attribution spans on rows "
+        raise AssertionError(f"{label}: attribution spans on rows "
                              f"{sorted(spans)}, full-arena rows {full}")
     for i in full:
         want = {m: float(v) for m, v in leave_one_out(
@@ -2397,7 +2452,7 @@ def check_attribution(tasks, res, member_names) -> tuple[int, int]:
              for mi, a in enumerate(res.member_answers[i])
              if a is not None], tasks[i].task_id, tasks[i].gold).items()}
         if spans[i][0]["values"] != want:
-            raise AssertionError(f"faults: row {i}'s attribution span "
+            raise AssertionError(f"{label}: row {i}'s attribution span "
                                  f"{spans[i][0]['values']} is not "
                                  f"leave-one-out's {want}")
         nonzero += any(v != 0 for v in want.values())
@@ -2526,14 +2581,7 @@ def run_fault_phase(torch, smi: str, cfg, params, served: dict) -> dict:
             f"heads {head_d} equal; no page leaks")
     launches = ops.launch_counts()
     log(f"faults: launches during the phase {launches}")
-    for name in STEPPED_KERNELS:
-        if launches[name] <= 0:
-            raise AssertionError(f"faults: {name} never launched")
-    stray = {k: v for k, v in launches.items()
-             if k not in STEPPED_KERNELS and v}
-    if stray:
-        raise AssertionError(f"faults: kernels off this path "
-                             f"launched: {stray}")
+    check_path_launches("faults", launches, STEPPED_KERNELS)
     log(f"faults: {len(tasks)} tasks on {smi}: walls " + ", ".join(
         f"{k} {v:.3f} s" for k, v in walls.items()))
     log(f"faults: armed overhead: traced and journaled wall "
@@ -2583,10 +2631,6 @@ def run_wave_phase(torch, gpu_name: str, cfg, params) -> dict:
     after, then once more, which must reproduce it: the two wave
     paths under the profiler (phase 5 profiles the stepped engine
     already). Returns each path's launch counts."""
-    import contextlib
-
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.configs import ACARConfig
     from repro_torch.kernels import ops
     from repro_torch.serving import (
@@ -2649,16 +2693,14 @@ def run_wave_phase(torch, gpu_name: str, cfg, params) -> dict:
         log(f"wave[{path}]: tasks/s {len(tasks) / wall:.3f}")
         log(f"wave[{path}]: decode tokens/s {tokens / wall:.1f} "
             f"({tokens} decode tokens)")
-        profiled = path != "stepped_int8"
-        ops.reset_launch_counts()
-        with (profile(activities=[ProfilerActivity.CUDA]) if profiled
-              else contextlib.nullcontext()) as prof:
+        if path == "stepped_int8":
             eng2, res2, wall2, _ = serve(path)
-            if profiled:
-                close_profile_window(torch)
-        if profiled:
-            report_profile(prof, wall, wall2, swiglu_calls=ops.launch_counts()
-                           ["fused_swiglu"], launches=ops.launch_counts())
+        else:
+            (eng2, res2, wall2, _), events, t_read, counts = profiled(
+                torch, lambda: serve(path))
+            report_profile(events, t_read, wall, wall2,
+                           swiglu_calls=counts["fused_swiglu"],
+                           launches=counts)
         if not _same_results(res, res2):
             raise AssertionError(f"wave[{path}]: a rerun changed sigma, "
                                  "modes, answers or probe texts")
@@ -2731,7 +2773,22 @@ def arithmetic_fleet(torch, cfg, params):
     return trained
 
 
-def run_audit_phase(torch, smi: str, cfg, params) -> dict:
+def audit_backends(cfg, params):
+    """Phase 8's four ``TorchModelBackend``s over ``params`` on the card:
+    the probe, and the ensemble of two members and the probe's twin."""
+    from repro_torch.serving import TorchModelBackend
+    p_probe, p_m1, p_m2 = params
+    probe = TorchModelBackend("smollm-probe", cfg, p_probe,
+                              max_new_tokens=MAX_NEW)
+    ensemble = {b.name: b for b in (
+        TorchModelBackend("smollm-m1", cfg, p_m1, max_new_tokens=MAX_NEW),
+        TorchModelBackend("smollm-m2", cfg, p_m2, max_new_tokens=MAX_NEW),
+        TorchModelBackend("smollm-probe-twin", cfg, p_probe,
+                          max_new_tokens=MAX_NEW))}
+    return probe, ensemble
+
+
+def run_audit_phase(torch, smi: str, cfg, params) -> tuple[dict, dict]:
     """The paper's Algorithm 1 as ``core.orchestrator.ACAROrchestrator``
     runs it, task by task: 3 probe samples at temperature 0.9 -> EXTRACT
     -> sigma -> route (by sigma) -> the routed members at temperature 0
@@ -2745,23 +2802,16 @@ def run_audit_phase(torch, smi: str, cfg, params) -> dict:
     hashes and head equal to the first run's. Then leave-one-out values
     and the three attribution proxies over the full-arena records.
     ``smi`` is the card's name and power limit. Returns the first run's
-    launch counts."""
+    launch counts, and its record hashes and head (phase 10 holds the
+    scheduler to them)."""
     import tempfile
 
     from repro_torch.configs import ACARConfig
     from repro_torch.core import ACAROrchestrator, attribution
     from repro_torch.kernels import ops
-    from repro_torch.serving import TorchModelBackend
     from repro_torch.teamllm import ArtifactStore
 
-    p_probe, p_m1, p_m2 = params
-    probe = TorchModelBackend("smollm-probe", cfg, p_probe,
-                              max_new_tokens=MAX_NEW)
-    ensemble = {b.name: b for b in (
-        TorchModelBackend("smollm-m1", cfg, p_m1, max_new_tokens=MAX_NEW),
-        TorchModelBackend("smollm-m2", cfg, p_m2, max_new_tokens=MAX_NEW),
-        TorchModelBackend("smollm-probe-twin", cfg, p_probe,
-                          max_new_tokens=MAX_NEW))}
+    probe, ensemble = audit_backends(cfg, params)
     tasks = long_prompt_tasks(16, prompt_chars=PROMPT)
 
     def run(path):
@@ -2782,14 +2832,7 @@ def run_audit_phase(torch, smi: str, cfg, params) -> dict:
         audits = [ArtifactStore(Path(d) / f"run{i}.jsonl").audit()
                   for i in (1, 2)]
     log(f"audit: launches during the run {launches}")
-    for name in AUDIT_KERNELS:
-        if launches[name] <= 0:
-            raise AssertionError(f"audit: {name} never launched")
-    stray = {k: v for k, v in launches.items()
-             if k not in AUDIT_KERNELS and v}
-    if stray:
-        raise AssertionError(f"audit: kernels off this path launched: "
-                             f"{stray}")
+    check_path_launches("audit", launches, AUDIT_KERNELS)
     for st, audit in ((store, audits[0]), (store2, audits[1])):
         if not (audit["ok"] and audit["records"] == len(st) == len(tasks)
                 and audit["head"] == st.head):
@@ -2841,7 +2884,322 @@ def run_audit_phase(torch, smi: str, cfg, params) -> dict:
         f"leave-one-out non-zero in "
         f"{sum(any(v != 0 for v in row.values()) for row in truth)}; "
         f"proxy_vs_truth_correlation {corr}")
-    return launches
+    return launches, dict(hashes=hashes, head=store.head)
+
+
+# ----------------------------------------------------------------------
+# phase 10: the queued wave engine and the scheduler (run after 8)
+# ----------------------------------------------------------------------
+# each queued path's engine knobs and the kernels it launches, and no
+# other: pool pages for the probe wave and the members; contiguous
+# caches; the masked baseline (the probe's tiled (B*N) decode over
+# contiguous caches beside members decoding whole waves from pages)
+QUEUED_PATHS = {
+    "queued_paged": ({}, ("paged_decode_attention", "fused_swiglu")),
+    "queued_dense": ({"paged": False}, ("fused_swiglu", "decode_attention")),
+    "queued_masked": ({"compact": False, "shared_prefix": False},
+                      ("paged_decode_attention", "fused_swiglu",
+                       "decode_attention")),
+}
+# the traced leg's stream (phase 5's generator; 7 full-arena rows under
+# the forced routes) and its members' sampling temperature. After
+# phase 8's 20 arithmetic steps the greedy members answer "" on every
+# full-arena row of these prompts (a rehearsal on the card, at 24, 48
+# and 97 characters), so leave-one-out could only be 0; sampled like
+# the probe, they disagree, and some value is non-zero
+ATTRIBUTION_TASKS = 24
+ATTRIBUTION_TEMPERATURE = 0.9
+# what phase 10 prints beside every virtual-clock figure
+VIRTUAL_CLOCK_NOTE = (
+    "the virtual clock sums the backends' reported latencies; each "
+    "TorchModelBackend call ends in a device synchronise that takes in "
+    "the prefetch thread's work on the same stream, so the clock says "
+    "nothing about overlap on the card")
+
+
+def attribution_key(tasks, base, member_names):
+    """``tasks`` with each full-arena row's gold replaced by the first of
+    its member answers in ``base`` (an untraced run of the same stream)
+    that ``core.attribution.leave_one_out`` credits with a non-zero
+    value, as ``tests/_torch_port.py::attribution_key`` keys the CPU
+    legs: the fleet never answers the stream's own gold, so every value
+    would be 0. Serving does not read the gold."""
+    import dataclasses
+
+    from repro_torch.core.attribution import leave_one_out
+    from repro_torch.teamllm.trace import ModelResponse
+    keyed = list(tasks)
+    for i, task in enumerate(tasks):
+        if int(base.modes[i]) < 2:
+            continue
+        responses = [ModelResponse(model=member_names[mi], response="",
+                                   answer=a, cost=0.0)
+                     for mi, a in enumerate(base.member_answers[i])
+                     if a is not None]
+        for r in responses:
+            if any(leave_one_out(responses, task.task_id,
+                                 r.answer).values()):
+                keyed[i] = dataclasses.replace(task, gold=r.answer)
+                break
+    return keyed
+
+
+def first_mismatch(tasks, a, b):
+    """The first row whose sigma, mode, answers or probe texts differ
+    between two engine results, as (index, task id), or None."""
+    for i, t in enumerate(tasks):
+        if (a.sigma[i] != b.sigma[i] or a.modes[i] != b.modes[i]
+                or a.final_answers[i] != b.final_answers[i]
+                or a.member_answers[i] != b.member_answers[i]
+                or a.probe_texts[i] != b.probe_texts[i]):
+            return i, t.task_id
+    return None
+
+
+def run_queued_phase(torch, smi: str, cfg, params, audited: dict) -> dict:
+    """The queued wave engine and the continuous-batching scheduler over
+    phase 8's arithmetic-trained full-width fleet (``params``: the
+    probe's, two members' and, as the twin, the probe's again), on the
+    card:
+
+    (a) ``run_queued`` over phase 5's 16 tasks and forced routes in
+        micro-batches of 8, from pool pages, over contiguous caches and
+        as the masked baseline (``compact=False, shared_prefix=False``),
+        each run twice: batch sizes [8, 8], every task answered, no page
+        leaks, the path's kernels and no other (``QUEUED_PATHS``), the
+        rerun's results and chain head identical; the masked run's
+        results and head equal to the paged run's. A finding, not a
+        gate: whether ``run_stepped`` (chunk 32, megastep 4) gives the
+        same head, else its first mismatching task;
+    (b) ``run_queued`` traced into a span file over 24 tasks of the same
+        generator with the members sampled at 0.9, golds keyed to the
+        members' answers (``attribution_key``): the head equal to the
+        untraced run's under the same golds, the span file verified,
+        every task's lineage OK, one attribution span per full-arena
+        row equal to leave-one-out, at least one value non-zero;
+    (c) ``ContinuousBatchingScheduler`` (micro-batches of 8, the probe
+        wave of batch k+1 prefetched on a worker thread) over phase 8's
+        four ``TorchModelBackend``s and 16 tasks into an
+        ``ArtifactStore``: every record hash and the head equal to phase
+        8's orchestrator run in this call (``audited``), the audit OK,
+        ``logical_time`` the admission order, kernels 3 and 4 only;
+    (d) ``launch.serve.serve(scheduler=True)`` traced, with a lineage
+        walk, over (a)'s stream: batch sizes [8, 8], lineage OK.
+
+    ``smi`` is the card's name and power limit. Returns the launch
+    counts of the phase's queued runs, and of the stepped comparison
+    run apart."""
+    import tempfile
+
+    from repro_torch.configs import ACARConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.serving import (
+        BatchedACAREngine, ContinuousBatchingScheduler, MicroBatchPolicy,
+        SpanTracer, ZooModel)
+    from repro_torch.teamllm import ArtifactStore
+    from repro_torch.teamllm.prov import lineage, verify_span_file
+
+    t_phase = time.perf_counter()
+    p_probe, p_m1, p_m2 = params
+    probe = ZooModel("smollm-probe", cfg, p_probe)
+    ensemble = [ZooModel("smollm-m1", cfg, p_m1),
+                ZooModel("smollm-m2", cfg, p_m2),
+                ZooModel("smollm-probe-twin", cfg, p_probe)]
+    names = [m.name for m in ensemble]
+    acfg = ACARConfig(probe_temperature=0.9, seed=0)
+    policy = MicroBatchPolicy(max_batch_size=8, max_batch_tokens=1 << 20)
+    n = acfg.n_probe_samples
+    total: dict = {}
+
+    def measured(fn):
+        """Run ``fn`` with the launch counts set to 0 just before and
+        read just after; returns (its result, wall seconds, counts)."""
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = ops.launch_counts()
+        return out, wall, launches
+
+    def queued(tasks, tracer=None, config=acfg, **knobs):
+        """``run_queued`` on a fresh engine with forced routes; its
+        launches join the phase's."""
+        modes = forced_modes(len(tasks))
+
+        def route(sig, indices):
+            return modes[np.asarray(indices, np.int64)]
+
+        eng = BatchedACAREngine(config, probe, ensemble,
+                                max_new_tokens=MAX_NEW, route_fn=route,
+                                device="cuda", **knobs)
+        res, wall, launches = measured(
+            lambda: eng.run_queued(tasks, policy, tracer=tracer))
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        return eng, res, wall, launches
+
+    tasks = long_prompt_tasks(16, prompt_chars=PROMPT)
+    with tempfile.TemporaryDirectory(prefix="acar-queued-") as d:
+        d = Path(d)
+        # (a) compacted (paged and over contiguous caches) and masked
+        heads, results = {}, {}
+        for path, (knobs, needed) in QUEUED_PATHS.items():
+            eng, res, wall, launches = queued(tasks, **knobs)
+            log(f"queued[{path}]: launches during the run {launches}")
+            check_path_launches(f"queued[{path}]", launches, needed)
+            if res.batch_sizes != [8, 8]:
+                raise AssertionError(f"queued[{path}]: micro-batches "
+                                     f"{res.batch_sizes}")
+            if (len(res.final_answers) != len(tasks)
+                    or any(a is None for a in res.final_answers)):
+                raise AssertionError(f"queued[{path}]: a task went "
+                                     "unanswered")
+            check_no_leaks(eng)
+            cs = res.compaction
+            tokens = len(tasks) * n * MAX_NEW + cs.ensemble_decode_tokens
+            log(f"queued[{path}]: {len(tasks)} tasks on {smi}: wall "
+                f"{wall:.3f} s, tasks/s {len(tasks) / wall:.3f}, decode "
+                f"tokens/s {tokens / wall:.1f} ({tokens} decode tokens); "
+                f"ensemble decode-token reduction "
+                f"{cs.ensemble_decode_token_reduction:.3f}x, probe prefill "
+                f"reduction {cs.probe_prefill_reduction:.3f}x; modes "
+                f"{np.bincount(res.modes, minlength=3)}")
+            eng2, res2, wall2, _ = queued(tasks, **knobs)
+            if not _same_results(res, res2):
+                raise AssertionError(f"queued[{path}]: a rerun changed "
+                                     "sigma, modes, answers or probe texts")
+            check_no_leaks(eng2)
+            log(f"queued[{path}]: rerun identical; rerun wall "
+                f"{wall2:.3f} s")
+            heads[path] = check_rerun_heads(f"queued[{path}]", "queued",
+                                            tasks, res, res2, names)
+            results[path] = res
+        paged, masked = results["queued_paged"], results["queued_masked"]
+        if heads["queued_masked"] != heads["queued_paged"]:
+            raise AssertionError(
+                f"queued: the masked run's head {heads['queued_masked']} "
+                f"is not the compacted run's {heads['queued_paged']}; "
+                f"first mismatch (row, task) "
+                f"{first_mismatch(tasks, paged, masked)}")
+        same = heads["queued_dense"] == heads["queued_paged"]
+        log(f"queued: masked = compacted (sigma, modes, answers, member "
+            f"answers, probe texts, record hashes, head "
+            f"{heads['queued_paged']}); contiguous caches' head "
+            f"{heads['queued_dense']} {'=' if same else '!='} the pages'")
+
+        # the finding: the stepped engine over the same fleet and stream
+        modes = forced_modes(len(tasks))
+        eng_s = BatchedACAREngine(
+            acfg, probe, ensemble, max_new_tokens=MAX_NEW, device="cuda",
+            route_fn=lambda sig, idx: modes[np.asarray(idx, np.int64)])
+        res_s, wall_s, stepped = measured(lambda: eng_s.run_stepped(
+            tasks, policy, chunk_tokens=32, megastep=4))
+        head_s = chain_head("queued", tasks, res_s, names, d / "step.jsonl")
+        log(f"queued: finding: run_stepped (chunk 32, megastep 4, wall "
+            f"{wall_s:.3f} s) head {head_s} "
+            + ("= the queued head" if head_s == heads["queued_paged"] else
+               f"!= the queued head; first mismatch (row, task) "
+               f"{first_mismatch(tasks, paged, res_s)}"))
+
+        # (b) traced, with attribution values
+        tasks_b = long_prompt_tasks(ATTRIBUTION_TASKS, prompt_chars=PROMPT)
+        sampled = ACARConfig(probe_temperature=0.9, seed=0,
+                             ensemble_temperature=ATTRIBUTION_TEMPERATURE)
+        _, base, wall_base, _ = queued(tasks_b, config=sampled)
+        keyed = attribution_key(tasks_b, base, names)
+        _, traced, wall_tr, _ = queued(
+            keyed, tracer=SpanTracer(d / "spans.jsonl"), config=sampled)
+        head_b = chain_head("queued-traced", keyed, base, names,
+                            d / "b0.jsonl")
+        head_t = chain_head("queued-traced", keyed, traced, names,
+                            d / "b1.jsonl")
+        if head_t != head_b:
+            raise AssertionError(f"queued: the traced head {head_t} is not "
+                                 f"the untraced run's {head_b}")
+        audit = verify_span_file(d / "spans.jsonl")
+        if not (audit["ok"] and audit["head"] == traced.span_head
+                and audit["records"] == len(traced.spans)):
+            raise AssertionError(f"queued: span file audit {audit}")
+        walked = [lineage(traced.spans, t)
+                  for t in sorted({t.task_id for t in keyed})]
+        if not all(lin["ok"] and lin["verified"] > 0 for lin in walked):
+            raise AssertionError("queued: a task's lineage failed")
+        n_full, n_nonzero = check_attribution(keyed, traced, names,
+                                              "queued")
+        if n_nonzero == 0:
+            raise AssertionError(f"queued: every attribution value of "
+                                 f"{n_full} full-arena rows is 0")
+        log(f"queued: traced {len(keyed)} tasks, members sampled at "
+            f"{ATTRIBUTION_TEMPERATURE}, on {smi}: walls untraced "
+            f"{wall_base:.3f} s, traced {wall_tr:.3f} s; head {head_t} = "
+            f"the untraced run's; {len(traced.spans)} spans, span file "
+            f"verified (head {traced.span_head}); lineage OK for "
+            f"{len(walked)} tasks ({sum(lin['verified'] for lin in walked)}"
+            f" span hashes verified); {n_full} full-arena attribution "
+            f"spans equal to leave-one-out, non-zero in {n_nonzero}")
+
+        # (c) the scheduler over phase 8's backends
+        bprobe, bens = audit_backends(cfg, params)
+        sched = ContinuousBatchingScheduler(
+            acfg, bprobe, bens, store=ArtifactStore(d / "sched.jsonl"),
+            run_id="audit", policy=MicroBatchPolicy(max_batch_size=8),
+            overlap=True)
+        outs, wall_c, launches_c = measured(lambda: sched.serve(tasks))
+        for k, v in launches_c.items():
+            total[k] = total.get(k, 0) + v
+        log(f"queued[scheduler]: launches during the run {launches_c}")
+        check_path_launches("queued[scheduler]", launches_c, AUDIT_KERNELS)
+        hashes = [o.trace.record_hash() for o in outs]
+        differ = [t.task_id for t, a, b in zip(tasks, hashes,
+                                              audited["hashes"]) if a != b]
+        audit_c = ArtifactStore(d / "sched.jsonl").audit()
+        if differ or sched.store.head != audited["head"]:
+            raise AssertionError(f"queued[scheduler]: records {differ} or "
+                                 f"the head {sched.store.head} differ "
+                                 "from phase 8's")
+        if not (audit_c["ok"] and audit_c["records"] == len(tasks)
+                and audit_c["head"] == sched.store.head):
+            raise AssertionError(f"queued[scheduler]: audit {audit_c}")
+        lt = [o.trace.logical_time for o in outs]
+        if lt != list(range(len(tasks))) or lt != [
+                o.trace.schedule["admitted"] for o in outs]:
+            raise AssertionError(f"queued[scheduler]: logical_time {lt}")
+        st = sched.stats
+        calls = (st.probe_cache_misses * n
+                 + sum(len(o.trace.responses) for o in outs))
+        log(f"queued[scheduler]: {len(tasks)} records, audit OK, every "
+            f"record hash and the head {sched.store.head} = phase 8's; "
+            f"logical_time = admission order; {st.batches} micro-batches")
+        log(f"queued[scheduler]: {len(tasks)} tasks on {smi}: wall "
+            f"{wall_c:.3f} s, tasks/s {len(tasks) / wall_c:.3f}; {calls} "
+            f"generate calls; probe cache hits {st.probe_cache_hits}")
+        log(f"queued[scheduler]: virtual makespans (ms): sequential "
+            f"{st.sequential_makespan_ms:.1f}, serial batches "
+            f"{st.serial_batch_makespan_ms:.1f}, pipelined "
+            f"{st.pipeline_makespan_ms:.1f} ({VIRTUAL_CLOCK_NOTE})")
+
+        # (d) the entry point
+        report, wall_d, launches_d = measured(lambda: serve(
+            tasks, probe, ensemble, acfg, verbose=False, scheduler=True,
+            batch_size=8, trace_path=str(d / "serve.jsonl"),
+            lineage_task=tasks[0].task_id, device="cuda"))
+        for k, v in launches_d.items():
+            total[k] = total.get(k, 0) + v
+        if report["batch_sizes"] != [8, 8] or not report["lineage_ok"]:
+            raise AssertionError(f"queued[serve]: batch sizes "
+                                 f"{report['batch_sizes']}, lineage "
+                                 f"{report['lineage_ok']}")
+        log(f"queued[serve]: serve(scheduler=True) traced: batch sizes "
+            f"{report['batch_sizes']}, lineage of {tasks[0].task_id} OK "
+            f"({report['lineage_verified']} span hashes verified), modes "
+            f"{report['mode_distribution']}, wall {wall_d:.3f} s; "
+            f"launches {launches_d}")
+    log(f"queued: launches during the phase's queued runs {total}")
+    log(f"queued: phase wall {time.perf_counter() - t_phase:.1f} s on {smi}")
+    return {"queued": total, "queued_stepped": stepped}
 
 
 # ----------------------------------------------------------------------
@@ -2866,8 +3224,6 @@ def run_train_phase(torch, gpu_name: str, cells=tuple(TRAIN_CELLS)) -> dict:
     launched forward and backward. Then one profiled step. Returns each
     path's launch counts (the first run's). ``cells`` names the paths
     to run."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.configs import get_config
     from repro_torch.configs.base import TrainConfig
     from repro_torch.data.pipeline import synthetic_lm_batches
@@ -2948,22 +3304,18 @@ def run_train_phase(torch, gpu_name: str, cells=tuple(TRAIN_CELLS)) -> dict:
             f"tokens/s {tokens / wall2:.1f}; peak memory "
             f"{peak / 2**30:.2f} GiB")
         # one more step unprofiled, then the same step under the profiler
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        step(p2, st2, batches[0])
-        torch.cuda.synchronize()
-        wall_step = time.perf_counter() - t
-        ops.reset_launch_counts()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        def timed_step():
+            torch.cuda.synchronize()
             t = time.perf_counter()
             step(p2, st2, batches[0])
             torch.cuda.synchronize()
-            wall_prof = time.perf_counter() - t
-            close_profile_window(torch)
-        report_profile(prof, wall_step, wall_prof,
-                       swiglu_calls=ops.launch_counts()["fused_swiglu"],
-                       launches=ops.launch_counts())
-        del p2, st2, batches, prof
+            return time.perf_counter() - t
+
+        wall_step = timed_step()
+        wall_prof, events, t_read, counts = profiled(torch, timed_step)
+        report_profile(events, t_read, wall_step, wall_prof,
+                       swiglu_calls=counts["fused_swiglu"], launches=counts)
+        del p2, st2, batches, events
         torch.cuda.empty_cache()
     return launches_by_path
 
@@ -3086,11 +3438,14 @@ def main() -> int:
     phase_done("faults")
     by_path.update(run_wave_phase(torch, gpu_name, cfg, params))
     phase_done("wave")
-    by_path["audit"] = run_audit_phase(
-        torch, smi.splitlines()[0], cfg,
-        arithmetic_fleet(torch, cfg, params))
+    trained = arithmetic_fleet(torch, cfg, params)
+    by_path["audit"], audited = run_audit_phase(
+        torch, smi.splitlines()[0], cfg, trained)
     phase_done("audit")
-    del params
+    by_path.update(run_queued_phase(torch, smi.splitlines()[0], cfg,
+                                    trained, audited))
+    phase_done("queued")
+    del params, trained
     torch.cuda.empty_cache()
     by_path.update(run_train_phase(torch, gpu_name))
     by_path["train_entry"] = run_train_entry_phase(torch)

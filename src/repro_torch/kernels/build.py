@@ -74,6 +74,9 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+# the wave scheduler launches from its prefetch thread beside the main
+# thread, so a wrapper's count is read, added to and stored under a lock
+_count_lock = threading.Lock()
 
 
 def nvcc() -> str:
@@ -170,6 +173,13 @@ def check(err: int, kernel: str) -> None:
     if err != 0:
         msg = load().acar_error_string(err).decode()
         raise RuntimeError(f"{kernel}: CUDA error {err} ({msg})")
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``: each wrapper calls this where it
+    launches its kernel, and nowhere else."""
+    with _count_lock:
+        wrapper.launches += 1
 
 
 def dtype_code(dtype: torch.dtype, kernel: str) -> int:

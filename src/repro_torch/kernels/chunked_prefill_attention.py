@@ -108,7 +108,7 @@ def chunked_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
             b, c, h, kv, d, page_size, nb, int(prompt_len), code,
             build.stream_handle(dev))
     build.check(err, name)
-    chunked_prefill_attention.launches += 1
+    build.count_launch(chunked_prefill_attention)
     return out
 
 

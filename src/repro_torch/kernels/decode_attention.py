@@ -85,7 +85,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
             out.data_ptr(), b, h, kv, d, s, length, code,
             build.stream_handle(dev))
     build.check(err, name)
-    decode_attention.launches += 1
+    build.count_launch(decode_attention)
     return out
 
 

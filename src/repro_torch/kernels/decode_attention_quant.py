@@ -98,7 +98,7 @@ def decode_attention_quant(q: torch.Tensor, k_codes: torch.Tensor,
             v_codes.data_ptr(), v_scale.data_ptr(), out.data_ptr(),
             b, h, kv, d, s, length, code, build.stream_handle(dev))
     build.check(err, name)
-    decode_attention_quant.launches += 1
+    build.count_launch(decode_attention_quant)
     return out
 
 

@@ -188,7 +188,7 @@ def _launch(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
                 w_down.data_ptr(), out.data_ptr(), t, d, f,
                 build.stream_handle(dev))
         build.check(err, name)
-    fused_swiglu.launches += 1
+    build.count_launch(fused_swiglu)
     return out
 
 

@@ -113,7 +113,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
             b, h, kv, d, page_size, block_table.shape[1], code,
             build.stream_handle(dev))
     build.check(err, name)
-    paged_decode_attention.launches += 1
+    build.count_launch(paged_decode_attention)
     return out
 
 

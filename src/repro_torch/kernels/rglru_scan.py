@@ -104,7 +104,7 @@ def _launch_fwd(a, u):
             a.data_ptr(), u.data_ptr(), hs.data_ptr(), h_final.data_ptr(),
             bsz, s, w, *flags, build.stream_handle(dev))
     build.check(err, name)
-    rglru_scan.launches += 1
+    build.count_launch(rglru_scan)
     return hs, h_final
 
 
@@ -138,7 +138,7 @@ def rglru_scan_bwd(a: torch.Tensor, u: torch.Tensor, hs: torch.Tensor,
             da.data_ptr(), du.data_ptr(), bsz, s, w, *flags,
             build.stream_handle(dev))
     build.check(err, name)
-    rglru_scan_bwd.launches += 1
+    build.count_launch(rglru_scan_bwd)
     return da, du
 
 

@@ -188,7 +188,7 @@ def _launch_fwd(x, dt, a_log, b_in, c_in):
             h_final.data_ptr(), ckpt.data_ptr(), bsz, s, d, n, codes,
             build.stream_handle(dev))
     build.check(err, name)
-    selective_scan.launches += 1
+    build.count_launch(selective_scan)
     return y, h_final, ckpt
 
 
@@ -230,7 +230,7 @@ def selective_scan_bwd(x: torch.Tensor, dt: torch.Tensor,
             db_part.data_ptr(), dc_part.data_ptr(), bsz, s, d, n, codes,
             build.stream_handle(dev))
     build.check(err, name)
-    selective_scan_bwd.launches += 1
+    build.count_launch(selective_scan_bwd)
     return dx, ddt, da_log, db, dc
 
 

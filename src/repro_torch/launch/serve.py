@@ -2,14 +2,16 @@
 
 The port of ``repro/launch/serve.py::serve``: a task stream goes
 through the batched engine — one lockstep wave (``run_batch``, the
-default) or the step-level loop (``step_loop=True`` or ``megastep > 1``:
-``run_stepped``) — and ``serve`` reports accuracy, the routing
-distribution, ensemble calls saved and the compaction savings. The
-fleet's models are given (``ZooModel``s with params on ``device``), or
-restored from npz checkpoints by ``build_zoo`` (written by either
-package's trainer). ``build_zoo``'s training branch and ``main`` raise
-``NotImplementedError``: the reference's default ensemble holds
-recurrentgemma-2b, whose serving path is not ported yet.
+default), micro-batches through the admission queue (``scheduler=True``
+or a tracer: ``run_queued``) or the step-level loop (``step_loop=True``
+or ``megastep > 1``: ``run_stepped``) — and ``serve`` reports accuracy,
+the routing distribution, ensemble calls saved and the compaction
+savings. The fleet's models are given (``ZooModel``s with params on
+``device``), or built by ``build_zoo``: restored from npz checkpoints
+(written by either package's trainer) or trained on arithmetic.
+``main`` raises ``NotImplementedError``: the reference's default
+ensemble holds recurrentgemma-2b, whose serving path is not ported
+yet.
 
 Fleet members are registry arch names, optionally with a page-layout
 variant suffix (``parse_member``): ``arch:quant`` serves from
@@ -31,7 +33,7 @@ from repro_torch.configs.registry import ARCH_IDS
 from repro_torch.core.extract import extract
 from repro_torch.core.sigma import MODE_NAMES
 from repro_torch.data.tasks import Task
-from repro_torch.launch.train import reduced_for_data
+from repro_torch.launch.train import reduced_for_data, train
 from repro_torch.models import params as params_lib
 from repro_torch.models.transformer import resolve_layout
 from repro_torch.serving import BatchedACAREngine, MicroBatchPolicy, ZooModel
@@ -62,21 +64,25 @@ def build_zoo(archs: Sequence[str], train_steps: int, seed: int = 0,
               ckpts: Optional[Dict[str, str]] = None,
               verbose: bool = True,
               device: str = "cuda") -> List[ZooModel]:
-    """Restore reduced arithmetic models for each member spec (``arch``
-    or ``arch:variant``) from ``ckpts[spec]`` onto ``device``. Training
-    a member without a checkpoint is not ported yet and raises."""
+    """Train (or restore from ``ckpts[spec]``) reduced arithmetic
+    models for each member spec (``arch`` or ``arch:variant``) on
+    ``device``."""
     zoo = []
     for i, spec in enumerate(archs):
         arch, variant = parse_member(spec)
         cfg = variant(reduced_for_data(arch, "arithmetic"))
-        if not (ckpts and spec in ckpts):
-            raise NotImplementedError(
-                f"build_zoo: training {spec!r} ({train_steps} steps) "
-                "is not ported yet; pass a checkpoint in ckpts")
-        template = params_lib.init_params(cfg, seed + i, device=device)
-        prm = restore_checkpoint(ckpts[spec], template)
-        if verbose:
-            print(f"-- restored {spec} from {ckpts[spec]}")
+        if ckpts and spec in ckpts:
+            template = params_lib.init_params(cfg, seed + i, device=device)
+            prm = restore_checkpoint(ckpts[spec], template)
+            if verbose:
+                print(f"-- restored {spec} from {ckpts[spec]}")
+        else:
+            if verbose:
+                print(f"-- training {spec} ({train_steps} steps)")
+            _, prm, _ = train(arch=arch, data="arithmetic",
+                              steps=train_steps, batch=64, seq=24,
+                              lr=2e-3, seed=seed + i, verbose=False,
+                              device=device)
         zoo.append(ZooModel(name=spec, cfg=cfg, params=prm))
     return zoo
 
@@ -98,34 +104,27 @@ def serve(tasks: Sequence[Task], probe: ZooModel,
           trace_path: Optional[str] = None,
           lineage_task: Optional[str] = None,
           device: str = "cuda") -> dict:
-    """Serve ``tasks`` through the batched engine on ``device``. By
-    default the whole stream runs as one wave (``run_batch``); with
-    ``step_loop=True`` or ``megastep > 1`` it runs the step-level loop
-    (streaming admission, chunked prefill, mixed decode ticks; needs a
-    paged-capable probe) with micro-batches of at most ``batch_size``
-    rows and up to ``megastep`` decode ticks per launch.
+    """Serve ``tasks`` through the batched engine on ``device``. With
+    ``scheduler=True`` the stream flows through the admission queue and
+    is served as micro-batches of at most ``batch_size`` (``run_queued``);
+    with ``step_loop=True`` or ``megastep > 1`` it runs the step-level
+    loop (streaming admission, chunked prefill, mixed decode ticks;
+    needs a paged-capable probe) with up to ``megastep`` decode ticks
+    per launch; otherwise the whole stream runs as one wave
+    (``run_batch``). The sharded loop (``data_shards``) is not ported
+    yet and raises ``NotImplementedError``.
 
     ``trace_path`` arms the deterministic span tracer and flushes the
     hash-chained span JSONL there; ``lineage_task`` (implies tracing)
     walks the PROV graph backwards from that task's final answer and
-    reports the verified lineage. Both need the step-level loop: the
-    reference serves a traced stream without it through ``run_queued``,
-    which is not ported yet, as are the queued wave engine
-    (``scheduler=True``) and the sharded loop (``data_shards``); they
-    raise ``NotImplementedError``. Returns the report dict of the
-    reference's ``serve``."""
+    reports the verified lineage. A traced stream runs the step loop
+    when asked for, ``run_queued`` otherwise. Returns the report dict
+    of the reference's ``serve``."""
     stepped = step_loop or data_shards is not None or megastep > 1
     tracer = None
     if trace_path is not None or lineage_task is not None:
-        if not stepped:
-            raise NotImplementedError(
-                "serve(trace_path/lineage_task=...) without the step "
-                "loop runs run_queued, which is not ported yet")
         from repro_torch.serving.tracing import SpanTracer
         tracer = SpanTracer(trace_path)
-    if scheduler and not stepped:
-        raise NotImplementedError(
-            "serve(scheduler=True): run_queued is not ported yet")
     engine = BatchedACAREngine(acfg, probe, ensemble, device=device)
     if verbose:
         layouts = {m.name: (resolve_layout(m.cfg) or "dense*")
@@ -138,6 +137,11 @@ def serve(tasks: Sequence[Task], probe: ZooModel,
             data_shards=data_shards, megastep=megastep,
             tracer=tracer)
         scheduler = True          # report the queued-shape extras
+    elif scheduler or tracer is not None:
+        res = engine.run_queued(
+            list(tasks), MicroBatchPolicy(max_batch_size=batch_size),
+            tracer=tracer)
+        scheduler = True
     else:
         res = engine.run_batch(list(tasks))
     correct = sum(

@@ -13,19 +13,21 @@ from repro_torch.serving.kv_pool import (
 from repro_torch.serving.metrics import PromCounters
 from repro_torch.serving.queue import (
     AdmissionQueue, MicroBatch, MicroBatchPolicy, Request)
-from repro_torch.serving.scheduler import StepPlanner
+from repro_torch.serving.scheduler import (
+    ContinuousBatchingScheduler, ProbeCache, SchedulerStats, StepPlanner)
 from repro_torch.serving.step_loop import (
     ShardedStepLoopRunner, StepLoopRunner, StepStats)
 from repro_torch.serving.torch_backend import TorchModelBackend
 from repro_torch.serving.tracing import NullTracer, SpanTracer
 
 __all__ = [
-    "AdmissionQueue", "BatchResult", "BatchedACAREngine", "CompactionPlan",
-    "CompactionStats", "FaultInjector", "FaultPlan", "FaultSpec",
-    "KVStats", "MemberPlan", "MicroBatch", "MicroBatchPolicy",
-    "NullTracer", "PageAccountingError", "PagePool", "PagePoolError",
-    "PagedKVServer", "PoolExhausted", "ProbeHandle", "PromCounters",
-    "QueuedServeResult", "RecoveryState", "Request", "SITES",
+    "AdmissionQueue", "BatchResult", "BatchedACAREngine",
+    "CompactionPlan", "CompactionStats", "ContinuousBatchingScheduler",
+    "FaultInjector", "FaultPlan", "FaultSpec", "KVStats", "MemberPlan",
+    "MicroBatch", "MicroBatchPolicy", "NullTracer", "PageAccountingError",
+    "PagePool", "PagePoolError", "PagedKVServer", "PoolExhausted",
+    "ProbeCache", "ProbeHandle", "PromCounters", "QueuedServeResult",
+    "RecoveryState", "Request", "SITES", "SchedulerStats",
     "ShardedStepLoopRunner", "SimulatedCrash", "SpanTracer",
     "StepJournal", "StepLoopRunner", "StepPlanner", "StepStats",
     "TorchModelBackend", "ZooModel", "bucket_size", "dense_tile_slots",

@@ -1,32 +1,35 @@
 """Batched ACAR serving engine — Algorithm 1 of the paper over real
 models.
 
-The port of ``repro/serving/engine.py``. Two entry points serve a
+The port of ``repro/serving/engine.py``. Three entry points serve a
 stream: ``run_batch`` runs one lockstep wave (the default path of
-``launch.serve``) and ``run_stepped`` runs the step-level loop. In
-both, the probe's N samples decode over one shared prefill, sigma over
-the interned probe answers routes each task (single / arena-lite /
-full-arena), only the escalated tasks decode on the ensemble members
-(the probe's twin reuses the probe's prompt pages), and the judge
-aggregates. Answers are canonicalised on the host (``core.extract``)
-and interned to int32 ids; sigma, routing and the judge run as tensor
-math over the ids on the host.
+``launch.serve``), ``run_queued`` forms micro-batches through the
+admission queue and runs each as a wave, and ``run_stepped`` runs the
+step-level loop. In each, the probe's N samples decode over one shared
+prefill, sigma over the interned probe answers routes each task
+(single / arena-lite / full-arena), only the escalated tasks decode on
+the ensemble members (the probe's twin reuses the probe's prompt
+pages), and the judge aggregates. Answers are canonicalised on the
+host (``core.extract``) and interned to int32 ids; sigma, routing and
+the judge run as tensor math over the ids on the host.
 
 In the wave, two compute-follows-routing optimisations make decode
 cost follow what the router escalated: the shared-prefix probe prefill
 (one prefill per prompt, its pages or cache shared by the N samples)
 and escalated-subset compaction (members decode only the rows they are
 needed for, gathered into power-of-two buckets — ``compaction.py``).
-Both engage only where they cannot change a row's tokens. With
-``paged=False`` the wave decodes over contiguous caches instead of
-pool pages, as the reference's A/B baseline and pool-exhaustion
-fallback do.
+Both engage only where they cannot change a row's tokens, and
+``compact=False`` / ``shared_prefix=False`` turn them off (the masked
+baseline: members decode the whole wave, the probe prefills each
+prompt N times over the tiled (B·N) expansion). With ``paged=False``
+the wave decodes over contiguous caches instead of pool pages, as the
+reference's A/B baseline and pool-exhaustion fallback do.
 
 The stepped engine takes a fault plan, a write-ahead journal and a span
 tracer, and ``recover`` resumes a killed journaled run to the same
 outputs and record hashes; ``run_batch`` takes a tracer too and emits
-the wave's spans after it resolves. ``run_queued`` and the sharded loop
-(``data_shards``) are not ported yet. The engine keeps no artifact
+the wave's spans after it resolves, as does ``run_queued``. The sharded
+loop (``data_shards``) is not ported yet. The engine keeps no artifact
 store of its own (a caller chains its results through ``teamllm``, as
 the orchestrator does).
 """
@@ -44,13 +47,14 @@ from repro_torch.configs.acar import ACARConfig
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.extract import extract
 from repro_torch.core.sigma import (
-    majority_vote_batch, route_batch, sigma_batch)
+    MODE_NAMES, majority_vote_batch, route_batch, sigma_batch)
 from repro_torch.data import tokenizer as tok
 from repro_torch.data.tasks import Task
 from repro_torch.models.transformer import resolve_layout
 from repro_torch.runtime import deterministic_cuda
 from repro_torch.sampling import (
-    generate, generate_samples, member_row_keys, probe_row_keys)
+    batch_invariant, generate, generate_samples, member_row_keys,
+    probe_row_keys)
 from repro_torch.sampling import prng
 from repro_torch.serving.compaction import CompactionStats, plan_compaction
 from repro_torch.serving.kv_pool import (
@@ -129,19 +133,23 @@ class BatchResult:
 class BatchedACAREngine:
     """Batched ACAR engine over real zoo models.
 
-    The probe always prefills each prompt once and tiles it to its N
-    samples, and greedy members decode only their escalated rows: the
-    port serves only the dense family, whose rows never depend on
-    their batch. ``paged`` None serves every model whose
-    config has a dense or quant page layout from pool pages; False
-    serves the wave over contiguous caches. ``route_fn`` overrides
-    sigma->mode routing (benchmarks use it to force escalation rates).
-    Page pools and caches live on ``device``; the models' params must
-    already be there."""
+    ``shared_prefix`` prefills each probe prompt once and shares it
+    across the N samples (pool pages, or a tiled cache); ``compact``
+    lets greedy members decode only their escalated rows. Both hold
+    only for batch-invariant configs (``sampling.batch_invariant``:
+    every config the port serves), and turning them off is only needed
+    for A/B measurement: the masked baseline prefills each prompt N
+    times and decodes members over the whole wave. ``paged`` None
+    serves every model whose config has a dense or quant page layout
+    from pool pages; False serves the wave over contiguous caches.
+    ``route_fn`` overrides sigma->mode routing (benchmarks use it to
+    force escalation rates). Page pools and caches live on ``device``;
+    the models' params must already be there."""
 
     def __init__(self, acfg: ACARConfig, probe: ZooModel,
                  ensemble: Sequence[ZooModel],
-                 max_new_tokens: int = 8,
+                 max_new_tokens: int = 8, compact: bool = True,
+                 shared_prefix: bool = True,
                  paged: Optional[bool] = None,
                  kv_page_size: int = 8,
                  kv_prefix_cache: int = 32,
@@ -151,6 +159,8 @@ class BatchedACAREngine:
         self.probe = probe
         self.ensemble = list(ensemble)
         self.max_new_tokens = max_new_tokens
+        self.compact = compact
+        self.shared_prefix = shared_prefix
         self.paged = paged
         self.kv_page_size = kv_page_size
         self.kv_prefix_cache = kv_prefix_cache
@@ -212,9 +222,11 @@ class BatchedACAREngine:
     def _member_compactable(self, zm: ZooModel) -> bool:
         """Compaction (and seeding a member's decode from the probe's
         pages) must not perturb the decoded rows: greedy decode
-        (temperature-0 sampling is batch-shape independent) of a
-        batch-invariant config, which every dense config is."""
-        return self.acfg.ensemble_temperature <= 0.0
+        (temperature-0 sampling is batch-shape independent, categorical
+        draws are not) of a batch-invariant config."""
+        return (self.compact
+                and self.acfg.ensemble_temperature <= 0.0
+                and batch_invariant(zm.cfg))
 
     def route_modes(self, sig, admission_indices):
         """Invoke route_fn, passing admission indices when it wants
@@ -233,19 +245,30 @@ class BatchedACAREngine:
                       stats: CompactionStats,
                       row_keys=None) -> List[str]:
         """N-sample probe decode over contiguous caches: one prefill per
-        prompt, its cache tiled to the N samples."""
+        prompt, its cache tiled to the N samples (``shared_prefix``);
+        otherwise the tiled (B·N) expansion, each prompt prefilled N
+        times."""
         b, s = ids.shape
         n = self.acfg.n_probe_samples
         stats.probe_prefill_tokens += b * s
-        out = generate_samples(
-            self.probe.cfg, self.probe.params, ids, n,
-            max_new_tokens=self.max_new_tokens,
-            temperature=self.acfg.probe_temperature,
-            key=key, eos_id=tok.EOS, pad_id=tok.PAD, row_keys=row_keys)
-        saved = b * (n - 1) * s
-        stats.probe_prefill_tokens_saved += saved
-        stats.probe_prefill_flops_saved += \
-            2.0 * self.probe.cfg.active_param_count() * saved
+        if self.shared_prefix and batch_invariant(self.probe.cfg):
+            out = generate_samples(
+                self.probe.cfg, self.probe.params, ids, n,
+                max_new_tokens=self.max_new_tokens,
+                temperature=self.acfg.probe_temperature,
+                key=key, eos_id=tok.EOS, pad_id=tok.PAD,
+                row_keys=row_keys)
+            saved = b * (n - 1) * s
+            stats.probe_prefill_tokens_saved += saved
+            stats.probe_prefill_flops_saved += \
+                2.0 * self.probe.cfg.active_param_count() * saved
+        else:
+            stats.probe_prefill_tokens += b * (n - 1) * s
+            out = generate(
+                self.probe.cfg, self.probe.params, np.repeat(ids, n, axis=0),
+                max_new_tokens=self.max_new_tokens,
+                temperature=self.acfg.probe_temperature,
+                key=key, eos_id=tok.EOS, pad_id=tok.PAD, row_keys=row_keys)
         return self._decode_texts(out.tokens.cpu())
 
     def _member_decode(self, zm: ZooModel,
@@ -325,7 +348,8 @@ class BatchedACAREngine:
         admission = list(range(start_index, start_index + b))
         probe_keys = probe_row_keys(key, admission, n)
         stats = CompactionStats(batch=b)
-        kv_srv = self._kv_server(self.probe)
+        kv_srv = self._kv_server(self.probe) if self.shared_prefix \
+            else None
         handle: Optional[ProbeHandle] = None
         if kv_srv is not None:
             try:
@@ -513,6 +537,106 @@ class BatchedACAREngine:
                             task_id=task.task_id, mode=mode,
                             values={m: float(v)
                                     for m, v in loo.items()})
+
+    # ------------------------------------------------------------------
+    # continuous-batching entry point: admission queue -> micro-batches
+    # ------------------------------------------------------------------
+    def run_queued(self, tasks: Sequence[Task],
+                   policy: MicroBatchPolicy = MicroBatchPolicy(),
+                   tracer=None) -> "QueuedServeResult":
+        """Serve a request stream through the admission queue: tasks are
+        submitted with logical arrival ticks, grouped into micro-batches
+        under the policy budget, and each micro-batch runs the batched
+        probe -> route -> ensemble pipeline. Per-batch results are
+        concatenated in admission order."""
+        t0 = time.perf_counter()
+        tracer = tracer if (tracer is not None
+                            and getattr(tracer, "armed", False)) \
+            else None
+        queue = AdmissionQueue(policy)
+        for t in tasks:
+            queue.submit(t)
+        metrics = PromCounters()
+        compaction = CompactionStats()
+        batch_results: List[BatchResult] = []
+        batch_sizes: List[int] = []
+        for batch in queue.drain_batches():
+            res = self.run_batch(
+                [r.task for r in batch.requests],
+                start_index=batch.requests[0].admission_index,
+                tracer=tracer,
+                request_ids=[r.request_id for r in batch.requests])
+            batch_results.append(res)
+            batch_sizes.append(len(batch))
+            metrics.inc("acar_engine_batches_total",
+                        help="micro-batches decoded")
+            metrics.inc("acar_engine_tasks_total", len(batch),
+                        help="tasks served")
+            metrics.inc("acar_engine_ensemble_calls_saved_total",
+                        res.ensemble_calls_saved,
+                        help="ensemble decodes avoided by routing")
+            for m in res.modes:
+                metrics.inc("acar_engine_mode_total",
+                            mode=MODE_NAMES[int(m)],
+                            help="tasks routed per execution mode")
+            cs = res.compaction
+            if cs is not None:
+                compaction.merge(cs)
+                metrics.inc("acar_engine_escalated_rows_total",
+                            cs.escalated_rows,
+                            help="rows with sigma>0 per wave, summed")
+                metrics.inc("acar_engine_full_arena_rows_total",
+                            cs.full_arena_rows,
+                            help="rows escalated to the full arena")
+                metrics.inc(
+                    "acar_engine_ensemble_decode_tokens_total",
+                    cs.ensemble_decode_tokens,
+                    help="ensemble decode tokens actually generated")
+                metrics.inc(
+                    "acar_engine_ensemble_decode_tokens_saved_total",
+                    cs.ensemble_decode_tokens_saved,
+                    help="decode tokens the masked full-batch path "
+                         "would have generated but compaction skipped")
+                metrics.inc(
+                    "acar_engine_probe_prefill_tokens_saved_total",
+                    cs.probe_prefill_tokens_saved,
+                    help="probe prefill tokens elided by shared-prefix "
+                         "expansion")
+                metrics.inc(
+                    "acar_engine_probe_prefill_flops_saved_total",
+                    cs.probe_prefill_flops_saved,
+                    help="approx. prefill FLOPs saved "
+                         "(2 * active params * tokens)")
+                for bkt, rows in zip(cs.bucket_sizes, cs.bucket_rows):
+                    metrics.inc("acar_engine_bucket_waves_total",
+                                bucket=str(bkt),
+                                help="member decode waves per shape "
+                                     "bucket")
+                    metrics.set_gauge(
+                        "acar_engine_bucket_occupancy",
+                        rows / bkt if bkt else 0.0, bucket=str(bkt),
+                        help="escalated-row fill of the last decode "
+                             "wave in each shape bucket")
+            self._emit_kv_metrics(metrics)
+        return QueuedServeResult(
+            sigma=np.concatenate([r.sigma for r in batch_results])
+            if batch_results else np.zeros(0, np.float32),
+            modes=np.concatenate([r.modes for r in batch_results])
+            if batch_results else np.zeros(0, np.int32),
+            final_answers=[a for r in batch_results
+                           for a in r.final_answers],
+            batch_sizes=batch_sizes,
+            ensemble_calls_saved=sum(r.ensemble_calls_saved
+                                     for r in batch_results),
+            wall_ms=(time.perf_counter() - t0) * 1e3,
+            metrics=metrics, compaction=compaction,
+            probe_texts=[p for r in batch_results
+                         for p in r.probe_texts],
+            member_answers=[m for r in batch_results
+                            for m in (r.member_answers or [])],
+            kv=self.kv_stats() or None,
+            spans=tracer.records() if tracer is not None else None,
+            span_head=tracer.flush() if tracer is not None else None)
 
     # ------------------------------------------------------------------
     # step-level continuous batching entry point

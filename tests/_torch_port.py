@@ -7,14 +7,17 @@ judge-visible outputs, record hashes and chain heads).
 Run as a script, it serves the 200-task legs of the gates that tier-1
 runs at small scale and prints each leg's wall and mismatch counts:
 ``engine`` (stepped at megastep 1, 4 and "auto"; waves paged and
-``paged=False``) and ``faults`` (the crash legs kill@mid, kill@3/4 and
-torn@3/4, the degraded fleet, and the observability legs)::
+``paged=False``), ``faults`` (the crash legs kill@mid, kill@3/4 and
+torn@3/4, the degraded fleet, and the observability legs) and
+``queued`` (the scheduler, compacted against masked, queued against
+stepped, and the queued engine's spans)::
 
     PYTHONPATH=src:tests:. JAX_PLATFORMS=cpu python tests/_torch_port.py \
-        [engine] [faults]
+        [engine] [faults] [queued]
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import sys
@@ -580,6 +583,280 @@ def check_obs(ref, port, tasks, base, member_names, workdir) -> dict:
                 restored=restored)
 
 
+# ----------------------------------------------------------------------
+# the queued wave engine and the continuous-batching scheduler
+# ----------------------------------------------------------------------
+def experience_stores(n: int = 200):
+    """Each package's ``ExperienceStore`` over the same ``n`` past
+    experiences (another seed's ``paper_suite``)."""
+    from repro.core import retrieval as jret
+    from repro.data.tasks import paper_suite
+    from repro_torch.core import retrieval as tret
+    js, ts = jret.ExperienceStore(), tret.ExperienceStore()
+    for i, t in enumerate(paper_suite(1)[:n]):
+        e = dict(task_text=t.text, answer=t.gold, correct=bool(i % 2),
+                 benchmark=t.benchmark)
+        js.add(jret.Experience(**e))
+        ts.add(tret.Experience(**e))
+    return js, ts
+
+
+def check_scheduler_against_reference(tasks, workdir, batch: int = 8,
+                                      overlap: bool = True,
+                                      retrieval: bool = False, **kw):
+    """Both packages' ``ContinuousBatchingScheduler`` over their own
+    ``paper_backends`` (``ACAR_UJ`` over ``experience_stores`` with
+    ``retrieval``, ``ACAR_U`` otherwise) serve ``tasks`` into an
+    ``ArtifactStore`` each; ``kw`` goes to both schedulers. Every
+    record's hashed view, hash and schedule side channel, every
+    outcome's semantic answer, correctness and latency equal;
+    ``logical_time`` the admission order; both chains audit OK with
+    equal heads; every ``SchedulerStats`` field but ``wall_ms``, the
+    cache hits and the rendered metrics equal. Then the port's
+    sequential orchestrator over the same stream: equal record hashes
+    and head. Returns the port's scheduler and outcomes."""
+    from repro.configs import acar as jacar
+    from repro.core.backends import paper_backends as jbackends
+    from repro.serving import MicroBatchPolicy as JPolicy
+    from repro.serving.scheduler import ContinuousBatchingScheduler as JS
+    from repro.teamllm.artifacts import ArtifactStore as JStore
+    from repro_torch.configs import acar as tacar
+    from repro_torch.core import ACAROrchestrator
+    from repro_torch.core.backends import paper_backends as tbackends
+    from repro_torch.serving import ContinuousBatchingScheduler as TS
+    from repro_torch.serving import MicroBatchPolicy
+    from repro_torch.teamllm.artifacts import ArtifactStore as TStore
+
+    workdir = Path(workdir)
+    jexp, texp = experience_stores() if retrieval else (None, None)
+    variant = "ACAR_UJ" if retrieval else "ACAR_U"
+    jb, tb = jbackends(), tbackends()
+    js = JS(getattr(jacar, variant), jb["gemini-2.0-flash"], jb,
+            store=JStore(workdir / "j.jsonl"), experience=jexp,
+            run_id="sched", policy=JPolicy(max_batch_size=batch),
+            overlap=overlap, **kw)
+    ts = TS(getattr(tacar, variant), tb["gemini-2.0-flash"], tb,
+            store=TStore(workdir / "t.jsonl"), experience=texp,
+            run_id="sched", policy=MicroBatchPolicy(max_batch_size=batch),
+            overlap=overlap, **kw)
+    jouts, touts = js.serve(tasks), ts.serve([torch_task(t)
+                                              for t in tasks])
+    assert len(touts) == len(jouts) == len(tasks)
+    for j, t in zip(jouts, touts):
+        assert t.trace.hashed_view() == j.trace.hashed_view(), \
+            j.trace.task_id
+        assert t.trace.record_hash() == j.trace.record_hash()
+        assert t.trace.schedule == j.trace.schedule
+        assert (t.semantic_answer, t.correct, t.latency_ms) == \
+            (j.semantic_answer, j.correct, j.latency_ms)
+    lt = [o.trace.logical_time for o in touts]
+    assert lt == list(range(len(touts))) == \
+        [o.trace.schedule["admitted"] for o in touts]
+    ja = JStore(workdir / "j.jsonl").audit()
+    ta = TStore(workdir / "t.jsonl").audit()
+    assert ja["ok"] and ta["ok"] and ta["records"] == ja["records"]
+    assert ta["head"] == ja["head"]
+    jst, tst = dataclasses.asdict(js.stats), dataclasses.asdict(ts.stats)
+    del jst["wall_ms"], tst["wall_ms"]
+    assert tst == jst
+    assert ts.cache.hits == js.cache.hits
+    assert ts.render_metrics() == js.render_metrics()
+    tb = tbackends()
+    seq = ACAROrchestrator(
+        getattr(tacar, variant), tb["gemini-2.0-flash"], tb,
+        store=TStore(workdir / "seq.jsonl"), experience=texp,
+        run_id="sched").run_suite([torch_task(t) for t in tasks])
+    assert [o.trace.record_hash() for o in seq] == \
+        [o.trace.record_hash() for o in touts]
+    sa = TStore(workdir / "seq.jsonl").audit()
+    assert sa["ok"] and sa["head"] == ta["head"]
+    return ts, touts
+
+
+def queued_pair(fleets, tasks, *, max_new_tokens: int = 6,
+                batch_size: int = 8, route_fn=None,
+                probe_temperature: float = 0.9):
+    """Two callables, ``ref(**kw)`` and ``port(**kw)``, that each serve
+    ``tasks`` (or ``keyed=``, the same prompts under other golds)
+    through ``run_queued`` on a fresh engine of their package and return
+    ``(engine, result)``. ``tracer=`` goes to ``run_queued`` (each
+    package's own object), every other keyword to the engine
+    (``compact``, ``shared_prefix``, ``paged``)."""
+    from repro.configs.acar import ACARConfig as JACARConfig
+    from repro.serving import BatchedACAREngine as JEngine
+    from repro.serving import MicroBatchPolicy as JPolicy
+    from repro_torch.configs import ACARConfig
+    from repro_torch.serving import BatchedACAREngine, MicroBatchPolicy
+
+    (jprobe, jens), (tprobe, tens) = fleets
+    policy = dict(max_batch_size=batch_size, max_batch_tokens=1 << 20)
+    acfg = dict(probe_temperature=probe_temperature, seed=0)
+
+    def ref(keyed=None, tracer=None, **kw):
+        eng = JEngine(JACARConfig(**acfg), jprobe, jens,
+                      max_new_tokens=max_new_tokens, route_fn=route_fn,
+                      **kw)
+        return eng, eng.run_queued(keyed or tasks, JPolicy(**policy),
+                                   tracer=tracer)
+
+    def port(keyed=None, tracer=None, **kw):
+        eng = BatchedACAREngine(ACARConfig(**acfg), tprobe, tens,
+                                max_new_tokens=max_new_tokens,
+                                route_fn=route_fn, device="cpu", **kw)
+        return eng, eng.run_queued(
+            [torch_task(t) for t in keyed or tasks], MicroBatchPolicy(
+                **policy), tracer=tracer)
+
+    return ref, port
+
+
+def check_queued_equal(run_id, tasks, jres, tres, member_names) -> None:
+    """Both packages' ``run_queued`` results of one stream: zero
+    mismatches in sigma, mode, answer, member answers and probe texts;
+    equal record hashes and chain heads; equal micro-batch sizes, calls
+    saved, merged compaction and paged-KV accounting, rendered metrics
+    byte for byte, and, when traced, equal span records and span
+    heads."""
+    mism = _mismatches(jres, tres, len(tasks))
+    assert all(not v for v in mism.values()), mism
+    check_records_against_reference(run_id, member_names,
+                                    [(tasks, jres, tres)])
+    assert tres.batch_sizes == jres.batch_sizes
+    assert tres.ensemble_calls_saved == jres.ensemble_calls_saved
+    assert dataclasses.asdict(tres.compaction) == \
+        dataclasses.asdict(jres.compaction)
+    assert (tres.kv is None) == (jres.kv is None)
+    if jres.kv is not None:
+        assert {k: dataclasses.asdict(v) for k, v in tres.kv.items()} == \
+            {k: dataclasses.asdict(v) for k, v in jres.kv.items()}
+    assert tres.metrics.render() == jres.metrics.render()
+    assert (tres.spans is None) == (jres.spans is None)
+    if jres.spans is not None:
+        assert tres.spans == jres.spans
+        assert tres.span_head == jres.span_head
+
+
+def check_run_queued_against_reference(fleets, tasks, knobs, **pair_kw):
+    """Serve ``tasks`` through both packages' ``run_queued`` with the
+    same engine ``knobs`` (and ``queued_pair``'s ``pair_kw``) and hold
+    them equal (``check_queued_equal``). Returns the port's engine and
+    result."""
+    ref, port = queued_pair(fleets, tasks, **pair_kw)
+    _, jres = ref(**knobs)
+    teng, tres = port(**knobs)
+    check_queued_equal(f"queued-{sorted(knobs.items())}", tasks, jres,
+                       tres, [m.name for m in fleets[0][1]])
+    return teng, tres
+
+
+def compaction_fleets(seed: int = 0):
+    """``run_engine_compaction_equivalence``'s fleet: four reduced f32
+    models (``tiny_zoo``), the first the probe, no twin."""
+    from harness.simulate import tiny_zoo
+    zoo = tiny_zoo(seed=seed)
+    return pallas_zoo(zoo[0], zoo[1:]), torch_zoo(zoo[0], zoo[1:])
+
+
+def check_compaction_equivalence(tasks, batch_size: int = 8,
+                                 max_new_tokens: int = 4, route_fn=None,
+                                 seed: int = 0) -> dict:
+    """``run_engine_compaction_equivalence``, port against reference: the
+    compacted engine (``compact``, ``shared_prefix``) and the masked one
+    (both off) of each package serve ``tasks`` through ``run_queued``;
+    each port run equals the reference's run with the same knobs
+    (``check_queued_equal``), and the port's masked run equals its
+    compacted run in sigma, mode, answers, member answers and probe
+    texts, with equal record hashes and chain heads. Returns the
+    compacted run's decode-token and probe-prefill reductions."""
+    from chip_smoke import chain_head
+    fleets = compaction_fleets(seed)
+    ref, port = queued_pair(fleets, tasks, max_new_tokens=max_new_tokens,
+                            batch_size=batch_size, route_fn=route_fn)
+    names = [m.name for m in fleets[1][1]]
+    res = {}
+    for leg, knobs in (("compacted", dict(compact=True,
+                                          shared_prefix=True)),
+                       ("masked", dict(compact=False,
+                                       shared_prefix=False))):
+        _, jres = ref(**knobs)
+        _, res[leg] = port(**knobs)
+        check_queued_equal(leg, tasks, jres, res[leg], names)
+    mism = _mismatches(res["compacted"], res["masked"], len(tasks))
+    assert all(not v for v in mism.values()), mism
+    ttasks = [torch_task(t) for t in tasks]
+    with tempfile.TemporaryDirectory(prefix="acar-compact-") as d:
+        heads = [chain_head("compact", ttasks, res[leg], names,
+                            Path(d) / f"{leg}.jsonl")
+                 for leg in ("compacted", "masked")]
+    assert heads[0] == heads[1]
+    cs = res["compacted"].compaction
+    return dict(decode_token_reduction=cs.ensemble_decode_token_reduction,
+                prefill_reduction=cs.probe_prefill_reduction)
+
+
+def check_queued_against_stepped(fleets, tasks, chunk_tokens: int = 8,
+                                 **pair_kw) -> None:
+    """``run_step_loop_equivalence``'s claim within the port: its
+    ``run_queued`` and its ``run_stepped`` serve the same stream with
+    the same knobs to equal sigma, mode, answers, member answers and
+    probe texts, record hashes and chain heads."""
+    from chip_smoke import chain_head
+    _, port = queued_pair(fleets, tasks, **pair_kw)
+    _, wave = port()
+    _, step = stepped_pair(
+        fleets, tasks, max_new_tokens=pair_kw.get("max_new_tokens", 6),
+        chunk_tokens=chunk_tokens,
+        batch_size=pair_kw.get("batch_size", 8),
+        route_fn=pair_kw.get("route_fn"))[1]()
+    mism = _mismatches(wave, step, len(tasks))
+    assert all(not v for v in mism.values()), mism
+    names = [m.name for m in fleets[1][1]]
+    ttasks = [torch_task(t) for t in tasks]
+    with tempfile.TemporaryDirectory(prefix="acar-steploop-") as d:
+        heads = [chain_head("steploop", ttasks, r, names,
+                            Path(d) / f"{k}.jsonl")
+                 for k, r in (("wave", wave), ("step", step))]
+    assert heads[0] == heads[1]
+
+
+def check_queued_obs(fleets, tasks, workdir, **pair_kw) -> dict:
+    """The wave leg of ``run_obs_equivalence``, port against reference:
+    both packages' ``run_queued`` traced (the port into a span file)
+    over the stream under ``attribution_key``; equal results, records,
+    span records and span heads (``check_queued_equal``); the traced
+    run's records equal to the untraced run's; the span file verified
+    with its head; the lineage of every task OK and equal to the
+    reference's; the attribution spans equal to the leave-one-out
+    oracle, some of them non-zero. Returns the counts."""
+    from repro.serving.tracing import SpanTracer as JTracer
+    from repro.teamllm.prov import lineage as jlineage
+    from repro_torch.serving import SpanTracer
+    from repro_torch.teamllm.prov import lineage, verify_span_file
+
+    names = [m.name for m in fleets[0][1]]
+    ref, port = queued_pair(fleets, tasks, **pair_kw)
+    _, base = ref()
+    keyed = attribution_key(tasks, base, names)
+    path = Path(workdir) / "spans-queued.jsonl"
+    _, jres = ref(keyed=keyed, tracer=JTracer())
+    _, tres = port(keyed=keyed, tracer=SpanTracer(path))
+    check_queued_equal("queued-traced", keyed, jres, tres, names)
+    check_records_against_reference("queued-traced-vs-untraced", names,
+                                    [(keyed, base, tres)])
+    audit = verify_span_file(path)
+    assert audit["ok"] and audit["head"] == tres.span_head, audit
+    walked = 0
+    for tid in sorted({t.task_id for t in tasks}):
+        lin = lineage(tres.spans, tid)
+        assert lin["ok"] and lin["verified"] > 0, (tid, lin)
+        assert lin == jlineage(jres.spans, tid), tid
+        walked += 1
+    rows, nonzero, bad = attribution_oracle_mismatches(keyed, tres, names)
+    assert rows > 0 and nonzero > 0 and not bad, (rows, nonzero, bad)
+    return dict(spans=len(tres.spans), lineage=walked,
+                attribution_rows=rows, attribution_nonzero=nonzero)
+
+
 def engine_legs():
     """The 200-task legs of the engine gate: (name, callable)."""
     # the prompt lengths of tier-1's legs: 24 characters stepped, 21
@@ -646,12 +923,69 @@ def fault_legs(workdir):
             ("obs (step, recover@3/4, lineage, attribution)", obs)]
 
 
+def queued_legs(workdir):
+    """The 200-task legs of the queued wave engine and the scheduler,
+    port against reference at the harness's knobs: ``run_equivalence``
+    (both schedulers over ``generate_workload``'s 200 ``paper_suite``
+    tasks, and the port's scheduler against its orchestrator),
+    ``run_engine_compaction_equivalence`` (compacted and masked, each
+    against the reference's, and against each other), the wave side of
+    ``run_step_loop_equivalence`` (``run_queued`` against the
+    reference's, and against the port's ``run_stepped``) and the wave
+    leg of ``run_obs_equivalence``."""
+    from harness.simulate import (
+        WorkloadConfig, generate_workload, long_prompt_workload)
+    from repro.data.tasks import arithmetic_suite
+    workdir = Path(workdir)
+
+    def scheduler():
+        sched_dir = workdir / "scheduler"
+        sched_dir.mkdir()
+        ts, outs = check_scheduler_against_reference(
+            generate_workload(WorkloadConfig(n_tasks=200, seed=0)),
+            sched_dir)
+        return (f"cache hits {ts.cache.hits}, modes "
+                f"{dict(collections.Counter(o.trace.mode for o in outs))}"
+                f"; port orchestrator head equal")
+
+    def compaction():
+        # sigma sends nearly every arithmetic task of the random tiny
+        # zoo to the full arena, where compaction skips no row; forced
+        # routes mix the modes
+        notes = []
+        for route, fn in (("sigma", None), ("forced", forced_route(200))):
+            got = check_compaction_equivalence(arithmetic_suite(200, seed=0),
+                                               route_fn=fn)
+            notes.append(f"{route} routes: " + ", ".join(
+                f"{k} {v:.3f}x" for k, v in got.items()))
+        return "; ".join(notes)
+
+    long = long_prompt_workload(200, 24, seed=0, duplicate_rate=0.15)
+
+    def step_loop():
+        fleets = paged_fleets()
+        _, res = check_run_queued_against_reference(fleets, long, {})
+        check_queued_against_stepped(fleets, long, chunk_tokens=8)
+        return (f"batch sizes {len(res.batch_sizes)} x 8; queued head "
+                f"= stepped head")
+
+    def obs():
+        got = check_queued_obs(paged_fleets(), long, workdir)
+        return ", ".join(f"{k} {v}" for k, v in got.items())
+
+    return [("scheduler (run_equivalence)", scheduler),
+            ("compacted vs masked (engine compaction)", compaction),
+            ("queued vs reference and vs stepped (step loop)", step_loop),
+            ("obs (queued, lineage, attribution)", obs)]
+
+
 def main(argv=None) -> int:
     """The 200-task legs, each once: ``engine`` (the engine gate),
-    ``faults`` (crash recovery, the degraded fleet, spans), or both
-    when no group is named."""
+    ``faults`` (crash recovery, the degraded fleet, spans), ``queued``
+    (the queued wave engine and the scheduler), or all three when no
+    group is named."""
     groups = list(argv if argv is not None else sys.argv[1:]) \
-        or ["engine", "faults"]
+        or ["engine", "faults", "queued"]
     failed = 0
     with tempfile.TemporaryDirectory(prefix="acar-port-legs-") as d:
         legs = []
@@ -659,6 +993,8 @@ def main(argv=None) -> int:
             legs += engine_legs()
         if "faults" in groups:
             legs += fault_legs(d)
+        if "queued" in groups:
+            legs += queued_legs(d)
         for name, leg in legs:
             t = time.perf_counter()
             try:

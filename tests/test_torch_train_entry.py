@@ -12,6 +12,9 @@
   tags included.
 - The port's ``build_zoo`` restores the reference's checkpoint, and the
   port's greedy tokens on a few prompts equal the reference's on it.
+  Without a checkpoint it trains the member on arithmetic: the params
+  are ``train``'s own at the reference's ``build_zoo`` knobs, on the
+  device asked.
 """
 import jax
 import jax.numpy as jnp
@@ -19,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import torch_cfg
+from _torch_port import one_torch_thread, torch_cfg
 from repro.checkpoint import restore_checkpoint as jrestore
 from repro.checkpoint import save_checkpoint as jsave
 from repro.configs.registry import get_config as jget
@@ -148,5 +151,36 @@ def test_build_zoo_restores_and_decodes_like_the_reference(ref_ckpt):
     tout = generate(tm.cfg, tm.params, ids, max_new_tokens=4)
     np.testing.assert_array_equal(np.asarray(tout.tokens),
                                   np.asarray(jout.tokens))
-    with pytest.raises(NotImplementedError):
-        build_zoo([spec], train_steps=5, device="cpu")
+
+
+def test_build_zoo_trains_a_member_without_a_checkpoint():
+    """Two steps of ``train`` at the reference's ``build_zoo`` knobs
+    (arithmetic, batch 64 x 24, lr 2e-3, seed + member index): the
+    member's params equal ``train``'s bit for bit, its loss is finite
+    and has fallen from the init params', and every leaf sits on the
+    device asked. One intra-op thread: the CPU's threaded reductions
+    are not bitwise reproducible from run to run."""
+    specs = ["smollm-135m", "smollm-135m:quant"]
+    with one_torch_thread():
+        zoo = build_zoo(specs, train_steps=2, seed=3, verbose=False,
+                        device="cpu")
+        runs = [train(arch="smollm-135m", data="arithmetic", steps=2,
+                      batch=64, seq=24, lr=2e-3, seed=3 + i, verbose=False,
+                      device="cpu") for i in range(len(specs))]
+    assert [m.name for m in zoo] == specs
+    assert zoo[1].cfg == zoo[0].cfg.replace(kv_quant=True)
+    b = next(arithmetic_batches(64, 24, seed=4))
+    batch = {n: torch.from_numpy(getattr(b, n))
+             for n in ("tokens", "labels", "loss_mask")}
+    for i, (zm, (cfg, want, metrics)) in enumerate(zip(zoo, runs)):
+        assert zm.cfg.replace(kv_quant=False) == cfg
+        assert np.isfinite(float(metrics["loss"]))
+        got = dict(tparams._leaves(zm.params))
+        for k, v in tparams._leaves(want):
+            assert got[k].device == torch.device("cpu"), k
+            assert torch.equal(got[k], v), k
+        trained, _, _ = loss_and_grads(cfg, zm.params, batch)
+        init, _, _ = loss_and_grads(
+            cfg, tparams.init_params(cfg, 3 + i, device="cpu"), batch)
+        assert np.isfinite(float(trained))
+        assert float(trained) < float(init)
