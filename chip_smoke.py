@@ -34,7 +34,10 @@ Phases (each raises on failure, and the script then exits non-zero):
    (there also within 1% of the largest output), from a cold L2; and
    hold the four decodes against their plain versions at other head
    geometries and lengths; and time kernels 4 and 3 at the shapes phase
-   8 gives them (one row over 105 positions; a 97-token prompt);
+   8 gives them (one row over 105 positions; a 97-token prompt); and
+   hold, check bit for bit and time the bf16 chunked prefill at head_dim
+   128 at llama3-8b's and deepseek-7b's heads (G 4 and G 1), the shapes
+   phase 11 gives it;
 4. reference — a reduced float32 model on the card agrees with the same
    calls on the CPU, where every kernel runs its plain version: chunked
    prefill and a paged decode step; one-shot prefill and decode steps
@@ -104,6 +107,21 @@ Phases (each raises on failure, and the script then exits non-zero):
    orchestrator run, ``logical_time`` the admission order, kernels 3
    and 4 only); and ``serve(scheduler=True)`` traced with a lineage
    walk (batch sizes [8, 8], lineage OK).
+11. fleets (run last) — the serve CLI's fleets at their published
+   widths, bf16, seed-initialised, over phase 5's stream and forced
+   routes: (a) the default fleet (a smollm-135m probe; llama3-8b,
+   deepseek-7b and recurrentgemma-2b) through the wave engine (the
+   dense members from pool pages, the hybrid over contiguous ring and
+   RG-LRU caches) and the stepped engine (kernel 2 at d 128, the hybrid
+   on the contiguous-cache member fallback); (b) the heterogeneous fleet
+   (a falcon-mamba-7b probe on recurrent-state lanes, smollm-135m with
+   int8 KV, smollm-135m on 16-token ring pages, llama3-8b) through the
+   stepped engine and the ``paged=False`` queued baseline: each path
+   twice, every task retired, its kernels and no other, no page or lane
+   leaked, the rerun's results and chain head identical; whether the
+   stepped head equals the baseline's is printed (a finding); each
+   fleet freed before the next is built; (c) ``launch.serve.main`` for
+   both fleets (reduced models trained 2 steps, 8 tasks).
 
 Phase 3 also holds the training path's kernels against their plain
 versions at the phase-7 shapes (the selective scan and the RG-LRU scan,
@@ -325,21 +343,231 @@ def decode_case(torch, gen, dtype):
     return q, k_pages, v_pages, table.contiguous(), lengths
 
 
-def prefill_case(torch, gen, dtype):
+def prefill_case(torch, gen, dtype, h=H, kv=KV, d=D):
     """Prefill chunk of 32 tokens for a bucket of 8 rows at different
     depths of a 97-token prompt (13 pages), the last two rows pad rows
-    on scratch pages."""
+    on scratch pages; smollm-135m's heads by default."""
     b, c, nb = 8, 32, -(-PROMPT // PAGE)
     n_pages = b * nb + nb
-    k_pages, v_pages = _pages(torch, gen, n_pages, dtype)
+    shape = (n_pages, PAGE, kv, d)
+    k_pages = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    v_pages = torch.randn(shape, generator=gen, device="cuda").to(dtype)
     perm = torch.randperm(n_pages - nb, generator=gen, device="cuda")
     table = perm[:b * nb].reshape(b, nb).to(torch.int32)
     starts = torch.tensor([0, 32, 64, 0, 32, 64, 64, 64], device="cuda")
     table[6:] = torch.arange(n_pages - nb, n_pages, device="cuda")
     qpos = (starts[:, None] + torch.arange(c, device="cuda")[None]).to(
         torch.int32)
-    q = torch.randn((b, c, H, D), generator=gen, device="cuda").to(dtype)
+    q = torch.randn((b, c, h, d), generator=gen, device="cuda").to(dtype)
     return q, k_pages, v_pages, table.contiguous(), qpos
+
+
+def prefill_checks(torch, dname, q, kp, vp, table, qpos) -> dict:
+    """Kernel 2 on one case: within the attention tolerance of its
+    plain version, positions 0-7 of the 32-position chunk bit-identical
+    to an 8-position chunk, and timed beside its plain version and SDPA
+    over the gathered K/V, with its bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.chunked_prefill_attention import (
+        chunked_prefill_attention_plain)
+    h, d = q.shape[2], q.shape[3]
+    kv = kp.shape[2]
+    item = q.element_size()
+    label = f"chunked_prefill_attention[{dname}, H {h}/KV {kv}, d {d}]"
+    got = ops.chunked_prefill_attention(q, kp, vp, table, qpos,
+                                        prompt_len=PROMPT)
+    want = chunked_prefill_attention_plain(q, kp, vp, table, qpos,
+                                           prompt_len=PROMPT)
+    torch.cuda.synchronize()
+    err = check_close(label, got, want, TOL[("attention", dname)])
+    check_same_rows(
+        f"{label} positions 0-7 of 32",
+        got[:, :8], ops.chunked_prefill_attention(
+            q[:, :8].contiguous(), kp, vp, table,
+            qpos[:, :8].contiguous(), prompt_len=PROMPT))
+    ms = time_ms(torch, lambda: ops.chunked_prefill_attention(
+        q, kp, vp, table, qpos, prompt_len=PROMPT))
+    plain = time_ms(torch, lambda: chunked_prefill_attention_plain(
+        q, kp, vp, table, qpos, prompt_len=PROMPT))
+    kc = _gather(torch, kp, table)[:, :PROMPT]
+    vc = _gather(torch, vp, table)[:, :PROMPT]
+    kc = kc.repeat_interleave(h // kv, 2).transpose(1, 2)
+    vc = vc.repeat_interleave(h // kv, 2).transpose(1, 2)
+    mask = (qpos[:, :, None] >= torch.arange(PROMPT, device="cuda")
+            [None, None])[:, None]
+    q4 = q.transpose(1, 2)
+    lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q4, kc, vc, attn_mask=mask))
+    # keys each row needs: up to its last query position; the two pad
+    # rows share their scratch pages
+    keys_row = (qpos.max(dim=1).values + 1).clamp(max=PROMPT)
+    n_keys = unique_keys(torch, table, keys_row)
+    bytes_moved = (2 * q.numel() * item + 2 * n_keys * kv * d * item
+                   + 4 * (table.numel() + qpos.numel()))
+    flops = 4.0 * h * d * float((qpos + 1).sum())
+    bnd, by = bound_ms(bytes_moved, flops, dname)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
+                bound_by=by, library_ms=lib)
+
+
+# kernel 2 in bf16 at head_dim 128: llama3-8b (H 32 / KV 8, G 4) and
+# deepseek-7b (H 32 / KV 32, G 1), at the serving chunk's shape
+PREFILL_D128 = {"llama3-8b": (32, 8, 128), "deepseek-7b": (32, 32, 128)}
+
+
+def prefill_d128_checks(torch) -> dict:
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+    out = {}
+    for model, (h, kv, d) in PREFILL_D128.items():
+        r = prefill_checks(torch, "bfloat16", *prefill_case(
+            torch, gen, torch.bfloat16, h=h, kv=kv, d=d))
+        out[model] = dict(heads=h, kv_heads=kv, head_dim=d, **r)
+        lib = r["library_ms"]
+        log(f"kernel chunked_prefill_attention [bfloat16, {model}: H {h} "
+            f"/ KV {kv}, d {d}]: max_abs_err {r['max_abs_err']:.3e}  "
+            f"kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
+            f"library {lib:.4f} ms  bound {r['bound_ms']:.5f} ms "
+            f"({r['bound_by']}); positions 0-7 bit-identical to an "
+            "8-position chunk")
+    return out
+
+
+# kernels 1, 3 and 4 in bf16 at the shapes phase 11 gives the same two
+# models: (H, KV, D, d_ff) at d_model 4096; decodes of 8 rows (a stepped
+# bucket, a queued micro-batch) and the SwiGLU of a 32-token chunk over
+# 8 rows
+FLEET_SHAPES = {"llama3-8b": (32, 8, 128, 14336),
+                "deepseek-7b": (32, 32, 128, 11008)}
+FLEET_D_MODEL, FLEET_ROWS = 4096, 8
+
+
+def _fleet_paged(torch, gen, name, h, kv, d) -> dict:
+    """Kernel 1 over pages: 8 rows at depths 97..104 (the prompt and
+    0..7 new tokens), 14 pages each."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_decode_attention import (
+        paged_decode_attention_plain as plain)
+    b, nb = FLEET_ROWS, -(-S_WAVE // PAGE)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+    q, kp, vp = rnd(b, h, d), rnd(b * nb, PAGE, kv, d), rnd(
+        b * nb, PAGE, kv, d)
+    table = torch.randperm(b * nb, generator=gen, device="cuda").to(
+        torch.int32).reshape(b, nb).contiguous()
+    lengths = (PROMPT + torch.arange(b, device="cuda")).to(torch.int32)
+    got = ops.paged_decode_attention(q, kp, vp, table, lengths)
+    err = check_close(name, got, plain(q, kp, vp, table, lengths),
+                      TOL[("attention", "bfloat16")])
+    check_same_rows(f"{name} rows 0-3 of {b} alone", got[:4],
+                    ops.paged_decode_attention(
+                        q[:4].contiguous(), kp, vp, table[:4].contiguous(),
+                        lengths[:4].contiguous()))
+    n_keys = unique_keys(torch, table, lengths)
+    bnd, by = bound_ms(2 * q.numel() * 2 + 2 * n_keys * kv * d * 2
+                       + 4 * (table.numel() + lengths.numel()),
+                       4.0 * h * d * float(lengths.sum()), "bfloat16")
+    return dict(rows=b, lengths=[int(lengths.min()), int(lengths.max())],
+                max_abs_err=err, bound_ms=bnd, bound_by=by, **_measure(
+                    torch, lambda: ops.paged_decode_attention(
+                        q, kp, vp, table, lengths),
+                    lambda: plain(q, kp, vp, table, lengths),
+                    _sdpa(torch, q, _gather(torch, kp, table),
+                          _gather(torch, vp, table), lengths)))
+
+
+def _fleet_dense(torch, gen, name, h, kv, d) -> dict:
+    """Kernel 4 over contiguous caches: 8 rows of 105 positions, at 60
+    positions and at all 105."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_plain as plain)
+    b, s = FLEET_ROWS, S_WAVE
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+    q, k, v = rnd(b, h, d), rnd(b, s, kv, d), rnd(b, s, kv, d)
+    err = 0.0
+    for length in (60, s):
+        got = ops.decode_attention(q, k, v, length)
+        err = max(err, check_close(f"{name} length {length}", got,
+                                   plain(q, k, v, length),
+                                   TOL[("attention", "bfloat16")]))
+    check_same_rows(f"{name} rows 0-3 of {b} alone", got[:4],
+                    ops.decode_attention(q[:4].contiguous(),
+                                         k[:4].contiguous(),
+                                         v[:4].contiguous(), s))
+    bnd, by = bound_ms(2 * q.numel() * 2 + 2 * b * s * kv * d * 2,
+                       4.0 * h * d * b * s, "bfloat16")
+    return dict(rows=b, lengths=[s, s], max_abs_err=err, bound_ms=bnd,
+                bound_by=by, **_measure(
+                    torch, lambda: ops.decode_attention(q, k, v, s),
+                    lambda: plain(q, k, v, s), _sdpa(torch, q, k, v, s)))
+
+
+def _fleet_swiglu(torch, gen, name, d, f) -> dict:
+    """Kernel 3 on a 256-token prefill chunk at d_model ``d``, d_ff
+    ``f``: activations of unit scale, weights at 1/sqrt(fan-in)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fused_swiglu import fused_swiglu_plain
+    t = FLEET_ROWS * 32
+    x = torch.randn((t, d), generator=gen, device="cuda").to(torch.bfloat16)
+    wg, wu, wd = ((torch.randn(sh, generator=gen, device="cuda")
+                   / sh[0] ** 0.5).to(torch.bfloat16)
+                  for sh in ((d, f), (d, f), (f, d)))
+    got = ops.fused_swiglu(x, wg, wu, wd)
+    err = check_close(name, got, fused_swiglu_plain(x, wg, wu, wd),
+                      TOL[("swiglu", "bfloat16")])
+    check_same_rows(f"{name} rows 0-7 of {t}", got[:8],
+                    ops.fused_swiglu(x[:8].contiguous(), wg, wu, wd))
+    stages = swiglu_stages(torch, name, x, (wg, wu, wd), TIMED_LAUNCHES)
+    bnd, by = bound_ms((2 * t * d + 3 * d * f) * 2, 6.0 * t * d * f,
+                       "bfloat16")
+    return dict(tokens=t, d_model=d, d_ff=f, max_abs_err=err, bound_ms=bnd,
+                bound_by=by, **stages, **_measure(
+                    torch, lambda: ops.fused_swiglu(x, wg, wu, wd),
+                    lambda: fused_swiglu_plain(x, wg, wu, wd),
+                    lambda: torch.matmul(F.silu(torch.matmul(x, wg))
+                                         * torch.matmul(x, wu), wd)))
+
+
+def fleet_shape_checks(torch) -> dict:
+    """bf16, kernels 1, 4 and 3 at the shapes phase 11 gives them for
+    llama3-8b (G 4) and deepseek-7b (G 1) at head_dim 128: each held
+    against its plain version, a row's bits checked without its
+    neighbours, and timed beside its bound and library call (SDPA;
+    three matmuls and silu). Returns {kernel: {model: result}}."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    out = {"paged_decode_attention": {}, "decode_attention": {},
+           "fused_swiglu": {}}
+    for model, (h, kv, d, f) in FLEET_SHAPES.items():
+        geo = f"bfloat16, {model}: H {h} / KV {kv}, d {d}"
+        out["paged_decode_attention"][model] = _fleet_paged(
+            torch, gen, f"paged_decode_attention[{geo}]", h, kv, d)
+        out["decode_attention"][model] = _fleet_dense(
+            torch, gen, f"decode_attention[{geo}]", h, kv, d)
+        out["fused_swiglu"][model] = _fleet_swiglu(
+            torch, gen, f"fused_swiglu[bfloat16, {model}: d {FLEET_D_MODEL}"
+            f", F {f}]", FLEET_D_MODEL, f)
+        for name, r in ((n, out[n][model]) for n in out):
+            shape = (f"T {r['tokens']}, d {r['d_model']}, F {r['d_ff']}"
+                     if name == "fused_swiglu" else
+                     f"H {h} / KV {kv}, d {d}, {r['rows']} rows at "
+                     f"{r['lengths'][0]}-{r['lengths'][1]} positions")
+            log(f"kernel {name} [bfloat16, {model}: {shape}]: max_abs_err "
+                f"{r['max_abs_err']:.3e}  kernel {r['ms']:.4f} ms  plain "
+                f"{r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} ms"
+                f"  bound {r['bound_ms']:.5f} ms ({r['bound_by']})"
+                f"{stage_note(r)}")
+    log("rows: at phase 11's shapes, decode rows 0-3 of 8 and SwiGLU rows "
+        "0-7 of 256 bit-identical to calls without their neighbours")
+    return out
 
 
 def swiglu_case(torch, gen, dtype):
@@ -414,7 +642,7 @@ def unique_keys(torch, table, lengths) -> int:
 
 def _gather(torch, pages, table):
     b, nb = table.shape
-    return pages[table.long()].reshape(b, nb * PAGE, KV, D)
+    return pages[table.long()].reshape((b, nb * PAGE) + pages.shape[2:])
 
 
 # ----------------------------------------------------------------------
@@ -451,14 +679,15 @@ def _l2_flush(torch):
 
 def _sdpa(torch, q, kc, vc, lengths):
     """``scaled_dot_product_attention`` over caches kc/vc (B, S, KV, D)
-    expanded to H heads, one query a row, masked past the length: the
-    yardstick for kernels 1 and 4. ``lengths`` is a (B,) tensor (kernel
-    1: one mask row per batch row, (B, 1, 1, S)) or an int (kernel 4's
-    scalar length: one mask broadcast over the batch, (1, 1, 1, S))."""
+    expanded to q's H heads, one query a row, masked past the length:
+    the yardstick for kernels 1 and 4. ``lengths`` is a (B,) tensor
+    (kernel 1: one mask row per batch row, (B, 1, 1, S)) or an int
+    (kernel 4's scalar length: one mask broadcast over the batch, (1, 1,
+    1, S))."""
     import torch.nn.functional as F
-    s = kc.shape[1]
-    kc = kc.repeat_interleave(H // KV, 2).transpose(1, 2)
-    vc = vc.repeat_interleave(H // KV, 2).transpose(1, 2)
+    s, g = kc.shape[1], q.shape[1] // kc.shape[2]
+    kc = kc.repeat_interleave(g, 2).transpose(1, 2)
+    vc = vc.repeat_interleave(g, 2).transpose(1, 2)
     pos = torch.arange(s, device="cuda")
     if isinstance(lengths, int):
         mask = (pos < lengths)[None, None, None]
@@ -936,7 +1165,8 @@ def log_decode_checks(results: dict) -> None:
 
 # (H, KV, D): G = 8 at D 128 (the f32 tiles take more than 48 KB of
 # shared memory), G = 1 at D 42 (rows not 16-byte aligned: loads element
-# by element), G = 7 at D 16, G = 2 at D 80 (padded lanes)
+# by element), G = 7 at D 16, G = 2 at D 80 (padded lanes); kernels 1
+# and 4 also at phase 11's G 4 and G 1 at D 128 (FLEET_SHAPES)
 DECODE_GEOMETRIES = ((16, 2, 128), (4, 4, 42), (14, 2, 16), (6, 3, 80))
 
 
@@ -955,7 +1185,8 @@ def run_decode_geometry_checks(torch) -> None:
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         tol = TOL[("attention", dname)]
-        for h, kv, d in DECODE_GEOMETRIES:
+        for h, kv, d in DECODE_GEOMETRIES + tuple(
+                g[:3] for g in FLEET_SHAPES.values()):
             b, nb = len(lens), -(-max(lens) // PAGE)
 
             def rnd(*shape):
@@ -979,8 +1210,9 @@ def run_decode_geometry_checks(torch) -> None:
                             ops.decode_attention(q, k, v, length),
                             decode_attention_plain(q, k, v, length), tol)
     log(f"kernels 1 and 4 agree with their plain versions at (H, KV, D) in "
-        f"{list(DECODE_GEOMETRIES)}, lengths {list(lens)} (float32 and "
-        "bfloat16)")
+        f"{list(DECODE_GEOMETRIES)} and "
+        f"{[g[:3] for g in FLEET_SHAPES.values()]}, lengths {list(lens)} "
+        "(float32 and bfloat16)")
 
 
 
@@ -1090,8 +1322,6 @@ def audit_shape_checks(torch, gen) -> dict:
 def run_kernel_phase(torch):
     import torch.nn.functional as F
     from repro_torch.kernels import ops
-    from repro_torch.kernels.chunked_prefill_attention import (
-        chunked_prefill_attention_plain)
     from repro_torch.kernels.fused_swiglu import fused_swiglu_plain
 
     gen = torch.Generator(device="cuda")
@@ -1114,43 +1344,8 @@ def run_kernel_phase(torch):
             torch, gen_split, dname, q, kp, vp, table, lengths)
 
         # -- chunked prefill -----------------------------------------
-        q, kp, vp, table, qpos = prefill_case(torch, gen, dtype)
-        got = ops.chunked_prefill_attention(q, kp, vp, table, qpos,
-                                            prompt_len=PROMPT)
-        want = chunked_prefill_attention_plain(q, kp, vp, table, qpos,
-                                               prompt_len=PROMPT)
-        torch.cuda.synchronize()
-        err = check_close(f"chunked_prefill_attention[{dname}]", got,
-                          want, TOL[("attention", dname)])
-        check_same_rows(
-            f"chunked_prefill_attention[{dname}] positions 0-7 of 32",
-            got[:, :8], ops.chunked_prefill_attention(
-                q[:, :8].contiguous(), kp, vp, table,
-                qpos[:, :8].contiguous(), prompt_len=PROMPT))
-        ms = time_ms(torch, lambda: ops.chunked_prefill_attention(
-            q, kp, vp, table, qpos, prompt_len=PROMPT))
-        plain = time_ms(torch, lambda: chunked_prefill_attention_plain(
-            q, kp, vp, table, qpos, prompt_len=PROMPT))
-        kc = _gather(torch, kp, table)[:, :PROMPT]
-        vc = _gather(torch, vp, table)[:, :PROMPT]
-        kc = kc.repeat_interleave(H // KV, 2).transpose(1, 2)
-        vc = vc.repeat_interleave(H // KV, 2).transpose(1, 2)
-        mask = (qpos[:, :, None] >= torch.arange(PROMPT, device="cuda")
-                [None, None])[:, None]
-        q4 = q.transpose(1, 2)
-        lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q4, kc, vc, attn_mask=mask))
-        # keys each row needs: up to its last query position; the two
-        # pad rows share their scratch pages
-        keys_row = (qpos.max(dim=1).values + 1).clamp(max=PROMPT)
-        n_keys = unique_keys(torch, table, keys_row)
-        bytes_moved = (2 * q.numel() * item + 2 * n_keys * KV * D * item
-                       + 4 * (table.numel() + qpos.numel()))
-        flops = 4.0 * H * D * float((qpos + 1).sum())
-        bnd, by = bound_ms(bytes_moved, flops, dname)
-        results[("chunked_prefill_attention", dname)] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
-            bound_by=by, library_ms=lib)
+        results[("chunked_prefill_attention", dname)] = prefill_checks(
+            torch, dname, *prefill_case(torch, gen, dtype))
 
         # -- fused swiglu --------------------------------------------
         x, wg, wu, wd = swiglu_case(torch, gen, dtype)
@@ -1202,6 +1397,10 @@ def run_kernel_phase(torch):
             f"{r['bound_ms']:.5f} ms ({r['bound_by']}){stage_note(r)}")
     log("rows: SwiGLU rows 0-7 and prefill positions 0-7 bit-identical to "
         "calls without their neighbours (float32 and bfloat16)")
+    results[("chunked_prefill_attention", "bfloat16")]["d128"] = (
+        prefill_d128_checks(torch))
+    for name, by_model in fleet_shape_checks(torch).items():
+        results[(name, "bfloat16")]["fleet_shapes"] = by_model
     # phase 8's shapes: inputs of their own stream, so the others' stay
     gen_audit = torch.Generator(device="cuda")
     gen_audit.manual_seed(6)
@@ -2084,8 +2283,10 @@ def check_path_launches(label: str, launches: dict, needed) -> None:
 
 def check_no_leaks(engine) -> None:
     """After a run only the scratch pages and the prefix cache's pages
-    may still be referenced, each exactly once."""
-    for srv in engine._kv_servers.values():
+    may still be referenced, each exactly once, on every server (the
+    step loop's ring and lanes servers keep no prefix cache)."""
+    for srv in (list(engine._kv_servers.values())
+                + list(engine._stepped_servers.values())):
         held = {int(p) for p in srv._scratch}
         for e in srv._prefix.values():
             pages = [int(p) for p in e.shared]
@@ -2344,46 +2545,76 @@ def run_serve_phase(torch, gpu_name: str, cfg, params):
     Returns the first run's launch counts and what phase 9 holds its
     runs to: the chain head of the run's records, its loop ticks and
     its wall."""
-    from repro_torch.kernels import ops
-
     tasks, member_names, serve = stepped_fleet(cfg, params)
-    ops.reset_launch_counts()
-    eng, res, wall = serve()
-    launches = ops.launch_counts()
-    log(f"serve: launches during the run {launches}")
-    for name in STEPPED_KERNELS:
-        if launches[name] <= 0:
-            raise AssertionError(f"serve: {name} never launched")
-    if res.step.retired != len(tasks) or any(
-            a is None for a in res.final_answers):
-        raise AssertionError("serve: not every task retired")
-    check_no_leaks(eng)
+    launches, (_, res, wall), _, head = serve_twice(
+        torch, "serve", "stepped", serve, STEPPED_KERNELS, tasks,
+        member_names, rerun=profiled_rerun(torch, serve))
     st = res.step
     log(f"serve: {len(tasks)} tasks on {gpu_name}: wall {wall:.3f} s, "
         f"{len(tasks) / wall:.2f} tasks/s, {st.decode_tokens} decode "
         f"tokens at {st.decode_tokens / wall:.1f} tokens/s, "
         f"{st.prefill_chunks} prefill chunks, {st.launches} launches, "
         f"{st.ticks} ticks, modes {np.bincount(res.modes, minlength=3)}")
+    return launches, dict(head=head, ticks=st.ticks, wall=wall)
 
-    # the rerun, under the profiler: device busy time and the kernels
-    # that take it
-    (eng2, res2, wall2), events, t_read, counts = profiled(torch, serve)
-    report_profile(events, t_read, wall, wall2,
-                   swiglu_calls=counts["fused_swiglu"], launches=counts)
-    same = (np.array_equal(res.sigma, res2.sigma)
-            and np.array_equal(res.modes, res2.modes)
-            and res.final_answers == res2.final_answers
-            and res.member_answers == res2.member_answers
-            and res.probe_texts == res2.probe_texts)
-    if not same:
-        raise AssertionError("serve: a rerun changed sigma, modes or "
-                             "answers")
-    check_no_leaks(eng2)
-    log(f"serve: rerun identical (sigma, modes, answers, probe texts); "
-        f"rerun wall {wall2:.3f} s")
-    head = check_rerun_heads("serve", "stepped", tasks, res, res2,
+
+def _same_results(a, b) -> bool:
+    return (np.array_equal(a.sigma, b.sigma)
+            and np.array_equal(a.modes, b.modes)
+            and a.final_answers == b.final_answers
+            and a.member_answers == b.member_answers
+            and a.probe_texts == b.probe_texts)
+
+
+def profiled_rerun(torch, serve):
+    """A ``serve_twice`` rerun: ``serve()`` under the profiler, its
+    device busy time and the kernels that take it reported beside the
+    first run's wall."""
+    def rerun(wall):
+        out, events, t_read, counts = profiled(torch, serve)
+        report_profile(events, t_read, wall, out[2],
+                       swiglu_calls=counts["fused_swiglu"], launches=counts)
+        return out
+    return rerun
+
+
+def serve_twice(torch, label: str, run_id: str, serve, needed, tasks,
+                member_names, rerun=None):
+    """Serve a stream twice through ``serve()`` -> (engine, result, wall
+    seconds), the launch counts set to 0 just before each run and read
+    just after: every task answered (and retired, on the step loop),
+    the kernels ``needed`` launched and no other, no page or lane
+    leaked, and the rerun reproducing sigma, modes, answers, probe
+    texts, the launch counts and the chain head of the run's records
+    (``check_rerun_heads`` under ``run_id``). ``rerun(wall)``, where
+    given, serves the second run in place of ``serve`` (``wall``: the
+    first run's). Returns (launches, (engine, result, wall), the same of
+    the rerun, head)."""
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    eng, res, wall = serve()
+    launches = ops.launch_counts()
+    log(f"{label}: launches during the run {launches}")
+    check_path_launches(label, launches, needed)
+    retired = getattr(getattr(res, "step", None), "retired", len(tasks))
+    if (len(res.final_answers) != len(tasks) or retired != len(tasks)
+            or any(a is None for a in res.final_answers)):
+        raise AssertionError(f"{label}: a task did not retire")
+    check_no_leaks(eng)
+    if rerun is None:
+        ops.reset_launch_counts()
+        again = serve()
+    else:
+        again = rerun(wall)
+    if not _same_results(res, again[1]) or ops.launch_counts() != launches:
+        raise AssertionError(f"{label}: a rerun changed sigma, modes, "
+                             "answers, probe texts or launch counts")
+    check_no_leaks(again[0])
+    log(f"{label}: rerun identical (sigma, modes, answers, probe texts, "
+        f"launch counts); rerun wall {again[2]:.3f} s")
+    head = check_rerun_heads(label, run_id, tasks, res, again[1],
                              member_names)
-    return launches, dict(head=head, ticks=res.step.ticks, wall=wall)
+    return launches, (eng, res, wall), again, head
 
 
 def check_rerun_heads(label: str, run_id: str, tasks, res, res2,
@@ -2594,7 +2825,7 @@ def run_fault_phase(torch, smi: str, cfg, params, served: dict) -> dict:
 # ----------------------------------------------------------------------
 # phase 6: the wave engine over int8 and dense KV
 # ----------------------------------------------------------------------
-# the kernels each path must launch
+# the kernels each path must launch, and no other
 WAVE_PATHS = {
     "wave_paged": ("paged_decode_attention", "fused_swiglu",
                    "paged_decode_attention_quant"),
@@ -2603,23 +2834,6 @@ WAVE_PATHS = {
     "stepped_int8": ("paged_decode_attention", "chunked_prefill_attention",
                      "fused_swiglu", "paged_decode_attention_quant"),
 }
-# kernels a path must not launch: a paged wave that fell back to
-# contiguous caches (PoolExhausted) would launch the contiguous decodes
-WAVE_ABSENT = {
-    "wave_paged": ("chunked_prefill_attention", "decode_attention",
-                   "decode_attention_quant"),
-    "wave_dense": ("paged_decode_attention", "chunked_prefill_attention",
-                   "paged_decode_attention_quant"),
-    "stepped_int8": ("decode_attention", "decode_attention_quant"),
-}
-
-
-def _same_results(a, b) -> bool:
-    return (np.array_equal(a.sigma, b.sigma)
-            and np.array_equal(a.modes, b.modes)
-            and a.final_answers == b.final_answers
-            and a.member_answers == b.member_answers
-            and a.probe_texts == b.probe_texts)
 
 
 def run_wave_phase(torch, gpu_name: str, cfg, params) -> dict:
@@ -2627,12 +2841,12 @@ def run_wave_phase(torch, gpu_name: str, cfg, params) -> dict:
     twin keep int8 KV: the wave engine from pool pages (int8 pages for
     the probe and twin, dense pages for the members), the wave engine
     over contiguous caches, and the stepped engine. Each path runs
-    with the launch counts set to 0 just before it and read just
-    after, then once more, which must reproduce it: the two wave
-    paths under the profiler (phase 5 profiles the stepped engine
-    already). Returns each path's launch counts."""
+    twice (``serve_twice``), the two wave paths' reruns under the
+    profiler (phase 5 profiles the stepped engine already); a paged
+    wave that fell back to contiguous caches (PoolExhausted) would
+    launch the contiguous decodes, off its path. Returns each path's
+    launch counts."""
     from repro_torch.configs import ACARConfig
-    from repro_torch.kernels import ops
     from repro_torch.serving import (
         BatchedACAREngine, MicroBatchPolicy, ZooModel)
 
@@ -2661,54 +2875,28 @@ def run_wave_phase(torch, gpu_name: str, cfg, params) -> dict:
         if path == "stepped_int8":
             res = eng.run_stepped(tasks, policy, chunk_tokens=32,
                                   megastep=4)
-            tokens = res.step.decode_tokens
         else:
             res = eng.run_batch(tasks)
-            tokens = (len(tasks) * n * MAX_NEW
-                      + res.compaction.ensemble_decode_tokens)
         torch.cuda.synchronize()
-        return eng, res, time.perf_counter() - t, tokens
+        return eng, res, time.perf_counter() - t
 
     launches_by_path = {}
     for path, needed in WAVE_PATHS.items():
-        ops.reset_launch_counts()
-        eng, res, wall, tokens = serve(path)
-        launches = ops.launch_counts()
-        launches_by_path[path] = launches
-        log(f"wave[{path}]: launches during the run {launches}")
-        for name in needed:
-            if launches[name] <= 0:
-                raise AssertionError(f"wave[{path}]: {name} never "
-                                     "launched")
-        for name in WAVE_ABSENT[path]:
-            if launches[name] != 0:
-                raise AssertionError(f"wave[{path}]: {name} launched "
-                                     "off this path")
-        if (len(res.final_answers) != len(tasks)
-                or any(a is None for a in res.final_answers)):
-            raise AssertionError(f"wave[{path}]: a task went unanswered")
-        check_no_leaks(eng)
+        def run(path=path):
+            return serve(path)
+        launches_by_path[path], (_, res, wall), _, _ = serve_twice(
+            torch, f"wave[{path}]", path, run, needed, tasks,
+            [m.name for m in ensemble],
+            rerun=None if path == "stepped_int8" else profiled_rerun(
+                torch, run))
+        tokens = (res.step.decode_tokens if path == "stepped_int8" else
+                  len(tasks) * n * MAX_NEW
+                  + res.compaction.ensemble_decode_tokens)
         log(f"wave[{path}]: {len(tasks)} tasks on {gpu_name}: wall "
             f"{wall:.3f} s, modes {np.bincount(res.modes, minlength=3)}")
         log(f"wave[{path}]: tasks/s {len(tasks) / wall:.3f}")
         log(f"wave[{path}]: decode tokens/s {tokens / wall:.1f} "
             f"({tokens} decode tokens)")
-        if path == "stepped_int8":
-            eng2, res2, wall2, _ = serve(path)
-        else:
-            (eng2, res2, wall2, _), events, t_read, counts = profiled(
-                torch, lambda: serve(path))
-            report_profile(events, t_read, wall, wall2,
-                           swiglu_calls=counts["fused_swiglu"],
-                           launches=counts)
-        if not _same_results(res, res2):
-            raise AssertionError(f"wave[{path}]: a rerun changed sigma, "
-                                 "modes, answers or probe texts")
-        check_no_leaks(eng2)
-        log(f"wave[{path}]: rerun identical (sigma, modes, answers, "
-            f"probe texts); rerun wall {wall2:.3f} s")
-        check_rerun_heads(f"wave[{path}]", path, tasks, res, res2,
-                          [m.name for m in ensemble])
     return launches_by_path
 
 
@@ -2735,11 +2923,25 @@ def link_chain(record_hashes) -> str:
 # AdamW steps of arithmetic that teach phase 5's seed weights the
 # tokenizer's vocabulary before phase 8 (see arithmetic_fleet)
 AUDIT_TRAIN_STEPS = 20
+# phases 8 and 10 serve phase 5's models cut to their first 10 of 30
+# layers, at full width: their walls scale with depth (host-bound, one
+# task or one micro-batch at a time), and at full depth the two phases
+# took 258-310 s of the script's 800 s budget
+AUDIT_LAYERS = 10
+
+
+def first_layers(cfg, params, n: int):
+    """``cfg`` and copies of the param sets ``params`` cut to their first
+    ``n`` layers (the stacked ``"layers"`` subtree's leading axis)."""
+    from repro_torch.optim.adamw import tree_map
+    return cfg.replace(num_layers=n), [
+        dict(p, layers=tree_map(lambda x: x[:n].clone(), p["layers"]))
+        for p in params]
 
 
 def arithmetic_fleet(torch, cfg, params):
-    """Phase 5's three full-width param sets after ``AUDIT_TRAIN_STEPS``
-    AdamW steps of ``make_train_step`` on arithmetic batches (64 x 24 tokens, lr
+    """Phase 5's three full-width param sets (cut to ``AUDIT_LAYERS``
+    by the caller) after ``AUDIT_TRAIN_STEPS`` AdamW steps of ``make_train_step`` on arithmetic batches (64 x 24 tokens, lr
     3e-3 after one warmup step, a data seed per model); the inputs are
     left as they were. On the seed weights alone a sample lands in the
     tokenizer's 19 ids with probability about 4e-4 a token, so every
@@ -2768,7 +2970,8 @@ def arithmetic_fleet(torch, cfg, params):
         losses.append(round(float(m["loss"]), 4))
         del st
     torch.cuda.synchronize()
-    log(f"audit: phase 5's 3 models after {steps} arithmetic steps each "
+    log(f"audit: phase 5's 3 models, first {cfg.num_layers} layers, after "
+        f"{steps} arithmetic steps each "
         f"in {time.perf_counter() - t:.2f} s: losses {losses}")
     return trained
 
@@ -3047,17 +3250,14 @@ def run_queued_phase(torch, smi: str, cfg, params, audited: dict) -> dict:
         # (a) compacted (paged and over contiguous caches) and masked
         heads, results = {}, {}
         for path, (knobs, needed) in QUEUED_PATHS.items():
-            eng, res, wall, launches = queued(tasks, **knobs)
-            log(f"queued[{path}]: launches during the run {launches}")
-            check_path_launches(f"queued[{path}]", launches, needed)
+            def run(knobs=knobs):
+                return queued(tasks, **knobs)[:3]
+            _, (_, res, wall), _, heads[path] = serve_twice(
+                torch, f"queued[{path}]", "queued", run, needed, tasks,
+                names)
             if res.batch_sizes != [8, 8]:
                 raise AssertionError(f"queued[{path}]: micro-batches "
                                      f"{res.batch_sizes}")
-            if (len(res.final_answers) != len(tasks)
-                    or any(a is None for a in res.final_answers)):
-                raise AssertionError(f"queued[{path}]: a task went "
-                                     "unanswered")
-            check_no_leaks(eng)
             cs = res.compaction
             tokens = len(tasks) * n * MAX_NEW + cs.ensemble_decode_tokens
             log(f"queued[{path}]: {len(tasks)} tasks on {smi}: wall "
@@ -3067,15 +3267,6 @@ def run_queued_phase(torch, smi: str, cfg, params, audited: dict) -> dict:
                 f"{cs.ensemble_decode_token_reduction:.3f}x, probe prefill "
                 f"reduction {cs.probe_prefill_reduction:.3f}x; modes "
                 f"{np.bincount(res.modes, minlength=3)}")
-            eng2, res2, wall2, _ = queued(tasks, **knobs)
-            if not _same_results(res, res2):
-                raise AssertionError(f"queued[{path}]: a rerun changed "
-                                     "sigma, modes, answers or probe texts")
-            check_no_leaks(eng2)
-            log(f"queued[{path}]: rerun identical; rerun wall "
-                f"{wall2:.3f} s")
-            heads[path] = check_rerun_heads(f"queued[{path}]", "queued",
-                                            tasks, res, res2, names)
             results[path] = res
         paged, masked = results["queued_paged"], results["queued_masked"]
         if heads["queued_masked"] != heads["queued_paged"]:
@@ -3365,6 +3556,185 @@ def run_train_entry_phase(torch) -> dict:
     return launches
 
 
+# ----------------------------------------------------------------------
+# phase 11: the serve CLI's fleets at published widths
+# ----------------------------------------------------------------------
+# each path's kernels, and no other. The default fleet's wave decodes
+# smollm-135m, llama3-8b and deepseek-7b from pool pages and
+# recurrentgemma-2b over contiguous caches whose attention layers are
+# all rings (window 2048), which reach no kernel; its stepped run
+# prefills the dense members in chunks (kernel 2 at d 64 and d 128) and
+# serves recurrentgemma-2b on the contiguous-cache member fallback. The
+# heterogeneous fleet's Mamba probe runs on lanes and its
+# sliding-window member on ring pages, both plain; its int8 member
+# decodes through the int8 kernels, its llama3-8b through the dense
+# ones.
+FLEET_PATHS = {
+    "fleet_wave": ("paged_decode_attention", "fused_swiglu"),
+    "fleet_stepped": ("paged_decode_attention", "chunked_prefill_attention",
+                      "fused_swiglu"),
+    "hetero_stepped": ("paged_decode_attention",
+                       "chunked_prefill_attention", "fused_swiglu",
+                       "paged_decode_attention_quant"),
+    "hetero_dense": ("fused_swiglu", "decode_attention",
+                     "decode_attention_quant"),
+}
+FLEET_FREED_BYTES = 1 << 30
+
+
+def fleet_models(torch, specs):
+    """``ZooModel``s of the member specs (``launch.serve.parse_member``)
+    at their published widths, bf16, seed-initialised on the card, spec
+    i from seed i."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import parse_member
+    from repro_torch.models.params import count_params, init_params
+    from repro_torch.serving import ZooModel
+
+    zoo = []
+    t0 = time.perf_counter()
+    for i, spec in enumerate(specs):
+        arch, variant = parse_member(spec)
+        cfg = variant(get_config(arch))
+        zoo.append(ZooModel(spec, cfg, init_params(cfg, i, device="cuda")))
+        log(f"fleets: {spec} {cfg.family} {cfg.num_layers} layers d_model "
+            f"{cfg.d_model} heads {cfg.num_heads}/{cfg.num_kv_heads} "
+            f"head_dim {cfg.resolved_head_dim} d_ff {cfg.d_ff} window "
+            f"{cfg.window} vocab {cfg.vocab_size} {cfg.dtype}: "
+            f"{count_params(zoo[-1].params) / 1e9:.3f} B params")
+    torch.cuda.synchronize()
+    log(f"fleets: {len(zoo)} models initialised in "
+        f"{time.perf_counter() - t0:.2f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    return zoo[0], zoo[1:]
+
+
+def serve_fleet(torch, label, probe, ensemble, tasks, route, path, smi):
+    """One path over a fleet, twice (``serve_twice``): the wave engine
+    (``fleet_wave``), the stepped engine (``*_stepped``) or the
+    ``paged=False`` queued baseline (``hetero_dense``). Returns
+    (launches, result)."""
+    from repro_torch.configs import ACARConfig
+    from repro_torch.serving import BatchedACAREngine, MicroBatchPolicy
+
+    policy = MicroBatchPolicy(max_batch_size=8, max_batch_tokens=1 << 20)
+
+    def run():
+        eng = BatchedACAREngine(
+            ACARConfig(probe_temperature=0.9, seed=0), probe, ensemble,
+            max_new_tokens=MAX_NEW, route_fn=route, device="cuda",
+            paged=False if path == "hetero_dense" else None)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if path.endswith("stepped"):
+            res = eng.run_stepped(tasks, policy, chunk_tokens=32,
+                                  megastep=4)
+        elif path == "hetero_dense":
+            res = eng.run_queued(tasks, policy)
+        else:
+            res = eng.run_batch(tasks)
+        torch.cuda.synchronize()
+        return eng, res, time.perf_counter() - t
+
+    launches, (eng, res, wall), _, _ = serve_twice(
+        torch, f"fleets[{label} {path}]", path, run, FLEET_PATHS[path],
+        tasks, [m.name for m in ensemble])
+    hw = {m: (st.pages_highwater, st.pool_pages)
+          for m, st in eng.kv_stats().items()}
+    log(f"fleets[{label} {path}]: {len(tasks)} tasks on {smi}: wall "
+        f"{wall:.3f} s, {len(tasks) / wall:.3f} tasks/s, modes "
+        f"{np.bincount(res.modes, minlength=3)}; pages or lanes "
+        f"high-water / pool {hw}")
+    return launches, res
+
+
+def free_fleet(torch, label) -> None:
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    log(f"fleets: {label} freed, {held / 2**30:.3f} GiB still allocated, "
+        f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if held > FLEET_FREED_BYTES:
+        raise AssertionError(f"fleets: {held} bytes still allocated after "
+                             f"the {label} fleet was freed")
+    torch.cuda.reset_peak_memory_stats()
+
+
+def run_fleet_phase(torch, smi: str) -> dict:
+    """(a) the serve CLI's default fleet (``DEFAULT_PROBE`` and
+    ``DEFAULT_ENSEMBLE``) through the wave engine and the stepped engine;
+    (b) the heterogeneous fleet (``HETERO_PROBE``, ``HETERO_ENSEMBLE``)
+    through the stepped engine and the ``paged=False`` queued baseline,
+    with whether their heads agree (a finding); both at published
+    widths over phase 5's stream and forced routes; (c) the CLI
+    (``main``) on the card for both fleets. Returns each path's launch
+    counts."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_mod
+
+    tasks = long_prompt_tasks(16, prompt_chars=PROMPT)
+    modes = forced_modes(len(tasks))
+
+    def route(sig, indices):
+        return modes[np.asarray(indices, np.int64)]
+
+    by_path = {}
+    t0 = time.perf_counter()
+    probe, ensemble = fleet_models(
+        torch, (serve_mod.DEFAULT_PROBE,) + serve_mod.DEFAULT_ENSEMBLE)
+    for path in ("fleet_wave", "fleet_stepped"):
+        by_path[path], _ = serve_fleet(torch, "default", probe, ensemble,
+                                       tasks, route, path, smi)
+    del probe, ensemble
+    free_fleet(torch, "default")
+    log(f"fleets: (a) default fleet {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    probe, ensemble = fleet_models(
+        torch, (serve_mod.HETERO_PROBE,) + serve_mod.HETERO_ENSEMBLE)
+    by_path["hetero_stepped"], res_s = serve_fleet(
+        torch, "hetero", probe, ensemble, tasks, route, "hetero_stepped",
+        smi)
+    by_path["hetero_dense"], res_d = serve_fleet(
+        torch, "hetero", probe, ensemble, tasks, route, "hetero_dense", smi)
+    # both runs' records under one run id, so that the heads compare
+    import tempfile
+    names = [m.name for m in ensemble]
+    with tempfile.TemporaryDirectory(prefix="acar-chain-") as d:
+        head_s, head_d = (chain_head("hetero", tasks, r, names,
+                                     Path(d) / f"{i}.jsonl")
+                          for i, r in enumerate((res_s, res_d)))
+    if head_s == head_d:
+        log("fleets: finding: the heterogeneous fleet's stepped head "
+            f"equals its paged=False queued head ({head_s})")
+    else:
+        log("fleets: finding: the heterogeneous fleet's stepped head "
+            f"{head_s} differs from its paged=False queued head {head_d};"
+            f" first mismatching task {first_mismatch(tasks, res_s, res_d)}")
+    del probe, ensemble
+    free_fleet(torch, "heterogeneous")
+    log(f"fleets: (b) heterogeneous fleet {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    for path, argv in (
+            ("cli_default", ["--tasks", "8", "--train-steps", "2"]),
+            ("cli_hetero", ["--hetero-fleet", "--step-loop", "--tasks",
+                            "8", "--train-steps", "2"])):
+        ops.reset_launch_counts()
+        report = serve_mod.main(argv)
+        by_path[path] = ops.launch_counts()
+        if sum(report["mode_distribution"].values()) != 8:
+            raise AssertionError(f"fleets[{path}]: the report covers "
+                                 f"{report['mode_distribution']}")
+        log(f"fleets[{path}]: main({' '.join(argv)}) returned accuracy "
+            f"{report['accuracy']:.3f}, modes "
+            f"{report['mode_distribution']}; launches {by_path[path]}")
+    free_fleet(torch, "CLI")
+    log(f"fleets: (c) CLI {time.perf_counter() - t0:.1f} s")
+    return by_path
+
+
 def report_ptxas(build) -> None:
     """ptxas's registers, static shared memory and spills for each
     kernel of the two tensor-core sources, the four split-KV decodes and
@@ -3438,18 +3808,21 @@ def main() -> int:
     phase_done("faults")
     by_path.update(run_wave_phase(torch, gpu_name, cfg, params))
     phase_done("wave")
-    trained = arithmetic_fleet(torch, cfg, params)
+    cut_cfg, cut = first_layers(cfg, params, AUDIT_LAYERS)
+    trained = arithmetic_fleet(torch, cut_cfg, cut)
     by_path["audit"], audited = run_audit_phase(
-        torch, smi.splitlines()[0], cfg, trained)
+        torch, smi.splitlines()[0], cut_cfg, trained)
     phase_done("audit")
-    by_path.update(run_queued_phase(torch, smi.splitlines()[0], cfg,
+    by_path.update(run_queued_phase(torch, smi.splitlines()[0], cut_cfg,
                                     trained, audited))
     phase_done("queued")
-    del params, trained
+    del params, cut, trained
     torch.cuda.empty_cache()
     by_path.update(run_train_phase(torch, gpu_name))
     by_path["train_entry"] = run_train_entry_phase(torch)
     phase_done("train")
+    by_path.update(run_fleet_phase(torch, smi.splitlines()[0]))
+    phase_done("fleets")
 
     sources = {
         "paged_decode_attention": "src/repro/kernels/"
@@ -3519,6 +3892,10 @@ def main() -> int:
             entry["long_shape"] = r["long_shape"]
         if "audit_shape" in r:
             entry["audit_shape"] = r["audit_shape"]
+        if "d128" in r:
+            entry["head_dim_128"] = r["d128"]
+        if "fleet_shapes" in r:
+            entry["fleet_shapes"] = r["fleet_shapes"]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels,
                       "launch_floor_ms": results[("launch_floor", "")]}))

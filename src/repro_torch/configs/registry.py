@@ -1,8 +1,8 @@
 """Architecture registry: ``--arch <id>`` -> ModelConfig.
 
-Only the architectures the port runs are listed (the dense family
-serves and trains; the ssm and hybrid families train); the rest of the
-zoo joins as its model families are ported.
+Only the architectures the port runs are listed: the dense, ssm and
+hybrid families, which serve and train. The MoE, MLA, audio and vision
+configs join as their model families are ported.
 """
 from __future__ import annotations
 
@@ -12,9 +12,12 @@ from typing import Dict, Tuple
 from repro_torch.configs.base import ModelConfig
 
 _ARCH_MODULES = {
-    "smollm-135m": "repro_torch.configs.smollm_135m",
+    "granite-34b": "repro_torch.configs.granite_34b",
     "falcon-mamba-7b": "repro_torch.configs.falcon_mamba_7b",
+    "llama3-8b": "repro_torch.configs.llama3_8b",
     "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
+    "smollm-135m": "repro_torch.configs.smollm_135m",
+    "deepseek-7b": "repro_torch.configs.deepseek_7b",
 }
 
 ARCH_IDS: Tuple[str, ...] = tuple(_ARCH_MODULES)

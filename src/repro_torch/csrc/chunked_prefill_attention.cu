@@ -42,8 +42,10 @@
 // share its warp, or on how far the other rows reach. The tile size is a
 // constant; no split-KV, no atomics, one fixed order per row. It finishes
 // with acc / max(l, 1e-30) as the Pallas kernel does. Built for head_dim
-// 64, the served models' (kD is a template parameter; the wrapper raises
-// for another).
+// 64 (smollm-135m) and 128 (llama3-8b, deepseek-7b) from one template: the
+// d-128 instance keeps the tiling, 16-row warp tiles and 32 keys a stage,
+// with twice the registers for q and the f32 accumulator and 34,816 bytes
+// of staged K/V (the wrapper raises for another head_dim).
 //
 // float32 (the reduced f32 models only; TF32 is off, so f32 operands never
 // go through the tensor cores): the first version's CUDA-core kernel,
@@ -439,10 +441,18 @@ extern "C" int acar_chunked_prefill_attention(
   if (D > kMaxD || H % KV != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == acar::kBF16) {
-    if (D != 64) return (int)cudaErrorInvalidValue;
-    return (int)launch_mma<64>(q, k_pages, v_pages, block_table, q_positions,
-                               out, B, C, H, KV, page_size, NB, prompt_len,
-                               st);
+    // head_dim 128 keeps the d-64 tiling (16-row warp tiles, 32 keys a
+    // stage): its f32 accumulator doubles to 64 registers a thread and
+    // its two staged K/V tiles take 34,816 bytes of shared memory
+    if (D == 64)
+      return (int)launch_mma<64>(q, k_pages, v_pages, block_table,
+                                 q_positions, out, B, C, H, KV, page_size,
+                                 NB, prompt_len, st);
+    if (D == 128)
+      return (int)launch_mma<128>(q, k_pages, v_pages, block_table,
+                                  q_positions, out, B, C, H, KV, page_size,
+                                  NB, prompt_len, st);
+    return (int)cudaErrorInvalidValue;
   }
   return (int)launch<float>(q, k_pages, v_pages, block_table, q_positions,
                             out, B, C, H, KV, D, page_size, NB, prompt_len,

@@ -11,8 +11,8 @@ the reference oracle
 ``kernels/ref.py::chunked_prefill_attention_ref``.
 ``chunked_prefill_attention.launches`` counts kernel launches. In bf16
 the kernel runs on the tensor cores (mma.sync: q.k and p.v in bf16 with
-f32 sums, p rounded to bf16 for the second product); in f32 on the CUDA
-cores.
+f32 sums, p rounded to bf16 for the second product) at head_dim 64 or
+128; in f32 on the CUDA cores at head_dim <= 128.
 """
 from __future__ import annotations
 
@@ -93,9 +93,9 @@ def chunked_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
             f"{tuple(q_positions.shape)}, prompt_len {prompt_len}")
     if d > 128:
         raise ValueError(f"{name}: the kernel takes head_dim <= 128")
-    if q.dtype == torch.bfloat16 and d != 64:
-        raise ValueError(f"{name}: the bf16 kernel takes head_dim 64, got "
-                         f"{d}")
+    if q.dtype == torch.bfloat16 and d not in (64, 128):
+        raise ValueError(f"{name}: the bf16 kernel takes head_dim 64 or "
+                         f"128, got {d}")
     dev = build.check_cuda(name, q=q, k_pages=k_pages, v_pages=v_pages,
                            block_table=block_table, q_positions=q_positions)
     out = torch.empty_like(q)

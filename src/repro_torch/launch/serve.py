@@ -9,21 +9,29 @@ the routing distribution, ensemble calls saved and the compaction
 savings. The fleet's models are given (``ZooModel``s with params on
 ``device``), or built by ``build_zoo``: restored from npz checkpoints
 (written by either package's trainer) or trained on arithmetic.
-``main`` raises ``NotImplementedError``: the reference's default
-ensemble holds recurrentgemma-2b, whose serving path is not ported
-yet.
 
 Fleet members are registry arch names, optionally with a page-layout
 variant suffix (``parse_member``): ``arch:quant`` serves from
 int8-quantised KV (pages, or a contiguous int8 cache in the wave with
-``paged=False``), ``arch:swaN`` an N-token sliding window (not ported
-yet).
+``paged=False``), ``arch:swaN`` an N-token sliding window (ring pages
+in the stepped engine, a contiguous ring cache in the wave). The CLI
+(``main``) trains the fleet's reduced models on arithmetic and serves
+an arithmetic suite through it, on the card unless told otherwise; its
+default ensemble is llama3-8b, deepseek-7b and recurrentgemma-2b
+behind a smollm-135m probe, and ``--hetero-fleet`` the paper's
+heterogeneous mix (a Mamba probe on recurrent-state lanes, an int8-KV
+member, a sliding-window member on ring pages and a full-attention
+llama3-8b). The sharded step loop (``--shards``) is not ported yet.
+
+    python -m repro_torch.launch.serve --tasks 32 --train-steps 300
+    python -m repro_torch.launch.serve --hetero-fleet --step-loop
 
     from repro_torch.launch.serve import serve
     report = serve(tasks, probe, ensemble, ACARConfig(), device="cuda")
 """
 from __future__ import annotations
 
+import argparse
 import collections
 from typing import Dict, List, Optional, Sequence
 
@@ -32,11 +40,20 @@ from repro_torch.configs.acar import ACARConfig
 from repro_torch.configs.registry import ARCH_IDS
 from repro_torch.core.extract import extract
 from repro_torch.core.sigma import MODE_NAMES
-from repro_torch.data.tasks import Task
+from repro_torch.data.tasks import Task, arithmetic_suite
 from repro_torch.launch.train import reduced_for_data, train
 from repro_torch.models import params as params_lib
 from repro_torch.models.transformer import resolve_layout
 from repro_torch.serving import BatchedACAREngine, MicroBatchPolicy, ZooModel
+
+DEFAULT_PROBE = "smollm-135m"
+DEFAULT_ENSEMBLE = ("llama3-8b", "deepseek-7b", "recurrentgemma-2b")
+# the paper's headline heterogeneous mix: a cheap recurrent probe, a
+# quant-KV member and a sliding-window member beside a full-attention
+# arena member — all four page layouts in one stepped fleet
+HETERO_PROBE = "falcon-mamba-7b"
+HETERO_ENSEMBLE = ("smollm-135m:quant", "smollm-135m:swa16",
+                   "llama3-8b")
 
 
 def parse_member(spec: str):
@@ -87,10 +104,73 @@ def build_zoo(archs: Sequence[str], train_steps: int, seed: int = 0,
     return zoo
 
 
-def main(argv=None):
-    raise NotImplementedError(
-        "repro_torch.launch.serve.main: the default ensemble holds "
-        "recurrentgemma-2b, whose serving path is not ported yet")
+def main(argv=None, *, device: str = "cuda") -> dict:
+    """The serving CLI: train (reduced, on arithmetic) the probe and
+    ensemble, serve an arithmetic suite through them on ``device`` and
+    print the report, which it returns. The flags are the reference
+    CLI's."""
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--tasks", type=int, default=32)
+    ap.add_argument("--train-steps", type=int, default=300)
+    ap.add_argument("--probe", default=DEFAULT_PROBE,
+                    help="probe member spec: a registry arch name, "
+                         "optionally with a page-layout variant "
+                         "suffix (arch, arch:quant, arch:swaN)")
+    ap.add_argument("--ensemble", nargs="+",
+                    default=list(DEFAULT_ENSEMBLE),
+                    help="ensemble member specs (same syntax as "
+                         "--probe)")
+    ap.add_argument("--hetero-fleet", action="store_true",
+                    help="serve the paper's heterogeneous mix "
+                         f"(probe {HETERO_PROBE}, ensemble "
+                         f"{', '.join(HETERO_ENSEMBLE)}) — overrides "
+                         "--probe/--ensemble")
+    ap.add_argument("--probe-temperature", type=float, default=0.7)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--scheduler", action="store_true",
+                    help="serve via the admission queue as "
+                         "micro-batches (continuous batching)")
+    ap.add_argument("--step-loop", action="store_true",
+                    help="serve via the step-level loop (streaming "
+                         "admission, chunked prefill, mixed-phase "
+                         "decode steps; needs a paged-capable probe)")
+    ap.add_argument("--shards", type=int, default=None,
+                    help="run the step loop on a data-sharded serving "
+                         "mesh with this many shards (not ported yet)")
+    ap.add_argument("--megastep", type=int, default=1,
+                    help="fuse up to K decode ticks per launch in the "
+                         "step loop (implies --step-loop; the same "
+                         "outputs at any K)")
+    ap.add_argument("--batch-size", type=int, default=8,
+                    help="micro-batch size budget for --scheduler")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="arm the deterministic span tracer and flush "
+                         "the hash-chained span JSONL here")
+    ap.add_argument("--lineage", default=None, metavar="TASK_ID",
+                    help="after serving, walk the PROV lineage of this "
+                         "task's final answer and verify every span "
+                         "hash on the walk (implies tracing)")
+    args = ap.parse_args(argv)
+    if args.shards is not None:
+        raise NotImplementedError(
+            "the data-sharded step loop (--shards) is not ported yet")
+
+    if args.hetero_fleet:
+        args.probe = HETERO_PROBE
+        args.ensemble = list(HETERO_ENSEMBLE)
+    zoo = build_zoo([args.probe] + list(args.ensemble),
+                    args.train_steps, seed=args.seed, device=device)
+    probe, ensemble = zoo[0], zoo[1:]
+    acfg = ACARConfig(probe_model=args.probe,
+                      ensemble_models=tuple(args.ensemble),
+                      probe_temperature=args.probe_temperature,
+                      seed=args.seed)
+    tasks = arithmetic_suite(args.tasks, seed=args.seed + 99)
+    return serve(tasks, probe, ensemble, acfg,
+                 scheduler=args.scheduler, step_loop=args.step_loop,
+                 batch_size=args.batch_size, megastep=args.megastep,
+                 trace_path=args.trace, lineage_task=args.lineage,
+                 device=device)
 
 
 def serve(tasks: Sequence[Task], probe: ZooModel,
@@ -216,3 +296,7 @@ def serve(tasks: Sequence[Task], probe: ZooModel,
                 for f in lin["hash_failures"]:
                     print(f"  FAIL     {f}")
     return out
+
+
+if __name__ == "__main__":
+    main()

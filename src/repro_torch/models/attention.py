@@ -1,13 +1,16 @@
 """GQA attention: full-sequence attention for training, one-shot
 prefill over the whole prompt, single-token decode against a contiguous
-cache (dense or int8), and the paged variants the step-level loop runs
-(chunked prefill and decode over dense or int8 pages).
+cache (dense or int8, linear or ring), and the paged variants the
+step-level loop runs (chunked prefill and decode over dense or int8
+pages, decode over ring pages).
 
-The port of the dense GQA functions of ``repro/models/attention.py``.
-Decode and chunked-prefill attention go through ``kernels.ops``: the
-hand-written Hopper kernels on the card, their plain PyTorch versions
-on the CPU. One-shot prefill attention is plain PyTorch, as the
-reference leaves it to XLA outside any kernel.
+The port of the GQA functions of ``repro/models/attention.py``.
+Linear-cache decode and chunked-prefill attention go through
+``kernels.ops``: the hand-written Hopper kernels on the card, their
+plain PyTorch versions on the CPU. One-shot prefill attention and ring
+(sliding-window) decode are plain PyTorch on every device, as the
+reference leaves them to XLA outside any kernel (its ring decode takes
+the plain path, reference ``attention.py:284``).
 
 Caches and pages are updated in place: where the reference returns new
 arrays from ``dynamic_update_slice`` or ``.at[].set``, the port writes
@@ -179,23 +182,89 @@ def _decode_qkv(cfg: ModelConfig, p: dict, x_t: torch.Tensor,
     return q, k, v
 
 
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, k_positions: torch.Tensor,
+                     pos: torch.Tensor) -> torch.Tensor:
+    """Single-token attention against a cache whose slots hold the
+    absolute positions ``k_positions``: the reference's plain
+    ``decode_attention``, the path of its ring (sliding-window) decode,
+    which reaches no Pallas kernel (reference ``attention.py:284``).
+
+    q: (B,H,Dk); k_cache: (B,S,KV,Dk); v_cache: (B,S,KV,Dv);
+    k_positions: (S,) or (B,S) int — the absolute position each slot
+    holds (negative = empty); pos: scalar or (B,) int current position.
+    A slot attends when 0 <= its position <= pos. As in the reference,
+    the scaled query is rounded to the cache dtype and the
+    probabilities to the value dtype before each f32 contraction.
+    Returns (B,H,Dv)."""
+    b, h, dk = q.shape
+    kv = k_cache.shape[2]
+    g = h // kv
+    qr = (q.reshape(b, kv, g, dk).float() * _inv_sqrt(dk)).to(
+        k_cache.dtype)
+    scores = torch.einsum("bkgd,bskd->bkgs", qr.float(), k_cache.float())
+    kp = k_positions if k_positions.dim() == 2 else k_positions[None]
+    p_col = pos[:, None] if pos.dim() else pos
+    valid = (kp >= 0) & (kp <= p_col)                     # (1|B, S)
+    scores = scores.masked_fill(~valid[:, None, None], _NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", probs.to(v_cache.dtype).float(),
+                       v_cache.float())
+    return out.reshape(b, h, v_cache.shape[-1]).to(q.dtype)
+
+
+def decode_attention_quant(q: torch.Tensor, k_codes: torch.Tensor,
+                           k_scale: torch.Tensor, v_codes: torch.Tensor,
+                           v_scale: torch.Tensor, k_positions: torch.Tensor,
+                           pos: torch.Tensor) -> torch.Tensor:
+    """``decode_attention`` against an int8 cache, the reference's plain
+    ``decode_attention_quant`` (its ring path for an int8 cache): the
+    scales fold into the scores and the probabilities.
+
+    q: (B,H,Dk); k_codes/v_codes: (B,S,KV,D) int8; k_scale/v_scale:
+    (B,S,KV) f32; k_positions: (S,) int; pos: scalar or (B,) int."""
+    b, h, dk = q.shape
+    kv = k_codes.shape[2]
+    g = h // kv
+    qr = q.reshape(b, kv, g, dk).float() * _inv_sqrt(dk)
+    scores = torch.einsum("bkgd,bskd->bkgs", qr, k_codes.float())
+    scores = scores * k_scale.permute(0, 2, 1)[:, :, None, :]
+    p_col = pos[:, None] if pos.dim() else pos
+    valid = (k_positions[None] >= 0) & (k_positions[None] <= p_col)
+    scores = scores.masked_fill(~valid[:, None, None], _NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    pv = probs * v_scale.permute(0, 2, 1)[:, :, None, :]
+    out = torch.einsum("bkgs,bskd->bkgd", pv, v_codes.float())
+    return out.reshape(b, h, v_codes.shape[-1]).to(q.dtype)
+
+
+def ring_positions(pos_rows: torch.Tensor, cache_len: int) -> torch.Tensor:
+    """The absolute position each slot of a ring of ``cache_len`` slots
+    holds at (B,) positions ``pos_rows`` (slot = position mod
+    cache_len): (B, cache_len)."""
+    slots = torch.arange(cache_len, device=pos_rows.device)[None]
+    p = pos_rows.long()[:, None]
+    return p - torch.remainder(p - slots, cache_len)
+
+
 def gqa_decode(cfg: ModelConfig, p: dict, x_t: torch.Tensor, cache: dict,
                pos: int, *, ring: bool = False
                ) -> Tuple[torch.Tensor, dict]:
-    """Single-token GQA decode over a linear contiguous cache.
+    """Single-token GQA decode over a contiguous cache.
 
     x_t: (B, d); cache: one layer's {k, v} (B, S, KV, Dh) in the model
     dtype, or the int8 cache {k, v} int8 codes plus {k_scale, v_scale}
     (B, S, KV) f32, updated in place; pos: the wave's current position
-    (a Python int, one for every row). The token's K/V (quantised by
-    ``quantize_kv`` for the int8 cache) land at slot ``pos``; attention
-    reads the ``pos + 1`` valid slots through the dense-cache kernel or
-    the int8 one. Ring caches (sliding-window layers) are not ported.
-    Returns (y (B, d), cache).
+    (a Python int, one for every row). A linear cache takes the token's
+    K/V (quantised by ``quantize_kv`` for the int8 cache) at slot
+    ``pos`` and attends the ``pos + 1`` valid slots through the
+    dense-cache kernel or the int8 one. With ``ring=True`` (a
+    sliding-window layer, cache length min(seq_len, window)) the slot
+    is ``pos mod S`` and attention masks by the absolute position each
+    slot holds, through the plain ``decode_attention`` (or
+    ``decode_attention_quant``), as the reference's ring path runs with
+    no kernel. Returns (y (B, d), cache).
     """
-    if ring:
-        raise NotImplementedError(
-            "ring-buffer (sliding-window) decode is not ported yet")
     b = x_t.shape[0]
     hd = cfg.resolved_head_dim
     pos = int(pos)
@@ -203,20 +272,34 @@ def gqa_decode(cfg: ModelConfig, p: dict, x_t: torch.Tensor, cache: dict,
                            device=x_t.device)
     q, k, v = _decode_qkv(cfg, p, x_t, positions)
     q = q.contiguous()
+    s_cache = cache["k"].shape[1]
+    slot = pos % s_cache if ring else pos
+    if ring:
+        k_positions = ring_positions(positions[0], s_cache)[0]
+        pos_t = positions[0, 0]
     if "k_scale" in cache:                 # int8-quantised cache
         kq, ks = quantize_kv(k)
         vq, vs = quantize_kv(v)
-        cache["k"][:, pos] = kq
-        cache["v"][:, pos] = vq
-        cache["k_scale"][:, pos] = ks
-        cache["v_scale"][:, pos] = vs
-        out = ops.decode_attention_quant(
-            q, cache["k"], cache["k_scale"], cache["v"], cache["v_scale"],
-            pos + 1)
+        cache["k"][:, slot] = kq
+        cache["v"][:, slot] = vq
+        cache["k_scale"][:, slot] = ks
+        cache["v_scale"][:, slot] = vs
+        if ring:
+            out = decode_attention_quant(
+                q, cache["k"], cache["k_scale"], cache["v"],
+                cache["v_scale"], k_positions, pos_t)
+        else:
+            out = ops.decode_attention_quant(
+                q, cache["k"], cache["k_scale"], cache["v"],
+                cache["v_scale"], pos + 1)
     else:
-        cache["k"][:, pos] = k.to(cache["k"].dtype)
-        cache["v"][:, pos] = v.to(cache["v"].dtype)
-        out = ops.decode_attention(q, cache["k"], cache["v"], pos + 1)
+        cache["k"][:, slot] = k.to(cache["k"].dtype)
+        cache["v"][:, slot] = v.to(cache["v"].dtype)
+        if ring:
+            out = decode_attention(q, cache["k"], cache["v"], k_positions,
+                                   pos_t)
+        else:
+            out = ops.decode_attention(q, cache["k"], cache["v"], pos + 1)
     y = torch.matmul(out.reshape(b, cfg.num_heads * hd), p["wo"])
     return y, cache
 
@@ -293,6 +376,45 @@ def gqa_decode_quant_paged(cfg: ModelConfig, p: dict, x_t: torch.Tensor,
     out = ops.paged_decode_attention_quant(
         q.contiguous(), pages["k"], pages["k_scale"], pages["v"],
         pages["v_scale"], block_table, lengths)
+    y = torch.matmul(out.reshape(b, cfg.num_heads * hd), p["wo"])
+    return y, pages
+
+
+def gqa_decode_ring_paged(cfg: ModelConfig, p: dict, x_t: torch.Tensor,
+                          pages: dict, block_table: torch.Tensor,
+                          pos: torch.Tensor, *, cache_len: int
+                          ) -> Tuple[torch.Tensor, dict]:
+    """Single-token sliding-window GQA decode against ring pages.
+
+    x_t: (B, d); pages: one layer's {k, v} (P, page_size, KV, Dh),
+    updated in place; block_table: (B, NB) page ids covering exactly
+    ceil(cache_len / page_size) pages; pos: scalar or (B,) positions;
+    cache_len: the ring length, min(prompt + max_new, window). The
+    pages hold the ring the contiguous path keeps (slot = position mod
+    cache_len): the token's K/V land at each row's slot, the row's pages
+    are gathered to a (B, cache_len) view and attended through the plain
+    ``decode_attention`` by the absolute position each slot holds, as
+    the reference's ring path runs with no kernel. Ring pages are
+    private to their lane (forked whole, never shared), so the write in
+    place is safe. Returns (y (B, d), pages)."""
+    b = x_t.shape[0]
+    hd = cfg.resolved_head_dim
+    kv = cfg.num_kv_heads
+    pos_rows = pos.expand(b) if pos.dim() == 0 else pos
+    q, k, v = _decode_qkv(cfg, p, x_t, pos_rows[:, None])
+    ps = pages["k"].shape[1]
+    slot = torch.remainder(pos_rows.long(), cache_len)
+    page_ids = torch.gather(block_table.long(), 1,
+                            (slot // ps)[:, None])[:, 0]
+    offset = slot % ps
+    pages["k"][page_ids, offset] = k.to(pages["k"].dtype)
+    pages["v"][page_ids, offset] = v.to(pages["v"].dtype)
+
+    table = block_table.long()
+    k_cache = pages["k"][table].reshape(b, -1, kv, hd)[:, :cache_len]
+    v_cache = pages["v"][table].reshape(b, -1, kv, hd)[:, :cache_len]
+    out = decode_attention(q, k_cache, v_cache,
+                           ring_positions(pos_rows, cache_len), pos_rows)
     y = torch.matmul(out.reshape(b, cfg.num_heads * hd), p["wo"])
     return y, pages
 

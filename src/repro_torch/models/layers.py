@@ -7,7 +7,7 @@ name.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -91,6 +91,61 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
     if bias is not None:
         out = out + bias.float()
     return out.to(x.dtype)
+
+
+def causal_conv1d_step(x_t: torch.Tensor, conv_state: torch.Tensor,
+                       w: torch.Tensor,
+                       bias: Optional[torch.Tensor] = None):
+    """Single decode step. x_t: (B, C); conv_state: (B, width-1, C)
+    holding the previous taps. Returns (out (B, C) in x_t's dtype, new
+    state (B, width-1, C)). The taps sum in f32 in tap order, an
+    elementwise loop, so a row's bits never depend on the batch."""
+    window = torch.cat([conv_state, x_t[:, None, :]], dim=1)
+    wf = w.float()
+    out = window[:, 0].float() * wf[0]
+    for k in range(1, w.shape[0]):
+        out = out + window[:, k].float() * wf[k]
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(x_t.dtype), window[:, 1:, :]
+
+
+def linear_recurrence_scan(a: torch.Tensor, u: torch.Tensor,
+                           dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inclusive scan of h_t = a_t * h_{t-1} + u_t (h_{-1} = 0) along
+    ``dim``: returns (prod of a up to t, h_t), both a's shape.
+
+    The same odd/even recursion ``jax.lax.associative_scan`` runs with
+    the combine (al, ul), (ar, ur) -> (al * ar, ul * ar + ur): pairs are
+    combined, the half-length sequence is scanned, and the even
+    positions are filled in, so every element takes the reference's
+    sequence of multiplies and adds. Elementwise ops only."""
+    def sl(t, start, stop=None, step=1):
+        idx = [slice(None)] * t.dim()
+        idx[dim] = slice(start, stop, step)
+        return t[tuple(idx)]
+
+    def comb(left, right):
+        return left[0] * right[0], left[1] * right[0] + right[1]
+
+    def scan(el):
+        n = el[0].shape[dim]
+        if n < 2:
+            return el
+        odd = scan(comb([sl(e, 0, -1, 2) for e in el],
+                        [sl(e, 1, None, 2) for e in el]))
+        left = [sl(e, 0, -1) for e in odd] if n % 2 == 0 else odd
+        even = comb(left, [sl(e, 2, None, 2) for e in el])
+        out = []
+        for e, ev, od in zip(el, even, odd):
+            full = torch.empty_like(e)
+            sl(full, 0, None, 2).copy_(torch.cat([sl(e, 0, 1), ev], dim))
+            sl(full, 1, None, 2).copy_(od)
+            out.append(full)
+        return out
+
+    a_s, h = scan([a, u])
+    return a_s, h
 
 
 def embed_tokens(embedding: torch.Tensor,

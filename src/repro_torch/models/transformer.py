@@ -1,14 +1,15 @@
 """Transformer forward for training, and prefill and decode for
-serving: the full-sequence forward of the dense, ssm and hybrid
-families; one-shot prefill into a contiguous cache or into pool pages,
-one chunk of a paged prefill, and one decode step over a contiguous
-cache or over the page pool (dense family).
+serving, over the dense, ssm and hybrid families: the full-sequence
+forward; one-shot prefill into a contiguous cache (linear, ring or
+recurrent state) or into pool pages (dense, quant, ring) or lanes; one
+chunk of a paged prefill; and one decode step over a contiguous cache
+or over the page pool in any layout.
 
-The port of ``repro/models/transformer.py`` (``forward``; the
-dense-family serving path with dense and int8 caches, dense and quant
-page layouts). The reference scans the stacked layer params
-(``stack_scan``); here a Python loop walks the stacked tensors layer by
-layer, and each layer's cache or page slice is updated in place.
+The port of ``repro/models/transformer.py``. The reference scans the
+stacked layer params (``stack_scan``); here a Python loop walks the
+stacked tensors layer by layer, and each layer's cache, page or lane
+slice is updated in place. MoE, MLA and the audio and vision frontends
+are not ported yet and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -147,11 +148,23 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     return _logits(cfg, params, x), aux
 
 
-def _check_dense_family(cfg: ModelConfig) -> None:
-    if (cfg.family != "dense" or cfg.attn_kind != "gqa"
+def _check_served_family(cfg: ModelConfig) -> None:
+    """The serving paths take the dense GQA, ssm and hybrid families;
+    MoE, MLA and the audio and vision frontends are not ported yet."""
+    if (cfg.family not in ("dense", "ssm", "hybrid")
+            or cfg.attn_kind not in ("gqa", "none")
             or cfg.frontend is not None or cfg.moe is not None):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense GQA family is ported")
+            f"{cfg.name}: serving the {cfg.family} family "
+            f"({cfg.attn_kind} attention) is not ported yet")
+
+
+def _layer_params(cfg: ModelConfig, params: dict, i: int) -> dict:
+    """Layer i's params: the hybrid stack's own subtree, else views of
+    the stacked leaves."""
+    if cfg.family == "hybrid":
+        return params[f"layer_{i:02d}"]
+    return _layer(params["layers"], i)
 
 
 def _attn_cache_len(cfg: ModelConfig, seq_len: int) -> int:
@@ -176,26 +189,84 @@ def _pad_cache(k: torch.Tensor, cache_len: int) -> torch.Tensor:
     return F.pad(k, pad)
 
 
+def ring_compress(k: torch.Tensor, cache_len: int) -> torch.Tensor:
+    """Compress prefill keys (B, S, ...) to a ring cache (B, cache_len,
+    ...): slot = absolute position mod cache_len over the last
+    cache_len positions. A prompt shorter than the ring is zero-padded
+    at the tail (decode's slot arithmetic needs the full ring length)."""
+    s = k.shape[1]
+    if s <= cache_len:
+        return _pad_cache(k, cache_len)
+    slots = torch.arange(s - cache_len, s, device=k.device) % cache_len
+    out = torch.zeros((k.shape[0], cache_len) + tuple(k.shape[2:]),
+                      dtype=k.dtype, device=k.device)
+    out[:, slots] = k[:, -cache_len:]
+    return out
+
+
+def _attn_cache_entry(cfg: ModelConfig, batch: int, cache_len: int,
+                      device) -> Dict[str, torch.Tensor]:
+    shape = (batch, cache_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+    if cfg.kv_quant:
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(shape[:-1], device=device),
+                "v_scale": torch.zeros(shape[:-1], device=device)}
+    dt = torch_dtype(cfg)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def _state_entry(cfg: ModelConfig, kind: str, batch: int,
+                 device) -> Dict[str, torch.Tensor]:
+    """A recurrent layer's zero state: {conv (B, width-1, w) in the
+    model dtype, h f32: (B, d_in, N) for ssm, (B, w) for rglru}."""
+    if kind == "ssm":
+        d_in, _, n = ssm_mod.ssm_dims(cfg)
+        w, cw, h_shape = d_in, cfg.ssm.conv_width, (batch, d_in, n)
+    else:
+        w = cfg.rglru.lru_width or cfg.d_model
+        cw, h_shape = cfg.rglru.conv_width, (batch, w)
+    return {"conv": torch.zeros((batch, cw - 1, w), dtype=torch_dtype(cfg),
+                                device=device),
+            "h": torch.zeros(h_shape, dtype=torch.float32, device=device)}
+
+
+def _assemble_cache(cfg: ModelConfig, entries) -> Cache:
+    """Per-layer cache entries -> the family's cache: the hybrid stack
+    keeps one ``layer_{i:02d}`` entry a layer (batch on axis 0); uniform
+    stacks stack theirs under ``layers`` (layer axis 0, batch axis 1)."""
+    if cfg.family == "hybrid":
+        return {f"layer_{i:02d}": e for i, e in enumerate(entries)}
+    return {"layers": {n: torch.stack([e[n] for e in entries])
+                       for n in entries[0]}}
+
+
+def _cache_layer(cfg: ModelConfig, cache: Cache,
+                 i: int) -> Dict[str, torch.Tensor]:
+    """Layer i's cache leaves (views, written in place)."""
+    if cfg.family == "hybrid":
+        return cache[f"layer_{i:02d}"]
+    return {n: t[i] for n, t in cache["layers"].items()}
+
+
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                device=None) -> Cache:
-    """Zero-initialised decode cache for ``seq_len`` total positions
-    (dense family): {"layers": {k, v}} of (L, B, S, KV, Dh) in the
-    model dtype, or int8 codes plus {k_scale, v_scale} (L, B, S, KV)
-    f32 planes for an int8 cache (``cfg.kv_quant``)."""
-    _check_dense_family(cfg)
+    """Zero-initialised decode cache for ``seq_len`` total positions.
+
+    Attention layers hold {k, v} (B, S, KV, Dh) in the model dtype, or
+    int8 codes plus {k_scale, v_scale} (B, S, KV) f32 planes for an
+    int8 cache (``cfg.kv_quant``); S is ``seq_len`` capped at the
+    window for sliding-window layers (a ring). Recurrent layers hold
+    their {conv, h} state. The dense and ssm stacks stack the layers
+    under ``layers`` (L, B, ...); the hybrid stack keeps a
+    ``layer_{i:02d}`` entry a layer."""
+    _check_served_family(cfg)
     s = _attn_cache_len(cfg, seq_len)
-    shape = (cfg.num_layers, batch, s, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
-    if cfg.kv_quant:
-        layers = {"k": torch.zeros(shape, dtype=torch.int8, device=device),
-                  "v": torch.zeros(shape, dtype=torch.int8, device=device),
-                  "k_scale": torch.zeros(shape[:-1], device=device),
-                  "v_scale": torch.zeros(shape[:-1], device=device)}
-    else:
-        dt = torch_dtype(cfg)
-        layers = {"k": torch.zeros(shape, dtype=dt, device=device),
-                  "v": torch.zeros(shape, dtype=dt, device=device)}
-    return {"layers": layers}
+    entries = [_attn_cache_entry(cfg, batch, s, device) if kind == "attn"
+               else _state_entry(cfg, kind, batch, device)
+               for kind in cfg.layer_kinds]
+    return _assemble_cache(cfg, entries)
 
 
 # ----------------------------------------------------------------------
@@ -233,41 +304,56 @@ def _cache_entry(cfg: ModelConfig, k: torch.Tensor,
 
 def _prefill_layers(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                     pack) -> torch.Tensor:
-    """Run the prompt through every layer; ``pack(i, entry)`` stores
-    layer i's cache leaves. Returns the last position's logits."""
-    if cfg.window is not None:
-        raise NotImplementedError(
-            "sliding-window (ring) caches are not ported yet")
+    """Run the prompt through every layer; ``pack(i, kind, entry)``
+    stores layer i's cache leaves: an attention layer's full-prompt K/V
+    (or int8 codes and scales), a recurrent layer's final {conv, h}
+    state (``ssm.mamba_prefill``, ``rglru.rglru_prefill``: the plain
+    scans the reference's prefill runs). Returns the last position's
+    logits."""
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     x = _embed_inputs(cfg, params, tokens)
-    for i in range(cfg.num_layers):
-        x, k, v = _attn_prefill_layer(cfg, _layer(params["layers"], i), x,
-                                      positions)
-        pack(i, _cache_entry(cfg, k, v))
+    for i, kind in enumerate(cfg.layer_kinds):
+        lp = _layer_params(cfg, params, i)
+        if kind == "ssm":
+            h = norm_apply(cfg, lp["norm"], x)
+            y, st = ssm_mod.mamba_prefill(cfg, lp["ssm"], h)
+            x = x + y
+        elif kind == "rglru":
+            h = norm_apply(cfg, lp["mix_norm"], x)
+            y, st = rglru_mod.rglru_prefill(cfg, lp["rglru"], h)
+            x = x + y
+            h = norm_apply(cfg, lp["mlp_norm"], x)
+            x = x + mlp_apply(cfg, lp["mlp"], h)
+        else:
+            x, k, v = _attn_prefill_layer(cfg, lp, x, positions)
+            st = _cache_entry(cfg, k, v)
+        pack(i, kind, st)
     return _logits(cfg, params, x[:, -1])
 
 
 def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             cache_len: Optional[int] = None
             ) -> Tuple[torch.Tensor, Cache]:
-    """Process a prompt (dense family): tokens (B, S) -> (last-position
-    logits (B, V), decode cache for ``cache_len`` total positions,
-    default S). The cache is ``init_cache``'s layout with the prompt's
-    K/V (or their int8 codes and scales) in positions [0, S) and zeros
-    after."""
-    _check_dense_family(cfg)
+    """Process a prompt: tokens (B, S) -> (last-position logits (B, V),
+    decode cache for ``cache_len`` total positions, default S). The
+    cache is ``init_cache``'s layout: linear attention layers hold the
+    prompt's K/V (or int8 codes and scales) in positions [0, S) and
+    zeros after; ring layers the last min(cache_len, window) positions
+    at slot = position mod ring length (``ring_compress``); recurrent
+    layers their state after the prompt."""
+    _check_served_family(cfg)
     s = tokens.shape[1]
     a_len = _attn_cache_len(cfg, s if cache_len is None else cache_len)
-    per_layer = []
+    fit = ring_compress if cfg.window is not None else _pad_cache
+    entries = []
 
-    def pack(i, entry):
-        per_layer.append({n: _pad_cache(a, a_len)
-                          for n, a in entry.items()})
+    def pack(i, kind, entry):
+        if kind == "attn":
+            entry = {n: fit(a, a_len) for n, a in entry.items()}
+        entries.append(entry)
 
     logits = _prefill_layers(cfg, params, tokens, pack)
-    layers = {n: torch.stack([e[n] for e in per_layer])
-              for n in per_layer[0]}
-    return logits, {"layers": layers}
+    return logits, _assemble_cache(cfg, entries)
 
 
 # ----------------------------------------------------------------------
@@ -278,14 +364,15 @@ def resolve_layout(cfg: ModelConfig) -> Optional[str]:
     dense (contiguous-cache) path can serve it.
 
     - ``"dense"``: K/V pages in the model dtype, linear cache, COW tail
-      pages — the one layout the port serves so far.
+      pages.
     - ``"quant"``: int8 code pages + per-vector f32 scale planes.
-    - ``"ring"``: sliding-window layers wrap their pages in place.
+    - ``"ring"``: sliding-window layers wrap their pages in place,
+      ceil(min(prompt + new, window) / page) pages a row.
     - ``"lanes"``: fixed-size recurrent-state lanes for SSM members.
 
     The descriptor matches the reference's ``resolve_layout`` for every
-    config; ``serving.kv_pool.PagedKVServer`` rejects the layouts not
-    yet ported.
+    config. Hybrid stacks (recurrentgemma: RG-LRU and sliding-window
+    layers interleaved) get None and serve over contiguous caches.
     """
     if cfg.family == "ssm":
         return "lanes"
@@ -306,31 +393,36 @@ def prefill_paged(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                   cache_len: Optional[int] = None
                   ) -> Tuple[torch.Tensor, Pages]:
     """One-shot prompt prefill that scatters each layer's K/V into pool
-    pages (dense and quant layouts).
+    pages (dense, quant and ring layouts).
 
     tokens: (B, S); pages: the pool's leaves (L, P, page_size, ...) —
-    dense {k, v} in the model dtype, quant int8 {k, v} plus f32
-    {k_scale, v_scale} — written in place; prefill_table: (B, NBp)
-    int32 page ids covering each row's prompt. The hidden-state math
-    is ``prefill``'s; only the cache packing differs, and quant packing
-    runs the same ``quantize_kv`` as the int8 cache. ``cache_len`` is
-    kept for the reference's signature (only ring layouts need it).
+    dense and ring {k, v} in the model dtype, quant int8 {k, v} plus
+    f32 {k_scale, v_scale} — written in place; prefill_table: (B, NBp)
+    int32 page ids covering each row's prompt (ring: its whole
+    snapshot). The hidden-state math is ``prefill``'s; only the cache
+    packing differs: quant packing runs the same ``quantize_kv`` as the
+    int8 cache, and ring packing the same ``ring_compress`` as the ring
+    cache, over ``cache_len`` (the dense-equivalent prompt + max_new,
+    required for ring: the pages hold the min(cache_len, window) ring).
     Returns (last-position logits (B, V), pages).
     """
     layout = resolve_layout(cfg)
-    if layout not in ("dense", "quant"):
-        raise NotImplementedError(
-            f"{cfg.name}: one-shot paged prefill of the {layout!r} "
-            "layout is not ported yet")
+    if layout not in ("dense", "quant", "ring"):
+        raise ValueError(f"{cfg.name}: one-shot paged prefill takes the "
+                         f"dense, quant and ring layouts, not {layout!r}")
     b, s = tokens.shape
     ps = pages["k"].shape[2]
     nbp = prefill_table.shape[1]
     table = prefill_table.long()
+    ring_len = _attn_cache_len(cfg, s if cache_len is None else cache_len)
 
-    def pack(i, entry):
-        # pad positions to the page boundary (the pad lands in the
+    def pack(i, kind, entry):
+        # ring: compress to the ring snapshot the contiguous path keeps;
+        # then pad positions to the page boundary (the pad lands in the
         # partial tail page's dead slots) and scatter page-shaped chunks
         for n, a in entry.items():
+            if layout == "ring":
+                a = ring_compress(a, ring_len)
             a = _pad_cache(a, nbp * ps)
             a = a.reshape((b, nbp, ps) + a.shape[2:])
             pages[n][i][table] = a.to(pages[n].dtype)
@@ -384,17 +476,35 @@ def decode_step_paged(cfg: ModelConfig, params: dict, pages: Pages,
                       block_table: torch.Tensor, token: torch.Tensor,
                       pos: torch.Tensor, *, cache_len: int
                       ) -> Tuple[torch.Tensor, Pages]:
-    """One decode step over the paged state (dense and quant layouts).
-    token: (B,) int; pos: scalar, or (B,) per-row positions; cache_len:
-    static dense-equivalent cache length (prompt + max_new). Each layer
-    writes the token's K/V (quant: codes and scales) at ``pos`` into
-    the row's block-table page, in place. Returns (logits (B, V),
+    """One decode step over the paged state, dispatching on the
+    config's layout. token: (B,) int; pos: scalar, or (B,) per-row
+    positions; cache_len: static dense-equivalent cache length (prompt
+    + max_new; ring caps it at the window; lanes ignore it and ``pos``:
+    the recurrent state is position free).
+
+    Dense and quant write each layer's K/V (quant: codes and scales) at
+    ``pos`` into the row's block-table page; ring writes at
+    ``pos mod min(cache_len, window)``; lanes gather each row's state
+    at its lane id (``block_table[:, 0]``), run ``ssm.mamba_step`` and
+    scatter the new state back. All in place. Returns (logits (B, V),
     pages)."""
     layout = resolve_layout(cfg)
-    if layout not in ("dense", "quant"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {layout!r} page layout is not ported yet")
+    if layout is None:
+        raise ValueError(f"{cfg.name}: no page layout serves this config")
     x = embed_tokens(params["embedding"], token)
+    if layout == "lanes":
+        lanes = block_table[:, 0].long()
+        for i in range(cfg.num_layers):
+            lp = _layer(params["layers"], i)
+            h = norm_apply(cfg, lp["norm"], x)
+            st = {n: t[i][lanes] for n, t in pages.items()}
+            y, new_st = ssm_mod.mamba_step(cfg, lp["ssm"], h, st)
+            # the arena's dtypes are the state's (conv: the model dtype,
+            # h: f32), so the scatter is a pure copy
+            for n, t in pages.items():
+                t[i][lanes] = new_st[n]
+            x = x + y
+        return _logits(cfg, params, x), pages
     for i in range(cfg.num_layers):
         lp = _layer(params["layers"], i)
         h = norm_apply(cfg, lp["attn_norm"], x)
@@ -402,6 +512,10 @@ def decode_step_paged(cfg: ModelConfig, params: dict, pages: Pages,
             a, _ = attn.gqa_decode_quant_paged(
                 cfg, lp["attn"], h, {n: t[i] for n, t in pages.items()},
                 block_table, pos, cache_len=cache_len)
+        elif layout == "ring":
+            a, _ = attn.gqa_decode_ring_paged(
+                cfg, lp["attn"], h, {n: t[i] for n, t in pages.items()},
+                block_table, pos, cache_len=min(cache_len, cfg.window))
         else:
             a, _, _ = attn.gqa_decode_paged(
                 cfg, lp["attn"], h, pages["k"][i], pages["v"][i],
@@ -428,15 +542,31 @@ def _attn_decode_layer(cfg: ModelConfig, lp: dict, x_t: torch.Tensor,
 def decode_step(cfg: ModelConfig, params: dict, cache: Cache,
                 token: torch.Tensor, pos: int
                 ) -> Tuple[torch.Tensor, Cache]:
-    """One decode step over a contiguous cache (dense family). token:
-    (B,) int; pos: the position written, one Python int for the whole
-    batch. Writes each layer's K/V (or int8 codes and scales) at
-    ``pos`` in place and returns (logits for position pos + 1 (B, V),
+    """One decode step over a contiguous cache. token: (B,) int; pos:
+    the position written, one Python int for the whole batch. Attention
+    layers write their K/V (or int8 codes and scales) at ``pos`` (a ring
+    at ``pos`` mod its length); recurrent layers step their state
+    (``ssm.mamba_step``, ``rglru.rglru_block_step``). The cache is
+    updated in place; returns (logits for position pos + 1 (B, V),
     cache)."""
-    _check_dense_family(cfg)
+    _check_served_family(cfg)
     x = embed_tokens(params["embedding"], token)
-    layers = cache["layers"]
-    for i in range(cfg.num_layers):
-        x = _attn_decode_layer(cfg, _layer(params["layers"], i), x,
-                               {n: t[i] for n, t in layers.items()}, pos)
+    for i, kind in enumerate(cfg.layer_kinds):
+        lp = _layer_params(cfg, params, i)
+        cl = _cache_layer(cfg, cache, i)
+        if kind == "attn":
+            x = _attn_decode_layer(cfg, lp, x, cl, pos)
+            continue
+        if kind == "ssm":
+            h = norm_apply(cfg, lp["norm"], x)
+            y, st = ssm_mod.mamba_step(cfg, lp["ssm"], h, cl)
+            x = x + y
+        else:
+            h = norm_apply(cfg, lp["mix_norm"], x)
+            y, st = rglru_mod.rglru_block_step(cfg, lp["rglru"], h, cl)
+            x = x + y
+            h = norm_apply(cfg, lp["mlp_norm"], x)
+            x = x + mlp_apply_token(cfg, lp["mlp"], h)
+        for n, t in cl.items():
+            t.copy_(st[n])
     return _logits(cfg, params, x), cache

@@ -211,18 +211,19 @@ def generate(cfg: ModelConfig, params: dict, prompt_tokens, *,
 def tile_cache(cache: dict, n: int, batch: Optional[int] = None) -> dict:
     """Broadcast a prefill cache of batch B to B*n rows (row i's
     replicas occupy rows i*n .. i*n+n-1, matching ``np.repeat`` on the
-    prompt batch). The dense family's cache is ``{"layers": leaves}``
-    with the batch on axis 1 of every (L, B, ...) leaf; ``batch``
-    asserts that axis really is the batch axis."""
+    prompt batch). Stacked caches (``layers``) carry (L, B, ...) leaves;
+    the hybrid stack's per-layer entries (``layer_XX``) carry (B, ...).
+    ``batch`` asserts the chosen axis really is the batch axis."""
     out = {}
     for k, leaves in cache.items():
+        axis = 1 if k == "layers" else 0
         if batch is not None:
             for leaf in leaves.values():
-                if leaf.shape[1] != batch:
+                if leaf.shape[axis] != batch:
                     raise ValueError(
                         f"cache entry {k!r}: expected batch {batch} on "
-                        f"axis 1, got shape {tuple(leaf.shape)}")
-        out[k] = {name: torch.repeat_interleave(a, n, dim=1)
+                        f"axis {axis}, got shape {tuple(leaf.shape)}")
+        out[k] = {name: torch.repeat_interleave(a, n, dim=axis)
                   for name, a in leaves.items()}
     return out
 
@@ -259,11 +260,34 @@ def prefill_paged(cfg: ModelConfig, params: dict, prompt_tokens: torch.Tensor,
                   pages: Pages, prefill_table: torch.Tensor,
                   cache_len: Optional[int] = None
                   ) -> Tuple[torch.Tensor, Pages]:
-    """One-shot prompt prefill scattering K/V (quant: codes and scales)
-    into pool pages. prompt_tokens: (B, S); prefill_table: (B, NBp)
-    int32. Returns (logits0 (B, V), pages)."""
+    """One-shot prompt prefill scattering K/V (quant: codes and scales;
+    ring: the ring snapshot) into pool pages. prompt_tokens: (B, S);
+    prefill_table: (B, NBp) int32; cache_len: the dense-equivalent total
+    length, required for ring layouts. Returns (logits0 (B, V),
+    pages)."""
     return T.prefill_paged(cfg, params, prompt_tokens, pages,
                            prefill_table, cache_len=cache_len)
+
+
+def prefill_lanes(cfg: ModelConfig, params: dict,
+                  prompt_tokens: torch.Tensor, pages: Pages,
+                  lane_ids: torch.Tensor) -> Tuple[torch.Tensor, Pages]:
+    """Prompt prefill for a recurrent-state (SSM) member, parking each
+    row's final state in its pool lane, in place.
+
+    prompt_tokens: (B, S); pages: the lane arena {conv, h} (leaves
+    (L, LANES, ...)); lane_ids: (B,) lane per row. The prefill is the
+    contiguous ``T.prefill`` bit for bit; only the state parking
+    differs. Returns (logits0 (B, V), pages)."""
+    logits0, cache = T.prefill(cfg, params, prompt_tokens)
+    lanes = lane_ids.long()
+    for n, st in cache["layers"].items():
+        arena = pages[n]
+        # a pure copy: a dtype cast here would drift the parked state
+        # off the contiguous path
+        assert arena.dtype == st.dtype, (arena.dtype, st.dtype)
+        arena[:, lanes] = st
+    return logits0, pages
 
 
 def decode_paged(cfg: ModelConfig, params: dict, logits0: torch.Tensor,

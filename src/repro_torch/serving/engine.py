@@ -168,6 +168,7 @@ class BatchedACAREngine:
         if self.device.type == "cuda":
             deterministic_cuda()
         self._kv_servers: Dict[int, PagedKVServer] = {}
+        self._stepped_servers: Dict[int, PagedKVServer] = {}
         self._kv_emitted: Dict[tuple, int] = {}
         self.route_fn = route_fn or route_batch
         # a route_fn may take (sigma, admission_indices) so forced-mode
@@ -188,8 +189,11 @@ class BatchedACAREngine:
         """One server per distinct params object: an ensemble member
         that *is* the probe model shares the probe's server, which is
         what makes probe->ensemble prefill-page reuse sound (KV is a
-        function of params, not just configs). The dense and quant page
-        layouts are served; ``paged=False`` serves none."""
+        function of params, not just configs). Wave serving speaks the
+        dense and quant page layouts; ring and lanes members serve over
+        contiguous caches in the wave and take their layouts through
+        ``_stepped_server`` in the step loop. ``paged=False`` serves
+        none."""
         if (self.paged is False
                 or resolve_layout(zm.cfg) not in ("dense", "quant")):
             return None
@@ -204,15 +208,38 @@ class BatchedACAREngine:
         return srv
 
     def _stepped_server(self, zm: ZooModel) -> Optional[PagedKVServer]:
-        """Server for the step-level loop (the same object as
-        ``_kv_server``: ``_kv_reuse_member`` compares servers by
-        identity)."""
-        return self._kv_server(zm)
+        """Server for the step-level loop, which also speaks the ring
+        (sliding-window) and lanes (recurrent-state) layouts. Dense and
+        quant members get the *same object* as ``_kv_server``:
+        ``_kv_reuse_member`` compares servers by identity. A member no
+        layout serves (the hybrid stack) gets None and decodes over a
+        contiguous cache."""
+        if self.paged is False:
+            return None
+        layout = resolve_layout(zm.cfg)
+        if layout is None:
+            return None
+        if layout in ("dense", "quant"):
+            return self._kv_server(zm)
+        key = id(zm.params)
+        srv = self._stepped_servers.get(key)
+        if srv is None:
+            srv = PagedKVServer(zm.cfg, page_size=self.kv_page_size,
+                                prefix_cache_entries=self.kv_prefix_cache,
+                                device=self.device)
+            srv.stats.model = zm.name
+            self._stepped_servers[key] = srv
+        return srv
 
     def kv_stats(self) -> Dict[str, KVStats]:
-        """Measured paged-KV accounting per model server."""
-        return {srv.stats.model: srv.stats
-                for srv in self._kv_servers.values()}
+        """Measured paged-KV accounting per model server (wave and
+        stepped servers merged; dense and quant members are one server
+        in both roles)."""
+        out = {srv.stats.model: srv.stats
+               for srv in self._kv_servers.values()}
+        for srv in self._stepped_servers.values():
+            out.setdefault(srv.stats.model, srv.stats)
+        return out
 
     def _kv_reuse_member(self, zm: ZooModel,
                          kv_srv: Optional[PagedKVServer]) -> bool:

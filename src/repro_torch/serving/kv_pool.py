@@ -1,8 +1,8 @@
 """Paged KV-cache subsystem: ref-counted page pool, block tables, and
 prefix sharing between the probe and ensemble stages.
 
-The port of ``repro/serving/kv_pool.py`` for the dense page layout and
-the step-level loop:
+The port of ``repro/serving/kv_pool.py`` on one device, with all four
+page layouts, for the wave engine and the step-level loop:
 
 * **PagePool** — a fixed pool of ``page_size``-token pages with
   reference counts. Allocation, retain, and release are host-side and
@@ -23,7 +23,7 @@ the step-level loop:
   skipped) and ``generate`` (paged single-sample waves).
 
 One server serves one layout (``models.transformer.resolve_layout``);
-every leaf keeps the page id on axis 1:
+every leaf keeps the page (or lane) id on axis 1:
 
 * ``"dense"`` — ``{k, v}`` of ``(L, P, page_size, KV, Dh)`` in the
   model dtype.
@@ -31,8 +31,13 @@ every leaf keeps the page id on axis 1:
   ``(L, P, page_size, KV)`` f32 per-vector scale planes
   (``models.attention.quantize_kv``): Dh + 4 bytes per position and
   head instead of 2 * Dh * itemsize.
-
-The ring and lane layouts are not ported yet.
+* ``"ring"`` — pages in the model dtype, but a row only ever holds
+  ``ceil(min(prompt+new, window)/page_size)`` pages; positions wrap in
+  place (a sliding-window member's KV stops growing with the prompt).
+* ``"lanes"`` — recurrent-state lanes for SSM members:
+  ``{conv: (L, LANES, conv_width-1, d_in), h: (L, LANES, d_in, N)}``;
+  a "page" is one sequence's whole state, block tables are one lane id
+  wide, and a fork is a state copy.
 """
 from __future__ import annotations
 
@@ -44,6 +49,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.params import torch_dtype
 from repro_torch.models.transformer import resolve_layout
 from repro_torch.serving.compaction import bucket_size
@@ -290,15 +296,16 @@ class PagedKVServer:
                 f"config {cfg.name!r} is not paged-KV capable "
                 "(GQA, linear cache, and dense or gather-dispatch "
                 "MoE FFN required; hybrid stacks stay dense)")
-        if layout not in ("dense", "quant"):
-            raise NotImplementedError(
-                f"config {cfg.name!r} needs the {layout!r} page layout, "
-                "which is not ported yet")
         self.cfg = cfg
         self.layout = layout
         self.device = torch.device(device)
         self.page_size = int(page_size)
-        self.prefix_cache_entries = int(prefix_cache_entries)
+        # ring pages are per-lane snapshots and lane state depends on
+        # the decode horizon; neither is a reusable read-only prompt
+        # prefix, so the prefix cache only runs for dense/quant
+        self.prefix_cache_entries = (int(prefix_cache_entries)
+                                     if layout in ("dense", "quant")
+                                     else 0)
         self.pool: Optional[PagePool] = None
         self.pages: Optional[dict] = None
         self._scratch: Optional[np.ndarray] = None
@@ -310,32 +317,50 @@ class PagedKVServer:
             page_bytes=self._page_bytes())
 
     def _page_bytes(self) -> int:
-        """Bytes one page (all layers, K and V) holds under this
-        layout."""
+        """Bytes one page (all layers) holds under this layout: K and V
+        of page_size positions, or one lane's whole recurrent state."""
         cfg = self.cfg
+        itemsize = torch_dtype(cfg).itemsize
+        if self.layout == "lanes":
+            d_in, _, n = ssm_mod.ssm_dims(cfg)
+            w = cfg.ssm.conv_width
+            return cfg.num_layers * ((w - 1) * d_in * itemsize
+                                     + d_in * n * 4)
         hd = cfg.resolved_head_dim
         per_vec = (2 * (hd + 4) if self.layout == "quant"   # codes+scale
-                   else 2 * hd * torch_dtype(cfg).itemsize)
+                   else 2 * hd * itemsize)
         return cfg.num_layers * self.page_size * cfg.num_kv_heads * per_vec
 
     # -- layout geometry -----------------------------------------------
     @property
     def chunked(self) -> bool:
-        """Whether this server's rows may prefill in chunks (only the
-        dense layout composes chunk-by-chunk)."""
+        """Whether this server's rows may prefill in chunks. Only the
+        dense layout composes chunk by chunk (a quant chunk would
+        re-read the already-quantised prefix, ring pages overwrite in
+        place, a lane prefill is one recurrent scan)."""
         return self.layout == "dense"
 
     def row_geometry(self, prompt_len: int,
                      max_new_tokens: int) -> RowGeometry:
-        """Page accounting for one row (the dense and quant layouts
-        share one geometry)."""
+        """Page accounting for one row under this server's layout."""
         s, m, ps = int(prompt_len), int(max_new_tokens), self.page_size
-        n_shared = s // ps
-        nbp = pages_for(s, ps)
-        nb = pages_for(s + m, ps)
-        return RowGeometry(
-            n_shared=n_shared, tail_tokens=s - n_shared * ps,
-            nbp=nbp, nb=nb, n_tail=nb - n_shared, cache_len=s + m)
+        if self.layout in ("dense", "quant"):
+            n_shared = s // ps
+            nbp = pages_for(s, ps)
+            nb = pages_for(s + m, ps)
+            return RowGeometry(
+                n_shared=n_shared, tail_tokens=s - n_shared * ps,
+                nbp=nbp, nb=nb, n_tail=nb - n_shared, cache_len=s + m)
+        if self.layout == "ring":
+            cl = min(s + m, self.cfg.window)
+            nb = pages_for(cl, ps)
+            # no read-only sharing: every lane writes into (and wraps
+            # over) its whole snapshot, so lanes fork all nbp pages
+            return RowGeometry(n_shared=0, tail_tokens=0, nbp=nb,
+                               nb=nb, n_tail=nb, cache_len=cl)
+        # lanes: one "page" is the row's entire recurrent state
+        return RowGeometry(n_shared=0, tail_tokens=0, nbp=1, nb=1,
+                           n_tail=1, cache_len=s + m)
 
     def table_width(self, prompt_len: int, max_new_tokens: int) -> int:
         """Block-table width one decode lane needs."""
@@ -365,9 +390,20 @@ class PagedKVServer:
 
     def _zero_pages(self, num_pages: int) -> dict:
         """Freshly zeroed page tensors on the server's device (axis 1 =
-        page id): the model dtype for dense pages, int8 codes plus f32
-        scale planes for quant pages."""
+        page or lane id): the model dtype for dense and ring pages, int8
+        codes plus f32 scale planes for quant pages, and for lanes the
+        {conv, h} state in the dtypes ``ssm.mamba_step`` emits (the
+        model dtype, f32), so parking a state is a pure copy."""
         cfg = self.cfg
+        if self.layout == "lanes":
+            d_in, _, n = ssm_mod.ssm_dims(cfg)
+            w = cfg.ssm.conv_width
+            return {"conv": torch.zeros(
+                        (cfg.num_layers, num_pages, w - 1, d_in),
+                        dtype=torch_dtype(cfg), device=self.device),
+                    "h": torch.zeros((cfg.num_layers, num_pages, d_in, n),
+                                     dtype=torch.float32,
+                                     device=self.device)}
         shape = (cfg.num_layers, num_pages, self.page_size,
                  cfg.num_kv_heads, cfg.resolved_head_dim)
         dt = torch.int8 if self.layout == "quant" else torch_dtype(cfg)
@@ -528,9 +564,15 @@ class PagedKVServer:
                     self.stats.prefill_tokens_reused_prefix += s
                 else:
                     pages = self._alloc_retry(g.nbp)
-                    shared_rows.append(pages[:g.n_shared])
-                    tail_rows.append(int(pages[g.n_shared])
-                                     if g.tail_tokens else None)
+                    if self.layout in ("dense", "quant"):
+                        shared_rows.append(pages[:g.n_shared])
+                        tail_rows.append(int(pages[g.n_shared])
+                                         if g.tail_tokens else None)
+                    else:
+                        # ring / lanes: the whole allocation is the
+                        # row's private prompt snapshot
+                        shared_rows.append(pages)
+                        tail_rows.append(None)
                     miss.append(r)
 
             # 2. one prefill over the uncached rows, gathered into a
@@ -550,9 +592,16 @@ class PagedKVServer:
                         pf_table[i] = row_pages
                     else:
                         pf_table[i] = self._scratch[:g.nbp]
-                lg, self.pages = S.prefill_paged(
-                    self.cfg, params, self._tensor(ids[rows_idx]),
-                    self.pages, self._tensor(pf_table))
+                if self.layout == "lanes":
+                    lg, self.pages = S.prefill_lanes(
+                        self.cfg, params, self._tensor(ids[rows_idx]),
+                        self.pages, self._tensor(pf_table[:, 0]))
+                else:
+                    lg, self.pages = S.prefill_paged(
+                        self.cfg, params, self._tensor(ids[rows_idx]),
+                        self.pages, self._tensor(pf_table),
+                        cache_len=(s + max_new_tokens
+                                   if self.layout == "ring" else None))
                 logits0[miss] = lg[:len(miss)].float()
                 # the bucket's padding rows compute real (discarded)
                 # prefill work — count what actually ran
@@ -581,7 +630,9 @@ class PagedKVServer:
             live=np.ones(b, bool))
         sample_tails = None
         try:
-            # 4. sample-private pages + COW fork of each canonical tail
+            # 4. sample-private pages + fork of the prompt state each
+            # lane mutates: dense/quant COW-fork only the partial tail
+            # page; ring/lanes fork the row's whole prompt snapshot
             sample_tails = self._alloc_retry(b * n * g.n_tail).reshape(
                 b, n, g.n_tail)
             self.stats.probe_pages_highwater = max(
@@ -599,6 +650,11 @@ class PagedKVServer:
                 dst = sample_tails[:, :, 0].reshape(-1)
                 S.fork_pages(self.pages, src, dst)
                 self.stats.cow_forks += b * n
+            elif g.n_shared == 0:
+                src = np.repeat(np.stack(shared_rows), n,
+                                axis=0).reshape(-1)
+                S.fork_pages(self.pages, src, sample_tails.reshape(-1))
+                self.stats.cow_forks += b * n * g.nbp
 
             # 5. decode the expanded (B*N) wave over the shared pages
             out, self.pages = S.decode_paged(
@@ -634,6 +690,13 @@ class PagedKVServer:
         rows = [int(r) for r in rows]
         s = handle.prompt_len
         g = self.row_geometry(s, max_new_tokens)
+        if self.layout == "ring":
+            g0 = self.row_geometry(s, handle.max_new_tokens)
+            if g.cache_len != g0.cache_len:
+                raise ValueError(
+                    "ring prompt snapshot was compressed for "
+                    f"cache_len {g0.cache_len}; a member decoding to "
+                    f"cache_len {g.cache_len} cannot reuse it")
         for r in rows:
             if not handle.live[r]:
                 raise PageAccountingError(
@@ -651,6 +714,12 @@ class PagedKVServer:
                 S.fork_pages(self.pages, [handle.tails[r] for r in rows],
                              tails[:, 0])
                 self.stats.cow_forks += nr
+            elif g.n_shared == 0:
+                S.fork_pages(self.pages,
+                             np.stack([handle.shared[r]
+                                       for r in rows]).reshape(-1),
+                             tails.reshape(-1))
+                self.stats.cow_forks += nr * g.nbp
             out, self.pages = S.decode_paged(
                 self.cfg, params, handle.logits0[rows], self.pages,
                 self._tensor(block_table), key, start_pos=s,
@@ -681,8 +750,9 @@ class PagedKVServer:
     def stream_row_pages(self, prompt_len: int, lanes_per_row: int,
                          max_new_tokens: int) -> int:
         """Worst-case pages one step-loop row holds on this server:
-        the prompt pages plus each lane's private pages (probe samples
-        and seeded ensemble decodes alike)."""
+        the prompt pages (shared read-only for dense/quant, the
+        forkable snapshot for ring/lanes) plus each lane's private
+        pages (probe samples and seeded ensemble decodes alike)."""
         g = self.row_geometry(prompt_len, max_new_tokens)
         return g.nbp + lanes_per_row * g.n_tail
 

@@ -1,8 +1,9 @@
 """Step-level continuous batching for the ACAR serving engine.
 
 The port of ``repro/serving/step_loop.py::StepLoopRunner`` on one
-device with the dense and quant page layouts. One logical tick advances a *mixed*
-set of rows where each row is independently in
+device, over every page layout: dense, int8 (quant), ring
+(sliding-window) and recurrent-state lanes. One logical tick advances a
+*mixed* set of rows where each row is independently in
 
     prefill-chunk -> probe-decode -> route-pending -> ensemble-decode
                                                           -> done
@@ -10,7 +11,9 @@ set of rows where each row is independently in
 Rows are admitted from ``AdmissionQueue.ready()`` the moment the page
 budget opens (``StepPlanner.may_admit``), long prompts prefill in
 fixed-size chunks appended to the paged KV pool
-(``sampler.prefill_chunk_paged``; quant pages prefill one-shot), decodes of any phase mix into one
+(``sampler.prefill_chunk_paged``; quant and ring pages and lanes
+prefill one-shot, since none composes chunk by chunk), decodes of any
+phase mix into one
 bucketed ``decode_megastep_rows`` launch per (server, temperature,
 cache length) that runs up to ``StepPlanner.megastep`` ticks with the
 lane state kept on the device, and a finished row retires — and frees
@@ -42,10 +45,11 @@ it; a ``SpanTracer`` records every lifecycle transition as a hashed
 span and recomputes leave-one-out attribution for full-arena rows on
 idle ticks. On one device a ``shard_loss`` never fires.
 
-The ring and lane page layouts (``_run_one_shot_prefill_group``), the
-dense-cache member fallback (``_dense_member``) and the sharded runner
-(``ShardedStepLoopRunner``) are not ported yet; reaching them raises
-``NotImplementedError``.
+A member no page layout serves (the hybrid stack, recurrentgemma-2b)
+generates each escalated row's answer at once over a contiguous cache
+(``_dense_member``), with the row's member key stream. The sharded
+runner (``ShardedStepLoopRunner``) is not ported yet; reaching it
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -229,6 +233,10 @@ class StepLoopRunner:
         self.done_rows: Dict[int, _Row] = {}
         self.now = 0
         self._routed_this_tick = 0
+        # per-tick virtual-clock charges for work outside the grouped
+        # launches (contiguous-cache members run whole generations on
+        # their own executor)
+        self._tick_extra: Dict[object, int] = {}
 
     def _init_servers(self) -> None:
         """Resolve the paged servers the loop allocates against."""
@@ -680,8 +688,14 @@ class StepLoopRunner:
             self._begin_probe_decode(row)
             return
         pages = srv._alloc_retry(g.nbp)
-        row.shared = pages[:g.n_shared]
-        row.tail = int(pages[g.n_shared]) if g.tail_tokens else None
+        if g.n_shared or g.tail_tokens:
+            row.shared = pages[:g.n_shared]
+            row.tail = int(pages[g.n_shared]) if g.tail_tokens else None
+        else:
+            # ring / lanes: the whole allocation is this row's private
+            # snapshot — there is no read-only shared prefix to alias
+            row.shared = pages
+            row.tail = None
         self._unreserve(row, g.nbp)
 
     def _begin_probe_decode(self, row: _Row) -> None:
@@ -703,6 +717,15 @@ class StepLoopRunner:
             self._fork(srv, [row.tail] * self.n,
                        row.sample_tails[:, 0].tolist())
             srv.stats.cow_forks += self.n
+        elif g.n_shared == 0:
+            # ring / lanes: every page of the prompt snapshot is written
+            # during decode (a ring wraps in place, lane state mutates
+            # every tick), so each probe sample forks the whole snapshot
+            # into its private pages
+            src = np.repeat(row.shared[None], self.n, axis=0).reshape(-1)
+            self._fork(srv, src.tolist(),
+                       row.sample_tails.reshape(-1).tolist())
+            srv.stats.cow_forks += self.n * g.nbp
         row.phase = "probe_decode"
         srv._sample_usage()
 
@@ -817,18 +840,15 @@ class StepLoopRunner:
 
     def _run_one_shot_prefill_group(self, key, items) -> int:
         """One whole-prompt prefill launch for a non-chunkable layout
-        (quant: a chunk would attend the already-quantised prefix). The
-        prompt math is ``prefill``'s, only the page packing differs,
+        (quant: a chunk would attend the already-quantised prefix; ring:
+        a chunk would overwrite positions later chunks attend; lanes:
+        one recurrent scan). The prompt math is the contiguous
+        ``prefill``'s, only the page packing or state parking differs,
         and the virtual clock is charged the ``chunk_count(s)`` units
-        the chunked path would pay. Ring and lane layouts are not
-        ported yet."""
+        the chunked path would pay."""
         _, _, s = key
         t0 = time.perf_counter() if self.tracer is not None else 0.0
         srv = items[0][0]
-        if srv.layout != "quant":
-            raise NotImplementedError(
-                f"one-shot prefill of the {srv.layout!r} page layout is "
-                "not ported yet")
         g = self._geometry(srv, s)
         rows = sorted(items, key=lambda it: it[1].admission)
         bucket = self.planner.decode_bucket(len(rows))
@@ -846,9 +866,15 @@ class StepLoopRunner:
                 # pad rows prefill zeros into scratch pages
                 tables[i] = srv._scratch[:g.nbp]
         zm = self._server_model(srv)
-        lg, srv.pages = S.prefill_paged(
-            zm.cfg, zm.params, self._device_array(srv, tokens), srv.pages,
-            self._device_array(srv, tables))
+        if srv.layout == "lanes":
+            lg, srv.pages = S.prefill_lanes(
+                zm.cfg, zm.params, self._device_array(srv, tokens),
+                srv.pages, self._device_array(srv, tables[:, 0]))
+        else:
+            lg, srv.pages = S.prefill_paged(
+                zm.cfg, zm.params, self._device_array(srv, tokens),
+                srv.pages, self._device_array(srv, tables),
+                cache_len=g.cache_len if srv.layout == "ring" else None)
         srv.stats.prefill_tokens_computed += bucket * s
         self.metrics.inc("acar_prefill_oneshot_total",
                          model=srv.stats.model,
@@ -1159,10 +1185,18 @@ class StepLoopRunner:
                 else:
                     g = self._geometry(srv_m, row.s)
                     pages = srv_m._alloc_retry(g.nbp)
-                    mx.shared = pages[:g.n_shared]
-                    mx.tail = int(pages[g.n_shared]) \
-                        if g.tail_tokens else None
+                    if g.n_shared or g.tail_tokens:
+                        mx.shared = pages[:g.n_shared]
+                        mx.tail = int(pages[g.n_shared]) \
+                            if g.tail_tokens else None
+                    else:
+                        # ring / lanes member: the whole allocation is
+                        # its private prompt snapshot
+                        mx.shared = pages
+                        mx.tail = None
             else:
+                # no page layout serves this member (the hybrid stack):
+                # the contiguous-cache fallback, still row-keyed
                 self._dense_member(row, mx, zm)
         if not any(mx.reuse for mx in row.members):
             # no member seeds from the probe's pages: free them the
@@ -1187,6 +1221,12 @@ class StepLoopRunner:
         if g.tail_tokens:
             self._fork(srv, [canon_tail], [int(tails[0])])
             srv.stats.cow_forks += 1
+        elif g.n_shared == 0:
+            # ring / lanes member: fork the whole prompt snapshot into
+            # the decode lane's private pages
+            self._fork(srv, [int(p) for p in shared],
+                       [int(p) for p in tails])
+            srv.stats.cow_forks += g.nbp
         key = S.member_row_keys(self.base_key, [row.admission],
                                 mx.member)[0]
         logits0 = row.logits0 if mx.reuse else mx.logits0
@@ -1199,9 +1239,30 @@ class StepLoopRunner:
                                     key=("m", mx.member))
 
     def _dense_member(self, row: _Row, mx: _MemberExec, zm) -> None:
-        raise NotImplementedError(
-            f"member {zm.name!r} has no paged layout; the dense-cache "
-            "member fallback is not ported yet")
+        """A member no page layout serves (the hybrid stack) generates
+        the row's whole answer at once over a contiguous cache
+        (``sampler.generate``) with the row's member key stream, so its
+        tokens are the wave path's contiguous member decode. The run is
+        charged to the virtual clock on the member's own executor in
+        the units the paged paths pay (its prompt's chunk count plus
+        max_new decode ticks)."""
+        rk = S.member_row_keys(self.base_key, [row.admission], mx.member)
+        out = S.generate(
+            zm.cfg, zm.params, row.ids[None], max_new_tokens=self.max_new,
+            temperature=self.acfg.ensemble_temperature,
+            key=prng.fold_in_np(self.base_key, 1000 + mx.member),
+            eos_id=tok.EOS, pad_id=tok.PAD, row_keys=rk)
+        mx.answer = extract(tok.decode(out.tokens[0].cpu().numpy()),
+                            row.request.task.kind)
+        cost = self.planner.chunk_count(row.s) + self.max_new
+        key = ("dense", mx.member)
+        self._tick_extra[key] = self._tick_extra.get(key, 0) + cost
+        self.stats.launches += 1
+        if self.tracer is not None:
+            self.tracer.span("member_decode", self._trace_id(row),
+                             self.now, key=("m", mx.member),
+                             member=mx.member, model=zm.name, dense=1,
+                             done=int(mx.answer is not None))
 
     def _finish_members(self, row: _Row) -> None:
         srv = self._probe_server(row)
@@ -1337,6 +1398,7 @@ class StepLoopRunner:
             if self.injector is not None:
                 self._fault_tick()
             per_server: Dict[object, int] = {}
+            self._tick_extra = {}
             self._routed_this_tick = 0
             for key, items in sorted(self._prefill_groups().items(),
                                      key=lambda kv: kv[0][1:]):
@@ -1351,6 +1413,10 @@ class StepLoopRunner:
                 kl = self._run_decode_group(key, items)
                 per_server[key[0]] = per_server.get(key[0], 0) + kl
             self._promote()
+            # contiguous-cache members ran whole generations on their
+            # own executors during promotion
+            for key, cost in self._tick_extra.items():
+                per_server[key] = per_server.get(key, 0) + cost
             self.active = [r for r in self.active if r.phase != "done"]
             self._emit_phase_gauges()
             # servers are independent executors: the tick takes as

@@ -10,10 +10,14 @@ runs at small scale and prints each leg's wall and mismatch counts:
 ``paged=False``), ``faults`` (the crash legs kill@mid, kill@3/4 and
 torn@3/4, the degraded fleet, and the observability legs) and
 ``queued`` (the scheduler, compacted against masked, queued against
-stepped, and the queued engine's spans)::
+stepped, and the queued engine's spans) and ``hetero`` (the
+heterogeneous fleets' legs: the dense baseline, stepped over ring
+pages and lanes, the int8-paged wave, kill and recover, the Mamba
+probe; and the serve CLI's default fleet through each engine and
+through ``serve``)::
 
     PYTHONPATH=src:tests:. JAX_PLATFORMS=cpu python tests/_torch_port.py \
-        [engine] [faults] [queued]
+        [engine] [faults] [queued] [hetero]
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ import time
 from pathlib import Path
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
@@ -109,11 +114,12 @@ def quant_fleets(n_tasks: int = 16, prompt_chars: int = 24):
     return (jprobe, jens), (tprobe, tens), tasks
 
 
-def forced_route(n_tasks: int):
+def forced_route(n_tasks: int, pattern=(0, 0, 1, 2)):
     """A route_fn keyed by admission index that forces every mode:
-    single, arena-lite and full-arena rows in a fixed shuffle."""
+    single, arena-lite and full-arena rows (in the shares of
+    ``pattern``) in a fixed shuffle."""
     modes = np.random.default_rng(0x45A).permutation(
-        np.resize(np.asarray([0, 0, 1, 2], np.int32), n_tasks))
+        np.resize(np.asarray(pattern, np.int32), n_tasks))
 
     def route(sig, indices):
         return modes[np.asarray(indices, np.int64)]
@@ -170,20 +176,23 @@ def _mismatches(jres, tres, n) -> dict:
 
 
 def check_run_batch_against_reference(fleets, paged, waves=2,
-                                      ensemble_temperature=0.0) -> None:
+                                      ensemble_temperature=0.0,
+                                      twin=True, route_fn=None) -> None:
     """Serve the stream through both packages' ``run_batch`` as
     ``waves`` consecutive waves on one engine (later waves hit the
     prompt prefix cache) with the same knobs and forced routes; require
     zero mismatches in sigma, mode, final answer, member answers and
     probe texts, equal compaction and paged-KV accounting, and equal
-    record hashes and chain heads over the waves."""
+    record hashes and chain heads over the waves. ``twin``: the
+    ensemble holds the probe's twin; ``route_fn``: ``forced_route``'s
+    by default."""
     from repro.configs.acar import ACARConfig as JACARConfig
     from repro.serving import BatchedACAREngine as JEngine
     from repro_torch.configs import ACARConfig
     from repro_torch.serving import BatchedACAREngine
 
     (jprobe, jens), (tprobe, tens), tasks = fleets
-    route = forced_route(len(tasks))
+    route = route_fn or forced_route(len(tasks))
     knobs = dict(max_new_tokens=6, paged=paged, route_fn=route)
     temps = dict(probe_temperature=0.9,
                  ensemble_temperature=ensemble_temperature, seed=0)
@@ -218,7 +227,7 @@ def check_run_batch_against_reference(fleets, paged, waves=2,
         # sampled members decode the whole wave (masked), so only a
         # greedy twin seeds its decode from the probe's pages
         assert (st.prefill_tokens_reused_probe > 0) == \
-            (ensemble_temperature <= 0.0)
+            (twin and ensemble_temperature <= 0.0)
     elif paged is False:
         assert not tkv
 
@@ -294,7 +303,7 @@ def fault_plans(*specs, **plan_kw):
 
 def stepped_pair(fleets, tasks, *, max_new_tokens: int = 4,
                  chunk_tokens: int = 7, batch_size: int = 4,
-                 route_fn=None):
+                 route_fn=None, ensemble_temperature: float = 0.0):
     """Two callables, ``ref(**kw)`` and ``port(**kw)``, that each serve
     ``tasks`` (or ``keyed=``, the same prompts under other golds)
     through a fresh engine of their package with the same knobs
@@ -310,7 +319,8 @@ def stepped_pair(fleets, tasks, *, max_new_tokens: int = 4,
 
     (jprobe, jens), (tprobe, tens) = fleets
     policy = dict(max_batch_size=batch_size, max_batch_tokens=1 << 20)
-    acfg = dict(probe_temperature=0.9, seed=0)
+    acfg = dict(probe_temperature=0.9, seed=0,
+                ensemble_temperature=ensemble_temperature)
     ttasks = [torch_task(t) for t in tasks]
 
     def serve(eng, tasks_, pol, kw):
@@ -675,7 +685,8 @@ def check_scheduler_against_reference(tasks, workdir, batch: int = 8,
 
 def queued_pair(fleets, tasks, *, max_new_tokens: int = 6,
                 batch_size: int = 8, route_fn=None,
-                probe_temperature: float = 0.9):
+                probe_temperature: float = 0.9,
+                ensemble_temperature: float = 0.0):
     """Two callables, ``ref(**kw)`` and ``port(**kw)``, that each serve
     ``tasks`` (or ``keyed=``, the same prompts under other golds)
     through ``run_queued`` on a fresh engine of their package and return
@@ -690,7 +701,8 @@ def queued_pair(fleets, tasks, *, max_new_tokens: int = 6,
 
     (jprobe, jens), (tprobe, tens) = fleets
     policy = dict(max_batch_size=batch_size, max_batch_tokens=1 << 20)
-    acfg = dict(probe_temperature=probe_temperature, seed=0)
+    acfg = dict(probe_temperature=probe_temperature, seed=0,
+                ensemble_temperature=ensemble_temperature)
 
     def ref(keyed=None, tracer=None, **kw):
         eng = JEngine(JACARConfig(**acfg), jprobe, jens,
@@ -857,6 +869,260 @@ def check_queued_obs(fleets, tasks, workdir, **pair_kw) -> dict:
                 attribution_rows=rows, attribution_nonzero=nonzero)
 
 
+def hetero_fleets(mamba_probe: bool = False):
+    """The reference's (``use_pallas=True``) and the port's fleets of
+    ``run_hetero_equivalence``: ``hetero_zoo`` (an int8-KV probe, a
+    Mamba member on lanes, a sliding-window member on ring pages and
+    the probe's int8 twin) or, with ``mamba_probe``, ``mamba_probe_zoo``
+    (a Mamba probe on lanes, a dense member, a Mamba member and the
+    probe's twin)."""
+    from harness.simulate import hetero_zoo, mamba_probe_zoo
+    probe, ensemble = (mamba_probe_zoo if mamba_probe else hetero_zoo)(
+        seed=0)
+    jfleet, tfleet = pallas_zoo(probe, ensemble), torch_zoo(probe, ensemble)
+    assert tfleet[1][2].params is tfleet[0].params
+    return jfleet, tfleet
+
+
+def check_port_runs_equal(leg, tasks, base, res, member_names) -> None:
+    """Two of the port's results of one stream (a leg and its dense
+    baseline, the reference harness's own claim): zero mismatches and
+    byte-identical chain heads of their records."""
+    from chip_smoke import chain_head
+    mism = _mismatches(base, res, len(tasks))
+    assert all(not v for v in mism.values()), (leg, mism)
+    ttasks = [torch_task(t) for t in tasks]
+    with tempfile.TemporaryDirectory(prefix="acar-port-leg-") as d:
+        heads = [chain_head(leg, ttasks, r, member_names,
+                            Path(d) / f"{i}.jsonl")
+                 for i, r in enumerate((base, res))]
+    assert heads[0] == heads[1], leg
+
+
+def hetero_legs(workdir, n_tasks: int = 200, batch_size: int = 8,
+                route_fn=None, prompt_chars: int = 24):
+    """The single-device legs of the reference harness's
+    ``run_hetero_equivalence`` (its knobs: 6 new tokens, chunk 8,
+    probe temperature 0.9), port against reference: the ``paged=False``
+    queued baseline (``dense``), the stepped loop over mixed layouts
+    (``step``), the int8-paged queued wave (``wave-paged``), a kill at
+    3/4 of the stepped run's ticks and ``recover`` (``recovered``), and
+    the Mamba-probe fleet stepped (``mamba-step``). Each port leg also
+    equals the port's own dense baseline, and the ring member's block
+    table is narrower than a dense row's. Returns {leg: callable}."""
+    from harness.simulate import long_prompt_workload
+    from repro_torch.data import tokenizer as ttok
+    from repro_torch.serving.kv_pool import pages_for
+
+    tasks = long_prompt_workload(n_tasks, prompt_chars, seed=0,
+                                 duplicate_rate=0.15)
+    kw = dict(max_new_tokens=6, batch_size=batch_size, route_fn=route_fn)
+    state: dict = {}
+
+    def fleet(mamba: bool):
+        key = ("fleet", mamba)
+        if key not in state:
+            fleets = hetero_fleets(mamba_probe=mamba)
+            state[key] = (fleets, [m.name for m in fleets[0][1]],
+                          queued_pair(fleets, tasks, **kw),
+                          stepped_pair(fleets, tasks, chunk_tokens=8, **kw))
+        return state[key]
+
+    def base(mamba: bool = False):
+        key = ("base", mamba)
+        if key not in state:
+            _, names, (qref, qport), _ = fleet(mamba)
+            _, jres = qref(paged=False)
+            _, tres = qport(paged=False)
+            check_queued_equal(f"hetero-dense-{mamba}", tasks, jres, tres,
+                               names)
+            state[key] = (jres, tres)
+        return state[key]
+
+    def dense():
+        base()
+        return "paged=False baseline"
+
+    def step():
+        fleets, names, _, (sref, sport) = fleet(False)
+        _, tbase = base()
+        _, jres = sref()
+        teng, tres = sport()
+        check_served_equal("hetero-step", tasks, jres, tres, names)
+        check_port_runs_equal("hetero-step", tasks, tbase, tres, names)
+        state["ticks"] = tres.step.ticks
+        s = int(ttok.encode_aligned([tasks[0].text]).shape[1])
+        srv = teng._stepped_server(fleets[1][1][1])
+        ring_w = srv.table_width(s, 6)
+        dense_w = pages_for(s + 6, srv.page_size)
+        assert srv.layout == "ring" and ring_w < dense_w
+        kv = teng.kv_stats()
+        assert kv[fleets[1][0].name].pages_highwater > 0
+        return (f"{tres.step.ticks} ticks, ring table width {ring_w} < "
+                f"dense {dense_w}, layouts "
+                f"{sorted((n, st.pages_highwater) for n, st in kv.items())}")
+
+    def wave_paged():
+        _, names, (qref, qport), _ = fleet(False)
+        _, tbase = base()
+        _, jres = qref()
+        _, tres = qport()
+        check_queued_equal("hetero-wave-paged", tasks, jres, tres, names)
+        check_port_runs_equal("hetero-wave-paged", tasks, tbase, tres,
+                              names)
+        return "int8 pages"
+
+    def recovered():
+        _, names, _, (sref, sport) = fleet(False)
+        jbase, tbase = base()
+        if "ticks" not in state:
+            state["ticks"] = sport()[1].step.ticks
+        tick = max(1, state["ticks"] * 3 // 4)
+        restored = check_crash_leg(sref, sport, tasks, jbase, names,
+                                   workdir, tick, torn=False)
+        return f"recovered@{tick}, restored {restored}"
+
+    def mamba_step():
+        fleets, names, _, (sref, sport) = fleet(True)
+        _, tbase = base(True)
+        _, jres = sref()
+        teng, tres = sport()
+        check_served_equal("hetero-mamba-step", tasks, jres, tres, names)
+        check_port_runs_equal("hetero-mamba-step", tasks, tbase, tres,
+                              names)
+        hw = teng.kv_stats()[fleets[1][0].name].pages_highwater
+        assert teng._stepped_server(fleets[1][0]).layout == "lanes"
+        assert hw > 0
+        return f"lanes high-water {hw}"
+
+    return {"dense": dense, "step": step, "wave-paged": wave_paged,
+            "recovered": recovered, "mamba-step": mamba_step}
+
+
+# AdamW steps of arithmetic that ``default_fleets`` gives each model
+DEFAULT_FLEET_STEPS = 10
+
+
+def default_fleets(train_steps: int = DEFAULT_FLEET_STEPS):
+    """The serve CLI's default fleet (``DEFAULT_PROBE`` smollm-135m;
+    ``DEFAULT_ENSEMBLE`` llama3-8b, deepseek-7b, recurrentgemma-2b) as
+    the CLI builds it: reduced f32 arithmetic configs trained
+    ``train_steps`` steps each by the port's ``build_zoo`` on the CPU
+    (member i from seed i), then the same values in the reference's
+    tree. Seed weights answer "" on every row, so a member that computed
+    wrongly would go unseen; after 10 steps every member answers in
+    digits. Returns the reference's (``use_pallas=True``) and the port's
+    fleets."""
+    from repro.launch.serve import DEFAULT_ENSEMBLE, DEFAULT_PROBE
+    from repro.launch.train import reduced_for_data
+    from repro.serving import ZooModel
+    from repro_torch.launch.serve import build_zoo
+    trained = build_zoo((DEFAULT_PROBE,) + DEFAULT_ENSEMBLE, train_steps,
+                        verbose=False, device="cpu")
+    zoo = [ZooModel(name=m.name, cfg=reduced_for_data(m.name, "arithmetic"),
+                    params=jax.tree.map(lambda t: jnp.asarray(t.numpy()),
+                                        m.params))
+           for m in trained]
+    return pallas_zoo(zoo[0], zoo[1:]), torch_zoo(zoo[0], zoo[1:])
+
+
+def serve_reports(fleets, tasks, **kw):
+    """Both packages' ``serve`` reports over one fleet and stream (the
+    port on the CPU), without their walls."""
+    from repro.configs.acar import ACARConfig as JACARConfig
+    from repro.launch import serve as jserve
+    from repro_torch.configs import ACARConfig
+    from repro_torch.launch import serve as tserve
+    (jprobe, jens), (tprobe, tens) = fleets
+    acfg = dict(probe_temperature=0.9, seed=0)
+    want = jserve.serve(tasks, jprobe, jens, JACARConfig(**acfg),
+                        verbose=False, **kw)
+    got = tserve.serve([torch_task(t) for t in tasks], tprobe, tens,
+                       ACARConfig(**acfg), verbose=False, device="cpu",
+                       **kw)
+    for report in (want, got):
+        del report["wall_ms"]
+    return got, want
+
+
+def default_fleet_legs(n_tasks: int = 200, batch_size: int = 8,
+                       prompt_chars: int = 76):
+    """The serve CLI's default fleet (``default_fleets``) through each
+    engine ``serve`` drives, port against reference, over long prompts
+    with duplicates (by default past the reduced recurrentgemma-2b's
+    64-position ring window, so its ring caches wrap), forced routes
+    over every mode, 6 new tokens, chunk 8, and the members sampled at
+    0.9 like the probe: greedy, seed weights answer "" on every row, so
+    a wrong member would go unseen. The legs: the wave (``run_batch``
+    in two waves: the dense members from pool pages, recurrentgemma-2b
+    over contiguous ring and RG-LRU caches), ``run_queued`` and
+    ``run_stepped`` at megastep 2 (recurrentgemma-2b on the
+    contiguous-cache member fallback). Each is equal to the reference on
+    sigma, mode, answers, member answers, probe texts, record hashes and
+    chain head, and recurrentgemma-2b answers every full-arena row, not
+    always "". Returns {leg: callable}."""
+    from harness.simulate import long_prompt_workload
+    tasks = long_prompt_workload(n_tasks, prompt_chars, seed=0,
+                                 duplicate_rate=0.15)
+    fleets = default_fleets()
+    names = [m.name for m in fleets[0][1]]
+    hybrid = names.index("recurrentgemma-2b")
+    # half the rows full-arena: the only mode that runs the hybrid
+    kw = dict(max_new_tokens=6, batch_size=batch_size,
+              route_fn=forced_route(n_tasks, (0, 1, 2, 2)),
+              ensemble_temperature=0.9)
+
+    def hybrid_answered(res) -> str:
+        full = [res.member_answers[i][hybrid] for i in range(n_tasks)
+                if res.modes[i] == 2]
+        assert full and None not in full and any(full), full
+        return (f"recurrentgemma-2b answered {len(full)} full-arena rows, "
+                f"{sum(map(bool, full))} not empty")
+
+    def wave():
+        check_run_batch_against_reference(fleets + (tasks,), paged=None,
+                                          ensemble_temperature=0.9,
+                                          twin=False,
+                                          route_fn=kw["route_fn"])
+        return "two waves"
+
+    def queued():
+        _, tres = check_run_queued_against_reference(fleets, tasks, {},
+                                                     **kw)
+        return hybrid_answered(tres)
+
+    def step():
+        ref, port = stepped_pair(fleets, tasks, chunk_tokens=8, **kw)
+        _, jres = ref(megastep=2)
+        _, tres = port(megastep=2)
+        check_served_equal("default-step", tasks, jres, tres, names)
+        return hybrid_answered(tres)
+
+    return {"default wave": wave, "default queued": queued,
+            "default step loop": step}
+
+
+def serve_legs(n_tasks: int = 200):
+    """``serve``'s reports over the default fleet, port against
+    reference: the wave (``run_batch``), ``scheduler=True`` and the step
+    loop at megastep 2. Returns {leg: callable}."""
+    from repro.data.tasks import arithmetic_suite
+    tasks = arithmetic_suite(n_tasks, seed=99)
+    fleets = default_fleets()
+
+    def leg(**kw):
+        def run():
+            got, want = serve_reports(fleets, tasks, **kw)
+            assert got == want, (got, want)
+            return f"modes {got['mode_distribution']}"
+        return run
+
+    return {"serve wave": leg(),
+            "serve scheduler": leg(scheduler=True, batch_size=8),
+            "serve step loop": leg(step_loop=True, batch_size=8,
+                                   megastep=2)}
+
+
 def engine_legs():
     """The 200-task legs of the engine gate: (name, callable)."""
     # the prompt lengths of tier-1's legs: 24 characters stepped, 21
@@ -982,10 +1248,11 @@ def queued_legs(workdir):
 def main(argv=None) -> int:
     """The 200-task legs, each once: ``engine`` (the engine gate),
     ``faults`` (crash recovery, the degraded fleet, spans), ``queued``
-    (the queued wave engine and the scheduler), or all three when no
-    group is named."""
+    (the queued wave engine and the scheduler), ``hetero`` (the
+    heterogeneous fleets' legs, the default fleet's engine legs and its
+    ``serve`` reports), or all four when no group is named."""
     groups = list(argv if argv is not None else sys.argv[1:]) \
-        or ["engine", "faults", "queued"]
+        or ["engine", "faults", "queued", "hetero"]
     failed = 0
     with tempfile.TemporaryDirectory(prefix="acar-port-legs-") as d:
         legs = []
@@ -995,13 +1262,18 @@ def main(argv=None) -> int:
             legs += fault_legs(d)
         if "queued" in groups:
             legs += queued_legs(d)
+        if "hetero" in groups:
+            legs += [(f"hetero {k}", v) for k, v in hetero_legs(d).items()]
+            legs += list(default_fleet_legs().items())
+            legs += list(serve_legs().items())
         for name, leg in legs:
             t = time.perf_counter()
             try:
                 note = leg()
-                verdict = ("0 mismatches (sigma, mode, answer, member, "
-                           "probe text, record hash); heads equal"
-                           + (f"; {note}" if note else ""))
+                verdict = ("reports equal" if name.startswith("serve")
+                           else "0 mismatches (sigma, mode, answer, "
+                           "member, probe text, record hash); heads "
+                           "equal") + (f"; {note}" if note else "")
             except AssertionError as e:
                 failed += 1
                 verdict = f"MISMATCH {str(e)[:2000]}"

@@ -149,6 +149,8 @@ PREFILL_CASES = [
     (2, 4, 4, 2, 16, 8, 21, [4, 12]),              # the reference's own
     (4, 5, 6, 3, 32, 4, 23, [0, 5, 10, 18]),       # page 4, odd chunk
     (2, 1, 9, 3, 64, 8, 97, [96, 40]),             # last 1-token chunk
+    (2, 6, 8, 2, 128, 8, 29, [0, 23]),             # head_dim 128, G 4
+    (2, 7, 4, 4, 128, 8, 31, [7, 24]),             # head_dim 128, G 1
 ]
 
 

@@ -100,11 +100,12 @@ def test_wrapper_shapes_it_takes_reach_the_device_check(dtype, d, f):
 
 
 def test_bf16_prefill_raises_for_head_dims_without_a_kernel():
-    """The bf16 chunked-prefill kernel is built for head_dim 64, the
-    served models'; another head_dim raises rather than falling back."""
+    """The bf16 chunked-prefill kernel is built for head_dim 64 and 128,
+    the served models'; another head_dim raises rather than falling
+    back (64 and 128 pass the check and reach the device test)."""
     m = dict(device="meta")
-    for d, match in ((32, "head_dim 64"), (128, "head_dim 64"),
-                     (64, "no kernel")):
+    for d, match in ((32, "head_dim 64 or 128"), (96, "head_dim 64 or 128"),
+                     (128, "no kernel"), (64, "no kernel")):
         with pytest.raises(ValueError, match=match):
             ops.chunked_prefill_attention(
                 torch.empty(2, 4, 3, d, dtype=torch.bfloat16, **m),

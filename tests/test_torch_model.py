@@ -295,8 +295,13 @@ def test_paged_server_allocates_dense_pages_on_its_device(zoo):
     assert srv.stats.page_bytes == (tcfg.num_layers * PAGE
                                     * tcfg.num_kv_heads * 2
                                     * tcfg.resolved_head_dim * 4)
-    with pytest.raises(NotImplementedError, match="ring"):
-        PagedKVServer(tcfg.replace(window=16), device="cpu")
+    # a sliding-window config gets ring pages: a row holds its
+    # window-capped snapshot privately, no prompt page is shared
+    ring = PagedKVServer(tcfg.replace(window=16), device="cpu")
+    assert ring.layout == "ring" and ring.prefix_cache_entries == 0
+    g = ring.row_geometry(21, 6)
+    assert (g.n_shared, g.tail_tokens, g.nbp, g.nb, g.n_tail,
+            g.cache_len) == (0, 0, 2, 2, 2, 16)
 
 
 def _prefilled(zoo, b, s, max_new, seed):

@@ -223,10 +223,32 @@ def test_flash_attention_blockwise_and_full_match_reference():
 
 
 def test_ring_decode_is_refused(zoo):
-    _, _, tcfg, tprm = zoo
-    cache = TT.init_cache(tcfg, 1, 8)
-    lp = {k: v[0] for k, v in tprm["layers"]["attn"].items()}
-    with pytest.raises(NotImplementedError):
-        tattn.gqa_decode(tcfg, lp, torch.zeros(1, tcfg.d_model),
-                         {n: t[0] for n, t in cache["layers"].items()},
-                         3, ring=True)
+    """Ring (sliding-window) decode over a contiguous ring cache, once
+    refused, now computes: at a position past the ring's length the
+    token lands at slot pos mod S and attention masks by the position
+    each slot holds, as the reference's ``gqa_decode(ring=True)``, on
+    the dense and the int8 cache."""
+    jcfg, jprm, tcfg, tprm = zoo
+    b, ring, pos = 2, 8, 13
+    rng = np.random.default_rng(5)
+    jc = JT.init_cache(jcfg.replace(window=ring), b, 40)
+    jc = {n: jnp.asarray(rng.normal(size=a.shape[1:]).astype(np.float32)
+                         if a.dtype == jnp.float32 else
+                         rng.integers(-127, 128, size=a.shape[1:]).astype(
+                             np.int8))
+          for n, a in jc["layers"].items()}
+    if "k_scale" in jc:
+        jc["k_scale"] = jnp.abs(jc["k_scale"]) * 0.01
+        jc["v_scale"] = jnp.abs(jc["v_scale"]) * 0.01
+    tc = {n: torch.from_numpy(np.array(a)) for n, a in jc.items()}
+    jlp = jax.tree.map(lambda a: a[0], jprm["layers"]["attn"])
+    tlp = {k: v[0] for k, v in tprm["layers"]["attn"].items()}
+    x = rng.normal(size=(b, tcfg.d_model)).astype(np.float32)
+    jy, jc = jattn.gqa_decode(jcfg, jlp, jnp.asarray(x), jc,
+                              jnp.int32(pos), ring=True)
+    ty, tc = tattn.gqa_decode(tcfg, tlp, torch.from_numpy(x), tc, pos,
+                              ring=True)
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), atol=ATOL,
+                               rtol=ATOL)
+    for name in jc:
+        _check_leaf(name, tc[name], jc[name])

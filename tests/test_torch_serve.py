@@ -83,12 +83,13 @@ def test_serve_traced_queued_report_matches_reference(fleets, tmp_path):
 
 def test_serve_refuses_what_is_not_ported(fleets):
     _, (tprobe, tens), tasks = fleets
-    # the sharded loop, and main's default fleet (recurrentgemma-2b)
+    # the sharded loop, through serve and through the CLI (which
+    # refuses it before building a fleet)
     with pytest.raises(NotImplementedError):
         tserve.serve([torch_task(tasks[0])], tprobe, tens, ACARConfig(),
                      verbose=False, device="cpu", data_shards=2)
     with pytest.raises(NotImplementedError):
-        tserve.main([])
+        tserve.main(["--shards", "2"], device="cpu")
 
 
 def test_parse_member_matches_reference():
