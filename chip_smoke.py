@@ -37,12 +37,20 @@ Phases (each raises on failure, and the script then exits non-zero):
    8 gives them (one row over 105 positions; a 97-token prompt); and
    hold, check bit for bit and time the bf16 chunked prefill at head_dim
    128 at llama3-8b's and deepseek-7b's heads (G 4 and G 1), the shapes
-   phase 11 gives it;
+   phase 11 gives it; and hold, check bit for bit and time the fused
+   SwiGLU at the shapes phase 12 gives it (mixtral-8x22b's experts, d
+   6144 / F 16384, over a decode tick's 8 rows and a 256-token chunk;
+   deepseek-v2-236b's dense layer 0, d 5120 / F 12288, over a 97-token
+   prompt) and in f32 at d 5120 and 6144, whose 20- and 24-column
+   instantiations must give the 16-column one's bits on zero-padded
+   inputs;
 4. reference — a reduced float32 model on the card agrees with the same
    calls on the CPU, where every kernel runs its plain version: chunked
    prefill and a paged decode step; one-shot prefill and decode steps
    over a dense and over an int8 contiguous cache; one-shot prefill into
-   int8 pages and paged decode steps over them;
+   int8 pages and paged decode steps over them; deepseek-v2's MLA latent
+   cache (capacity MoE, dense layer 0) and mixtral-8x22b's gather MoE on
+   ring pages, prefill and two decode steps each;
 5. serve — the stepped ACAR engine serves 16 long-prompt tasks through
    a full-width smollm-135m fleet (bf16, seed-initialised weights): every
    task retires, its three kernels launch during the run, no page leaks
@@ -65,7 +73,13 @@ Phases (each raises on failure, and the script then exits non-zero):
    twice: every loss is finite, every param moves, the rerun reproduces
    losses and params bit for bit, and the scan kernels launch forward
    and backward; then ``train()``, the entry point, trains reduced
-   smollm-135m on arithmetic and its checkpoint restores bit for bit.
+   smollm-135m on arithmetic and its checkpoint restores bit for bit;
+   then reduced mixtral-8x22b and deepseek-v2-236b (the MoE family's
+   published widths do not fit one card with AdamW's moments) for 4
+   steps twice through ``train()``, and mixtral-8x22b with the gather
+   dispatch through ``make_train_step`` (kernel 3 on every expert,
+   every expert's weights moved by its backward): finite losses, the
+   router's aux in the loss, reruns bit for bit.
 8. audit (run after phase 6) — the paper's Algorithm 1 through
    ``ACAROrchestrator`` (probe -> EXTRACT -> sigma -> route by sigma ->
    ensemble -> judge -> an appended TraceRecord) over four
@@ -107,9 +121,9 @@ Phases (each raises on failure, and the script then exits non-zero):
    orchestrator run, ``logical_time`` the admission order, kernels 3
    and 4 only); and ``serve(scheduler=True)`` traced with a lineage
    walk (batch sizes [8, 8], lineage OK).
-11. fleets (run last) — the serve CLI's fleets at their published
-   widths, bf16, seed-initialised, over phase 5's stream and forced
-   routes: (a) the default fleet (a smollm-135m probe; llama3-8b,
+11. fleets — the serve CLI's fleets at their published widths, every
+   model cut to its first 10 layers, bf16, seed-initialised, over phase
+   5's stream and forced routes: (a) the default fleet (a smollm-135m probe; llama3-8b,
    deepseek-7b and recurrentgemma-2b) through the wave engine (the
    dense members from pool pages, the hybrid over contiguous ring and
    RG-LRU caches) and the stepped engine (kernel 2 at d 128, the hybrid
@@ -122,6 +136,18 @@ Phases (each raises on failure, and the script then exits non-zero):
    stepped head equals the baseline's is printed (a finding); each
    fleet freed before the next is built; (c) ``launch.serve.main`` for
    both fleets (reduced models trained 2 steps, 8 tasks).
+12. moe (run last) — the fleet of ``launch.serve --ensemble
+   mixtral-8x22b deepseek-v2-236b`` at published widths, bf16,
+   seed-initialised, over phase 5's stream and forced routes: the
+   smollm-135m probe, mixtral-8x22b with the gather dispatch (4 of its
+   56 layers) on ring pages, deepseek-v2-236b as published (capacity
+   MoE, MLA, two shared experts, dense layer 0; 2 of its 60 layers) on
+   the contiguous-cache member fallback, and the probe's twin; through
+   the stepped engine and the ``paged=False`` queued baseline, each
+   twice (every task retired, each path's kernels and no other, no page
+   leaked, the rerun's results and chain head identical), every gather
+   call's kernel-3 launches counted on prefills and on decode ticks;
+   walls, launches and the peak memory printed.
 
 Phase 3 also holds the training path's kernels against their plain
 versions at the phase-7 shapes (the selective scan and the RG-LRU scan,
@@ -568,6 +594,99 @@ def fleet_shape_checks(torch) -> dict:
     log("rows: at phase 11's shapes, decode rows 0-3 of 8 and SwiGLU rows "
         "0-7 of 256 bit-identical to calls without their neighbours")
     return out
+
+
+# kernel 3 at the shapes phase 12 gives it, and in f32 at the widths of
+# the 20- and 24-column instantiations: (label, dtype, T, d_model, d_ff,
+# timed launches). mixtral-8x22b's gather experts run over a decode
+# tick's 8 rows and a 32-token chunk of 8 rows; deepseek-v2-236b's dense
+# layer 0 over one 97-token prompt on the contiguous-cache fallback. The
+# f32 kernel keeps 8 rows a CTA on CUDA cores (tens of ms at these
+# widths), so it is timed over 5 launches.
+MOE_SWIGLU_SHAPES = (
+    ("mixtral-8x22b decode tick", "bfloat16", 8, 6144, 16384, 50),
+    ("mixtral-8x22b prefill chunk", "bfloat16", 256, 6144, 16384, 50),
+    ("deepseek-v2-236b layer 0", "bfloat16", PROMPT, 5120, 12288, 50),
+    ("f32 d 5120", "float32", 64, 5120, 12288, 5),
+    ("f32 d 6144", "float32", 256, 6144, 16384, 5),
+)
+
+
+def moe_swiglu_checks(torch) -> dict:
+    """Kernel 3 at ``MOE_SWIGLU_SHAPES``: activations of unit scale,
+    weights at 1/sqrt(fan-in); each held against its plain version at
+    the reference's tolerance, its first rows bit-identical to a call
+    without the rest (8 of T, 4 of a decode tick's 8), bf16 stages held
+    and timed, and timed beside its bound and three matmuls with silu.
+    Returns {label: result}."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fused_swiglu import fused_swiglu_plain
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    out = {}
+    for label, dname, t, d, f, n in MOE_SWIGLU_SHAPES:
+        dtype = getattr(torch, dname)
+        x = torch.randn((t, d), generator=gen, device="cuda").to(dtype)
+        wg, wu, wd = ((torch.randn(sh, generator=gen, device="cuda")
+                       / sh[0] ** 0.5).to(dtype)
+                      for sh in ((d, f), (d, f), (f, d)))
+        name = f"fused_swiglu[{dname}, {label}: T {t}, d {d}, F {f}]"
+        got = ops.fused_swiglu(x, wg, wu, wd)
+        err = check_close(name, got, fused_swiglu_plain(x, wg, wu, wd),
+                          TOL[("swiglu", dname)])
+        m = min(8, t // 2)
+        check_same_rows(f"{name} rows 0-{m - 1} of {t}", got[:m],
+                        ops.fused_swiglu(x[:m].contiguous(), wg, wu, wd))
+        stages = (swiglu_stages(torch, name, x, (wg, wu, wd), n)
+                  if dtype == torch.bfloat16 else {})
+        item = x.element_size()
+        bnd, by = bound_ms((2 * t * d + 3 * d * f) * item, 6.0 * t * d * f,
+                           dname)
+        out[label] = dict(
+            dtype=dname, tokens=t, d_model=d, d_ff=f, max_abs_err=err,
+            bound_ms=bnd, bound_by=by, rows_alone=m, **stages,
+            ms=time_ms(torch, lambda: ops.fused_swiglu(x, wg, wu, wd), n),
+            plain_ms=time_ms(torch, lambda: fused_swiglu_plain(
+                x, wg, wu, wd), n),
+            library_ms=time_ms(torch, lambda: torch.matmul(
+                F.silu(torch.matmul(x, wg)) * torch.matmul(x, wu), wd), n))
+        r = out[label]
+        log(f"kernel {name}: max_abs_err {err:.3e}  kernel {r['ms']:.4f} "
+            f"ms  plain {r['plain_ms']:.4f} ms  library "
+            f"{r['library_ms']:.4f} ms  bound {bnd:.5f} ms ({by}); rows "
+            f"0-{m - 1} bit-identical alone{stage_note(r)}")
+        del x, wg, wu, wd, got
+    out["f32 widths"] = f32_width_bits(torch, gen)
+    torch.cuda.empty_cache()
+    return out
+
+
+def f32_width_bits(torch, gen) -> dict:
+    """The f32 kernel's instantiations agree bit for bit: x, Wg and Wu
+    zero-padded from d_model 4096 (the 16-column instantiation) to 5120
+    and 6144 (20 and 24 columns) add exact zeros to every gate and up
+    sum and leave h as it was, so the first 4096 output columns must
+    equal the unpadded call's bits (column c's sum is the same loop in
+    every instantiation)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    t, d, f = 64, 4096, 1024
+    x, wg, wu = (torch.randn(sh, generator=gen, device="cuda") / sh[0] ** 0.5
+                 for sh in ((t, d), (d, f), (d, f)))
+    wd = torch.randn((f, d), generator=gen, device="cuda") / f ** 0.5
+    base = ops.fused_swiglu(x, wg, wu, wd)
+    for wide in (5120, 6144):
+        p = wide - d
+        got = ops.fused_swiglu(F.pad(x, (0, p)), F.pad(wg, (0, 0, 0, p)),
+                               F.pad(wu, (0, 0, 0, p)), F.pad(wd, (0, p)))
+        check_same_rows(f"fused_swiglu[float32] d {d} zero-padded to "
+                        f"{wide}, columns 0-{d - 1}", got[:, :d], base)
+    log(f"fused_swiglu[float32]: d {d} zero-padded to 5120 and 6144 (20 "
+        "and 24 columns a thread) gives the 16-column instantiation's "
+        "bits")
+    return dict(tokens=t, d_model=d, d_ff=f, padded_to=[5120, 6144],
+                bitwise=True)
 
 
 def swiglu_case(torch, gen, dtype):
@@ -1401,6 +1520,8 @@ def run_kernel_phase(torch):
         prefill_d128_checks(torch))
     for name, by_model in fleet_shape_checks(torch).items():
         results[(name, "bfloat16")]["fleet_shapes"] = by_model
+    results[("fused_swiglu", "bfloat16")]["moe_shapes"] = (
+        moe_swiglu_checks(torch))
     # phase 8's shapes: inputs of their own stream, so the others' stay
     gen_audit = torch.Generator(device="cuda")
     gen_audit.manual_seed(6)
@@ -2093,17 +2214,122 @@ def _to_device(tree, dev):
             for k, v in tree.items()}
 
 
+def run_moe_reference_phase(torch):
+    """Phase 12's model calls on reduced float32 MoE models, on the card
+    against the same calls on the CPU, logits within 1e-4: deepseek-v2
+    (capacity MoE, MLA, a shared expert, dense layer 0) prefilled into
+    its latent cache and decoded two steps (the contiguous-cache member
+    fallback: kernel 3 in layer 0's prefill only); mixtral-8x22b with
+    the gather dispatch prefilled one-shot into ring pages and decoded
+    two steps over them (kernel 3 for every expert of every layer, on
+    the prefill and on each decode step)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import params as params_lib
+    from repro_torch.models import transformer as T
+
+    rng = np.random.default_rng(3)
+    b, s, new = 4, 21, 2
+    ids = rng.integers(3, 500, size=(b, s)).astype(np.int64)
+
+    def cache_program(c, prm, dev):
+        lg, cache = T.prefill(c, prm, torch.from_numpy(ids).to(dev),
+                              cache_len=s + new)
+        out = [lg]
+        for step in range(new):
+            lg, cache = T.decode_step(c, prm, cache, torch.argmax(lg, -1),
+                                      s + step)
+            out.append(lg)
+        return out
+
+    def ring_program(c, prm, dev):
+        ring = min(s + new, c.window)
+        nb = -(-ring // PAGE)
+        shape = (c.num_layers, b * nb, PAGE, c.num_kv_heads,
+                 c.resolved_head_dim)
+        pages = {"k": torch.zeros(shape, device=dev),
+                 "v": torch.zeros(shape, device=dev)}
+        bt = torch.arange(b * nb, dtype=torch.int32,
+                          device=dev).reshape(b, nb)
+        lg, pages = T.prefill_paged(c, prm, torch.from_numpy(ids).to(dev),
+                                    pages, bt, cache_len=s + new)
+        out = [lg]
+        for step in range(new):
+            pos = torch.full((b,), s + step, dtype=torch.int32, device=dev)
+            lg, pages = T.decode_step_paged(c, prm, pages, bt,
+                                            torch.argmax(lg, -1), pos,
+                                            cache_len=s + new)
+            out.append(lg)
+        return out
+
+    for label, cfg, program, swiglu_calls in (
+            ("deepseek-v2-236b latent cache", reduced_variant(
+                "deepseek-v2-236b"), cache_program, 1),
+            ("mixtral-8x22b:gather ring pages", reduced_variant(
+                "mixtral-8x22b:gather"), ring_program, None)):
+        if swiglu_calls is None:
+            swiglu_calls = (1 + new) * cfg.num_layers * cfg.moe.num_experts
+            if T.resolve_layout(cfg) != "ring":
+                raise AssertionError(f"reference check: {label} layout")
+        params_cpu = params_lib.init_params(cfg, 0, device="cpu")
+        with torch.no_grad():
+            want = program(cfg, params_cpu, "cpu")
+            ops.reset_launch_counts()
+            got = program(cfg, _to_device(params_cpu, "cuda"), "cuda")
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        if launches["fused_swiglu"] != swiglu_calls or any(
+                v for k, v in launches.items() if k != "fused_swiglu"):
+            raise AssertionError(f"reference check: {label} launched "
+                                 f"{launches}, not {swiglu_calls} SwiGLU "
+                                 "calls alone")
+        for i, (a, bref) in enumerate(zip(got, want)):
+            a = a.cpu()
+            if a.shape != bref.shape or not torch.isfinite(a).all():
+                raise AssertionError(f"reference check: bad {label} "
+                                     f"logits {i}")
+            err = float((a - bref).abs().max())
+            if err > 1e-4:
+                raise AssertionError(
+                    f"reference check: {label} logits {i} on the card "
+                    f"differ from the CPU by {err:.3e}")
+            what = "prefill" if i == 0 else f"decode step {i}"
+            log(f"reference: {label} {what} logits card vs cpu max abs "
+                f"diff {err:.3e}")
+        log(f"reference: {label}: {swiglu_calls} fused_swiglu calls, no "
+            "other kernel")
+
+
 # the kernels each reduced family's train step must launch on the card
+# ("arch:gather": the arch with MoEConfig.impl "gather"). Capacity MoE
+# runs its experts as batched matmuls (as the reference, outside any
+# kernel); deepseek-v2's dense layer 0 and the gather experts run kernel 3
 TRAIN_REFERENCE_KERNELS = {
     "smollm-135m": ("fused_swiglu",),
     "falcon-mamba-7b": ("selective_scan", "selective_scan_bwd"),
     "recurrentgemma-2b": ("fused_swiglu", "rglru_scan", "rglru_scan_bwd"),
+    "mixtral-8x22b": (),
+    "mixtral-8x22b:gather": ("fused_swiglu",),
+    "deepseek-v2-236b": ("fused_swiglu",),
 }
 
 
+def reduced_variant(spec: str, dtype: str = "float32"):
+    """The reduced config of ``arch`` or ``arch:gather`` (its MoE with
+    the capacity-free gather dispatch) in ``dtype``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    arch, _, impl = spec.partition(":")
+    cfg = get_config(arch, reduced=True).replace(dtype=dtype)
+    if impl:
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, impl=impl))
+    return cfg
+
+
 def run_train_reference_phase(torch):
-    """One train step of each reduced f32 family (dense, ssm, hybrid)
-    on the card against the same step on the CPU: the loss, every
+    """One train step of each reduced f32 family (dense, ssm, hybrid,
+    capacity and gather MoE, MLA) on the card against the same step on
+    the CPU: the loss (with the router's aux term for MoE), every
     gradient leaf (atol 1e-6 + 1e-4 of the leaf's max, as the CPU tests
     hold the port against the reference) and the params after the step
     (atol 1e-5 where the CPU gradient exceeds 1e-6; AdamW's first update
@@ -2111,7 +2337,6 @@ def run_train_reference_phase(torch):
     zero may flip an element by 2 lr: those are counted, at most 0.1% of
     a leaf). Every leaf's gradient must be non-zero on the card: a
     kernel without a gradient would leave its weights at zero."""
-    from repro_torch.configs import get_config
     from repro_torch.configs.base import TrainConfig
     from repro_torch.data.pipeline import synthetic_lm_batches
     from repro_torch.kernels import ops
@@ -2123,7 +2348,7 @@ def run_train_reference_phase(torch):
     deterministic_cuda()
     tc = TrainConfig(learning_rate=1e-3, warmup_steps=2, total_steps=10)
     for arch, kernels in TRAIN_REFERENCE_KERNELS.items():
-        cfg = get_config(arch, reduced=True).replace(dtype="float32")
+        cfg = reduced_variant(arch)
         params_cpu = params_lib.init_params(cfg, 0, device="cpu")
         b = next(synthetic_lm_batches(2, 80, cfg.vocab_size, seed=3))
         out = {}
@@ -3556,6 +3781,100 @@ def run_train_entry_phase(torch) -> dict:
     return launches
 
 
+# the MoE family's training on the card: its published widths do not fit
+# one card (deepseek-v2's smallest MoE stack is 5.3 B params: ~64 GB of
+# bf16 params, gradients and f32 moments), so the reduced configs train
+MOE_TRAIN_STEPS = 4
+
+
+def run_moe_train_phase(torch) -> dict:
+    """``train()``, the entry point, on reduced mixtral-8x22b (capacity
+    MoE) and deepseek-v2-236b (capacity MoE, MLA, dense layer 0) for 4
+    arithmetic steps, twice each: the loss finite, every param finite,
+    the rerun's params bit for bit the run's, kernel 3 launched where the
+    path has it (deepseek-v2's dense layer 0). Then ``make_train_step``
+    on reduced mixtral-8x22b with the gather dispatch, 4 steps twice:
+    every loss finite, the rerun bit for bit, kernel 3 launched for
+    every expert and each expert's weights moved, which only kernel 3's
+    backward can move. Returns each path's launch counts."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import arithmetic_batches
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import reduced_for_data, train
+    from repro_torch.models import params as params_lib
+    from repro_torch.optim import init as opt_init
+
+    by_path = {}
+    for arch, needed in (("mixtral-8x22b", ()),
+                         ("deepseek-v2-236b", ("fused_swiglu",))):
+        runs = []
+        for _ in range(2):
+            ops.reset_launch_counts()
+            t = time.perf_counter()
+            _, prm, met = train(arch=arch, steps=MOE_TRAIN_STEPS, batch=64,
+                                seq=24, lr=2e-3, verbose=False,
+                                device="cuda")
+            wall = time.perf_counter() - t
+            runs.append((dict(params_lib._leaves(prm)), float(met["loss"]),
+                         float(met["aux_loss"]), ops.launch_counts(), wall))
+        (p1, loss, aux, launches, wall), (p2, loss2, _, launches2, _) = runs
+        check_path_launches(f"train moe[{arch}]", launches, needed)
+        if not (np.isfinite(loss) and aux > 0 and loss2 == loss
+                and launches2 == launches):
+            raise AssertionError(f"train moe[{arch}]: loss {loss} / "
+                                 f"{loss2}, aux {aux}")
+        bad = [k for k in p1 if not torch.isfinite(p1[k]).all()
+               or not torch.equal(p1[k], p2[k])]
+        if bad:
+            raise AssertionError(f"train moe[{arch}]: params not finite or"
+                                 f" not bit for bit on the rerun: {bad}")
+        by_path[f"train_{arch}"] = launches
+        log(f"train moe[{arch}] (train(), reduced): {MOE_TRAIN_STEPS} "
+            f"steps in {wall:.2f} s, loss {loss:.4f}, router aux "
+            f"{aux:.4f}; rerun bit for bit; launches {launches}")
+
+    cfg = reduced_for_data("mixtral-8x22b", "arithmetic")
+    cfg = cfg.replace(moe=reduced_variant("mixtral-8x22b:gather").moe)
+    tc = TrainConfig(learning_rate=2e-3, warmup_steps=1,
+                     total_steps=MOE_TRAIN_STEPS)
+    it = arithmetic_batches(64, 24, seed=0)
+    batches = [{n: torch.from_numpy(getattr(b, n)).cuda()
+                for n in ("tokens", "labels", "loss_mask")}
+               for b in (next(it) for _ in range(MOE_TRAIN_STEPS))]
+    step = make_train_step(cfg, tc)
+    runs = []
+    for _ in range(2):
+        p0 = params_lib.init_params(cfg, 0, device="cuda")
+        p, st, losses = p0, opt_init(p0), []
+        ops.reset_launch_counts()
+        for b in batches:
+            p, st, m = step(p, st, b)
+            losses.append(float(m["loss"]))
+        runs.append((dict(params_lib._leaves(p0)),
+                     dict(params_lib._leaves(p)), losses,
+                     ops.launch_counts()))
+    (p0, p1, losses, launches), (_, p2, losses2, launches2) = runs
+    per_step = cfg.num_layers * cfg.moe.num_experts
+    if launches["fused_swiglu"] != MOE_TRAIN_STEPS * per_step:
+        raise AssertionError(f"train moe[gather]: launches {launches}")
+    check_path_launches("train moe[gather]", launches, ("fused_swiglu",))
+    if (not all(np.isfinite(losses)) or losses2 != losses
+            or launches2 != launches
+            or any(not torch.equal(p1[k], p2[k]) for k in p1)):
+        raise AssertionError(f"train moe[gather]: losses {losses} / "
+                             f"{losses2} or params differ on the rerun")
+    still = [k for k in p1 if "mlp/w_" in k and torch.equal(p0[k], p1[k])]
+    if still:
+        raise AssertionError(f"train moe[gather]: experts never moved: "
+                             f"{still}")
+    by_path["train_mixtral_gather"] = launches
+    log(f"train moe[mixtral-8x22b:gather] (make_train_step, reduced): "
+        f"losses {losses}; rerun bit for bit; every expert moved; "
+        f"launches {launches}")
+    return by_path
+
+
 # ----------------------------------------------------------------------
 # phase 11: the serve CLI's fleets at published widths
 # ----------------------------------------------------------------------
@@ -3578,14 +3897,30 @@ FLEET_PATHS = {
                        "paged_decode_attention_quant"),
     "hetero_dense": ("fused_swiglu", "decode_attention",
                      "decode_attention_quant"),
+    # phase 12: the probe's paged kernels, and kernel 3 for the gather
+    # member's experts (its ring pages reach no attention kernel) and
+    # deepseek-v2's dense layer 0 on the fallback; the paged=False
+    # baseline decodes the probe over contiguous caches (kernel 4)
+    "moe_stepped": ("paged_decode_attention", "chunked_prefill_attention",
+                    "fused_swiglu"),
+    "moe_dense": ("fused_swiglu", "decode_attention"),
 }
 FLEET_FREED_BYTES = 1 << 30
+# phase 11 serves every model at its first 10 layers (its walls are
+# host-bound and scale with depth; at full depth the phase took 112 s of
+# the script's budget, which phase 12 now shares)
+FLEET_LAYERS = 10
 
 
-def fleet_models(torch, specs):
+def fleet_models(torch, specs, layers=None):
     """``ZooModel``s of the member specs (``launch.serve.parse_member``)
     at their published widths, bf16, seed-initialised on the card, spec
-    i from seed i."""
+    i from seed i; each cut to its first ``layers[spec]`` layers where
+    ``layers`` (a dict, or an int for every spec) names a cut. A spec's
+    twin (``spec`` + "-twin") shares the spec's model; ``arch:gather``
+    is the arch's MoE with the gather dispatch."""
+    import dataclasses
+
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import parse_member
     from repro_torch.models.params import count_params, init_params
@@ -3594,8 +3929,22 @@ def fleet_models(torch, specs):
     zoo = []
     t0 = time.perf_counter()
     for i, spec in enumerate(specs):
-        arch, variant = parse_member(spec)
-        cfg = variant(get_config(arch))
+        if spec.endswith("-twin"):
+            twin = next(m for m in zoo if m.name == spec[:-5])
+            zoo.append(ZooModel(spec, twin.cfg, twin.params))
+            continue
+        if spec.endswith(":gather"):
+            # the MoE with the capacity-free gather dispatch, which the
+            # CLI's specs do not name
+            cfg = get_config(spec[:-7])
+            cfg = cfg.replace(moe=dataclasses.replace(cfg.moe,
+                                                      impl="gather"))
+        else:
+            arch, variant = parse_member(spec)
+            cfg = variant(get_config(arch))
+        cut = layers.get(spec) if isinstance(layers, dict) else layers
+        if cut is not None and cut < cfg.num_layers:
+            cfg = cfg.replace(num_layers=cut)
         zoo.append(ZooModel(spec, cfg, init_params(cfg, i, device="cuda")))
         log(f"fleets: {spec} {cfg.family} {cfg.num_layers} layers d_model "
             f"{cfg.d_model} heads {cfg.num_heads}/{cfg.num_kv_heads} "
@@ -3612,8 +3961,8 @@ def fleet_models(torch, specs):
 def serve_fleet(torch, label, probe, ensemble, tasks, route, path, smi):
     """One path over a fleet, twice (``serve_twice``): the wave engine
     (``fleet_wave``), the stepped engine (``*_stepped``) or the
-    ``paged=False`` queued baseline (``hetero_dense``). Returns
-    (launches, result)."""
+    ``paged=False`` queued baseline (``*_dense``). Returns (launches,
+    result)."""
     from repro_torch.configs import ACARConfig
     from repro_torch.serving import BatchedACAREngine, MicroBatchPolicy
 
@@ -3623,13 +3972,13 @@ def serve_fleet(torch, label, probe, ensemble, tasks, route, path, smi):
         eng = BatchedACAREngine(
             ACARConfig(probe_temperature=0.9, seed=0), probe, ensemble,
             max_new_tokens=MAX_NEW, route_fn=route, device="cuda",
-            paged=False if path == "hetero_dense" else None)
+            paged=False if path.endswith("_dense") else None)
         torch.cuda.synchronize()
         t = time.perf_counter()
         if path.endswith("stepped"):
             res = eng.run_stepped(tasks, policy, chunk_tokens=32,
                                   megastep=4)
-        elif path == "hetero_dense":
+        elif path.endswith("_dense"):
             res = eng.run_queued(tasks, policy)
         else:
             res = eng.run_batch(tasks)
@@ -3667,9 +4016,9 @@ def run_fleet_phase(torch, smi: str) -> dict:
     (b) the heterogeneous fleet (``HETERO_PROBE``, ``HETERO_ENSEMBLE``)
     through the stepped engine and the ``paged=False`` queued baseline,
     with whether their heads agree (a finding); both at published
-    widths over phase 5's stream and forced routes; (c) the CLI
-    (``main``) on the card for both fleets. Returns each path's launch
-    counts."""
+    widths, every model at its first ``FLEET_LAYERS`` layers, over phase
+    5's stream and forced routes; (c) the CLI (``main``) on the card for
+    both fleets. Returns each path's launch counts."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve as serve_mod
 
@@ -3682,7 +4031,8 @@ def run_fleet_phase(torch, smi: str) -> dict:
     by_path = {}
     t0 = time.perf_counter()
     probe, ensemble = fleet_models(
-        torch, (serve_mod.DEFAULT_PROBE,) + serve_mod.DEFAULT_ENSEMBLE)
+        torch, (serve_mod.DEFAULT_PROBE,) + serve_mod.DEFAULT_ENSEMBLE,
+        FLEET_LAYERS)
     for path in ("fleet_wave", "fleet_stepped"):
         by_path[path], _ = serve_fleet(torch, "default", probe, ensemble,
                                        tasks, route, path, smi)
@@ -3692,7 +4042,8 @@ def run_fleet_phase(torch, smi: str) -> dict:
 
     t0 = time.perf_counter()
     probe, ensemble = fleet_models(
-        torch, (serve_mod.HETERO_PROBE,) + serve_mod.HETERO_ENSEMBLE)
+        torch, (serve_mod.HETERO_PROBE,) + serve_mod.HETERO_ENSEMBLE,
+        FLEET_LAYERS)
     by_path["hetero_stepped"], res_s = serve_fleet(
         torch, "hetero", probe, ensemble, tasks, route, "hetero_stepped",
         smi)
@@ -3732,6 +4083,115 @@ def run_fleet_phase(torch, smi: str) -> dict:
             f"{report['mode_distribution']}; launches {by_path[path]}")
     free_fleet(torch, "CLI")
     log(f"fleets: (c) CLI {time.perf_counter() - t0:.1f} s")
+    return by_path
+
+
+# ----------------------------------------------------------------------
+# phase 12: the MoE family at published widths
+# ----------------------------------------------------------------------
+# the fleet of ``launch.serve --ensemble mixtral-8x22b deepseek-v2-236b``
+# at published widths, mixtral-8x22b with the gather dispatch (the one
+# MoE a page layout serves: ring pages, its 4096-token window) and the
+# probe's twin; depth cut to fit one card beside the rest: mixtral-8x22b
+# 4 of 56 layers (~20.8 GB of bf16 weights), deepseek-v2-236b 2 of 60
+# (its dense layer 0 and one MoE layer, ~10.6 GB)
+MOE_FLEET = ("smollm-135m", "mixtral-8x22b:gather", "deepseek-v2-236b",
+             "smollm-135m-twin")
+MOE_FLEET_LAYERS = {"mixtral-8x22b:gather": 4, "deepseek-v2-236b": 2}
+
+
+class GatherLaunches:
+    """Counts, while armed, the gather MoE's calls and the kernel-3
+    launches they make, split into prefill (S > 1 tokens a row) and
+    decode ticks (one token a row): ``models.moe.moe_ffn_gather`` is
+    wrapped, the launch counts read before and after each call."""
+
+    def __init__(self):
+        self.calls = {"prefill": 0, "decode": 0}
+        self.launches = {"prefill": 0, "decode": 0}
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        from repro_torch.models import moe
+        self._real = real = moe.moe_ffn_gather
+
+        def counted(cfg, p, x):
+            before = ops.launch_counts()["fused_swiglu"]
+            out = real(cfg, p, x)
+            kind = "decode" if x.shape[1] == 1 else "prefill"
+            self.calls[kind] += 1
+            self.launches[kind] += (ops.launch_counts()["fused_swiglu"]
+                                    - before)
+            return out
+
+        moe.moe_ffn_gather = counted
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.moe_ffn_gather = self._real
+
+
+def moe_dispatch_specs(fleet) -> str:
+    """A line of each member's page layout and MoE dispatch."""
+    from repro_torch.models.transformer import resolve_layout
+    return ", ".join(
+        f"{m.name}={resolve_layout(m.cfg) or 'contiguous fallback'}"
+        + (f"/{m.cfg.moe.impl}" if m.cfg.moe else "")
+        + (f"/{m.cfg.attn_kind}" if m.cfg.attn_kind != "gqa" else "")
+        for m in fleet)
+
+
+def run_moe_phase(torch, smi: str) -> dict:
+    """Phase 5's stream and forced routes through ``MOE_FLEET`` at
+    published widths (bf16, seed-initialised; depth cut by
+    ``MOE_FLEET_LAYERS``): the stepped engine (the probe on dense pages
+    through kernels 1-3, mixtral-8x22b's gather experts through kernel 3
+    on its ring pages' one-shot prefill and on every decode tick,
+    deepseek-v2-236b on the contiguous-cache member fallback: capacity
+    prefill with MLA, per-token MoE decode over the latent cache) and
+    the ``paged=False`` queued baseline, each twice through
+    ``serve_twice`` (every task retired, each path's kernels and no
+    other, no page leaked, the rerun's results and chain head
+    identical). Every gather call's kernel-3 launches are counted: one a
+    routed expert, on the prefill and on each decode tick. Walls,
+    launches and the peak memory are printed. Returns each path's launch
+    counts."""
+    tasks = long_prompt_tasks(16, prompt_chars=PROMPT)
+    modes = forced_modes(len(tasks))
+
+    def route(sig, indices):
+        return modes[np.asarray(indices, np.int64)]
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    probe, ensemble = fleet_models(torch, MOE_FLEET, MOE_FLEET_LAYERS)
+    log(f"moe: layouts {moe_dispatch_specs([probe] + ensemble)}")
+    by_path = {}
+    for path in ("moe_stepped", "moe_dense"):
+        with GatherLaunches() as gl:
+            by_path[path], res = serve_fleet(torch, "moe", probe, ensemble,
+                                             tasks, route, path, smi)
+        experts = ensemble[0].cfg.moe.num_experts
+        for kind in ("prefill", "decode"):
+            if not gl.calls[kind] or (gl.launches[kind]
+                                      != experts * gl.calls[kind]):
+                raise AssertionError(
+                    f"moe[{path}]: {gl.calls[kind]} gather {kind} calls "
+                    f"made {gl.launches[kind]} kernel-3 launches, not "
+                    f"{experts} each")
+        answered = [sum(a[j] is not None for a in res.member_answers)
+                    for j in range(len(ensemble))]
+        if not all(answered[:2]):
+            raise AssertionError(f"moe[{path}]: a MoE member answered no "
+                                 f"row: {answered}")
+        log(f"moe[{path}]: gather calls {gl.calls}, kernel-3 launches "
+            f"{gl.launches} (one a routed expert); rows answered by "
+            f"member {answered}; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del probe, ensemble
+    free_fleet(torch, "MoE")
+    log(f"moe: phase 12 {time.perf_counter() - t0:.1f} s")
     return by_path
 
 
@@ -3797,6 +4257,7 @@ def main() -> int:
     phase_done("kernels")
     run_reference_phase(torch)
     run_wave_reference_phase(torch)
+    run_moe_reference_phase(torch)
     run_train_reference_phase(torch)
     phase_done("reference")
     cfg, params = full_width_params(torch)
@@ -3820,9 +4281,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path.update(run_train_phase(torch, gpu_name))
     by_path["train_entry"] = run_train_entry_phase(torch)
+    by_path.update(run_moe_train_phase(torch))
     phase_done("train")
     by_path.update(run_fleet_phase(torch, smi.splitlines()[0]))
     phase_done("fleets")
+    by_path.update(run_moe_phase(torch, smi.splitlines()[0]))
+    phase_done("moe")
 
     sources = {
         "paged_decode_attention": "src/repro/kernels/"
@@ -3896,6 +4360,8 @@ def main() -> int:
             entry["head_dim_128"] = r["d128"]
         if "fleet_shapes" in r:
             entry["fleet_shapes"] = r["fleet_shapes"]
+        if "moe_shapes" in r:
+            entry["moe_shapes"] = r["moe_shapes"]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels,
                       "launch_floor_ms": results[("launch_floor", "")]}))

@@ -1,8 +1,9 @@
 """Architecture registry: ``--arch <id>`` -> ModelConfig.
 
-Only the architectures the port runs are listed: the dense, ssm and
-hybrid families, which serve and train. The MoE, MLA, audio and vision
-configs join as their model families are ported.
+Only the architectures the port runs are listed: the dense, ssm,
+hybrid and MoE families (MoE with GQA or MLA attention), which serve
+and train. The audio and vision configs join as their model families
+are ported.
 """
 from __future__ import annotations
 
@@ -15,9 +16,11 @@ _ARCH_MODULES = {
     "granite-34b": "repro_torch.configs.granite_34b",
     "falcon-mamba-7b": "repro_torch.configs.falcon_mamba_7b",
     "llama3-8b": "repro_torch.configs.llama3_8b",
+    "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
     "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
     "smollm-135m": "repro_torch.configs.smollm_135m",
     "deepseek-7b": "repro_torch.configs.deepseek_7b",
+    "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
 }
 
 ARCH_IDS: Tuple[str, ...] = tuple(_ARCH_MODULES)

@@ -251,11 +251,12 @@ cudaError_t launch_gemm(const CUtensorMap& a, const CUtensorMap& b0,
 constexpr int kRows = 8;     // token rows per CTA (models.blocking.TOKEN_BLOCK)
 constexpr int kThreads = 256;
 constexpr int kFChunk = kThreads;  // one hidden unit per thread per chunk
-// output columns per thread: the kernel is instantiated for 4, 8, 12 and
-// 16 columns (D <= 1024, 2048, 3072, 4096) and the launch takes the
-// fewest that cover D. Column c's sum is the same loop in every
-// instantiation, so its bits do not depend on which one runs.
-constexpr int kMaxCols = 16;
+// output columns per thread: the kernel is instantiated for 4, 8, 12,
+// 16, 20 and 24 columns (D <= 1024, 2048, 3072, 4096, 5120, 6144) and
+// the launch takes the fewest that cover D. Column c's sum is the same
+// loop in every instantiation, so its bits do not depend on which one
+// runs.
+constexpr int kMaxCols = 24;
 
 template <typename T, int kCols>
 __global__ void __launch_bounds__(kThreads)
@@ -344,7 +345,8 @@ cudaError_t launch_cols(const void* x, const void* wg, const void* wu,
                         const void* wd, void* out, int n_tokens, int D,
                         int F, cudaStream_t st) {
   // x rows and one chunk of h in shared memory: 36 KB at D = 1024, 80 KB
-  // of x at D = 2560, 128 KB at D = 4096 (the opt-in covers up to 227 KB)
+  // of x at D = 2560, 128 KB at D = 4096, 200 KB in all at D = 6144 (the
+  // opt-in covers up to 227 KB)
   const size_t smem = sizeof(float) * ((size_t)kRows * D + kRows * kFChunk);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -370,7 +372,11 @@ cudaError_t launch(const void* x, const void* wg, const void* wu,
     return launch_cols<T, 8>(x, wg, wu, wd, out, n_tokens, D, F, st);
   if (D <= 12 * kThreads)
     return launch_cols<T, 12>(x, wg, wu, wd, out, n_tokens, D, F, st);
-  return launch_cols<T, 16>(x, wg, wu, wd, out, n_tokens, D, F, st);
+  if (D <= 16 * kThreads)
+    return launch_cols<T, 16>(x, wg, wu, wd, out, n_tokens, D, F, st);
+  if (D <= 20 * kThreads)
+    return launch_cols<T, 20>(x, wg, wu, wd, out, n_tokens, D, F, st);
+  return launch_cols<T, 24>(x, wg, wu, wd, out, n_tokens, D, F, st);
 }
 
 bool bf16_shapes_ok(int D, int F, std::initializer_list<const void*> ptrs) {

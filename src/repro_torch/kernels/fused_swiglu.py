@@ -32,6 +32,10 @@ import torch
 
 from repro_torch.kernels import build
 
+# the f32 kernel's widest instantiation: 24 output columns a thread of
+# 256 (csrc/fused_swiglu.cu kMaxCols), 8 rows of x in shared memory
+F32_MAX_D = 6144
+
 
 def fused_swiglu_plain(x: torch.Tensor, w_gate: torch.Tensor,
                        w_up: torch.Tensor,
@@ -125,8 +129,9 @@ def _check_shapes(name: str, x: torch.Tensor, w_gate: torch.Tensor,
             raise ValueError(
                 f"{name}: the bf16 kernels take d_model and d_ff that are "
                 f"multiples of 8 (TMA's 16-byte rows), got {d} and {f}")
-    elif d > 4096:
-        raise ValueError(f"{name}: the f32 kernel takes d_model <= 4096")
+    elif d > F32_MAX_D:
+        raise ValueError(f"{name}: the f32 kernel takes d_model <= "
+                         f"{F32_MAX_D}, got {d}")
 
 
 def _check_aligned(name: str, *tensors: torch.Tensor) -> None:

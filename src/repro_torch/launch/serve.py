@@ -21,10 +21,15 @@ default ensemble is llama3-8b, deepseek-7b and recurrentgemma-2b
 behind a smollm-135m probe, and ``--hetero-fleet`` the paper's
 heterogeneous mix (a Mamba probe on recurrent-state lanes, an int8-KV
 member, a sliding-window member on ring pages and a full-attention
-llama3-8b). The sharded step loop (``--shards``) is not ported yet.
+llama3-8b). MoE members (mixtral-8x22b, deepseek-v2-236b with MLA)
+serve over contiguous caches in every engine: their capacity dispatch
+couples rows, so no page layout takes them. The sharded step loop
+(``--shards``) is not ported yet.
 
     python -m repro_torch.launch.serve --tasks 32 --train-steps 300
     python -m repro_torch.launch.serve --hetero-fleet --step-loop
+    python -m repro_torch.launch.serve --ensemble mixtral-8x22b \
+        deepseek-v2-236b --step-loop
 
     from repro_torch.launch.serve import serve
     report = serve(tasks, probe, ensemble, ACARConfig(), device="cuda")

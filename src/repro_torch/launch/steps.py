@@ -22,22 +22,27 @@ def loss_and_grads(cfg: ModelConfig, params: dict,
     """The training loss and its gradient in every param leaf.
 
     ``batch`` holds ``tokens`` and ``labels`` (B, S) and optionally
-    ``loss_mask``, on the params' device. The loss is differentiated
-    through ``transformer.forward`` (the kernels' autograd Functions on
-    the card); a leaf the loss does not reach gets a zero gradient.
-    Returns (total loss, metrics, grads), detached."""
+    ``loss_mask``, on the params' device. The total loss is the
+    cross-entropy plus, for a MoE config, ``router_aux_weight`` times
+    the router's load-balancing aux, as the reference's step adds it.
+    It is differentiated through ``transformer.forward`` (the kernels'
+    autograd Functions on the card); a leaf the loss does not reach gets
+    a zero gradient. Returns (total loss, metrics, grads), detached."""
     p = tree_map(lambda t: t.detach().requires_grad_(True), params)
     logits, aux = T.forward(cfg, p, batch["tokens"],
                             batch.get("frontend_embeds"), remat=remat)
     loss, met = softmax_cross_entropy(logits, batch["labels"],
                                       batch.get("loss_mask"))
+    total = loss
+    if cfg.moe is not None:
+        total = total + cfg.moe.router_aux_weight * aux
     paths, leaves = zip(*_leaves(p))
     grads: dict = {}
     for path, x, g in zip(paths, leaves, torch.autograd.grad(
-            loss, leaves, allow_unused=True)):
+            total, leaves, allow_unused=True)):
         _set(grads, path, torch.zeros_like(x) if g is None else g)
     met = {k: v.detach() for k, v in met.items()}
-    return loss.detach(), dict(met, aux_loss=aux), grads
+    return total.detach(), dict(met, aux_loss=aux.detach()), grads
 
 
 def make_train_step(cfg: ModelConfig, tc: TrainConfig):

@@ -4,7 +4,10 @@ cache (dense or int8, linear or ring), and the paged variants the
 step-level loop runs (chunked prefill and decode over dense or int8
 pages, decode over ring pages).
 
-The port of the GQA functions of ``repro/models/attention.py``.
+The port of the GQA and MLA functions of ``repro/models/attention.py``
+(MLA: DeepSeek-V2's multi-head latent attention, full-sequence and the
+absorbed-form decode over its latent cache, both plain PyTorch as the
+reference leaves them outside any kernel).
 Linear-cache decode and chunked-prefill attention go through
 ``kernels.ops``: the hand-written Hopper kernels on the card, their
 plain PyTorch versions on the CPU. One-shot prefill attention and ring
@@ -27,7 +30,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import apply_rope
+from repro_torch.models.layers import apply_rope, rms_norm
 
 _NEG_INF = -1e30
 # one-shot prefill switches to blockwise online softmax at this block
@@ -460,3 +463,90 @@ def gqa_prefill_chunk_paged(cfg: ModelConfig, p: dict, x: torch.Tensor,
     out = out.reshape(b, c, cfg.num_heads * hd)
     y = torch.matmul(out, p["wo"])
     return y, k_pages, v_pages
+
+
+# ======================================================================
+# MLA (DeepSeek-V2 multi-head latent attention)
+# ======================================================================
+def _mla_dims(cfg: ModelConfig):
+    m = cfg.mla
+    return (m.q_lora_rank, m.kv_lora_rank, m.qk_nope_head_dim,
+            m.qk_rope_head_dim, m.v_head_dim)
+
+
+def mla_project_q(cfg: ModelConfig, p: dict, x: torch.Tensor):
+    """x: (..., d) -> q_nope (..., H, nope), q_rope (..., H, rope)."""
+    _, _, nope, rope, _ = _mla_dims(cfg)
+    q_a = rms_norm(torch.matmul(x, p["wq_a"]), p["q_norm"], cfg.norm_eps)
+    q = torch.matmul(q_a, p["wq_b"])
+    q = q.reshape(*x.shape[:-1], cfg.num_heads, nope + rope)
+    return q[..., :nope], q[..., nope:]
+
+
+def mla_project_kv_latent(cfg: ModelConfig, p: dict, x: torch.Tensor):
+    """x: (..., d) -> c_kv (..., kv_lora) [normed], k_rope (..., rope)."""
+    _, kvl, _, _, _ = _mla_dims(cfg)
+    kv_a = torch.matmul(x, p["wkv_a"])
+    c_kv = rms_norm(kv_a[..., :kvl], p["kv_norm"], cfg.norm_eps)
+    return c_kv, kv_a[..., kvl:]
+
+
+def mla_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                  positions: torch.Tensor) -> torch.Tensor:
+    """Full-sequence MLA (training and prefill): per-head K/V expanded
+    from the latent, then causal attention (``flash_attention``) with
+    head dims dk = nope + rope for q and k and dv for v, scaled by
+    1/sqrt(nope + rope). x: (B, S, d); positions: (S,) int."""
+    _, _, nope, rope, vdim = _mla_dims(cfg)
+    b, s, _ = x.shape
+    h = cfg.num_heads
+    q_nope, q_rope = mla_project_q(cfg, p, x)
+    q_rope = apply_rope(q_rope, positions[None], cfg.rope_theta)
+    c_kv, k_rope = mla_project_kv_latent(cfg, p, x)
+    k_rope = apply_rope(k_rope[:, :, None], positions[None],
+                        cfg.rope_theta)                     # (B,S,1,rope)
+    k_nope = torch.matmul(c_kv, p["wk_b"]).reshape(b, s, h, nope)
+    v = torch.matmul(c_kv, p["wv_b"]).reshape(b, s, h, vdim)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope.expand(b, s, h, rope)], dim=-1)
+    out = flash_attention(q, k, v, positions, positions, causal=True)
+    return torch.matmul(out.reshape(b, s, h * vdim), p["wo"])
+
+
+def mla_decode(cfg: ModelConfig, p: dict, x_t: torch.Tensor, cache: dict,
+               pos: int) -> Tuple[torch.Tensor, dict]:
+    """Absorbed-form MLA decode against the latent cache, in f32 as the
+    reference computes it: W_uk is folded into the query and W_uv
+    applied after the latent context, so per-head K/V of the history are
+    never formed.
+
+    x_t: (B, d); cache: {c_kv (B, S, kv_lora), k_rope (B, S, rope)},
+    written in place at ``pos`` (one Python int for the batch). Slots
+    past ``pos`` are masked. Returns (y (B, d), cache)."""
+    _, kvl, nope, rope, vdim = _mla_dims(cfg)
+    b = x_t.shape[0]
+    h = cfg.num_heads
+    pos_b = torch.full((1, 1), pos, dtype=torch.long, device=x_t.device)
+    q_nope, q_rope = mla_project_q(cfg, p, x_t)             # (B,H,.)
+    q_rope = apply_rope(q_rope[:, None], pos_b, cfg.rope_theta)[:, 0]
+    c_kv_t, k_rope_t = mla_project_kv_latent(cfg, p, x_t)   # (B,.)
+    k_rope_t = apply_rope(k_rope_t[:, None, None], pos_b,
+                          cfg.rope_theta)[:, 0, 0]
+    c_cache, r_cache = cache["c_kv"], cache["k_rope"]
+    c_cache[:, pos] = c_kv_t.to(c_cache.dtype)
+    r_cache[:, pos] = k_rope_t.to(r_cache.dtype)
+
+    wk_b = p["wk_b"].reshape(kvl, h, nope).float()
+    wv_b = p["wv_b"].reshape(kvl, h, vdim).float()
+    q_c = torch.einsum("bhn,khn->bhk", q_nope.float(), wk_b)
+    c32 = c_cache.float()
+    scores = (torch.einsum("bhk,bsk->bhs", q_c, c32)
+              + torch.einsum("bhr,bsr->bhs", q_rope.float(),
+                             r_cache.float())) * _inv_sqrt(nope + rope)
+    valid = torch.arange(c_cache.shape[1], device=x_t.device) <= pos
+    scores = scores.masked_fill(~valid[None, None], _NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    ctx_c = torch.einsum("bhs,bsk->bhk", probs, c32)        # (B,H,kv_lora)
+    out = torch.einsum("bhk,khv->bhv", ctx_c, wv_b)         # (B,H,vdim)
+    out = out.reshape(b, h * vdim).to(x_t.dtype)
+    return torch.matmul(out, p["wo"]), cache

@@ -7,7 +7,10 @@ converted tree against it leaf for leaf. The tree is the reference's:
 nested dicts with the scanned layer stack under ``"layers"`` carrying a
 leading layers axis (dense and ssm families), or one unstacked
 ``layer_{i:02d}`` subtree per layer (the hybrid family's non-uniform
-stack). MoE, MLA, audio and vision trees are not ported yet.
+stack). A MoE stack whose first layers keep a dense MLP
+(``MoEConfig.first_moe_layer``, deepseek-v2's layer 0) unrolls those
+as ``layer_{i:02d}`` subtrees beside the stacked MoE ``layers``. Audio
+and vision trees are not ported yet.
 """
 from __future__ import annotations
 
@@ -59,6 +62,25 @@ def _attn_defs(cfg: ModelConfig) -> Dict[str, WeightDef]:
     }
 
 
+def _mla_defs(cfg: ModelConfig) -> Dict[str, WeightDef]:
+    """DeepSeek-V2's multi-head latent attention: low-rank q, a shared
+    (kv_lora_rank + rope)-wide latent, per-head K (nope part) and V
+    expanded from the latent."""
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.num_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wq_a": WeightDef((d, m.q_lora_rank)),
+        "q_norm": WeightDef((m.q_lora_rank,), "ones"),
+        "wq_b": WeightDef((m.q_lora_rank, h * qk)),
+        "wkv_a": WeightDef((d, m.kv_lora_rank + m.qk_rope_head_dim)),
+        "kv_norm": WeightDef((m.kv_lora_rank,), "ones"),
+        "wk_b": WeightDef((m.kv_lora_rank, h * m.qk_nope_head_dim)),
+        "wv_b": WeightDef((m.kv_lora_rank, h * m.v_head_dim)),
+        "wo": WeightDef((h * m.v_head_dim, d)),
+    }
+
+
 def _mlp_defs(cfg: ModelConfig) -> Dict[str, WeightDef]:
     d, f = cfg.d_model, cfg.d_ff
     return {
@@ -66,6 +88,28 @@ def _mlp_defs(cfg: ModelConfig) -> Dict[str, WeightDef]:
         "w_up": WeightDef((d, f)),
         "w_down": WeightDef((f, d)),
     }
+
+
+def _moe_defs(cfg: ModelConfig) -> Dict[str, WeightDef]:
+    """A routed-expert MLP: the router (d, E), each expert's SwiGLU
+    stacked on a leading expert axis, and the shared experts' SwiGLU
+    (one of width num_shared * d_ff_shared) where the config has them."""
+    m = cfg.moe
+    d, e, f = cfg.d_model, m.num_experts, m.d_ff_expert
+    out = {
+        "router": WeightDef((d, e)),
+        "w_gate": WeightDef((e, d, f)),
+        "w_up": WeightDef((e, d, f)),
+        "w_down": WeightDef((e, f, d)),
+    }
+    if m.num_shared_experts:
+        sf = m.num_shared_experts * m.d_ff_shared
+        out.update({
+            "shared_w_gate": WeightDef((d, sf)),
+            "shared_w_up": WeightDef((d, sf)),
+            "shared_w_down": WeightDef((sf, d)),
+        })
+    return out
 
 
 def _ssm_defs(cfg: ModelConfig) -> Dict[str, WeightDef]:
@@ -104,20 +148,25 @@ def _rglru_defs(cfg: ModelConfig) -> Dict[str, WeightDef]:
     }
 
 
-def layer_defs(cfg: ModelConfig, kind: str) -> dict:
+def layer_defs(cfg: ModelConfig, kind: str, layer_idx: int = 0) -> dict:
     """Def tree for one decoder layer of the given kind (attn | ssm |
-    rglru)."""
+    rglru). An attention layer holds MLA or GQA weights as the config
+    says, and a MoE MLP from ``first_moe_layer`` on."""
     d = cfg.d_model
     if kind == "ssm":
         return {"norm": _norm_def(d), "ssm": _ssm_defs(cfg)}
     if kind == "attn":
-        out = {"attn_norm": _norm_def(d), "attn": _attn_defs(cfg)}
+        out = {"attn_norm": _norm_def(d),
+               "attn": _mla_defs(cfg) if cfg.attn_kind == "mla"
+               else _attn_defs(cfg)}
     elif kind == "rglru":
         out = {"mix_norm": _norm_def(d), "rglru": _rglru_defs(cfg)}
     else:
         raise ValueError(f"unknown layer kind {kind!r}")
     out["mlp_norm"] = _norm_def(d)
-    out["mlp"] = _mlp_defs(cfg)
+    use_moe = (cfg.moe is not None and kind == "attn"
+               and layer_idx >= cfg.moe.first_moe_layer)
+    out["mlp"] = _moe_defs(cfg) if use_moe else _mlp_defs(cfg)
     return out
 
 
@@ -129,14 +178,14 @@ def _stack_defs(defs: dict, n: int) -> dict:
 
 
 def model_defs(cfg: ModelConfig) -> dict:
-    """Full parameter def tree for a dense GQA, ssm or hybrid
-    architecture."""
-    if (cfg.family not in ("dense", "ssm", "hybrid")
-            or cfg.attn_kind not in ("gqa", "none") or cfg.moe is not None
+    """Full parameter def tree for a dense, MoE (GQA or MLA), ssm or
+    hybrid architecture."""
+    if (cfg.family not in ("dense", "moe", "ssm", "hybrid")
+            or cfg.attn_kind not in ("gqa", "mla", "none")
             or cfg.frontend is not None):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense GQA, ssm and hybrid families are "
-            "ported")
+            f"{cfg.name}: only the dense, MoE, ssm and hybrid families "
+            "are ported")
     d, v = cfg.d_model, cfg.vocab_size
     defs: dict = {
         "embedding": WeightDef((v, d)),
@@ -149,6 +198,13 @@ def model_defs(cfg: ModelConfig) -> dict:
         # non-uniform layer stack: per-layer subtrees
         for i, kind in enumerate(kinds):
             defs[f"layer_{i:02d}"] = layer_defs(cfg, kind)
+    elif cfg.moe is not None and cfg.moe.first_moe_layer > 0:
+        # deepseek-v2: dense layer(s) first, a uniform MoE stack after
+        k = cfg.moe.first_moe_layer
+        for i in range(k):
+            defs[f"layer_{i:02d}"] = layer_defs(cfg, "attn", i)
+        defs["layers"] = _stack_defs(layer_defs(cfg, "attn", k),
+                                     cfg.num_layers - k)
     else:
         defs["layers"] = _stack_defs(layer_defs(cfg, kinds[0]),
                                      cfg.num_layers)

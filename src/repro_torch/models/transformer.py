@@ -1,5 +1,5 @@
 """Transformer forward for training, and prefill and decode for
-serving, over the dense, ssm and hybrid families: the full-sequence
+serving, over the dense, MoE, ssm and hybrid families: the full-sequence
 forward; one-shot prefill into a contiguous cache (linear, ring or
 recurrent state) or into pool pages (dense, quant, ring) or lanes; one
 chunk of a paged prefill; and one decode step over a contiguous cache
@@ -8,8 +8,12 @@ or over the page pool in any layout.
 The port of ``repro/models/transformer.py``. The reference scans the
 stacked layer params (``stack_scan``); here a Python loop walks the
 stacked tensors layer by layer, and each layer's cache, page or lane
-slice is updated in place. MoE, MLA and the audio and vision frontends
-are not ported yet and raise ``NotImplementedError``.
+slice is updated in place. MoE MLPs dispatch on ``MoEConfig.impl``
+(``models.moe``); MLA attention layers (DeepSeek-V2) keep a latent
+cache {c_kv, k_rope}; a MoE stack's leading dense layers
+(``first_moe_layer``) are unrolled ``layer_{i:02d}`` subtrees before the
+stacked ``layers``. The audio and vision frontends are not ported yet
+and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import torch.utils.checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
@@ -44,26 +49,40 @@ def norm_apply(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     return rms_norm(x, p["scale"], cfg.norm_eps)
 
 
-def _check_dense_mlp(p: dict) -> None:
-    if "router" in p or "w_in" in p:
-        raise NotImplementedError(
-            "MoE and GELU MLPs are not ported yet")
+def _check_gated_mlp(p: dict) -> None:
+    if "w_in" in p:
+        raise NotImplementedError("GELU MLPs (the audio family) are not "
+                                  "ported yet")
 
 
-def mlp_apply(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    """Prefill MLP: the fused SwiGLU kernel over every token of the
-    chunk (x (..., d))."""
-    _check_dense_mlp(p)
+def mlp_apply(cfg: ModelConfig, p: dict, x: torch.Tensor
+              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Full-sequence and prefill MLP over x (B, S, d): returns (y, the
+    router's aux loss, None for a dense MLP). A MoE MLP runs the gather
+    dispatch (``impl == "gather"``: every expert through the fused
+    SwiGLU kernel) or the capacity dispatch; a dense one the fused
+    SwiGLU kernel over every token."""
+    if "router" in p:
+        if cfg.moe.impl == "gather":
+            return moe_mod.moe_ffn_gather(cfg, p, x)
+        return moe_mod.moe_ffn(cfg, p, x)
+    _check_gated_mlp(p)
     t = x.reshape(-1, x.shape[-1]).contiguous()
     y = ops.fused_swiglu(t, p["w_gate"], p["w_up"], p["w_down"])
-    return y.reshape(x.shape)
+    return y.reshape(x.shape), None
 
 
 def mlp_apply_token(cfg: ModelConfig, p: dict,
                     x: torch.Tensor) -> torch.Tensor:
-    """Decode MLP: the blocked SwiGLU (x (B, d)), as the reference runs
-    it outside any kernel."""
-    _check_dense_mlp(p)
+    """Decode MLP over x (B, d): the gather MoE (the same code path and
+    bits as its prefill), the per-token MoE of capacity configs, or the
+    blocked SwiGLU, as the reference runs a dense decode MLP outside any
+    kernel."""
+    if "router" in p:
+        if cfg.moe.impl == "gather":
+            return moe_mod.moe_ffn_gather(cfg, p, x[:, None])[0][:, 0]
+        return moe_mod.moe_ffn_token(cfg, p, x)
+    _check_gated_mlp(p)
     return swiglu_mlp(p, x)
 
 
@@ -85,86 +104,96 @@ def _layer(tree: dict, i: int) -> dict:
             for k, v in tree.items()}
 
 
+def _n_unrolled(cfg: ModelConfig) -> int:
+    """Leading layers kept as ``layer_{i:02d}`` subtrees before a
+    uniform stack: a MoE stack's dense layers (deepseek-v2's layer 0)."""
+    if cfg.moe is not None and cfg.moe.first_moe_layer > 0:
+        return cfg.moe.first_moe_layer
+    return 0
+
+
+def _layer_params(cfg: ModelConfig, params: dict, i: int) -> dict:
+    """Layer i's params: its own subtree (the hybrid stack, a MoE
+    stack's leading dense layers), else views of the stacked leaves."""
+    k = _n_unrolled(cfg)
+    if cfg.family == "hybrid" or i < k:
+        return params[f"layer_{i:02d}"]
+    return _layer(params["layers"], i - k)
+
+
 # ----------------------------------------------------------------------
 # full-sequence forward (training / scoring)
 # ----------------------------------------------------------------------
 def layer_fwd(cfg: ModelConfig, lp: dict, x: torch.Tensor,
-              positions: torch.Tensor, kind: str) -> torch.Tensor:
+              positions: torch.Tensor, kind: str
+              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One decoder layer over a full sequence: an ssm block, or an
-    RG-LRU or causal (optionally windowed) GQA mixer followed by the
-    fused SwiGLU MLP."""
+    RG-LRU or attention (MLA, or causal and optionally windowed GQA)
+    mixer followed by the MLP (dense or MoE).
+    Returns (x, the MLP's aux loss or None)."""
     if kind == "ssm":
         h = norm_apply(cfg, lp["norm"], x)
-        return x + ssm_mod.mamba_block(cfg, lp["ssm"], h)
+        return x + ssm_mod.mamba_block(cfg, lp["ssm"], h), None
     if kind == "rglru":
         h = norm_apply(cfg, lp["mix_norm"], x)
         x = x + rglru_mod.rglru_block(cfg, lp["rglru"], h)
     elif kind == "attn":
-        if cfg.attn_kind != "gqa":
-            raise NotImplementedError(
-                f"{cfg.name}: {cfg.attn_kind} attention is not ported yet")
         h = norm_apply(cfg, lp["attn_norm"], x)
-        x = x + attn.gqa_attention(cfg, lp["attn"], h, positions,
-                                   causal=True, window=cfg.window)
+        if cfg.attn_kind == "mla":
+            x = x + attn.mla_attention(cfg, lp["attn"], h, positions)
+        else:
+            x = x + attn.gqa_attention(cfg, lp["attn"], h, positions,
+                                       causal=True, window=cfg.window)
     else:
         raise ValueError(f"unknown layer kind {kind!r}")
     h = norm_apply(cfg, lp["mlp_norm"], x)
-    return x + mlp_apply(cfg, lp["mlp"], h)
+    y, aux = mlp_apply(cfg, lp["mlp"], h)
+    return x + y, aux
+
+
+def _check_family(cfg: ModelConfig, what: str) -> None:
+    """Every path takes the dense, MoE (GQA or MLA), ssm and hybrid
+    families; the audio and vision frontends are not ported yet."""
+    if (cfg.family not in ("dense", "moe", "ssm", "hybrid")
+            or cfg.attn_kind not in ("gqa", "mla", "none")
+            or cfg.frontend is not None):
+        raise NotImplementedError(
+            f"{cfg.name}: {what} the {cfg.family} family "
+            f"({cfg.attn_kind} attention) is not ported yet")
 
 
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             frontend_embeds: Optional[torch.Tensor] = None,
             remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens: (B, S) -> (logits (B, S, V), moe_aux scalar, zero here).
+    """tokens: (B, S) -> (logits (B, S, V), moe_aux scalar: the MoE
+    layers' router aux losses summed in layer order, zero without MoE).
 
-    The dense and ssm stacks walk their stacked layer params, the
-    hybrid stack its per-layer subtrees. ``remat`` recomputes each
-    layer's activations in the backward (``torch.utils.checkpoint``),
-    as the reference's ``jax.checkpoint`` does. MoE, MLA, audio and
-    vision models raise ``NotImplementedError``."""
-    if (cfg.family not in ("dense", "ssm", "hybrid") or cfg.moe is not None
-            or frontend_embeds is not None):
-        raise NotImplementedError(
-            f"{cfg.name}: forward of the {cfg.family} family is not "
-            "ported yet")
+    Layers are walked in order: a MoE stack's unrolled dense layers,
+    then the stacked layer params (the hybrid stack: its per-layer
+    subtrees). ``remat`` recomputes each layer's activations in the
+    backward (``torch.utils.checkpoint``), as the reference's
+    ``jax.checkpoint`` does. Audio and vision models raise
+    ``NotImplementedError``."""
+    _check_family(cfg, "forward of")
+    if frontend_embeds is not None:
+        raise NotImplementedError(f"{cfg.name}: frontends are not "
+                                  "ported yet")
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     x = _embed_inputs(cfg, params, tokens)
-
-    def layer_params(i: int) -> dict:
-        if cfg.family == "hybrid":
-            return params[f"layer_{i:02d}"]
-        return _layer(params["layers"], i)
-
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, kind in enumerate(cfg.layer_kinds):
         def fn(x, i=i, kind=kind):
-            return layer_fwd(cfg, layer_params(i), x, positions, kind)
+            return layer_fwd(cfg, _layer_params(cfg, params, i), x,
+                             positions, kind)
 
         if remat:
-            x = torch.utils.checkpoint.checkpoint(fn, x,
-                                                  use_reentrant=False)
+            x, a = torch.utils.checkpoint.checkpoint(fn, x,
+                                                     use_reentrant=False)
         else:
-            x = fn(x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            x, a = fn(x)
+        if a is not None:
+            aux = aux + a
     return _logits(cfg, params, x), aux
-
-
-def _check_served_family(cfg: ModelConfig) -> None:
-    """The serving paths take the dense GQA, ssm and hybrid families;
-    MoE, MLA and the audio and vision frontends are not ported yet."""
-    if (cfg.family not in ("dense", "ssm", "hybrid")
-            or cfg.attn_kind not in ("gqa", "none")
-            or cfg.frontend is not None or cfg.moe is not None):
-        raise NotImplementedError(
-            f"{cfg.name}: serving the {cfg.family} family "
-            f"({cfg.attn_kind} attention) is not ported yet")
-
-
-def _layer_params(cfg: ModelConfig, params: dict, i: int) -> dict:
-    """Layer i's params: the hybrid stack's own subtree, else views of
-    the stacked leaves."""
-    if cfg.family == "hybrid":
-        return params[f"layer_{i:02d}"]
-    return _layer(params["layers"], i)
 
 
 def _attn_cache_len(cfg: ModelConfig, seq_len: int) -> int:
@@ -206,6 +235,13 @@ def ring_compress(k: torch.Tensor, cache_len: int) -> torch.Tensor:
 
 def _attn_cache_entry(cfg: ModelConfig, batch: int, cache_len: int,
                       device) -> Dict[str, torch.Tensor]:
+    if cfg.attn_kind == "mla":
+        m, dt = cfg.mla, torch_dtype(cfg)
+        return {"c_kv": torch.zeros((batch, cache_len, m.kv_lora_rank),
+                                    dtype=dt, device=device),
+                "k_rope": torch.zeros((batch, cache_len,
+                                       m.qk_rope_head_dim),
+                                      dtype=dt, device=device)}
     shape = (batch, cache_len, cfg.num_kv_heads, cfg.resolved_head_dim)
     if cfg.kv_quant:
         return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -234,20 +270,25 @@ def _state_entry(cfg: ModelConfig, kind: str, batch: int,
 
 def _assemble_cache(cfg: ModelConfig, entries) -> Cache:
     """Per-layer cache entries -> the family's cache: the hybrid stack
-    keeps one ``layer_{i:02d}`` entry a layer (batch on axis 0); uniform
-    stacks stack theirs under ``layers`` (layer axis 0, batch axis 1)."""
+    keeps one ``layer_{i:02d}`` entry a layer (batch on axis 0), and so
+    do a MoE stack's unrolled dense layers; uniform stacks stack theirs
+    under ``layers`` (layer axis 0, batch axis 1)."""
     if cfg.family == "hybrid":
         return {f"layer_{i:02d}": e for i, e in enumerate(entries)}
-    return {"layers": {n: torch.stack([e[n] for e in entries])
-                       for n in entries[0]}}
+    k = _n_unrolled(cfg)
+    out: Cache = {f"layer_{i:02d}": entries[i] for i in range(k)}
+    out["layers"] = {n: torch.stack([e[n] for e in entries[k:]])
+                     for n in entries[k]}
+    return out
 
 
 def _cache_layer(cfg: ModelConfig, cache: Cache,
                  i: int) -> Dict[str, torch.Tensor]:
     """Layer i's cache leaves (views, written in place)."""
-    if cfg.family == "hybrid":
+    k = _n_unrolled(cfg)
+    if cfg.family == "hybrid" or i < k:
         return cache[f"layer_{i:02d}"]
-    return {n: t[i] for n, t in cache["layers"].items()}
+    return {n: t[i - k] for n, t in cache["layers"].items()}
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
@@ -256,12 +297,13 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
 
     Attention layers hold {k, v} (B, S, KV, Dh) in the model dtype, or
     int8 codes plus {k_scale, v_scale} (B, S, KV) f32 planes for an
-    int8 cache (``cfg.kv_quant``); S is ``seq_len`` capped at the
+    int8 cache (``cfg.kv_quant``), or MLA's latent {c_kv (B, S,
+    kv_lora), k_rope (B, S, rope)}; S is ``seq_len`` capped at the
     window for sliding-window layers (a ring). Recurrent layers hold
-    their {conv, h} state. The dense and ssm stacks stack the layers
-    under ``layers`` (L, B, ...); the hybrid stack keeps a
-    ``layer_{i:02d}`` entry a layer."""
-    _check_served_family(cfg)
+    their {conv, h} state. Uniform stacks stack the layers under
+    ``layers`` (L, B, ...); the hybrid stack keeps a ``layer_{i:02d}``
+    entry a layer, and a MoE stack one for each leading dense layer."""
+    _check_family(cfg, "serving")
     s = _attn_cache_len(cfg, seq_len)
     entries = [_attn_cache_entry(cfg, batch, s, device) if kind == "attn"
                else _state_entry(cfg, kind, batch, device)
@@ -274,32 +316,36 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
 # ----------------------------------------------------------------------
 def _attn_prefill_layer(cfg: ModelConfig, lp: dict, x: torch.Tensor,
                         positions: torch.Tensor):
-    """One full-prompt GQA layer: returns (x, k, v) with the layer's
-    rope'd K/V (B, S, KV, Dh) for the caller to pack into its cache or
-    pages."""
+    """One full-prompt attention layer: returns (x, entry) with the
+    layer's cache leaves over the prompt for the caller to pack into its
+    cache or pages: MLA's normed latent and rope'd shared key {c_kv,
+    k_rope}, or GQA's rope'd K/V (B, S, KV, Dh) — as they are, or int8
+    codes plus f32 scales (``attn.quantize_kv``) for an int8 cache."""
     h = norm_apply(cfg, lp["attn_norm"], x)
-    q, k, v = attn.gqa_project_qkv(cfg, lp["attn"], h)
-    if cfg.use_rope:
-        q = apply_rope(q, positions[None], cfg.rope_theta)
-        k = apply_rope(k, positions[None], cfg.rope_theta)
-    o = attn.flash_attention(q, k, v, positions, positions, causal=True,
-                             window=cfg.window)
-    b, s = x.shape[:2]
-    o = o.reshape(b, s, cfg.num_heads * cfg.resolved_head_dim)
-    x = x + torch.matmul(o, lp["attn"]["wo"])
+    if cfg.attn_kind == "mla":
+        c_kv, k_rope = attn.mla_project_kv_latent(cfg, lp["attn"], h)
+        k_rope = apply_rope(k_rope[:, :, None], positions[None],
+                            cfg.rope_theta)[:, :, 0]
+        a = attn.mla_attention(cfg, lp["attn"], h, positions)
+        entry = {"c_kv": c_kv, "k_rope": k_rope}
+    else:
+        q, k, v = attn.gqa_project_qkv(cfg, lp["attn"], h)
+        if cfg.use_rope:
+            q = apply_rope(q, positions[None], cfg.rope_theta)
+            k = apply_rope(k, positions[None], cfg.rope_theta)
+        o = attn.flash_attention(q, k, v, positions, positions,
+                                 causal=True, window=cfg.window)
+        b, s = x.shape[:2]
+        o = o.reshape(b, s, cfg.num_heads * cfg.resolved_head_dim)
+        a = torch.matmul(o, lp["attn"]["wo"])
+        entry = {"k": k, "v": v}
+        if cfg.kv_quant:
+            kq, ks = attn.quantize_kv(k)
+            vq, vs = attn.quantize_kv(v)
+            entry = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    x = x + a
     h = norm_apply(cfg, lp["mlp_norm"], x)
-    return x + mlp_apply(cfg, lp["mlp"], h), k, v
-
-
-def _cache_entry(cfg: ModelConfig, k: torch.Tensor,
-                 v: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """A layer's cache leaves from its K/V: as they are, or int8 codes
-    plus f32 scales (``attn.quantize_kv``) for an int8 cache."""
-    if not cfg.kv_quant:
-        return {"k": k, "v": v}
-    kq, ks = attn.quantize_kv(k)
-    vq, vs = attn.quantize_kv(v)
-    return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    return x + mlp_apply(cfg, lp["mlp"], h)[0], entry
 
 
 def _prefill_layers(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
@@ -323,10 +369,9 @@ def _prefill_layers(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             y, st = rglru_mod.rglru_prefill(cfg, lp["rglru"], h)
             x = x + y
             h = norm_apply(cfg, lp["mlp_norm"], x)
-            x = x + mlp_apply(cfg, lp["mlp"], h)
+            x = x + mlp_apply(cfg, lp["mlp"], h)[0]
         else:
-            x, k, v = _attn_prefill_layer(cfg, lp, x, positions)
-            st = _cache_entry(cfg, k, v)
+            x, st = _attn_prefill_layer(cfg, lp, x, positions)
         pack(i, kind, st)
     return _logits(cfg, params, x[:, -1])
 
@@ -341,7 +386,7 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     zeros after; ring layers the last min(cache_len, window) positions
     at slot = position mod ring length (``ring_compress``); recurrent
     layers their state after the prompt."""
-    _check_served_family(cfg)
+    _check_family(cfg, "serving")
     s = tokens.shape[1]
     a_len = _attn_cache_len(cfg, s if cache_len is None else cache_len)
     fit = ring_compress if cfg.window is not None else _pad_cache
@@ -468,7 +513,7 @@ def prefill_chunk_paged(cfg: ModelConfig, params: dict,
             start_pos, prompt_len=prompt_len)
         x = x + a
         h = norm_apply(cfg, lp["mlp_norm"], x)
-        x = x + mlp_apply(cfg, lp["mlp"], h)
+        x = x + mlp_apply(cfg, lp["mlp"], h)[0]
     return _logits(cfg, params, x[:, -1]), pages
 
 
@@ -532,8 +577,11 @@ def decode_step_paged(cfg: ModelConfig, params: dict, pages: Pages,
 def _attn_decode_layer(cfg: ModelConfig, lp: dict, x_t: torch.Tensor,
                        cache_l: dict, pos: int) -> torch.Tensor:
     h = norm_apply(cfg, lp["attn_norm"], x_t)
-    a, _ = attn.gqa_decode(cfg, lp["attn"], h, cache_l, pos,
-                           ring=cfg.window is not None)
+    if cfg.attn_kind == "mla":
+        a, _ = attn.mla_decode(cfg, lp["attn"], h, cache_l, pos)
+    else:
+        a, _ = attn.gqa_decode(cfg, lp["attn"], h, cache_l, pos,
+                               ring=cfg.window is not None)
     x_t = x_t + a
     h = norm_apply(cfg, lp["mlp_norm"], x_t)
     return x_t + mlp_apply_token(cfg, lp["mlp"], h)
@@ -544,12 +592,13 @@ def decode_step(cfg: ModelConfig, params: dict, cache: Cache,
                 ) -> Tuple[torch.Tensor, Cache]:
     """One decode step over a contiguous cache. token: (B,) int; pos:
     the position written, one Python int for the whole batch. Attention
-    layers write their K/V (or int8 codes and scales) at ``pos`` (a ring
-    at ``pos`` mod its length); recurrent layers step their state
+    layers write their K/V (or int8 codes and scales, or MLA's latent)
+    at ``pos`` (a ring at ``pos`` mod its length); recurrent layers step
+    their state
     (``ssm.mamba_step``, ``rglru.rglru_block_step``). The cache is
     updated in place; returns (logits for position pos + 1 (B, V),
     cache)."""
-    _check_served_family(cfg)
+    _check_family(cfg, "serving")
     x = embed_tokens(params["embedding"], token)
     for i, kind in enumerate(cfg.layer_kinds):
         lp = _layer_params(cfg, params, i)

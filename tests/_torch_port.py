@@ -14,10 +14,12 @@ stepped, and the queued engine's spans) and ``hetero`` (the
 heterogeneous fleets' legs: the dense baseline, stepped over ring
 pages and lanes, the int8-paged wave, kill and recover, the Mamba
 probe; and the serve CLI's default fleet through each engine and
-through ``serve``)::
+through ``serve``) and ``moe`` (the gather-MoE fleet of ``mesh2d_zoo``
+on pages, and the serve CLI's capacity-MoE/MLA fleet on the
+contiguous-cache fallback)::
 
     PYTHONPATH=src:tests:. JAX_PLATFORMS=cpu python tests/_torch_port.py \
-        [engine] [faults] [queued] [hetero]
+        [engine] [faults] [queued] [hetero] [moe]
 """
 from __future__ import annotations
 
@@ -40,10 +42,21 @@ from repro_torch.models.params import from_jax_numpy
 from repro_torch.serving import ZooModel as TorchZooModel
 
 
+def _torch_dataclass(obj):
+    """A reference config dataclass (or a plain value) as the port's
+    class of the same name, field for field."""
+    if not dataclasses.is_dataclass(obj):
+        return obj
+    from repro_torch.configs import base
+    cls = getattr(base, type(obj).__name__)
+    return cls(**{f.name: _torch_dataclass(getattr(obj, f.name))
+                  for f in dataclasses.fields(obj)})
+
+
 def torch_cfg(cfg) -> TorchModelConfig:
-    """The port's ModelConfig with every field of the reference's."""
-    return TorchModelConfig(**{f.name: getattr(cfg, f.name)
-                               for f in dataclasses.fields(cfg)})
+    """The port's ModelConfig with every field of the reference's (its
+    nested MoE, MLA, SSM, RG-LRU and encoder configs as the port's)."""
+    return _torch_dataclass(cfg)
 
 
 def torch_task(task) -> TorchTask:
@@ -1003,10 +1016,12 @@ def hetero_legs(workdir, n_tasks: int = 200, batch_size: int = 8,
 DEFAULT_FLEET_STEPS = 10
 
 
-def default_fleets(train_steps: int = DEFAULT_FLEET_STEPS):
+def default_fleets(train_steps: int = DEFAULT_FLEET_STEPS,
+                   ensemble=None):
     """The serve CLI's default fleet (``DEFAULT_PROBE`` smollm-135m;
-    ``DEFAULT_ENSEMBLE`` llama3-8b, deepseek-7b, recurrentgemma-2b) as
-    the CLI builds it: reduced f32 arithmetic configs trained
+    ``DEFAULT_ENSEMBLE`` llama3-8b, deepseek-7b, recurrentgemma-2b, or
+    the arch names ``ensemble`` gives, as ``--ensemble`` does) as the
+    CLI builds it: reduced f32 arithmetic configs trained
     ``train_steps`` steps each by the port's ``build_zoo`` on the CPU
     (member i from seed i), then the same values in the reference's
     tree. Seed weights answer "" on every row, so a member that computed
@@ -1017,8 +1032,9 @@ def default_fleets(train_steps: int = DEFAULT_FLEET_STEPS):
     from repro.launch.train import reduced_for_data
     from repro.serving import ZooModel
     from repro_torch.launch.serve import build_zoo
-    trained = build_zoo((DEFAULT_PROBE,) + DEFAULT_ENSEMBLE, train_steps,
-                        verbose=False, device="cpu")
+    trained = build_zoo((DEFAULT_PROBE,) + tuple(ensemble or
+                                                 DEFAULT_ENSEMBLE),
+                        train_steps, verbose=False, device="cpu")
     zoo = [ZooModel(name=m.name, cfg=reduced_for_data(m.name, "arithmetic"),
                     params=jax.tree.map(lambda t: jnp.asarray(t.numpy()),
                                         m.params))
@@ -1121,6 +1137,118 @@ def serve_legs(n_tasks: int = 200):
             "serve scheduler": leg(scheduler=True, batch_size=8),
             "serve step loop": leg(step_loop=True, batch_size=8,
                                    megastep=2)}
+
+
+# ----------------------------------------------------------------------
+# the MoE family and MLA
+# ----------------------------------------------------------------------
+def mesh2d_fleets():
+    """The reference's (``use_pallas=True``) and the port's
+    ``mesh2d_zoo`` fleets: the probe, a dense member, a gather-MoE
+    member on dense pages (capacity-free, batch-invariant) and the
+    probe's twin."""
+    from harness.simulate import mesh2d_zoo
+    probe, ensemble = mesh2d_zoo(seed=0)
+    jfleet, tfleet = pallas_zoo(probe, ensemble), torch_zoo(probe, ensemble)
+    assert tfleet[1][2].params is tfleet[0].params
+    assert tfleet[1][1].cfg.moe.impl == "gather"
+    return jfleet, tfleet
+
+
+def mesh2d_legs(n_tasks: int = 200, megasteps=(1, "auto")):
+    """The single-device leg of the reference harness's
+    ``run_mesh2d_equivalence`` (its knobs: chunk 4, 6 new tokens, batch
+    8, probe temperature 0.9, 24-character prompts with duplicates at
+    0.15) through both packages' ``run_stepped`` at each megastep:
+    sigma, mode, answers, member answers, probe texts, record hashes and
+    chain heads equal. The gather member serves from dense pages, its
+    experts through ``ops.fused_swiglu`` on prefill chunks and decode
+    ticks. Returns {leg: callable}."""
+    from harness.simulate import long_prompt_workload
+    tasks = long_prompt_workload(n_tasks, 24, seed=0, duplicate_rate=0.15)
+    state: dict = {}
+
+    def pair():
+        if "pair" not in state:
+            fleets = mesh2d_fleets()
+            state["pair"] = ([m.name for m in fleets[0][1]],
+                             stepped_pair(fleets, tasks, max_new_tokens=6,
+                                          chunk_tokens=4, batch_size=8))
+        return state["pair"]
+
+    def leg(megastep):
+        def run():
+            names, (ref, port) = pair()
+            _, jres = ref(megastep=megastep)
+            teng, tres = port(megastep=megastep)
+            check_served_equal(f"mesh2d-{megastep}", tasks, jres, tres,
+                               names)
+            moe = teng._stepped_server(teng.ensemble[1])
+            assert moe is not None and moe.layout == "dense"
+            assert teng.kv_stats()[names[1]].pages_highwater > 0
+            return f"{tres.step.ticks} ticks, modes " + str(dict(
+                collections.Counter(tres.modes.tolist())))
+        return run
+
+    return {f"mesh2d megastep {m!r}": leg(m) for m in megasteps}
+
+
+# the serve CLI's MoE fleet: --ensemble mixtral-8x22b deepseek-v2-236b.
+# Both members are capacity MoE (deepseek-v2 with MLA, a shared expert
+# and a dense layer 0), which no page layout serves
+MOE_ENSEMBLE = ("mixtral-8x22b", "deepseek-v2-236b")
+
+
+def moe_fleet_legs(n_tasks: int = 200, batch_size: int = 8,
+                   prompt_chars: int = 24):
+    """The MoE CLI fleet (``default_fleets`` with ``MOE_ENSEMBLE``)
+    through ``run_stepped`` (both
+    members on the contiguous-cache member fallback: capacity prefill,
+    per-token MoE decode, MLA's latent cache) and ``run_queued``
+    (contiguous caches, masked), port against reference: forced routes
+    with half the rows full arena, 6 new tokens, chunk 8, the members
+    sampled at 0.9 like the probe. Equal sigma, mode, answers, member
+    answers, probe texts, record hashes and chain heads; each member
+    gives some full-arena row a non-empty answer. Returns {leg:
+    callable}."""
+    from harness.simulate import long_prompt_workload
+    tasks = long_prompt_workload(n_tasks, prompt_chars, seed=0,
+                                 duplicate_rate=0.15)
+    state: dict = {}
+    kw = dict(max_new_tokens=6, batch_size=batch_size,
+              route_fn=forced_route(n_tasks, (0, 1, 2, 2)),
+              ensemble_temperature=0.9)
+
+    def fleets():
+        if "fleets" not in state:
+            state["fleets"] = default_fleets(ensemble=MOE_ENSEMBLE)
+        return state["fleets"]
+
+    def answered(res, names) -> str:
+        notes = []
+        for j, name in enumerate(names):
+            full = [res.member_answers[i][j] for i in range(n_tasks)
+                    if res.modes[i] == 2]
+            assert full and None not in full and any(full), (name, full)
+            notes.append(f"{name} {sum(map(bool, full))}/{len(full)}")
+        return "full-arena rows answered: " + ", ".join(notes)
+
+    def step():
+        fl = fleets()
+        names = [m.name for m in fl[0][1]]
+        ref, port = stepped_pair(fl, tasks, chunk_tokens=8, **kw)
+        _, jres = ref()
+        teng, tres = port()
+        check_served_equal("moe-step", tasks, jres, tres, names)
+        assert all(teng._stepped_server(m) is None for m in teng.ensemble)
+        return answered(tres, names)
+
+    def queued():
+        fl = fleets()
+        _, tres = check_run_queued_against_reference(fl, tasks, {}, **kw)
+        return answered(tres, [m.name for m in fl[0][1]])
+
+    return {"moe fleet step loop": step, "moe fleet queued": queued}
 
 
 def engine_legs():
@@ -1250,9 +1378,11 @@ def main(argv=None) -> int:
     ``faults`` (crash recovery, the degraded fleet, spans), ``queued``
     (the queued wave engine and the scheduler), ``hetero`` (the
     heterogeneous fleets' legs, the default fleet's engine legs and its
-    ``serve`` reports), or all four when no group is named."""
+    ``serve`` reports), ``moe`` (the gather-MoE ``mesh2d_zoo`` leg at
+    megastep 1 and "auto", and the serve CLI's MoE/MLA fleet stepped and
+    queued), or all five when no group is named."""
     groups = list(argv if argv is not None else sys.argv[1:]) \
-        or ["engine", "faults", "queued", "hetero"]
+        or ["engine", "faults", "queued", "hetero", "moe"]
     failed = 0
     with tempfile.TemporaryDirectory(prefix="acar-port-legs-") as d:
         legs = []
@@ -1266,6 +1396,9 @@ def main(argv=None) -> int:
             legs += [(f"hetero {k}", v) for k, v in hetero_legs(d).items()]
             legs += list(default_fleet_legs().items())
             legs += list(serve_legs().items())
+        if "moe" in groups:
+            legs += list(mesh2d_legs().items())
+            legs += list(moe_fleet_legs().items())
         for name, leg in legs:
             t = time.perf_counter()
             try:

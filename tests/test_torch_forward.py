@@ -99,6 +99,8 @@ def test_model_defs_match_reference(arch):
 
 
 def test_forward_rejects_unported_families():
-    jcfg = jget("mixtral-8x22b", reduced=True)
-    with pytest.raises(NotImplementedError):
-        TT.forward(torch_cfg(jcfg), {}, torch.zeros((1, 4), dtype=torch.int32))
+    for arch in ("whisper-medium", "llava-next-mistral-7b"):
+        jcfg = jget(arch, reduced=True)
+        with pytest.raises(NotImplementedError):
+            TT.forward(torch_cfg(jcfg), {},
+                       torch.zeros((1, 4), dtype=torch.int32))

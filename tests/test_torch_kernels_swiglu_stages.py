@@ -92,7 +92,7 @@ def test_bf16_wrapper_raises_for_widths_tma_cannot_stride(d, f):
                                        (torch.float32, 12, 36)])
 def test_wrapper_shapes_it_takes_reach_the_device_check(dtype, d, f):
     """A bf16 call with widths the kernels take, and an f32 call (the
-    CUDA-core kernel takes any width up to 4096), pass the shape checks
+    CUDA-core kernel takes any width up to 6144), pass the shape checks
     and raise only because ``meta`` has no kernel."""
     args = _meta((8, d), (d, f), (d, f), (f, d), dtype=dtype)
     with pytest.raises(ValueError, match="no kernel"):

@@ -29,7 +29,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import torch_cfg
+from _torch_port import one_torch_thread, torch_cfg
 from repro.configs.base import TrainConfig as JTrainConfig
 from repro.configs.registry import get_config as jget
 from repro.data.pipeline import synthetic_lm_batches
@@ -46,6 +46,15 @@ from repro_torch.optim import init as topt_init
 ARCHS = ("smollm-135m", "falcon-mamba-7b", "recurrentgemma-2b")
 B, S, STEPS = 2, 80, 3
 TC = dict(learning_rate=1e-3, warmup_steps=2, total_steps=10)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op torch thread: under a 6-worker run, eight threads a
+    worker oversubscribe the cores and the port's CPU training slows
+    by an order of magnitude."""
+    with one_torch_thread():
+        yield
 
 
 def jax_flat(tree):

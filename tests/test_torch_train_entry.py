@@ -41,6 +41,15 @@ from repro_torch.models import params as tparams
 STEPS = 40
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op torch thread: under a 6-worker run, eight threads a
+    worker oversubscribe the cores and the port's CPU training slows
+    by an order of magnitude."""
+    with one_torch_thread():
+        yield
+
+
 def jax_flat(tree):
     """A reference tree as {"/"-joined path: numpy array}, the port's
     ``params._leaves`` keys."""
