@@ -43,20 +43,27 @@ Phases (each raises on failure, and the script then exits non-zero):
    deepseek-v2-236b's dense layer 0, d 5120 / F 12288, over a 97-token
    prompt) and in f32 at d 5120 and 6144, whose 20- and 24-column
    instantiations must give the 16-column one's bits on zero-padded
-   inputs;
+   inputs; and hold, check bit for bit and time kernel 4 at
+   whisper-medium's decode (MHA, H 16, d 64, 8 rows of 32 positions)
+   and kernel 3 at llava-next-mistral-7b's prefill (d 4096 / F 14336
+   over 1152 patch positions and 97 text tokens), the shapes phase 13
+   gives them;
 4. reference — a reduced float32 model on the card agrees with the same
    calls on the CPU, where every kernel runs its plain version: chunked
    prefill and a paged decode step; one-shot prefill and decode steps
    over a dense and over an int8 contiguous cache; one-shot prefill into
    int8 pages and paged decode steps over them; deepseek-v2's MLA latent
    cache (capacity MoE, dense layer 0) and mixtral-8x22b's gather MoE on
-   ring pages, prefill and two decode steps each;
+   ring pages, prefill and two decode steps each; reduced whisper-medium
+   (frames) and llava-next-mistral-7b (patches): forward, prefill, two
+   decode steps and greedy tokens;
 5. serve — the stepped ACAR engine serves 16 long-prompt tasks through
    a full-width smollm-135m fleet (bf16, seed-initialised weights): every
    task retires, its three kernels launch during the run, no page leaks
    outside the prefix cache, and a second run reproduces sigma, modes
    and answers;
-6. wave — the same stream through a full-width fleet whose probe and
+6. wave — the same stream through a full-width fleet cut to its first
+   10 of 30 layers, whose probe and
    probe twin keep int8 KV (two dense members beside them), served by
    the wave engine from pool pages (``run_batch``, the default path of
    ``launch.serve``), by the wave engine over contiguous caches
@@ -79,7 +86,10 @@ Phases (each raises on failure, and the script then exits non-zero):
    steps twice through ``train()``, and mixtral-8x22b with the gather
    dispatch through ``make_train_step`` (kernel 3 on every expert,
    every expert's weights moved by its backward): finite losses, the
-   router's aux in the loss, reruns bit for bit.
+   router's aux in the loss, reruns bit for bit; then reduced
+   whisper-medium and llava-next-mistral-7b through ``train()`` (their
+   synthetic frames and patches) for 4 steps twice: finite, bit for bit,
+   llava's kernel 3 once a layer and step, its MLP weights moved.
 8. audit (run after phase 6) — the paper's Algorithm 1 through
    ``ACAROrchestrator`` (probe -> EXTRACT -> sigma -> route by sigma ->
    ensemble -> judge -> an appended TraceRecord) over four
@@ -148,6 +158,20 @@ Phases (each raises on failure, and the script then exits non-zero):
    leaked, the rerun's results and chain head identical), every gather
    call's kernel-3 launches counted on prefills and on decode ticks;
    walls, launches and the peak memory printed.
+13. frontend (run last) — the audio and vision families at published
+   widths, bf16, seed-initialised: whisper-medium at full depth (24 +
+   24 layers) through ``generate`` over 8 rows of 1500 synthetic frames
+   (4-token prompts, 28 greedy tokens) and ``generate_samples`` (3
+   samples of 4 prompts at 0.9), each twice bit for bit, kernel 4 once a
+   decoder layer and decode step and no other kernel; llava-next-
+   mistral-7b at its first 10 of 32 layers through ``generate`` over 4
+   rows of 1152 synthetic patches and 97 text tokens (8 new tokens,
+   twice bit for bit, kernel 3 once a layer on the prefill, no kernel
+   on the ring decodes), then phase 5's stream through the probe, llava
+   and the probe's twin, stepped (llava on the contiguous-cache member
+   fallback) and the ``paged=False`` queued baseline, each twice
+   (``serve_twice``'s gates); walls, launches and the peak memory
+   printed.
 
 Phase 3 also holds the training path's kernels against their plain
 versions at the phase-7 shapes (the selective scan and the RG-LRU scan,
@@ -505,20 +529,21 @@ def _fleet_paged(torch, gen, name, h, kv, d) -> dict:
                           _gather(torch, vp, table), lengths)))
 
 
-def _fleet_dense(torch, gen, name, h, kv, d) -> dict:
-    """Kernel 4 over contiguous caches: 8 rows of 105 positions, at 60
-    positions and at all 105."""
+def _fleet_dense(torch, gen, name, h, kv, d, s=None) -> dict:
+    """Kernel 4 over contiguous caches: 8 rows of ``s`` positions (the
+    wave's 105 by default), at 60 positions (or s // 2 where s is
+    shorter) and at all s."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.decode_attention import (
         decode_attention_plain as plain)
-    b, s = FLEET_ROWS, S_WAVE
+    b, s = FLEET_ROWS, s or S_WAVE
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(
             torch.bfloat16)
     q, k, v = rnd(b, h, d), rnd(b, s, kv, d), rnd(b, s, kv, d)
     err = 0.0
-    for length in (60, s):
+    for length in (min(60, s // 2), s):
         got = ops.decode_attention(q, k, v, length)
         err = max(err, check_close(f"{name} length {length}", got,
                                    plain(q, k, v, length),
@@ -535,13 +560,13 @@ def _fleet_dense(torch, gen, name, h, kv, d) -> dict:
                     lambda: plain(q, k, v, s), _sdpa(torch, q, k, v, s)))
 
 
-def _fleet_swiglu(torch, gen, name, d, f) -> dict:
-    """Kernel 3 on a 256-token prefill chunk at d_model ``d``, d_ff
-    ``f``: activations of unit scale, weights at 1/sqrt(fan-in)."""
+def _fleet_swiglu(torch, gen, name, d, f, t=FLEET_ROWS * 32) -> dict:
+    """Kernel 3 on a ``t``-token prefill (a 256-token chunk by default)
+    at d_model ``d``, d_ff ``f``: activations of unit scale, weights at
+    1/sqrt(fan-in)."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops
     from repro_torch.kernels.fused_swiglu import fused_swiglu_plain
-    t = FLEET_ROWS * 32
     x = torch.randn((t, d), generator=gen, device="cuda").to(torch.bfloat16)
     wg, wu, wd = ((torch.randn(sh, generator=gen, device="cuda")
                    / sh[0] ** 0.5).to(torch.bfloat16)
@@ -593,6 +618,49 @@ def fleet_shape_checks(torch) -> dict:
                 f"{stage_note(r)}")
     log("rows: at phase 11's shapes, decode rows 0-3 of 8 and SwiGLU rows "
         "0-7 of 256 bit-identical to calls without their neighbours")
+    return out
+
+
+# kernels 4 and 3 in bf16 at the shapes phase 13 gives them: whisper-
+# medium's decoder self-attention (MHA: H 16 / KV 16, d 64) over 8 rows
+# of its 32-position cache (a 4-token prompt and 28 new tokens), and
+# llava-next-mistral-7b's prefill MLP (d 4096, F 14336) over one prompt
+# of 1152 patch positions and 97 text tokens
+WHISPER_DECODE = (16, 16, 64, 32)          # H, KV, D, cache positions
+LLAVA_SWIGLU = (1152 + PROMPT, 4096, 14336)  # T, d_model, d_ff
+
+
+def frontend_shape_checks(torch) -> dict:
+    """bf16, kernel 4 at whisper-medium's decode geometry and kernel 3
+    at llava-next-mistral-7b's prefill: each held against its plain
+    version, a row's bits checked without its neighbours (decode rows
+    0-3 of 8, SwiGLU rows 0-7 of the prompt), and timed beside its bound
+    and library call (SDPA; three matmuls and silu). Returns {kernel:
+    result}."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    h, kv, d, s = WHISPER_DECODE
+    t, dm, f = LLAVA_SWIGLU
+    out = {"decode_attention": _fleet_dense(
+               torch, gen, f"decode_attention[bfloat16, whisper-medium: "
+               f"H {h} / KV {kv}, d {d}]", h, kv, d, s=s),
+           "fused_swiglu": _fleet_swiglu(
+               torch, gen, f"fused_swiglu[bfloat16, llava-next-mistral-7b:"
+               f" T {t}, d {dm}, F {f}]", dm, f, t=t)}
+    for name, r in out.items():
+        shape = (f"T {r['tokens']}, d {r['d_model']}, F {r['d_ff']}"
+                 if name == "fused_swiglu" else
+                 f"H {h} / KV {kv}, d {d}, {r['rows']} rows at "
+                 f"{r['lengths'][1]} positions")
+        model = ("llava-next-mistral-7b" if name == "fused_swiglu"
+                 else "whisper-medium")
+        log(f"kernel {name} [bfloat16, {model}: {shape}]: max_abs_err "
+            f"{r['max_abs_err']:.3e}  kernel {r['ms']:.4f} ms  plain "
+            f"{r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} ms"
+            f"  bound {r['bound_ms']:.5f} ms ({r['bound_by']})"
+            f"{stage_note(r)}")
+    log(f"rows: at phase 13's shapes, decode rows 0-3 of 8 and SwiGLU rows "
+        f"0-7 of {t} bit-identical to calls without their neighbours")
     return out
 
 
@@ -1522,6 +1590,8 @@ def run_kernel_phase(torch):
         results[(name, "bfloat16")]["fleet_shapes"] = by_model
     results[("fused_swiglu", "bfloat16")]["moe_shapes"] = (
         moe_swiglu_checks(torch))
+    for name, r in frontend_shape_checks(torch).items():
+        results[(name, "bfloat16")]["frontend_shape"] = r
     # phase 8's shapes: inputs of their own stream, so the others' stay
     gen_audit = torch.Generator(device="cuda")
     gen_audit.manual_seed(6)
@@ -2299,6 +2369,81 @@ def run_moe_reference_phase(torch):
             "other kernel")
 
 
+def run_frontend_reference_phase(torch):
+    """Phase 13's model calls on reduced float32 whisper-medium (64
+    frames) and llava-next-mistral-7b (16 patches), on the card against
+    the same calls on the CPU, the same frames or patches fed to both:
+    ``forward``, one-shot ``prefill`` and two ``decode_step``s, logits
+    within 1e-4; greedy ``generate`` tokens equal. Whisper's decode
+    steps run kernel 4 once a decoder layer (its GELU MLPs, encoder and
+    cross-attention no kernel); llava's prefill runs kernel 3 once a
+    layer and its ring decodes no kernel."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import params as params_lib
+    from repro_torch.models import transformer as T
+    from repro_torch.sampling import sampler as S
+
+    rng = np.random.default_rng(5)
+    b, s, new = 4, 21, 2
+    for arch in ("whisper-medium", "llava-next-mistral-7b"):
+        cfg = reduced_variant(arch)
+        n = (cfg.encoder.num_frames if cfg.frontend == "audio"
+             else cfg.num_patches)
+        fe_np = (rng.standard_normal((b, n, cfg.d_model))
+                 * 0.02).astype(np.float32)
+        ids = rng.integers(3, 500, size=(b, s)).astype(np.int64)
+        params_cpu = params_lib.init_params(cfg, 0, device="cpu")
+
+        def program(prm, dev):
+            tokens = torch.from_numpy(ids).to(dev)
+            fe = torch.from_numpy(fe_np).to(dev)
+            out = [T.forward(cfg, prm, tokens, fe)[0]]
+            lg, cache = T.prefill(cfg, prm, tokens, fe, cache_len=s + new)
+            out.append(lg)
+            for step in range(new):
+                lg, cache = T.decode_step(cfg, prm, cache,
+                                          torch.argmax(lg, -1), s + step)
+                out.append(lg)
+            gen = S.generate(cfg, prm, tokens, max_new_tokens=6,
+                             frontend_embeds=fe)
+            return out, gen.tokens
+
+        with torch.no_grad():
+            want, want_tok = program(params_cpu, "cpu")
+            ops.reset_launch_counts()
+            got, got_tok = program(_to_device(params_cpu, "cuda"), "cuda")
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        if cfg.frontend == "audio":
+            # two decode steps and generate's six, kernel 4 a layer each
+            need = {"decode_attention": (new + 6) * cfg.num_layers}
+        else:
+            # forward, prefill and generate's prefill, kernel 3 a layer
+            need = {"fused_swiglu": 3 * cfg.num_layers}
+        if launches != dict({k: 0 for k in launches}, **need):
+            raise AssertionError(f"reference check: {arch} launched "
+                                 f"{launches}, not {need} alone")
+        for i, (a, bref) in enumerate(zip(got, want)):
+            a = a.cpu()
+            if a.shape != bref.shape or not torch.isfinite(a).all():
+                raise AssertionError(f"reference check: bad {arch} "
+                                     f"logits {i}")
+            err = float((a - bref).abs().max())
+            if err > 1e-4:
+                raise AssertionError(
+                    f"reference check: {arch} logits {i} on the card "
+                    f"differ from the CPU by {err:.3e}")
+            what = ("forward", "prefill")[i] if i < 2 else \
+                f"decode step {i - 1}"
+            log(f"reference: {arch} {what} logits card vs cpu max abs "
+                f"diff {err:.3e}")
+        if not torch.equal(got_tok.cpu(), want_tok):
+            raise AssertionError(f"reference check: {arch} greedy tokens "
+                                 "differ between the card and the CPU")
+        log(f"reference: {arch}: greedy generate tokens equal on the card "
+            f"and the CPU; launches {need}, no other kernel")
+
+
 # the kernels each reduced family's train step must launch on the card
 # ("arch:gather": the arch with MoEConfig.impl "gather"). Capacity MoE
 # runs its experts as batched matmuls (as the reference, outside any
@@ -3062,8 +3207,9 @@ WAVE_PATHS = {
 
 
 def run_wave_phase(torch, gpu_name: str, cfg, params) -> dict:
-    """Serve the phase-5 stream through a fleet whose probe and probe
-    twin keep int8 KV: the wave engine from pool pages (int8 pages for
+    """Serve the phase-5 stream through a fleet (phase 5's models cut to
+    their first ``AUDIT_LAYERS`` layers) whose probe and probe twin keep
+    int8 KV: the wave engine from pool pages (int8 pages for
     the probe and twin, dense pages for the members), the wave engine
     over contiguous caches, and the stepped engine. Each path runs
     twice (``serve_twice``), the two wave paths' reruns under the
@@ -3148,10 +3294,10 @@ def link_chain(record_hashes) -> str:
 # AdamW steps of arithmetic that teach phase 5's seed weights the
 # tokenizer's vocabulary before phase 8 (see arithmetic_fleet)
 AUDIT_TRAIN_STEPS = 20
-# phases 8 and 10 serve phase 5's models cut to their first 10 of 30
+# phases 6, 8 and 10 serve phase 5's models cut to their first 10 of 30
 # layers, at full width: their walls scale with depth (host-bound, one
-# task or one micro-batch at a time), and at full depth the two phases
-# took 258-310 s of the script's 800 s budget
+# task or one micro-batch at a time); at full depth phases 8 and 10
+# took 258-310 s of the script's 800 s budget and phase 6 73-99 s
 AUDIT_LAYERS = 10
 
 
@@ -3875,6 +4021,62 @@ def run_moe_train_phase(torch) -> dict:
     return by_path
 
 
+def run_frontend_train_phase(torch) -> dict:
+    """``train()`` on reduced whisper-medium (synthetic frames) and
+    llava-next-mistral-7b (synthetic patches) for 4 arithmetic steps,
+    twice each: every loss and param finite, the rerun's params bit for
+    bit the run's; whisper launches no kernel (GELU MLPs), llava kernel
+    3 once a layer and step, and its MLP weights move, which only the
+    kernel's backward can move. Returns each run's launch counts."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train
+    from repro_torch.models import params as params_lib
+
+    by_path = {}
+    for arch in ("whisper-medium", "llava-next-mistral-7b"):
+        runs = []
+        for _ in range(2):
+            ops.reset_launch_counts()
+            t = time.perf_counter()
+            cfg, prm, met = train(arch=arch, steps=MOE_TRAIN_STEPS,
+                                  batch=64, seq=24, lr=2e-3, verbose=False,
+                                  device="cuda")
+            wall = time.perf_counter() - t
+            runs.append((dict(params_lib._leaves(prm)), float(met["loss"]),
+                         ops.launch_counts(), wall))
+        (p1, loss, launches, wall), (p2, loss2, launches2, _) = runs
+        vision = cfg.frontend == "vision"
+        check_path_launches(f"train frontend[{arch}]", launches,
+                            ("fused_swiglu",) if vision else ())
+        if vision and launches["fused_swiglu"] != (MOE_TRAIN_STEPS
+                                                   * cfg.num_layers):
+            raise AssertionError(f"train frontend[{arch}]: launches "
+                                 f"{launches}")
+        if not (np.isfinite(loss) and loss2 == loss
+                and launches2 == launches):
+            raise AssertionError(f"train frontend[{arch}]: loss {loss} / "
+                                 f"{loss2}")
+        bad = [k for k in p1 if not torch.isfinite(p1[k]).all()
+               or not torch.equal(p1[k], p2[k])]
+        if bad:
+            raise AssertionError(f"train frontend[{arch}]: params not "
+                                 f"finite or not bit for bit on the rerun:"
+                                 f" {bad}")
+        p0 = dict(params_lib._leaves(params_lib.init_params(
+            cfg, 0, device="cuda")))
+        still = [k for k in p1 if "mlp/w_" in k and torch.equal(p0[k],
+                                                                 p1[k])]
+        if still:
+            raise AssertionError(f"train frontend[{arch}]: MLP weights "
+                                 f"never moved: {still}")
+        by_path[f"train_{arch}"] = launches
+        log(f"train frontend[{arch}] (train(), reduced, "
+            f"{'patches' if vision else 'frames'}): {MOE_TRAIN_STEPS} "
+            f"steps in {wall:.2f} s, loss {loss:.4f}; rerun bit for bit; "
+            f"MLP weights moved; launches {launches}")
+    return by_path
+
+
 # ----------------------------------------------------------------------
 # phase 11: the serve CLI's fleets at published widths
 # ----------------------------------------------------------------------
@@ -3904,11 +4106,19 @@ FLEET_PATHS = {
     "moe_stepped": ("paged_decode_attention", "chunked_prefill_attention",
                     "fused_swiglu"),
     "moe_dense": ("fused_swiglu", "decode_attention"),
+    # phase 13: llava on the contiguous-cache member fallback (kernel 3
+    # on its prefill; its ring decodes reach no kernel) beside the
+    # probe's paged kernels, or beside its contiguous decodes in the
+    # paged=False baseline
+    "vision_stepped": ("paged_decode_attention",
+                       "chunked_prefill_attention", "fused_swiglu"),
+    "vision_dense": ("fused_swiglu", "decode_attention"),
 }
 FLEET_FREED_BYTES = 1 << 30
-# phase 11 serves every model at its first 10 layers (its walls are
-# host-bound and scale with depth; at full depth the phase took 112 s of
-# the script's budget, which phase 12 now shares)
+# phase 11 serves every model at its first 10 layers, as phases 6, 8
+# and 10 cut theirs (AUDIT_LAYERS): its walls are host-bound and scale
+# with depth; at full depth the phase took 112 s of the script's budget,
+# which phases 12 and 13 now share
 FLEET_LAYERS = 10
 
 
@@ -4195,6 +4405,160 @@ def run_moe_phase(torch, smi: str) -> dict:
     return by_path
 
 
+# ----------------------------------------------------------------------
+# phase 13: the audio and vision families at published widths
+# ----------------------------------------------------------------------
+# whisper-medium at full depth (24 encoder + 24 decoder layers): 8 rows
+# of 1500 synthetic frames, 4-token prompts, 28 greedy new tokens; then
+# 3 samples of each of 4 prompts at temperature 0.9
+WHISPER_ROWS, WHISPER_PROMPT, WHISPER_NEW = 8, 4, 28
+WHISPER_SAMPLES, WHISPER_SAMPLE_PROMPTS = 3, 4
+# llava-next-mistral-7b at its first 10 of 32 layers (~2.4 B params, the
+# depth phases 8, 10 and 11 serve their models at): 4 rows of 1152
+# patch embeddings and 97 text tokens, 8 new tokens; then phase 5's
+# stream through its fleet (the probe, llava, the probe's twin)
+VISION_LAYERS = 10
+VISION_ROWS = 4
+VISION_FLEET = ("smollm-135m", "llava-next-mistral-7b", "smollm-135m-twin")
+
+
+def generate_twice(torch, label, fn, need):
+    """``fn()`` -> GenerateOutput twice, the launch counts set to 0 just
+    before each and read just after: tokens, lengths and logprobs
+    finite and bit for bit equal, the launches exactly ``need`` and no
+    other kernel. Returns (launches, output, wall of the first run)."""
+    from repro_torch.kernels import ops
+    runs = []
+    for _ in range(2):
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        runs.append((ops.launch_counts(), out, time.perf_counter() - t))
+    (launches, out, wall), (launches2, out2, wall2) = runs
+    if launches != dict({k: 0 for k in launches}, **need):
+        raise AssertionError(f"{label}: launched {launches}, not {need} "
+                             "alone")
+    if not torch.isfinite(out.logprobs).all():
+        raise AssertionError(f"{label}: non-finite logprobs")
+    if launches2 != launches or not all(
+            torch.equal(a, b) for a, b in zip(out, out2)):
+        raise AssertionError(f"{label}: the rerun's tokens, lengths, "
+                             "logprobs or launches differ")
+    log(f"{label}: {tuple(out.tokens.shape)} tokens in {wall:.3f} s "
+        f"(rerun {wall2:.3f} s), rerun bit for bit; launches {need}, no "
+        "other kernel")
+    return launches, out, wall
+
+
+def run_frontend_phase(torch, smi: str) -> dict:
+    """(a) whisper-medium at published widths and full depth, bf16,
+    seed-initialised: ``generate`` over ``WHISPER_ROWS`` rows of 1500
+    synthetic frames and ``WHISPER_PROMPT``-token prompts, greedy, then
+    ``generate_samples`` (n 3, temperature 0.9) over 4 of them, each
+    twice (``generate_twice``: bit for bit), kernel 4 once a decoder
+    layer and decode step and no other kernel; (b) llava-next-mistral-7b
+    at published widths, its first ``VISION_LAYERS`` layers: ``generate``
+    over 4 rows of 1152 synthetic patches and 97 text tokens, 8 new
+    tokens, twice, kernel 3 once a layer on the prefill and no kernel on
+    the ring decodes; then phase 5's stream and forced routes through
+    ``VISION_FLEET``, stepped (llava on the contiguous-cache member
+    fallback) and the ``paged=False`` queued baseline, each twice through
+    ``serve_twice``. Walls, launches and the peak memory are printed.
+    Returns each path's launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import frontends
+    from repro_torch.models.params import count_params, init_params
+    from repro_torch.sampling import prng
+    from repro_torch.sampling import sampler as S
+
+    by_path = {}
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("whisper-medium")
+    params = init_params(cfg, 0, device="cuda")
+    frames = frontends.synthetic_frames(cfg, WHISPER_ROWS, 1,
+                                        device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(21)
+    prompts = torch.randint(0, cfg.vocab_size, (WHISPER_ROWS,
+                                                WHISPER_PROMPT),
+                            generator=gen, device="cuda")
+    log(f"frontend: whisper-medium {cfg.encoder.num_layers} + "
+        f"{cfg.num_layers} layers, d_model {cfg.d_model}, heads "
+        f"{cfg.num_heads}/{cfg.num_kv_heads}, head_dim "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, {cfg.dtype}: "
+        f"{count_params(params) / 1e9:.3f} B params; frames "
+        f"{tuple(frames.shape)}")
+    need = {"decode_attention": WHISPER_NEW * cfg.num_layers}
+    by_path["whisper_generate"], out, _ = generate_twice(
+        torch, "frontend[whisper-medium generate]",
+        lambda: S.generate(cfg, params, prompts,
+                           max_new_tokens=WHISPER_NEW,
+                           frontend_embeds=frames), need)
+    if not (out.lengths == WHISPER_NEW).all():
+        raise AssertionError("frontend[whisper-medium generate]: lengths "
+                             f"{out.lengths.tolist()}")
+    k = WHISPER_SAMPLE_PROMPTS
+    by_path["whisper_samples"], out, _ = generate_twice(
+        torch, "frontend[whisper-medium generate_samples]",
+        lambda: S.generate_samples(
+            cfg, params, prompts[:k], WHISPER_SAMPLES,
+            max_new_tokens=WHISPER_NEW, temperature=0.9,
+            key=prng.prng_key(7),
+            frontend_embeds=frames[:k].contiguous()), need)
+    if tuple(out.tokens.shape) != (k * WHISPER_SAMPLES, WHISPER_NEW):
+        raise AssertionError("frontend[whisper-medium generate_samples]: "
+                             f"tokens {tuple(out.tokens.shape)}")
+    log(f"frontend: whisper-medium peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+        f"{time.perf_counter() - t0:.1f} s")
+    del params, frames
+    free_fleet(torch, "whisper-medium")
+
+    t1 = time.perf_counter()
+    probe, ensemble = fleet_models(torch, VISION_FLEET,
+                                   {"llava-next-mistral-7b": VISION_LAYERS})
+    llava = ensemble[0]
+    vcfg = llava.cfg
+    patches = frontends.synthetic_patches(vcfg, VISION_ROWS, 2,
+                                          device="cuda")
+    text = torch.randint(0, vcfg.vocab_size,
+                         (VISION_ROWS, vcfg.num_patches + PROMPT),
+                         generator=gen, device="cuda")
+    by_path["vision_generate"], out, _ = generate_twice(
+        torch, "frontend[llava-next-mistral-7b generate]",
+        lambda: S.generate(vcfg, llava.params, text,
+                           max_new_tokens=MAX_NEW,
+                           frontend_embeds=patches),
+        {"fused_swiglu": vcfg.num_layers})
+    log(f"frontend: llava-next-mistral-7b prompt {tuple(text.shape)} "
+        f"({vcfg.num_patches} patch positions), peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    tasks = long_prompt_tasks(16, prompt_chars=PROMPT)
+    modes = forced_modes(len(tasks))
+
+    def route(sig, indices):
+        return modes[np.asarray(indices, np.int64)]
+
+    for path in ("vision_stepped", "vision_dense"):
+        by_path[path], res = serve_fleet(torch, "vision", probe, ensemble,
+                                         tasks, route, path, smi)
+        answered = sum(a[0] is not None for a in res.member_answers)
+        if not answered:
+            raise AssertionError(f"frontend[{path}]: llava answered no row")
+        log(f"frontend[{path}]: llava answered {answered} rows; peak "
+            f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del probe, ensemble, llava, patches
+    free_fleet(torch, "vision")
+    log(f"frontend: llava-next-mistral-7b {time.perf_counter() - t1:.1f} s;"
+        f" phase 13 {time.perf_counter() - t0:.1f} s")
+    return by_path
+
+
 def report_ptxas(build) -> None:
     """ptxas's registers, static shared memory and spills for each
     kernel of the two tensor-core sources, the four split-KV decodes and
@@ -4258,6 +4622,7 @@ def main() -> int:
     run_reference_phase(torch)
     run_wave_reference_phase(torch)
     run_moe_reference_phase(torch)
+    run_frontend_reference_phase(torch)
     run_train_reference_phase(torch)
     phase_done("reference")
     cfg, params = full_width_params(torch)
@@ -4267,9 +4632,9 @@ def main() -> int:
     by_path["faults"] = run_fault_phase(torch, smi.splitlines()[0], cfg,
                                         params, served)
     phase_done("faults")
-    by_path.update(run_wave_phase(torch, gpu_name, cfg, params))
-    phase_done("wave")
     cut_cfg, cut = first_layers(cfg, params, AUDIT_LAYERS)
+    by_path.update(run_wave_phase(torch, gpu_name, cut_cfg, cut))
+    phase_done("wave")
     trained = arithmetic_fleet(torch, cut_cfg, cut)
     by_path["audit"], audited = run_audit_phase(
         torch, smi.splitlines()[0], cut_cfg, trained)
@@ -4282,11 +4647,14 @@ def main() -> int:
     by_path.update(run_train_phase(torch, gpu_name))
     by_path["train_entry"] = run_train_entry_phase(torch)
     by_path.update(run_moe_train_phase(torch))
+    by_path.update(run_frontend_train_phase(torch))
     phase_done("train")
     by_path.update(run_fleet_phase(torch, smi.splitlines()[0]))
     phase_done("fleets")
     by_path.update(run_moe_phase(torch, smi.splitlines()[0]))
     phase_done("moe")
+    by_path.update(run_frontend_phase(torch, smi.splitlines()[0]))
+    phase_done("frontend")
 
     sources = {
         "paged_decode_attention": "src/repro/kernels/"
@@ -4362,6 +4730,8 @@ def main() -> int:
             entry["fleet_shapes"] = r["fleet_shapes"]
         if "moe_shapes" in r:
             entry["moe_shapes"] = r["moe_shapes"]
+        if "frontend_shape" in r:
+            entry["frontend_shape"] = r["frontend_shape"]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels,
                       "launch_floor_ms": results[("launch_floor", "")]}))

@@ -1,9 +1,9 @@
 """Architecture registry: ``--arch <id>`` -> ModelConfig.
 
-Only the architectures the port runs are listed: the dense, ssm,
-hybrid and MoE families (MoE with GQA or MLA attention), which serve
-and train. The audio and vision configs join as their model families
-are ported.
+The reference's ten architectures in its order: the dense, ssm,
+hybrid, MoE (GQA or MLA attention), audio (whisper's encoder-decoder)
+and vision (a patch-embedding prefix) families, each of which serves
+and trains.
 """
 from __future__ import annotations
 
@@ -15,8 +15,10 @@ from repro_torch.configs.base import ModelConfig
 _ARCH_MODULES = {
     "granite-34b": "repro_torch.configs.granite_34b",
     "falcon-mamba-7b": "repro_torch.configs.falcon_mamba_7b",
+    "whisper-medium": "repro_torch.configs.whisper_medium",
     "llama3-8b": "repro_torch.configs.llama3_8b",
     "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
+    "llava-next-mistral-7b": "repro_torch.configs.llava_next_mistral_7b",
     "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
     "smollm-135m": "repro_torch.configs.smollm_135m",
     "deepseek-7b": "repro_torch.configs.deepseek_7b",

@@ -23,13 +23,17 @@ heterogeneous mix (a Mamba probe on recurrent-state lanes, an int8-KV
 member, a sliding-window member on ring pages and a full-attention
 llama3-8b). MoE members (mixtral-8x22b, deepseek-v2-236b with MLA)
 serve over contiguous caches in every engine: their capacity dispatch
-couples rows, so no page layout takes them. The sharded step loop
-(``--shards``) is not ported yet.
+couples rows, so no page layout takes them. A vision member
+(llava-next-mistral-7b) is served text only, as the reference's engine
+serves it, over contiguous ring caches on the step loop's member
+fallback. The sharded step loop (``--shards``) is not ported yet.
 
     python -m repro_torch.launch.serve --tasks 32 --train-steps 300
     python -m repro_torch.launch.serve --hetero-fleet --step-loop
     python -m repro_torch.launch.serve --ensemble mixtral-8x22b \
         deepseek-v2-236b --step-loop
+    python -m repro_torch.launch.serve --ensemble llava-next-mistral-7b \
+        llama3-8b --step-loop
 
     from repro_torch.launch.serve import serve
     report = serve(tasks, probe, ensemble, ACARConfig(), device="cuda")

@@ -27,6 +27,7 @@ from repro_torch.data import tokenizer as tok
 from repro_torch.data.pipeline import arithmetic_batches, synthetic_lm_batches
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import params as params_lib
+from repro_torch.models.frontends import synthetic_frames, synthetic_patches
 from repro_torch.optim import init as opt_init
 from repro_torch.runtime import deterministic_cuda
 
@@ -49,7 +50,10 @@ def train(arch: str = "smollm-135m", data: str = "arithmetic",
           reduced: bool = True, verbose: bool = True,
           device: str = "cuda"):
     """Train ``arch`` for ``steps`` steps on ``device``; returns (cfg,
-    params, last metrics) and writes an npz checkpoint to ``ckpt``."""
+    params, last metrics) and writes an npz checkpoint to ``ckpt``. An
+    audio or vision model gets the same synthetic frames or patches
+    (``models.frontends``, from ``seed``) on every step, as the
+    reference's trainer gives them."""
     dev = torch.device(device)
     if dev.type == "cuda":
         deterministic_cuda()
@@ -66,6 +70,12 @@ def train(arch: str = "smollm-135m", data: str = "arithmetic",
     else:
         it = synthetic_lm_batches(batch, seq, cfg.vocab_size, seed=seed)
 
+    fe = None
+    if cfg.frontend == "audio":
+        fe = synthetic_frames(cfg, batch, seed, device=dev)
+    elif cfg.frontend == "vision":
+        fe = synthetic_patches(cfg, batch, seed, device=dev)
+
     t0 = time.perf_counter()
     metrics = {}
     for i in range(steps):
@@ -75,6 +85,8 @@ def train(arch: str = "smollm-135m", data: str = "arithmetic",
             "labels": torch.from_numpy(b.labels).to(dev),
             "loss_mask": torch.from_numpy(b.loss_mask).to(dev),
         }
+        if fe is not None:
+            batch_dict["frontend_embeds"] = fe
         params, opt_state, metrics = step_fn(params, opt_state,
                                              batch_dict)
         if verbose and (i % log_every == 0 or i == steps - 1):

@@ -7,7 +7,8 @@ pages, decode over ring pages).
 The port of the GQA and MLA functions of ``repro/models/attention.py``
 (MLA: DeepSeek-V2's multi-head latent attention, full-sequence and the
 absorbed-form decode over its latent cache, both plain PyTorch as the
-reference leaves them outside any kernel).
+reference leaves them outside any kernel; and whisper's cross-attention
+over the encoder's K/V, plain PyTorch too).
 Linear-cache decode and chunked-prefill attention go through
 ``kernels.ops``: the hand-written Hopper kernels on the card, their
 plain PyTorch versions on the CPU. One-shot prefill attention and ring
@@ -550,3 +551,36 @@ def mla_decode(cfg: ModelConfig, p: dict, x_t: torch.Tensor, cache: dict,
     out = torch.einsum("bhk,khv->bhv", ctx_c, wv_b)         # (B,H,vdim)
     out = out.reshape(b, h * vdim).to(x_t.dtype)
     return torch.matmul(out, p["wo"]), cache
+
+
+# ======================================================================
+# Cross attention (whisper decoder)
+# ======================================================================
+def cross_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                    enc_k: torch.Tensor, enc_v: torch.Tensor
+                    ) -> torch.Tensor:
+    """Decoder queries over the encoder's K/V, every frame attended
+    (``full_attention`` with an all-true mask; plain PyTorch, as the
+    reference leaves it outside any kernel). x: (B, S, d) or (B, d);
+    enc_k/enc_v: (B, F, KV, Dh), precomputed by ``cross_kv``."""
+    squeeze = x.dim() == 2
+    if squeeze:
+        x = x[:, None]
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = torch.matmul(x, p["wq"]).reshape(b, s, cfg.num_heads, hd)
+    mask = torch.ones((s, enc_k.shape[1]), dtype=torch.bool,
+                      device=x.device)
+    out = full_attention(q, enc_k, enc_v, mask)
+    y = torch.matmul(out.reshape(b, s, cfg.num_heads * hd), p["wo"])
+    return y[:, 0] if squeeze else y
+
+
+def cross_kv(cfg: ModelConfig, p: dict, enc_out: torch.Tensor):
+    """Cross-attention K/V (B, F, KV, Dh) each from the encoder's output
+    (B, F, d)."""
+    b, f, _ = enc_out.shape
+    hd = cfg.resolved_head_dim
+    k = torch.matmul(enc_out, p["wk"]).reshape(b, f, cfg.num_kv_heads, hd)
+    v = torch.matmul(enc_out, p["wv"]).reshape(b, f, cfg.num_kv_heads, hd)
+    return k, v

@@ -24,6 +24,19 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     return (x * scale.float()).to(dtype)
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """The reference's formula in f32: the mean, then the mean of the
+    squared deviations, then ``rsqrt(var + eps)`` (not
+    ``F.layer_norm``, whose reduction differs)."""
+    dtype = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * scale.float() + bias.float()).to(dtype)
+
+
 # ----------------------------------------------------------------------
 # RoPE
 # ----------------------------------------------------------------------
@@ -73,6 +86,15 @@ def swiglu_mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
 
     xt = x.reshape(-1, x.shape[-1])
     return blocked_rows(blk, xt).reshape(x.shape)
+
+
+def gelu_mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """2-matmul GELU MLP (whisper): params {w_in, b_in, w_out, b_out};
+    x (..., d). The GELU is the tanh form in f32 (``jax.nn.gelu``'s
+    default, not torch's erf default), cast back to x's dtype."""
+    h = torch.matmul(x, params["w_in"]) + params["b_in"]
+    h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+    return torch.matmul(h, params["w_out"]) + params["b_out"]
 
 
 def causal_conv1d(x: torch.Tensor, w: torch.Tensor,

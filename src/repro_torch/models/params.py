@@ -9,8 +9,13 @@ leading layers axis (dense and ssm families), or one unstacked
 ``layer_{i:02d}`` subtree per layer (the hybrid family's non-uniform
 stack). A MoE stack whose first layers keep a dense MLP
 (``MoEConfig.first_moe_layer``, deepseek-v2's layer 0) unrolls those
-as ``layer_{i:02d}`` subtrees beside the stacked MoE ``layers``. Audio
-and vision trees are not ported yet.
+as ``layer_{i:02d}`` subtrees beside the stacked MoE ``layers``. The
+audio family (whisper) holds two stacks, ``enc_layers`` and
+``dec_layers`` (the decoder's layers with cross-attention), the
+encoder's final norm and the learned decoder positions ``dec_pos``;
+its norms are layer norms with a bias and its MLPs the two-matmul GELU
+MLP. The vision family's tree is its backbone's (patches are inputs,
+not params).
 """
 from __future__ import annotations
 
@@ -47,8 +52,11 @@ _F32_INITS = ("a_log", "lam")
 _RG_C = 8.0   # RG-LRU's recurrence constant (models.rglru._C)
 
 
-def _norm_def(d: int) -> Dict[str, WeightDef]:
-    return {"scale": WeightDef((d,), "ones")}
+def _norm_def(d: int, with_bias: bool = False) -> Dict[str, WeightDef]:
+    out = {"scale": WeightDef((d,), "ones")}
+    if with_bias:
+        out["bias"] = WeightDef((d,), "zeros")
+    return out
 
 
 def _attn_defs(cfg: ModelConfig) -> Dict[str, WeightDef]:
@@ -82,7 +90,15 @@ def _mla_defs(cfg: ModelConfig) -> Dict[str, WeightDef]:
 
 
 def _mlp_defs(cfg: ModelConfig) -> Dict[str, WeightDef]:
+    """The audio family's GELU MLP (zero biases), else the SwiGLU."""
     d, f = cfg.d_model, cfg.d_ff
+    if cfg.family == "audio":
+        return {
+            "w_in": WeightDef((d, f)),
+            "b_in": WeightDef((f,), "zeros"),
+            "w_out": WeightDef((f, d)),
+            "b_out": WeightDef((d,), "zeros"),
+        }
     return {
         "w_gate": WeightDef((d, f)),
         "w_up": WeightDef((d, f)),
@@ -148,22 +164,29 @@ def _rglru_defs(cfg: ModelConfig) -> Dict[str, WeightDef]:
     }
 
 
-def layer_defs(cfg: ModelConfig, kind: str, layer_idx: int = 0) -> dict:
+def layer_defs(cfg: ModelConfig, kind: str, layer_idx: int = 0,
+               cross_attn: bool = False) -> dict:
     """Def tree for one decoder layer of the given kind (attn | ssm |
     rglru). An attention layer holds MLA or GQA weights as the config
-    says, and a MoE MLP from ``first_moe_layer`` on."""
+    says, a cross-attention block (``cross_norm``, ``cross``) with
+    ``cross_attn``, and a MoE MLP from ``first_moe_layer`` on. The
+    audio family's norms carry a bias."""
     d = cfg.d_model
+    bias = cfg.family == "audio"
     if kind == "ssm":
-        return {"norm": _norm_def(d), "ssm": _ssm_defs(cfg)}
+        return {"norm": _norm_def(d, bias), "ssm": _ssm_defs(cfg)}
     if kind == "attn":
-        out = {"attn_norm": _norm_def(d),
+        out = {"attn_norm": _norm_def(d, bias),
                "attn": _mla_defs(cfg) if cfg.attn_kind == "mla"
                else _attn_defs(cfg)}
+        if cross_attn:
+            out["cross_norm"] = _norm_def(d, bias)
+            out["cross"] = _attn_defs(cfg)
     elif kind == "rglru":
-        out = {"mix_norm": _norm_def(d), "rglru": _rglru_defs(cfg)}
+        out = {"mix_norm": _norm_def(d, bias), "rglru": _rglru_defs(cfg)}
     else:
         raise ValueError(f"unknown layer kind {kind!r}")
-    out["mlp_norm"] = _norm_def(d)
+    out["mlp_norm"] = _norm_def(d, bias)
     use_moe = (cfg.moe is not None and kind == "attn"
                and layer_idx >= cfg.moe.first_moe_layer)
     out["mlp"] = _moe_defs(cfg) if use_moe else _mlp_defs(cfg)
@@ -178,18 +201,11 @@ def _stack_defs(defs: dict, n: int) -> dict:
 
 
 def model_defs(cfg: ModelConfig) -> dict:
-    """Full parameter def tree for a dense, MoE (GQA or MLA), ssm or
-    hybrid architecture."""
-    if (cfg.family not in ("dense", "moe", "ssm", "hybrid")
-            or cfg.attn_kind not in ("gqa", "mla", "none")
-            or cfg.frontend is not None):
-        raise NotImplementedError(
-            f"{cfg.name}: only the dense, MoE, ssm and hybrid families "
-            "are ported")
+    """Full parameter def tree for an architecture of any family."""
     d, v = cfg.d_model, cfg.vocab_size
     defs: dict = {
         "embedding": WeightDef((v, d)),
-        "final_norm": _norm_def(d),
+        "final_norm": _norm_def(d, cfg.family == "audio"),
     }
     if not cfg.tie_embeddings:
         defs["lm_head"] = WeightDef((d, v))
@@ -198,6 +214,14 @@ def model_defs(cfg: ModelConfig) -> dict:
         # non-uniform layer stack: per-layer subtrees
         for i, kind in enumerate(kinds):
             defs[f"layer_{i:02d}"] = layer_defs(cfg, kind)
+    elif cfg.family == "audio":
+        # the encoder's layers: the decoder's without cross-attention
+        defs["enc_layers"] = _stack_defs(layer_defs(cfg, "attn"),
+                                         cfg.encoder.num_layers)
+        defs["enc_final_norm"] = _norm_def(d, True)
+        defs["dec_layers"] = _stack_defs(
+            layer_defs(cfg, "attn", 0, cross_attn=True), cfg.num_layers)
+        defs["dec_pos"] = WeightDef((cfg.max_position, d))
     elif cfg.moe is not None and cfg.moe.first_moe_layer > 0:
         # deepseek-v2: dense layer(s) first, a uniform MoE stack after
         k = cfg.moe.first_moe_layer

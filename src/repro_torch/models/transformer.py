@@ -1,5 +1,6 @@
 """Transformer forward for training, and prefill and decode for
-serving, over the dense, MoE, ssm and hybrid families: the full-sequence
+serving, over every family of the zoo (dense, MoE, ssm, hybrid, audio
+and vision): the full-sequence
 forward; one-shot prefill into a contiguous cache (linear, ring or
 recurrent state) or into pool pages (dense, quant, ring) or lanes; one
 chunk of a paged prefill; and one decode step over a contiguous cache
@@ -12,8 +13,11 @@ slice is updated in place. MoE MLPs dispatch on ``MoEConfig.impl``
 (``models.moe``); MLA attention layers (DeepSeek-V2) keep a latent
 cache {c_kv, k_rope}; a MoE stack's leading dense layers
 (``first_moe_layer``) are unrolled ``layer_{i:02d}`` subtrees before the
-stacked ``layers``. The audio and vision frontends are not ported yet
-and raise ``NotImplementedError``.
+stacked ``layers``. The audio family (whisper) runs a non-causal encoder
+over frame embeddings and a decoder with learned positions whose layers
+cross-attend the encoder's K/V; its cache is {"dec_layers": self K/V,
+"cross": the cross K/V written once at prefill}. The vision family
+(llava) puts patch embeddings in the first positions of the prompt.
 """
 from __future__ import annotations
 
@@ -30,7 +34,8 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
-    apply_rope, embed_tokens, lm_head, rms_norm, swiglu_mlp)
+    apply_rope, embed_tokens, gelu_mlp, layer_norm, lm_head, rms_norm,
+    swiglu_mlp)
 from repro_torch.models.params import torch_dtype
 
 Pages = Dict[str, torch.Tensor]
@@ -44,15 +49,8 @@ DECODE_BLOCK_S = 512
 # ----------------------------------------------------------------------
 def norm_apply(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     if "bias" in p:
-        raise NotImplementedError(
-            "layer norm (the audio family) is not ported yet")
+        return layer_norm(x, p["scale"], p["bias"], cfg.norm_eps)
     return rms_norm(x, p["scale"], cfg.norm_eps)
-
-
-def _check_gated_mlp(p: dict) -> None:
-    if "w_in" in p:
-        raise NotImplementedError("GELU MLPs (the audio family) are not "
-                                  "ported yet")
 
 
 def mlp_apply(cfg: ModelConfig, p: dict, x: torch.Tensor
@@ -60,13 +58,15 @@ def mlp_apply(cfg: ModelConfig, p: dict, x: torch.Tensor
     """Full-sequence and prefill MLP over x (B, S, d): returns (y, the
     router's aux loss, None for a dense MLP). A MoE MLP runs the gather
     dispatch (``impl == "gather"``: every expert through the fused
-    SwiGLU kernel) or the capacity dispatch; a dense one the fused
-    SwiGLU kernel over every token."""
+    SwiGLU kernel) or the capacity dispatch; the audio family's GELU
+    MLP plain PyTorch (no kernel in the reference either); a dense one
+    the fused SwiGLU kernel over every token."""
     if "router" in p:
         if cfg.moe.impl == "gather":
             return moe_mod.moe_ffn_gather(cfg, p, x)
         return moe_mod.moe_ffn(cfg, p, x)
-    _check_gated_mlp(p)
+    if "w_in" in p:
+        return gelu_mlp(p, x), None
     t = x.reshape(-1, x.shape[-1]).contiguous()
     y = ops.fused_swiglu(t, p["w_gate"], p["w_up"], p["w_down"])
     return y.reshape(x.shape), None
@@ -76,21 +76,33 @@ def mlp_apply_token(cfg: ModelConfig, p: dict,
                     x: torch.Tensor) -> torch.Tensor:
     """Decode MLP over x (B, d): the gather MoE (the same code path and
     bits as its prefill), the per-token MoE of capacity configs, or the
-    blocked SwiGLU, as the reference runs a dense decode MLP outside any
-    kernel."""
+    blocked SwiGLU or the GELU MLP, as the reference runs a dense decode
+    MLP outside any kernel."""
     if "router" in p:
         if cfg.moe.impl == "gather":
             return moe_mod.moe_ffn_gather(cfg, p, x[:, None])[0][:, 0]
         return moe_mod.moe_ffn_token(cfg, p, x)
-    _check_gated_mlp(p)
+    if "w_in" in p:
+        return gelu_mlp(p, x)
     return swiglu_mlp(p, x)
 
 
-def _embed_inputs(cfg: ModelConfig, params: dict,
-                  tokens: torch.Tensor) -> torch.Tensor:
-    if cfg.frontend is not None:
-        raise NotImplementedError("frontends are not ported yet")
-    return embed_tokens(params["embedding"], tokens)
+def _embed_inputs(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+                  frontend_embeds: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
+    """Token embeddings (B, S, d); a vision config given patch
+    embeddings (B, P, d) puts them, cast to the model dtype, in the
+    first P positions (P <= S). Without patches a vision model embeds
+    the tokens alone, as the serving engine runs it."""
+    x = embed_tokens(params["embedding"], tokens)
+    if cfg.frontend == "vision" and frontend_embeds is not None:
+        p = frontend_embeds.shape[1]
+        if p > tokens.shape[1]:
+            raise ValueError(f"{cfg.name}: {p} patch embeddings need a "
+                             f"prompt of at least {p} positions, not "
+                             f"{tokens.shape[1]}")
+        x = torch.cat([frontend_embeds.to(x.dtype), x[:, p:]], dim=1)
+    return x
 
 
 def _logits(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -114,7 +126,10 @@ def _n_unrolled(cfg: ModelConfig) -> int:
 
 def _layer_params(cfg: ModelConfig, params: dict, i: int) -> dict:
     """Layer i's params: its own subtree (the hybrid stack, a MoE
-    stack's leading dense layers), else views of the stacked leaves."""
+    stack's leading dense layers), else views of the stacked leaves
+    (the audio family: of the decoder's ``dec_layers``)."""
+    if cfg.family == "audio":
+        return _layer(params["dec_layers"], i)
     k = _n_unrolled(cfg)
     if cfg.family == "hybrid" or i < k:
         return params[f"layer_{i:02d}"]
@@ -125,12 +140,15 @@ def _layer_params(cfg: ModelConfig, params: dict, i: int) -> dict:
 # full-sequence forward (training / scoring)
 # ----------------------------------------------------------------------
 def layer_fwd(cfg: ModelConfig, lp: dict, x: torch.Tensor,
-              positions: torch.Tensor, kind: str
+              positions: torch.Tensor, kind: str,
+              enc_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              causal: bool = True
               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """One decoder layer over a full sequence: an ssm block, or an
-    RG-LRU or attention (MLA, or causal and optionally windowed GQA)
-    mixer followed by the MLP (dense or MoE).
-    Returns (x, the MLP's aux loss or None)."""
+    """One decoder (or encoder) layer over a full sequence: an ssm
+    block, or an RG-LRU or attention (MLA, or GQA: causal unless
+    ``causal=False``, optionally windowed) mixer, then, given the
+    encoder's K/V ``enc_kv``, cross-attention, then the MLP (dense,
+    GELU or MoE). Returns (x, the MLP's aux loss or None)."""
     if kind == "ssm":
         h = norm_apply(cfg, lp["norm"], x)
         return x + ssm_mod.mamba_block(cfg, lp["ssm"], h), None
@@ -143,7 +161,10 @@ def layer_fwd(cfg: ModelConfig, lp: dict, x: torch.Tensor,
             x = x + attn.mla_attention(cfg, lp["attn"], h, positions)
         else:
             x = x + attn.gqa_attention(cfg, lp["attn"], h, positions,
-                                       causal=True, window=cfg.window)
+                                       causal=causal, window=cfg.window)
+        if enc_kv is not None:
+            h = norm_apply(cfg, lp["cross_norm"], x)
+            x = x + attn.cross_attention(cfg, lp["cross"], h, *enc_kv)
     else:
         raise ValueError(f"unknown layer kind {kind!r}")
     h = norm_apply(cfg, lp["mlp_norm"], x)
@@ -151,15 +172,51 @@ def layer_fwd(cfg: ModelConfig, lp: dict, x: torch.Tensor,
     return x + y, aux
 
 
-def _check_family(cfg: ModelConfig, what: str) -> None:
-    """Every path takes the dense, MoE (GQA or MLA), ssm and hybrid
-    families; the audio and vision frontends are not ported yet."""
-    if (cfg.family not in ("dense", "moe", "ssm", "hybrid")
-            or cfg.attn_kind not in ("gqa", "mla", "none")
-            or cfg.frontend is not None):
-        raise NotImplementedError(
-            f"{cfg.name}: {what} the {cfg.family} family "
-            f"({cfg.attn_kind} attention) is not ported yet")
+def _dec_pos(cfg: ModelConfig, params: dict,
+             positions: torch.Tensor) -> torch.Tensor:
+    """Learned decoder positions, indexed modulo the table's rows
+    (whisper's 448; positions past it wrap, as in the reference)."""
+    table = params["dec_pos"]
+    return table[torch.remainder(positions.long(), table.shape[0])]
+
+
+def _sinusoidal_pos(length: int, d: int, device=None) -> torch.Tensor:
+    """The encoder's fixed positions (length, d) in f32: sin of every
+    angle, then cos."""
+    pos = torch.arange(length, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None]
+    ang = pos / torch.pow(10000.0, 2 * dim / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _frames(cfg: ModelConfig, frontend_embeds) -> torch.Tensor:
+    if frontend_embeds is None:
+        raise ValueError(f"{cfg.name}: the audio family needs frame "
+                         "embeddings (frontend_embeds, (B, F, d))")
+    return frontend_embeds
+
+
+def _encode(cfg: ModelConfig, params: dict,
+            frames: torch.Tensor) -> torch.Tensor:
+    """frames: (B, F, d) stub frontend output -> encoder states: fixed
+    sinusoidal positions added, the non-causal encoder stack, its final
+    layer norm."""
+    f = frames.shape[1]
+    x = frames + _sinusoidal_pos(f, cfg.d_model,
+                                 frames.device).to(frames.dtype)[None]
+    positions = torch.arange(f, device=frames.device)
+    for i in range(cfg.encoder.num_layers):
+        x, _ = layer_fwd(cfg, _layer(params["enc_layers"], i), x,
+                         positions, "attn", causal=False)
+    return norm_apply(cfg, params["enc_final_norm"], x)
+
+
+def _dec_embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+               positions: torch.Tensor) -> torch.Tensor:
+    """The audio decoder's input: token embeddings plus learned
+    positions."""
+    x = embed_tokens(params["embedding"], tokens)
+    return x + _dec_pos(cfg, params, positions).to(x.dtype)
 
 
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
@@ -172,19 +229,24 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     then the stacked layer params (the hybrid stack: its per-layer
     subtrees). ``remat`` recomputes each layer's activations in the
     backward (``torch.utils.checkpoint``), as the reference's
-    ``jax.checkpoint`` does. Audio and vision models raise
-    ``NotImplementedError``."""
-    _check_family(cfg, "forward of")
-    if frontend_embeds is not None:
-        raise NotImplementedError(f"{cfg.name}: frontends are not "
-                                  "ported yet")
+    ``jax.checkpoint`` does. ``frontend_embeds`` are an audio model's
+    frames (B, F, d), required: the encoder runs over them and each
+    decoder layer cross-attends its output; or a vision model's patches
+    (B, P, d), which replace the first P token embeddings; other
+    families ignore them."""
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    x = _embed_inputs(cfg, params, tokens)
+    if cfg.family == "audio":
+        enc_out = _encode(cfg, params, _frames(cfg, frontend_embeds))
+        x = _dec_embed(cfg, params, tokens, positions)
+    else:
+        x = _embed_inputs(cfg, params, tokens, frontend_embeds)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, kind in enumerate(cfg.layer_kinds):
         def fn(x, i=i, kind=kind):
-            return layer_fwd(cfg, _layer_params(cfg, params, i), x,
-                             positions, kind)
+            lp = _layer_params(cfg, params, i)
+            kv = (attn.cross_kv(cfg, lp["cross"], enc_out)
+                  if cfg.family == "audio" else None)
+            return layer_fwd(cfg, lp, x, positions, kind, enc_kv=kv)
 
         if remat:
             x, a = torch.utils.checkpoint.checkpoint(fn, x,
@@ -268,23 +330,31 @@ def _state_entry(cfg: ModelConfig, kind: str, batch: int,
             "h": torch.zeros(h_shape, dtype=torch.float32, device=device)}
 
 
-def _assemble_cache(cfg: ModelConfig, entries) -> Cache:
+def _stack(entries) -> Dict[str, torch.Tensor]:
+    return {n: torch.stack([e[n] for e in entries]) for n in entries[0]}
+
+
+def _assemble_cache(cfg: ModelConfig, entries, cross=None) -> Cache:
     """Per-layer cache entries -> the family's cache: the hybrid stack
     keeps one ``layer_{i:02d}`` entry a layer (batch on axis 0), and so
     do a MoE stack's unrolled dense layers; uniform stacks stack theirs
-    under ``layers`` (layer axis 0, batch axis 1)."""
+    under ``layers`` (layer axis 0, batch axis 1); the audio family
+    under ``dec_layers``, beside the stacked cross K/V ``cross``."""
+    if cfg.family == "audio":
+        return {"dec_layers": _stack(entries), "cross": _stack(cross)}
     if cfg.family == "hybrid":
         return {f"layer_{i:02d}": e for i, e in enumerate(entries)}
     k = _n_unrolled(cfg)
     out: Cache = {f"layer_{i:02d}": entries[i] for i in range(k)}
-    out["layers"] = {n: torch.stack([e[n] for e in entries[k:]])
-                     for n in entries[k]}
+    out["layers"] = _stack(entries[k:])
     return out
 
 
 def _cache_layer(cfg: ModelConfig, cache: Cache,
                  i: int) -> Dict[str, torch.Tensor]:
     """Layer i's cache leaves (views, written in place)."""
+    if cfg.family == "audio":
+        return {n: t[i] for n, t in cache["dec_layers"].items()}
     k = _n_unrolled(cfg)
     if cfg.family == "hybrid" or i < k:
         return cache[f"layer_{i:02d}"]
@@ -302,21 +372,28 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
     window for sliding-window layers (a ring). Recurrent layers hold
     their {conv, h} state. Uniform stacks stack the layers under
     ``layers`` (L, B, ...); the hybrid stack keeps a ``layer_{i:02d}``
-    entry a layer, and a MoE stack one for each leading dense layer."""
-    _check_family(cfg, "serving")
+    entry a layer, and a MoE stack one for each leading dense layer.
+    The audio family stacks its self-attention caches under
+    ``dec_layers`` and its zeroed cross K/V (L, B, F, KV, Dh) under
+    ``cross``."""
     s = _attn_cache_len(cfg, seq_len)
     entries = [_attn_cache_entry(cfg, batch, s, device) if kind == "attn"
                else _state_entry(cfg, kind, batch, device)
                for kind in cfg.layer_kinds]
-    return _assemble_cache(cfg, entries)
+    cross = None
+    if cfg.family == "audio":
+        cross = [_attn_cache_entry(cfg, batch, cfg.encoder.num_frames,
+                                   device)] * cfg.num_layers
+    return _assemble_cache(cfg, entries, cross)
 
 
 # ----------------------------------------------------------------------
 # one-shot prefill
 # ----------------------------------------------------------------------
 def _attn_prefill_layer(cfg: ModelConfig, lp: dict, x: torch.Tensor,
-                        positions: torch.Tensor):
-    """One full-prompt attention layer: returns (x, entry) with the
+                        positions: torch.Tensor, enc_kv=None):
+    """One full-prompt attention layer (cross-attending ``enc_kv`` when
+    given): returns (x, entry) with the
     layer's cache leaves over the prompt for the caller to pack into its
     cache or pages: MLA's normed latent and rope'd shared key {c_kv,
     k_rope}, or GQA's rope'd K/V (B, S, KV, Dh) — as they are, or int8
@@ -344,20 +421,35 @@ def _attn_prefill_layer(cfg: ModelConfig, lp: dict, x: torch.Tensor,
             vq, vs = attn.quantize_kv(v)
             entry = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
     x = x + a
+    if enc_kv is not None:
+        h = norm_apply(cfg, lp["cross_norm"], x)
+        x = x + attn.cross_attention(cfg, lp["cross"], h, *enc_kv)
     h = norm_apply(cfg, lp["mlp_norm"], x)
     return x + mlp_apply(cfg, lp["mlp"], h)[0], entry
 
 
 def _prefill_layers(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
-                    pack) -> torch.Tensor:
+                    pack, frontend_embeds=None) -> torch.Tensor:
     """Run the prompt through every layer; ``pack(i, kind, entry)``
     stores layer i's cache leaves: an attention layer's full-prompt K/V
     (or int8 codes and scales), a recurrent layer's final {conv, h}
     state (``ssm.mamba_prefill``, ``rglru.rglru_prefill``: the plain
-    scans the reference's prefill runs). Returns the last position's
-    logits."""
+    scans the reference's prefill runs), and an audio decoder layer's
+    cross K/V (kind ``"cross"``) from the encoder run over the frames
+    ``frontend_embeds``. Returns the last position's logits."""
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    x = _embed_inputs(cfg, params, tokens)
+    if cfg.family == "audio":
+        enc_out = _encode(cfg, params, _frames(cfg, frontend_embeds))
+        x = _dec_embed(cfg, params, tokens, positions)
+        for i in range(cfg.num_layers):
+            lp = _layer_params(cfg, params, i)
+            k, v = attn.cross_kv(cfg, lp["cross"], enc_out)
+            x, st = _attn_prefill_layer(cfg, lp, x, positions,
+                                        enc_kv=(k, v))
+            pack(i, "attn", st)
+            pack(i, "cross", {"k": k, "v": v})
+        return _logits(cfg, params, x[:, -1])
+    x = _embed_inputs(cfg, params, tokens, frontend_embeds)
     for i, kind in enumerate(cfg.layer_kinds):
         lp = _layer_params(cfg, params, i)
         if kind == "ssm":
@@ -377,6 +469,7 @@ def _prefill_layers(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
 
 
 def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+            frontend_embeds: Optional[torch.Tensor] = None,
             cache_len: Optional[int] = None
             ) -> Tuple[torch.Tensor, Cache]:
     """Process a prompt: tokens (B, S) -> (last-position logits (B, V),
@@ -385,20 +478,25 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     prompt's K/V (or int8 codes and scales) in positions [0, S) and
     zeros after; ring layers the last min(cache_len, window) positions
     at slot = position mod ring length (``ring_compress``); recurrent
-    layers their state after the prompt."""
-    _check_family(cfg, "serving")
+    layers their state after the prompt; an audio model's ``cross`` the
+    encoder's K/V for every decoder layer, which decoding only reads.
+    ``frontend_embeds``: ``forward``'s (an audio model's frames are
+    required)."""
     s = tokens.shape[1]
     a_len = _attn_cache_len(cfg, s if cache_len is None else cache_len)
     fit = ring_compress if cfg.window is not None else _pad_cache
-    entries = []
+    entries, cross = [], []
 
     def pack(i, kind, entry):
+        if kind == "cross":
+            cross.append(entry)
+            return
         if kind == "attn":
             entry = {n: fit(a, a_len) for n, a in entry.items()}
         entries.append(entry)
 
-    logits = _prefill_layers(cfg, params, tokens, pack)
-    return logits, _assemble_cache(cfg, entries)
+    logits = _prefill_layers(cfg, params, tokens, pack, frontend_embeds)
+    return logits, _assemble_cache(cfg, entries, cross)
 
 
 # ----------------------------------------------------------------------
@@ -575,7 +673,8 @@ def decode_step_paged(cfg: ModelConfig, params: dict, pages: Pages,
 # decode over a contiguous cache
 # ----------------------------------------------------------------------
 def _attn_decode_layer(cfg: ModelConfig, lp: dict, x_t: torch.Tensor,
-                       cache_l: dict, pos: int) -> torch.Tensor:
+                       cache_l: dict, pos: int,
+                       cross: Optional[dict] = None) -> torch.Tensor:
     h = norm_apply(cfg, lp["attn_norm"], x_t)
     if cfg.attn_kind == "mla":
         a, _ = attn.mla_decode(cfg, lp["attn"], h, cache_l, pos)
@@ -583,6 +682,10 @@ def _attn_decode_layer(cfg: ModelConfig, lp: dict, x_t: torch.Tensor,
         a, _ = attn.gqa_decode(cfg, lp["attn"], h, cache_l, pos,
                                ring=cfg.window is not None)
     x_t = x_t + a
+    if cross is not None:
+        h = norm_apply(cfg, lp["cross_norm"], x_t)
+        x_t = x_t + attn.cross_attention(cfg, lp["cross"], h, cross["k"],
+                                         cross["v"])
     h = norm_apply(cfg, lp["mlp_norm"], x_t)
     return x_t + mlp_apply_token(cfg, lp["mlp"], h)
 
@@ -595,16 +698,22 @@ def decode_step(cfg: ModelConfig, params: dict, cache: Cache,
     layers write their K/V (or int8 codes and scales, or MLA's latent)
     at ``pos`` (a ring at ``pos`` mod its length); recurrent layers step
     their state
-    (``ssm.mamba_step``, ``rglru.rglru_block_step``). The cache is
-    updated in place; returns (logits for position pos + 1 (B, V),
-    cache)."""
-    _check_family(cfg, "serving")
+    (``ssm.mamba_step``, ``rglru.rglru_block_step``); an audio model's
+    decoder adds the learned position ``pos`` to the token and each
+    layer cross-attends its ``cross`` K/V, which stay as they are. The
+    cache is updated in place; returns (logits for position pos + 1
+    (B, V), cache)."""
     x = embed_tokens(params["embedding"], token)
+    if cfg.family == "audio":
+        table = params["dec_pos"]    # indexed on the host: no copy
+        x = x + table[int(pos) % table.shape[0]].to(x.dtype)
     for i, kind in enumerate(cfg.layer_kinds):
         lp = _layer_params(cfg, params, i)
         cl = _cache_layer(cfg, cache, i)
         if kind == "attn":
-            x = _attn_decode_layer(cfg, lp, x, cl, pos)
+            cross = ({n: t[i] for n, t in cache["cross"].items()}
+                     if cfg.family == "audio" else None)
+            x = _attn_decode_layer(cfg, lp, x, cl, pos, cross)
             continue
         if kind == "ssm":
             h = norm_apply(cfg, lp["norm"], x)

@@ -191,16 +191,19 @@ def _decode_scan(cfg: ModelConfig, params: dict, cache, logits0: torch.Tensor,
 def generate(cfg: ModelConfig, params: dict, prompt_tokens, *,
              max_new_tokens: int, temperature: float = 0.0,
              key: Optional[np.ndarray] = None, eos_id: int = -1,
-             pad_id: int = 0, row_keys=None) -> GenerateOutput:
+             pad_id: int = 0, frontend_embeds=None,
+             row_keys=None) -> GenerateOutput:
     """prompt_tokens: (B, S) int — fixed-length prompts, on the params'
     device. ``key`` is a raw (2,) uint32 key (default ``PRNGKey(0)``);
     ``row_keys`` ((B, 2) uint32) switches sampling to per-row key
-    streams (batch-composition invariant; see ``sample_token_rows``)."""
+    streams (batch-composition invariant; see ``sample_token_rows``).
+    ``frontend_embeds``: an audio model's frames or a vision model's
+    patches for the prefill (``T.prefill``)."""
     tokens = _as_tokens(prompt_tokens, _device_of(params))
     b, s = tokens.shape
     if key is None:
         key = prng.prng_key(0)
-    logits0, cache = T.prefill(cfg, params, tokens,
+    logits0, cache = T.prefill(cfg, params, tokens, frontend_embeds,
                                cache_len=s + max_new_tokens)
     out, _ = _decode_scan(cfg, params, cache, logits0, s, b,
                           max_new_tokens, temperature, key, eos_id,
@@ -211,12 +214,13 @@ def generate(cfg: ModelConfig, params: dict, prompt_tokens, *,
 def tile_cache(cache: dict, n: int, batch: Optional[int] = None) -> dict:
     """Broadcast a prefill cache of batch B to B*n rows (row i's
     replicas occupy rows i*n .. i*n+n-1, matching ``np.repeat`` on the
-    prompt batch). Stacked caches (``layers``) carry (L, B, ...) leaves;
-    the hybrid stack's per-layer entries (``layer_XX``) carry (B, ...).
-    ``batch`` asserts the chosen axis really is the batch axis."""
+    prompt batch). Stacked caches (``layers``, and the audio family's
+    ``dec_layers`` and ``cross``) carry (L, B, ...) leaves; the
+    per-layer entries (``layer_XX``) carry (B, ...). ``batch`` asserts
+    the chosen axis really is the batch axis."""
     out = {}
     for k, leaves in cache.items():
-        axis = 1 if k == "layers" else 0
+        axis = 1 if k in ("layers", "dec_layers", "cross") else 0
         if batch is not None:
             for leaf in leaves.values():
                 if leaf.shape[axis] != batch:
@@ -232,18 +236,20 @@ def generate_samples(cfg: ModelConfig, params: dict, prompt_tokens,
                      n: int, *, max_new_tokens: int,
                      temperature: float = 0.0,
                      key: Optional[np.ndarray] = None, eos_id: int = -1,
-                     pad_id: int = 0, row_keys=None) -> GenerateOutput:
+                     pad_id: int = 0, frontend_embeds=None,
+                     row_keys=None) -> GenerateOutput:
     """N samples per prompt with a single shared-prefix prefill.
 
     prompt_tokens: (B, S) -> GenerateOutput over B*n rows, row-major in
     sample index (row i*n+j is sample j of prompt i): one prefill per
-    prompt, its cache tiled to the n samples, and only the decode loop
-    runs at B*n rows."""
+    prompt (with ``frontend_embeds`` (B, ...) as in ``generate``), its
+    cache tiled to the n samples, and only the decode loop runs at B*n
+    rows."""
     tokens = _as_tokens(prompt_tokens, _device_of(params))
     b, s = tokens.shape
     if key is None:
         key = prng.prng_key(0)
-    logits0, cache = T.prefill(cfg, params, tokens,
+    logits0, cache = T.prefill(cfg, params, tokens, frontend_embeds,
                                cache_len=s + max_new_tokens)
     cache = tile_cache(cache, n, batch=b)
     logits0 = torch.repeat_interleave(logits0, n, dim=0)

@@ -106,8 +106,12 @@ def judge_batch(member_ids: torch.Tensor, probe_majority: torch.Tensor,
                         dim=-1)
     plural = torch.gather(member_ids, 1, best[:, None])[:, 0]
 
-    two_agree = ((member_ids[:, 0] == member_ids[:, 1])
-                 & valid[:, 0] & valid[:, 1])
+    # a one-member ensemble: the reference's out-of-range column 1
+    # clamps to column 0 (XLA's gather), so "the first two agree" is
+    # the one member's answer being valid
+    j = min(1, member_ids.shape[1] - 1)
+    two_agree = ((member_ids[:, 0] == member_ids[:, j])
+                 & valid[:, 0] & valid[:, j])
     lite = torch.where(two_agree & (member_ids[:, 0] != probe_majority),
                        member_ids[:, 0], probe_majority)
 

@@ -16,10 +16,12 @@ pages and lanes, the int8-paged wave, kill and recover, the Mamba
 probe; and the serve CLI's default fleet through each engine and
 through ``serve``) and ``moe`` (the gather-MoE fleet of ``mesh2d_zoo``
 on pages, and the serve CLI's capacity-MoE/MLA fleet on the
-contiguous-cache fallback)::
+contiguous-cache fallback) and ``vision`` (the serve CLI's fleet with a
+llava member on the contiguous-cache fallback beside llama3-8b on
+pages; whisper's and llava's sampling with frames and patches)::
 
     PYTHONPATH=src:tests:. JAX_PLATFORMS=cpu python tests/_torch_port.py \
-        [engine] [faults] [queued] [hetero] [moe]
+        [engine] [faults] [queued] [hetero] [moe] [vision]
 """
 from __future__ import annotations
 
@@ -1197,21 +1199,25 @@ def mesh2d_legs(n_tasks: int = 200, megasteps=(1, "auto")):
 # Both members are capacity MoE (deepseek-v2 with MLA, a shared expert
 # and a dense layer 0), which no page layout serves
 MOE_ENSEMBLE = ("mixtral-8x22b", "deepseek-v2-236b")
+# the serve CLI's vision fleet: --ensemble llava-next-mistral-7b
+# llama3-8b. Llava (served text only, as the reference's engine serves
+# it) takes no page layout; llama3-8b takes dense pages
+VISION_ENSEMBLE = ("llava-next-mistral-7b", "llama3-8b")
 
 
-def moe_fleet_legs(n_tasks: int = 200, batch_size: int = 8,
-                   prompt_chars: int = 24):
-    """The MoE CLI fleet (``default_fleets`` with ``MOE_ENSEMBLE``)
-    through ``run_stepped`` (both
-    members on the contiguous-cache member fallback: capacity prefill,
-    per-token MoE decode, MLA's latent cache) and ``run_queued``
-    (contiguous caches, masked), port against reference: forced routes
-    with half the rows full arena, 6 new tokens, chunk 8, the members
-    sampled at 0.9 like the probe. Equal sigma, mode, answers, member
-    answers, probe texts, record hashes and chain heads; each member
-    gives some full-arena row a non-empty answer. Returns {leg:
-    callable}."""
+def cli_fleet_legs(ensemble, label: str, n_tasks: int = 200,
+                   batch_size: int = 8, prompt_chars: int = 24):
+    """The serve CLI's fleet with ``--ensemble`` ``ensemble``
+    (``default_fleets``) through ``run_stepped`` (the members no page
+    layout serves on the contiguous-cache member fallback, the others
+    on pages) and ``run_queued`` (contiguous caches, masked), port
+    against reference: forced routes with half the rows full arena, 6
+    new tokens, chunk 8, the members sampled at 0.9 like the probe.
+    Equal sigma, mode, answers, member answers, probe texts, record
+    hashes and chain heads; each member gives some full-arena row a
+    non-empty answer. Returns {leg: callable}."""
     from harness.simulate import long_prompt_workload
+    from repro_torch.models.transformer import resolve_layout
     tasks = long_prompt_workload(n_tasks, prompt_chars, seed=0,
                                  duplicate_rate=0.15)
     state: dict = {}
@@ -1221,7 +1227,7 @@ def moe_fleet_legs(n_tasks: int = 200, batch_size: int = 8,
 
     def fleets():
         if "fleets" not in state:
-            state["fleets"] = default_fleets(ensemble=MOE_ENSEMBLE)
+            state["fleets"] = default_fleets(ensemble=ensemble)
         return state["fleets"]
 
     def answered(res, names) -> str:
@@ -1239,8 +1245,10 @@ def moe_fleet_legs(n_tasks: int = 200, batch_size: int = 8,
         ref, port = stepped_pair(fl, tasks, chunk_tokens=8, **kw)
         _, jres = ref()
         teng, tres = port()
-        check_served_equal("moe-step", tasks, jres, tres, names)
-        assert all(teng._stepped_server(m) is None for m in teng.ensemble)
+        check_served_equal(f"{label}-step", tasks, jres, tres, names)
+        for m in teng.ensemble:
+            assert (teng._stepped_server(m) is None) == (
+                resolve_layout(m.cfg) is None), m.name
         return answered(tres, names)
 
     def queued():
@@ -1248,7 +1256,84 @@ def moe_fleet_legs(n_tasks: int = 200, batch_size: int = 8,
         _, tres = check_run_queued_against_reference(fl, tasks, {}, **kw)
         return answered(tres, [m.name for m in fl[0][1]])
 
-    return {"moe fleet step loop": step, "moe fleet queued": queued}
+    return {f"{label} fleet step loop": step,
+            f"{label} fleet queued": queued}
+
+
+def moe_fleet_legs(n_tasks: int = 200, batch_size: int = 8,
+                   prompt_chars: int = 24):
+    """``cli_fleet_legs`` for the MoE fleet (``MOE_ENSEMBLE``): both
+    members on the contiguous-cache member fallback (capacity prefill,
+    per-token MoE decode, MLA's latent cache)."""
+    return cli_fleet_legs(MOE_ENSEMBLE, "moe", n_tasks, batch_size,
+                          prompt_chars)
+
+
+def vision_fleet_legs(n_tasks: int = 200, batch_size: int = 8,
+                      prompt_chars: int = 24):
+    """``cli_fleet_legs`` for the vision fleet (``VISION_ENSEMBLE``):
+    llava on the contiguous-cache member fallback over ring caches,
+    llama3-8b on dense pages."""
+    return cli_fleet_legs(VISION_ENSEMBLE, "vision", n_tasks, batch_size,
+                          prompt_chars)
+
+
+def frontend_generate_legs(n_prompts: int = 32):
+    """Reduced f32 whisper-medium (64 frames) and llava-next-mistral-7b
+    (16 patches) through both packages' ``generate`` (greedy, 8 new
+    tokens) and ``generate_samples`` (n=3, temperature 0.9, 6 new
+    tokens) over ``n_prompts`` prompts of 20 tokens with their own
+    frames or patches: equal tokens and lengths, logprobs within 1e-4.
+    Returns {leg: callable}."""
+    from repro.configs.registry import get_config as jget
+    from repro.models import params as jparams
+    from repro.sampling import sampler as JS
+    from repro_torch.sampling import sampler as TS
+
+    def leg(arch):
+        jcfg = jget(arch, reduced=True).replace(dtype="float32",
+                                                use_pallas=True)
+        jprm = jparams.init_params(jcfg, jax.random.PRNGKey(2))
+        tcfg = torch_cfg(jcfg)
+        tprm = from_jax_numpy(tcfg, jax.tree.map(np.asarray, jprm),
+                              device="cpu")
+        rng = np.random.default_rng(11)
+        ids = rng.integers(0, jcfg.vocab_size,
+                           (n_prompts, 20)).astype(np.int32)
+        n = jcfg.encoder.num_frames if jcfg.frontend == "audio" \
+            else jcfg.num_patches
+        fe = (rng.standard_normal((n_prompts, n, jcfg.d_model))
+              * 0.02).astype(np.float32)
+        key = jax.random.PRNGKey(3)
+        kw = dict(eos_id=-1, pad_id=0)
+        runs = [(JS.generate(jcfg, jprm, jnp.asarray(ids), max_new_tokens=8,
+                             key=key, frontend_embeds=jnp.asarray(fe), **kw),
+                 TS.generate(tcfg, tprm, ids, max_new_tokens=8,
+                             key=np.asarray(key),
+                             frontend_embeds=torch.from_numpy(fe), **kw)),
+                (JS.generate_samples(jcfg, jprm, jnp.asarray(ids), 3,
+                                     max_new_tokens=6, temperature=0.9,
+                                     key=key,
+                                     frontend_embeds=jnp.asarray(fe), **kw),
+                 TS.generate_samples(tcfg, tprm, ids, 3, max_new_tokens=6,
+                                     temperature=0.9, key=np.asarray(key),
+                                     frontend_embeds=torch.from_numpy(fe),
+                                     **kw))]
+        rows = 0
+        for jout, tout in runs:
+            np.testing.assert_array_equal(tout.tokens.numpy(),
+                                          np.asarray(jout.tokens))
+            np.testing.assert_array_equal(tout.lengths.numpy(),
+                                          np.asarray(jout.lengths))
+            np.testing.assert_allclose(tout.logprobs.numpy(),
+                                       np.asarray(jout.logprobs),
+                                       atol=1e-4, rtol=1e-4)
+            rows += tout.tokens.shape[0]
+        return f"{rows} rows: tokens equal, logprobs within 1e-4"
+
+    return {f"{arch} generate / generate_samples ({n_prompts} prompts)":
+            (lambda a=arch: leg(a))
+            for arch in ("whisper-medium", "llava-next-mistral-7b")}
 
 
 def engine_legs():
@@ -1380,9 +1465,11 @@ def main(argv=None) -> int:
     heterogeneous fleets' legs, the default fleet's engine legs and its
     ``serve`` reports), ``moe`` (the gather-MoE ``mesh2d_zoo`` leg at
     megastep 1 and "auto", and the serve CLI's MoE/MLA fleet stepped and
-    queued), or all five when no group is named."""
+    queued), ``vision`` (the serve CLI's llava fleet stepped and queued,
+    and whisper's and llava's ``generate`` / ``generate_samples`` with
+    frames and patches), or all six when no group is named."""
     groups = list(argv if argv is not None else sys.argv[1:]) \
-        or ["engine", "faults", "queued", "hetero", "moe"]
+        or ["engine", "faults", "queued", "hetero", "moe", "vision"]
     failed = 0
     with tempfile.TemporaryDirectory(prefix="acar-port-legs-") as d:
         legs = []
@@ -1399,18 +1486,26 @@ def main(argv=None) -> int:
         if "moe" in groups:
             legs += list(mesh2d_legs().items())
             legs += list(moe_fleet_legs().items())
+        if "vision" in groups:
+            legs += list(vision_fleet_legs().items())
+            legs += list(frontend_generate_legs().items())
         for name, leg in legs:
             t = time.perf_counter()
+            sampling = "generate" in name     # no engine, no records
             try:
                 note = leg()
-                verdict = ("reports equal" if name.startswith("serve")
-                           else "0 mismatches (sigma, mode, answer, "
-                           "member, probe text, record hash); heads "
-                           "equal") + (f"; {note}" if note else "")
+                if sampling:
+                    verdict = note
+                else:
+                    verdict = ("reports equal" if name.startswith("serve")
+                               else "0 mismatches (sigma, mode, answer, "
+                               "member, probe text, record hash); heads "
+                               "equal") + (f"; {note}" if note else "")
             except AssertionError as e:
                 failed += 1
                 verdict = f"MISMATCH {str(e)[:2000]}"
-            print(f"{name}: 200 tasks, wall "
+            scale = "" if sampling else " 200 tasks,"
+            print(f"{name}:{scale} wall "
                   f"{time.perf_counter() - t:.1f} s: {verdict}", flush=True)
     return 1 if failed else 0
 

@@ -99,8 +99,16 @@ def test_model_defs_match_reference(arch):
 
 
 def test_forward_rejects_unported_families():
-    for arch in ("whisper-medium", "llava-next-mistral-7b"):
-        jcfg = jget(arch, reduced=True)
-        with pytest.raises(NotImplementedError):
-            TT.forward(torch_cfg(jcfg), {},
-                       torch.zeros((1, 4), dtype=torch.int32))
+    """Every family is ported; what ``forward`` still refuses is an
+    audio model without its frames and patches longer than a vision
+    model's prompt."""
+    tokens = torch.zeros((1, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="frame"):
+        TT.forward(torch_cfg(jget("whisper-medium", reduced=True)), {},
+                   tokens)
+    cfg = torch_cfg(jget("llava-next-mistral-7b", reduced=True).replace(
+        dtype="float32"))
+    prm = tparams.init_params(cfg, 0, device="cpu")
+    with pytest.raises(ValueError, match="patch"):
+        TT.forward(cfg, prm, tokens,
+                   torch.zeros((1, cfg.num_patches, cfg.d_model)))

@@ -19,8 +19,8 @@ layer 0).
   largest magnitude, params after a step at ``tests/test_torch_train.py``'s
   tolerances; the step without the aux term differs from the
   reference's.
-- Full configs carry the published hyperparameters; audio and vision
-  still raise.
+- Full configs carry the published hyperparameters; an audio prefill
+  without frames and a vision prefill with too short a prompt raise.
 """
 import dataclasses
 import functools
@@ -325,10 +325,23 @@ def test_model_defs_match_reference(arch, impl):
 @pytest.mark.parametrize("arch", ["whisper-medium",
                                   "llava-next-mistral-7b"])
 def test_audio_and_vision_still_raise(arch):
-    tcfg = torch_cfg(jget(arch, reduced=True))
-    with pytest.raises(NotImplementedError):
-        TT.forward(tcfg, {}, torch.zeros((1, 4), dtype=torch.int32))
-    with pytest.raises(NotImplementedError):
-        TT.init_cache(tcfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tparams.model_defs(tcfg)
+    """The audio and vision families are ported (their checks are
+    ``tests/test_torch_frontends.py`` and
+    ``tests/test_torch_model_audio_vision.py``); what still raises is a
+    prefill without the inputs their frontends need: no frames for
+    whisper, patches longer than the prompt for llava. Their param
+    trees and caches build."""
+    tcfg = torch_cfg(jget(arch, reduced=True).replace(dtype="float32"))
+    prm = tparams.init_params(tcfg, 0, device="cpu")
+    tokens = torch.zeros((1, 4), dtype=torch.int32)
+    if tcfg.frontend == "audio":
+        with pytest.raises(ValueError, match="frame"):
+            TT.prefill(tcfg, prm, tokens)
+        cache = TT.init_cache(tcfg, 1, 8, device="cpu")
+        assert set(cache) == {"dec_layers", "cross"}
+    else:
+        with pytest.raises(ValueError, match="patch"):
+            TT.prefill(tcfg, prm, tokens,
+                       torch.zeros((1, tcfg.num_patches, tcfg.d_model)))
+        assert set(TT.init_cache(tcfg, 1, 8, device="cpu")) == {"layers"}
+    assert tparams.model_defs(tcfg)
