@@ -47,7 +47,12 @@ Phases (each raises on failure, and the script then exits non-zero):
    whisper-medium's decode (MHA, H 16, d 64, 8 rows of 32 positions)
    and kernel 3 at llava-next-mistral-7b's prefill (d 4096 / F 14336
    over 1152 patch positions and 97 text tokens), the shapes phase 13
-   gives them;
+   gives them; and hold kernel 3's stages as the serving mesh calls
+   them (``ops.swiglu_gate_up`` on a column slice, ``ops.swiglu_down``
+   over the gathered h): in bf16 and f32 the column slices' h equal the
+   unsliced call's bit for bit and gate_up then down equals the fused
+   call bit for bit (f32: the fused CUDA-core kernel), each stage
+   against its plain version, timed at llama3-8b's F/2;
 4. reference — a reduced float32 model on the card agrees with the same
    calls on the CPU, where every kernel runs its plain version: chunked
    prefill and a paged decode step; one-shot prefill and decode steps
@@ -58,7 +63,8 @@ Phases (each raises on failure, and the script then exits non-zero):
    (frames) and llava-next-mistral-7b (patches): forward, prefill, two
    decode steps and greedy tokens;
 5. serve — the stepped ACAR engine serves 16 long-prompt tasks through
-   a full-width smollm-135m fleet (bf16, seed-initialised weights): every
+   a full-width smollm-135m fleet cut to its first 15 of 30 layers
+   (``SERVE_LAYERS``; bf16, seed-initialised weights): every
    task retires, its three kernels launch during the run, no page leaks
    outside the prefix cache, and a second run reproduces sigma, modes
    and answers;
@@ -145,7 +151,10 @@ Phases (each raises on failure, and the script then exits non-zero):
    leaked, the rerun's results and chain head identical; whether the
    stepped head equals the baseline's is printed (a finding); each
    fleet freed before the next is built; (c) ``launch.serve.main`` for
-   both fleets (reduced models trained 2 steps, 8 tasks).
+   both fleets (reduced models trained 2 steps, 8 tasks), and for the
+   default fleet with ``--step-loop`` and with ``--shards 4`` (the step
+   loop on a data-sharded mesh of logical devices on the one card):
+   equal reports, kernels 1, 2 and 3 launched on the mesh.
 12. moe (run last) — the fleet of ``launch.serve --ensemble
    mixtral-8x22b deepseek-v2-236b`` at published widths, bf16,
    seed-initialised, over phase 5's stream and forced routes: the
@@ -172,6 +181,26 @@ Phases (each raises on failure, and the script then exits non-zero):
    fallback) and the ``paged=False`` queued baseline, each twice
    (``serve_twice``'s gates); walls, launches and the peak memory
    printed.
+14. mesh (run last; (a) inside phase 11) — the serving mesh on the one
+   card, its cells logical devices on ``cuda:0``
+   (``launch.mesh.force_device_count``), every mesh run held to the
+   same fleet's single-device ``run_stepped`` (equal sigma, modes,
+   answers, member answers, probe texts and chain head), every task
+   retired, no page leaked on any shard, rows placed on at least two
+   shards: (a) ``run_stepped(data_shards=4)`` over phase 11's default
+   fleet (published widths, 10 layers; kernels 1, 2 and 3, the hybrid
+   on the contiguous-cache member fallback); (b) a (data 2, model 2)
+   mesh over the probe llama3-8b, deepseek-7b and the probe's twin at
+   published widths, 10 layers, bf16: kernel 3 as its two stages at F/2
+   (7168, 5504) around the gather and never fused, kernels 1 and 2 at
+   each column's head counts (16 / 4 and 16 / 16), the peak memory
+   printed, and the probe's logits over one prefill chunk and one
+   decode tick on a (data 1, model 2) mesh against one device's, their
+   largest difference printed (cuBLAS's column-parallel projections
+   are not column-slice invariant, so on the card the mesh is not bit
+   for bit the single-device program; the head gates decide); (c) the reduced f32 ``mesh2d`` fleet (a gather-MoE member
+   beside a dense one) at (2, 2) and the reduced int8-KV fleet at data 4
+   (kernel 5), 24 tasks each.
 
 Phase 3 also holds the training path's kernels against their plain
 versions at the phase-7 shapes (the selective scan and the RG-LRU scan,
@@ -2656,7 +2685,8 @@ def check_no_leaks(engine) -> None:
     may still be referenced, each exactly once, on every server (the
     step loop's ring and lanes servers keep no prefix cache)."""
     for srv in (list(engine._kv_servers.values())
-                + list(engine._stepped_servers.values())):
+                + list(engine._stepped_servers.values())
+                + [sv for m in engine._mesh_servers for sv in m.shards]):
         held = {int(p) for p in srv._scratch}
         for e in srv._prefix.values():
             pages = [int(p) for p in e.shared]
@@ -3299,6 +3329,10 @@ AUDIT_TRAIN_STEPS = 20
 # task or one micro-batch at a time); at full depth phases 8 and 10
 # took 258-310 s of the script's 800 s budget and phase 6 73-99 s
 AUDIT_LAYERS = 10
+# phases 5 and 9 serve phase 5's models cut to their first 15 of 30
+# layers (since phase 14 was added): at full depth they took 162 s of
+# the script's budget on the faster host, host-bound by layer
+SERVE_LAYERS = 15
 
 
 def first_layers(cfg, params, n: int):
@@ -4244,9 +4278,12 @@ def run_fleet_phase(torch, smi: str) -> dict:
         torch, (serve_mod.DEFAULT_PROBE,) + serve_mod.DEFAULT_ENSEMBLE,
         FLEET_LAYERS)
     for path in ("fleet_wave", "fleet_stepped"):
-        by_path[path], _ = serve_fleet(torch, "default", probe, ensemble,
-                                       tasks, route, path, smi)
-    del probe, ensemble
+        by_path[path], res = serve_fleet(torch, "default", probe, ensemble,
+                                         tasks, route, path, smi)
+    # phase 14 (a) while the default fleet is on the card
+    by_path["mesh"] = run_mesh_default_fleet(torch, probe, ensemble, tasks,
+                                             route, res, smi)
+    del probe, ensemble, res
     free_fleet(torch, "default")
     log(f"fleets: (a) default fleet {time.perf_counter() - t0:.1f} s")
 
@@ -4278,10 +4315,13 @@ def run_fleet_phase(torch, smi: str) -> dict:
     log(f"fleets: (b) heterogeneous fleet {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
+    reports = {}
+    cli = ["--tasks", "8", "--train-steps", "2"]
     for path, argv in (
-            ("cli_default", ["--tasks", "8", "--train-steps", "2"]),
-            ("cli_hetero", ["--hetero-fleet", "--step-loop", "--tasks",
-                            "8", "--train-steps", "2"])):
+            ("cli_default", cli),
+            ("cli_hetero", ["--hetero-fleet", "--step-loop"] + cli),
+            ("cli_stepped", ["--step-loop"] + cli),
+            ("cli_shards", ["--shards", str(MESH_DEVICES)] + cli)):
         ops.reset_launch_counts()
         report = serve_mod.main(argv)
         by_path[path] = ops.launch_counts()
@@ -4291,6 +4331,19 @@ def run_fleet_phase(torch, smi: str) -> dict:
         log(f"fleets[{path}]: main({' '.join(argv)}) returned accuracy "
             f"{report['accuracy']:.3f}, modes "
             f"{report['mode_distribution']}; launches {by_path[path]}")
+        del report["wall_ms"]
+        reports[path] = report
+    # the CLI on a data-sharded mesh (logical devices on the one card)
+    # reports what the unsharded step loop reports
+    if reports["cli_shards"] != reports["cli_stepped"]:
+        raise AssertionError(
+            f"fleets[cli_shards]: report {reports['cli_shards']} is not "
+            f"the unsharded step loop's {reports['cli_stepped']}")
+    missing = [k for k in MESH_KERNELS + ("fused_swiglu",)
+               if by_path["cli_shards"][k] <= 0]
+    if missing:
+        raise AssertionError(f"fleets[cli_shards]: never launched {missing}")
+    log("fleets[cli_shards]: the report equals the unsharded step loop's")
     free_fleet(torch, "CLI")
     log(f"fleets: (c) CLI {time.perf_counter() - t0:.1f} s")
     return by_path
@@ -4559,6 +4612,540 @@ def run_frontend_phase(torch, smi: str) -> dict:
     return by_path
 
 
+# ----------------------------------------------------------------------
+# phase 3, the serving mesh's kernel-3 stages (tensor parallelism)
+# ----------------------------------------------------------------------
+# llama3-8b's MLP split over two model columns: gate_up on a column's
+# F/2 slice, down over the gathered h (phase 14 (b)'s shapes); f32 at
+# the reduced mesh2d fleet's width and at d 4096
+MESH_STAGE_BF16 = (FLEET_ROWS * 32, 4096, 14336, 2)     # T, d, F, columns
+MESH_STAGE_F32 = ((97, 64, 256, 2), (64, 4096, 1024, 4))
+# the column-parallel projections (b) hands cuBLAS through torch.matmul,
+# (rows, d_model, columns) unsliced: a decode block's wq, wk / wv,
+# w_gate and lm_head, and a prefill chunk's wq
+MESH_CUBLAS_SHAPES = ((8, 4096, 4096), (8, 4096, 1024), (8, 4096, 14336),
+                      (8, 4096, 128256), (256, 4096, 4096))
+
+
+def _swiglu_inputs(torch, gen, t, d, f, dtype):
+    x = torch.randn((t, d), generator=gen, device="cuda").to(dtype)
+    wg, wu, wd = ((torch.randn(sh, generator=gen, device="cuda")
+                   / sh[0] ** 0.5).to(dtype)
+                  for sh in ((d, f), (d, f), (f, d)))
+    return x, wg, wu, wd
+
+
+def _column_slices(w, m: int):
+    c = w.shape[1] // m
+    return [w[:, j * c:(j + 1) * c].contiguous() for j in range(m)]
+
+
+def mesh_stage_checks(torch) -> dict:
+    """Kernel 3's stages as the serving mesh calls them
+    (``ops.swiglu_gate_up`` on a column's slice of Wg and Wu, then
+    ``ops.swiglu_down`` over the gathered h): in bf16 and f32 the
+    column slices' h concatenated in column order equal the unsliced
+    call's bit for bit, and gate_up then down equals the fused wrapper
+    bit for bit (in f32 the fused CUDA-core kernel: the stage kernels
+    keep its summation orders); each stage against its plain version,
+    and timed at the bf16 shape beside its bound, its plain version and
+    a library expression (silu(x Wg) * (x Wu); h Wd). Returns
+    {"swiglu_gate_up": result, "swiglu_down": result}, the f32 checks
+    under "f32"."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import fused_swiglu as fs
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(14)
+    f32 = []
+    for t, d, f, m in MESH_STAGE_F32:
+        x, wg, wu, wd = _swiglu_inputs(torch, gen, t, d, f, torch.float32)
+        name = f"swiglu stages[float32, T {t}, d {d}, F {f}]"
+        h = torch.cat([ops.swiglu_gate_up(x, a, b) for a, b in zip(
+            _column_slices(wg, m), _column_slices(wu, m))], dim=-1)
+        require_bits(f"{name} gate_up over {m} column slices",
+                     h, ops.swiglu_gate_up(x, wg, wu))
+        err_h = check_close(f"{name} gate_up", h,
+                            fs.swiglu_gate_up_plain(x, wg, wu),
+                            TOL[("swiglu", "float32")])
+        out = ops.swiglu_down(h, wd)
+        require_bits(f"{name} gate_up then down against the fused kernel",
+                     out, ops.fused_swiglu(x, wg, wu, wd))
+        err_o = check_close(f"{name} down", out,
+                            fs.swiglu_down_plain(h, wd),
+                            TOL[("swiglu", "float32")])
+        g0, u0 = _column_slices(wg, m)[0], _column_slices(wu, m)[0]
+        fc = f // m
+        times = dict(
+            gate_up_ms=time_ms(torch, lambda: ops.swiglu_gate_up(x, g0, u0),
+                               20),
+            gate_up_plain_ms=time_ms(
+                torch, lambda: fs.swiglu_gate_up_plain(x, g0, u0), 20),
+            gate_up_library_ms=time_ms(
+                torch, lambda: F.silu(torch.matmul(x, g0))
+                * torch.matmul(x, u0), 20),
+            down_ms=time_ms(torch, lambda: ops.swiglu_down(h, wd), 20),
+            down_plain_ms=time_ms(
+                torch, lambda: fs.swiglu_down_plain(h, wd), 20),
+            down_library_ms=time_ms(torch, lambda: torch.matmul(h, wd), 20),
+            fused_ms=time_ms(torch, lambda: ops.fused_swiglu(x, wg, wu, wd),
+                             20))
+        # each stage's bound at this run's shape: gate_up on the column's
+        # F/m slice, down over the whole h
+        bnd_h, by_h = bound_ms((t * d + 2 * d * fc + t * fc) * 4,
+                               4.0 * t * d * fc, "float32")
+        bnd_o, by_o = bound_ms((t * f + f * d + t * d) * 4,
+                               2.0 * t * f * d, "float32")
+        f32.append(dict(tokens=t, d_model=d, d_ff=f, columns=m,
+                        gate_up_err=err_h, down_err=err_o,
+                        gate_up_bound_ms=bnd_h, gate_up_bound_by=by_h,
+                        down_bound_ms=bnd_o, down_bound_by=by_o,
+                        bitwise_columns=True, bitwise_fused=True, **times))
+        log(f"kernel {name}: {m} column slices of gate_up give the "
+            "unsliced bits; gate_up then down gives the fused kernel's "
+            f"bits; errors {err_h:.3e} / {err_o:.3e}; gate_up on a "
+            f"column's F/{m} {times['gate_up_ms']:.4f} ms (plain "
+            f"{times['gate_up_plain_ms']:.4f} ms, library "
+            f"{times['gate_up_library_ms']:.4f} ms, bound {bnd_h:.5f} ms "
+            f"({by_h})), down {times['down_ms']:.4f} ms (plain "
+            f"{times['down_plain_ms']:.4f} ms, library "
+            f"{times['down_library_ms']:.4f} ms, bound {bnd_o:.5f} ms "
+            f"({by_o})), fused {times['fused_ms']:.4f} ms")
+    t, d, f, m = MESH_STAGE_BF16
+    x, wg, wu, wd = _swiglu_inputs(torch, gen, t, d, f, torch.bfloat16)
+    name = f"swiglu stages[bfloat16, T {t}, d {d}, F {f}]"
+    sg, su = _column_slices(wg, m), _column_slices(wu, m)
+    h = torch.cat([ops.swiglu_gate_up(x, a, b) for a, b in zip(sg, su)],
+                  dim=-1)
+    require_bits(f"{name} gate_up over {m} column slices", h,
+                 ops.swiglu_gate_up(x, wg, wu))
+    require_bits(f"{name} gate_up then down against the fused wrapper",
+                 ops.swiglu_down(h, wd), ops.fused_swiglu(x, wg, wu, wd))
+    tol = TOL[("swiglu", "bfloat16")]
+    x0, g0, u0 = x, sg[0], su[0]
+    fc = f // m
+    err_h = check_close(f"{name} gate_up (column 0)",
+                        ops.swiglu_gate_up(x0, g0, u0),
+                        fs.swiglu_gate_up_plain(x0, g0, u0), tol)
+    h_plain = fs.swiglu_gate_up_plain(x, wg, wu)
+    err_o = check_close(f"{name} down", ops.swiglu_down(h_plain, wd),
+                        fs.swiglu_down_plain(h_plain, wd), tol)
+    bnd_h, by_h = bound_ms((t * d + 2 * d * fc + t * fc) * 2,
+                           4.0 * t * d * fc, "bfloat16")
+    bnd_o, by_o = bound_ms((t * f + f * d + t * d) * 2, 2.0 * t * f * d,
+                           "bfloat16")
+    gate_up = dict(
+        dtype="bfloat16", tokens=t, d_model=d, d_ff=fc, columns=m,
+        max_abs_err=err_h, bound_ms=bnd_h, bound_by=by_h,
+        ms=time_ms(torch, lambda: ops.swiglu_gate_up(x0, g0, u0)),
+        plain_ms=time_ms(torch, lambda: fs.swiglu_gate_up_plain(
+            x0, g0, u0)),
+        library_ms=time_ms(torch, lambda: F.silu(torch.matmul(x0, g0))
+                           * torch.matmul(x0, u0)),
+        bitwise_columns=True, f32=f32)
+    down = dict(
+        dtype="bfloat16", tokens=t, d_model=d, d_ff=f, max_abs_err=err_o,
+        bound_ms=bnd_o, bound_by=by_o,
+        ms=time_ms(torch, lambda: ops.swiglu_down(h_plain, wd)),
+        plain_ms=time_ms(torch, lambda: fs.swiglu_down_plain(h_plain, wd)),
+        library_ms=time_ms(torch, lambda: torch.matmul(h_plain, wd)),
+        bitwise_fused=True)
+    # a finding, not a gate: cuBLAS picks its kernel by shape, so a
+    # projection's column slice may round apart from the same columns of
+    # the unsliced product (the decodes' projections are torch.matmul)
+    cublas = {}
+    for rows, k, n in MESH_CUBLAS_SHAPES:
+        a = torch.randn((rows, k), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        w = (torch.randn((k, n), generator=gen, device="cuda")
+             / k ** 0.5).to(torch.bfloat16)
+        full = torch.matmul(a, w)
+        cols = torch.cat([torch.matmul(a, c) for c in _column_slices(w, m)],
+                         dim=-1)
+        cublas[f"{rows}x{k}x{n}"] = float(
+            (cols.float() - full.float()).abs().max())
+        del a, w, full, cols
+    gate_up["cublas_column_slice_max_diff"] = cublas
+    log(f"finding: torch.matmul (cuBLAS, bf16) over {m} column slices "
+        f"against the unsliced product, max abs diff by (rows x d x "
+        f"columns): {cublas}")
+    for label, r in (("swiglu_gate_up", gate_up), ("swiglu_down", down)):
+        log(f"kernel {label} [{name}]: max_abs_err {r['max_abs_err']:.3e}"
+            f"  kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
+            f"library {r['library_ms']:.4f} ms  bound {r['bound_ms']:.5f} "
+            f"ms ({r['bound_by']})")
+    log(f"{name}: {m} column slices of gate_up give the unsliced bits; "
+        "gate_up then down gives the fused wrapper's bits")
+    del x, wg, wu, wd, h, h_plain
+    torch.cuda.empty_cache()
+    return {"swiglu_gate_up": gate_up, "swiglu_down": down}
+
+
+# ----------------------------------------------------------------------
+# phase 14: the serving mesh on one card
+# ----------------------------------------------------------------------
+# logical devices over the one card (launch.mesh.force_device_count):
+# enough cells for data 4 and for (data 2, model 2)
+MESH_DEVICES = 4
+# (b): the probe llama3-8b, deepseek-7b and the probe's twin, 10 layers
+MESH2D_FLEET = ("llama3-8b", "deepseek-7b", "llama3-8b-twin")
+# (b) serves the first 8 of phase 5's 16 tasks: one controller runs
+# every cell's host work in turn (a (2, 2) run spends about four times
+# a single-device run's host time)
+MESH2D_TASKS = 8
+MESH_REDUCED_TASKS = 24
+MESH_KERNELS = ("paged_decode_attention", "chunked_prefill_attention")
+MESH_SHAPED = ("swiglu_gate_up", "paged_decode_attention",
+               "chunked_prefill_attention", "paged_decode_attention_quant")
+
+
+class MeshShapes:
+    """Records the shapes the model hands four wrappers while a block
+    runs (the wrappers stay as they are; ``ops``' attributes are swapped
+    for recorders that call them): kernel 3's gate_up stage's F, and
+    the query and kv head counts of the paged decodes and the chunked
+    prefill. Launch counts are untouched."""
+
+    def __init__(self, ops):
+        self.ops = ops
+        self.seen = {k: set() for k in MESH_SHAPED}
+        self._lock = __import__("threading").Lock()
+
+    def _wrap(self, name, fn):
+        def rec(*a, **kw):
+            if name == "swiglu_gate_up":
+                key = int(a[1].shape[1])
+            elif name == "chunked_prefill_attention":
+                key = (int(a[0].shape[2]), int(a[1].shape[2]))
+            else:
+                key = (int(a[0].shape[1]), int(a[1].shape[2]))
+            with self._lock:
+                self.seen[name].add(key)
+            return fn(*a, **kw)
+        return rec
+
+    def __enter__(self):
+        self.saved = {k: getattr(self.ops, k) for k in MESH_SHAPED}
+        for k, fn in self.saved.items():
+            setattr(self.ops, k, self._wrap(k, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for k, fn in self.saved.items():
+            setattr(self.ops, k, fn)
+
+
+def mesh_serve(torch, label, probe, ensemble, tasks, route, *, shards,
+               model=1, chunk=32, megastep=4, max_new=MAX_NEW):
+    """``run_stepped`` over ``shards`` data shards (``model`` columns
+    each), the launch counts set to 0 just before and read just after:
+    every task retired and answered, no page leaked on any shard, rows
+    placed on at least two shards. Returns (launches, result, wall,
+    placements)."""
+    from repro_torch.configs import ACARConfig
+    from repro_torch.kernels import ops
+    from repro_torch.serving import BatchedACAREngine, MicroBatchPolicy
+    eng = BatchedACAREngine(
+        ACARConfig(probe_temperature=0.9, seed=0), probe, ensemble,
+        max_new_tokens=max_new, route_fn=route, device="cuda")
+    policy = MicroBatchPolicy(max_batch_size=8, max_batch_tokens=1 << 20)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    res = eng.run_stepped(tasks, policy, chunk_tokens=chunk,
+                          megastep=megastep, data_shards=shards,
+                          model_shards=model)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = ops.launch_counts()
+    if (res.step.retired != len(tasks)
+            or any(a is None for a in res.final_answers)):
+        raise AssertionError(f"{label}: a task did not retire")
+    if not eng._mesh_servers:
+        raise AssertionError(f"{label}: no sharded server served the run")
+    check_no_leaks(eng)
+    placed = [int(res.metrics.get("acar_shard_placements_total",
+                                  shard=str(k))) for k in range(shards)]
+    if sum(placed) < len(tasks) or sum(1 for p in placed if p) < 2:
+        raise AssertionError(f"{label}: placements {placed}")
+    log(f"{label}: {len(tasks)} tasks, wall {wall:.3f} s, "
+        f"{len(tasks) / wall:.3f} tasks/s, {res.step.ticks} ticks, "
+        f"placements {placed}; launches {launches}")
+    return launches, res, wall, placed
+
+
+def mesh_single(torch, label, probe, ensemble, tasks, route, *, chunk=32,
+                megastep=4, max_new=MAX_NEW):
+    """The same stream on one device (``run_stepped`` without a mesh),
+    the baseline a mesh run is held to."""
+    from repro_torch.configs import ACARConfig
+    from repro_torch.serving import BatchedACAREngine, MicroBatchPolicy
+    eng = BatchedACAREngine(
+        ACARConfig(probe_temperature=0.9, seed=0), probe, ensemble,
+        max_new_tokens=max_new, route_fn=route, device="cuda")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = eng.run_stepped(tasks, MicroBatchPolicy(
+        max_batch_size=8, max_batch_tokens=1 << 20), chunk_tokens=chunk,
+        megastep=megastep)
+    torch.cuda.synchronize()
+    log(f"{label}: single device, {len(tasks)} tasks, wall "
+        f"{time.perf_counter() - t:.3f} s, {res.step.ticks} ticks")
+    return res
+
+
+def check_mesh_heads(label, tasks, base, res, member_names) -> str:
+    """The mesh run's sigma, modes, answers, member answers and probe
+    texts equal the single-device run's, and so do their records' chain
+    heads. Returns the head."""
+    import tempfile
+    if not _same_results(base, res):
+        raise AssertionError(
+            f"{label}: differs from the single-device run at "
+            f"{first_mismatch(tasks, base, res)}")
+    with tempfile.TemporaryDirectory(prefix="acar-mesh-") as d:
+        heads = [chain_head("mesh", tasks, r, member_names,
+                            Path(d) / f"{i}.jsonl")
+                 for i, r in enumerate((base, res))]
+    if heads[0] != heads[1]:
+        raise AssertionError(f"{label}: chain head {heads[1]} is not the "
+                             f"single-device run's {heads[0]}")
+    log(f"{label}: results and chain head {heads[1]} equal the "
+        "single-device run's")
+    return heads[1]
+
+
+def add_launches(total: dict, launches: dict) -> dict:
+    return {k: total.get(k, 0) + v for k, v in launches.items()}
+
+
+def run_mesh_default_fleet(torch, probe, ensemble, tasks, route, base,
+                           smi) -> dict:
+    """Phase 14 (a), inside phase 11 while its default fleet (published
+    widths, 10 layers) is on the card: ``run_stepped(data_shards=4)``
+    over phase 5's stream and forced routes, the four shards logical
+    devices on the one card, held to phase 11's single-device stepped
+    run (``base``): equal results and chain head, rows on at least two
+    shards, no page leaked on any shard, kernels 1, 2 and 3 launched.
+    Returns the run's launch counts."""
+    from repro_torch.launch.mesh import force_device_count
+    force_device_count(MESH_DEVICES)
+    t0 = time.perf_counter()
+    launches, res, wall, placed = mesh_serve(
+        torch, "mesh[(a) default fleet, data 4]", probe, ensemble, tasks,
+        route, shards=4)
+    check_path_launches("mesh[(a) default fleet, data 4]", launches,
+                        MESH_KERNELS + ("fused_swiglu",))
+    check_mesh_heads("mesh[(a) default fleet, data 4]", tasks, base, res,
+                     [m.name for m in ensemble])
+    log(f"mesh: (a) {time.perf_counter() - t0:.1f} s on {smi}")
+    return launches
+
+
+def reduced_mesh_fleets(torch):
+    """The reduced f32 fleets of (c), seed-initialised on the card: the
+    reference harness's ``mesh2d_zoo`` (probe, dense member, gather-MoE
+    member, the probe's twin: heads, kv heads, d_ff and expert width
+    divisible by 2) and ``hetero_zoo`` (an int8-KV probe, a Mamba
+    member, a 16-token sliding-window member, the probe's int8 twin)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.data import tokenizer as tok
+    from repro_torch.models.params import init_params
+    from repro_torch.serving import ZooModel
+
+    base = get_config("smollm-135m", reduced=True).replace(
+        vocab_size=tok.VOCAB_SIZE, dtype="float32", tie_embeddings=True)
+    b2d = base.replace(num_heads=4, num_kv_heads=2, head_dim=16)
+    moe = b2d.replace(family="moe", moe=MoEConfig(
+        num_experts=4, top_k=2, d_ff_expert=256, impl="gather",
+        first_moe_layer=0))
+    mamba = get_config("falcon-mamba-7b", reduced=True).replace(
+        vocab_size=tok.VOCAB_SIZE, dtype="float32", tie_embeddings=True)
+    fleets = {}
+    for name, cfgs in (
+            ("mesh2d", [("m0", b2d), ("m1", b2d), ("m2-moe", moe)]),
+            ("hetero", [("probe-q8", base.replace(kv_quant=True)),
+                        ("m1-mamba", mamba),
+                        ("m2-swa", base.replace(window=16))])):
+        zoo = [ZooModel(n, c, init_params(c, i, device="cuda"))
+               for i, (n, c) in enumerate(cfgs)]
+        fleets[name] = (zoo[0], [zoo[1], zoo[2], ZooModel(
+            "m3-probe", zoo[0].cfg, zoo[0].params)])
+    return fleets
+
+
+def mesh_logit_diff(torch, label, zm, rows=8, chunk=32) -> dict:
+    """One prefill chunk and one decode tick of member ``zm`` on a
+    (data 1, model 2) mesh against the single-device programs on the
+    same inputs (the decode from the same logits and pages): the
+    largest logit difference of each, and the rows whose argmax agree.
+    A measurement, not a gate: on the card the column-parallel
+    projections go through cuBLAS, whose product over a column slice
+    can round apart from the unsliced one, so the mesh is bit-exact on
+    the CPU only; the record and head gates decide."""
+    from repro_torch.models.params import torch_dtype
+    from repro_torch.sampling import prng
+    from repro_torch.sampling import sampler as S
+    from repro_torch.serving import ServingMesh
+    cfg, m, page = zm.cfg, 2, 8
+    nb = (chunk + MAX_NEW) // page
+    kv = cfg.num_kv_heads
+    rng = np.random.default_rng(14)
+    tokens = rng.integers(3, cfg.vocab_size, size=(rows, chunk)).astype(
+        np.int32)
+    table = np.arange(rows * nb, dtype=np.int32).reshape(rows, nb)
+    starts = np.zeros(rows, np.int32)
+    shape = (cfg.num_layers, rows * nb, page, kv, cfg.resolved_head_dim)
+    dt = torch_dtype(cfg)
+
+    def cuda(a):
+        return torch.from_numpy(a).cuda()
+
+    pages = {k: torch.zeros(shape, dtype=dt, device="cuda")
+             for k in ("k", "v")}
+    lg, pages = S.prefill_chunk_paged(cfg, zm.params, cuda(tokens), pages,
+                                      cuda(table), cuda(starts),
+                                      prompt_len=chunk)
+    smesh = ServingMesh(data=1, model=m)
+    try:
+        cells = smesh.place_params(cfg, zm.params)
+        cpages = [{k: torch.zeros(shape[:3] + (kv // m,) + shape[4:],
+                                  dtype=dt, device="cuda")
+                   for k in ("k", "v")} for _ in range(m)]
+        slg, _ = S.prefill_chunk_paged_sharded(
+            cfg, cells, tokens[None], cpages, table[None], starts[None],
+            prompt_len=chunk, mesh=smesh)
+        # the decode tick from the single-device prefill's logits and
+        # pages, each column holding its kv heads' slice of them
+        cpages = [{k: pages[k][:, :, :, j * kv // m:(j + 1) * kv // m]
+                   .contiguous() for k in ("k", "v")} for j in range(m)]
+        keys = np.stack([prng.fold_in_np(prng.prng_key(0), i)
+                         for i in range(rows)])
+        pos = np.full(rows, chunk, np.int32)
+        steps = np.zeros(rows, np.int32)
+        done = np.zeros(rows, bool)
+        kw = dict(n_ticks=1, cache_len=chunk + MAX_NEW, temperature=0.9,
+                  eos_id=-1, pad_id=0)
+        em, _, nl, _ = S.decode_megastep_rows(
+            cfg, zm.params, lg, pages, cuda(table), cuda(pos),
+            prng._as_keys(keys, "cuda"), cuda(steps), cuda(done), **kw)
+        sem, _, snl, _ = S.decode_megastep_rows_sharded(
+            cfg, cells, [lg], cpages, table[None], pos[None],
+            prng._as_keys(keys).numpy()[None], steps[None], done[None],
+            mesh=smesh, **kw)
+        torch.cuda.synchronize()
+    finally:
+        smesh.close()
+    out = {}
+    for stage, a, b in (("prefill", slg[0], lg), ("decode", snl[0], nl)):
+        if a.shape != b.shape or not torch.isfinite(a).all():
+            raise AssertionError(f"{label}: bad mesh {stage} logits")
+        out[f"{stage}_max_abs_diff"] = float((a.float() - b.float())
+                                             .abs().max())
+        out[f"{stage}_argmax_agree"] = int(
+            (a.argmax(-1) == b.argmax(-1)).sum())
+    if not torch.equal(sem[0].cpu(), em.cpu()):
+        raise AssertionError(f"{label}: the decode tick sampled other "
+                             "tokens from the same logits")
+    log(f"{label}: {zm.name} on (data 1, model 2) against one device, "
+        f"{rows} rows: a {chunk}-token prefill chunk's logits max abs "
+        f"diff {out['prefill_max_abs_diff']:.6g} (argmax agree "
+        f"{out['prefill_argmax_agree']}/{rows}), one decode tick's "
+        f"{out['decode_max_abs_diff']:.6g} ({out['decode_argmax_agree']}"
+        f"/{rows})")
+    del cells, cpages, slg, snl, pages
+    return out
+
+
+def run_mesh_phase(torch, smi: str, mesh_a: dict) -> dict:
+    """Phase 14, the serving mesh on one card (phase 11 ran (a)): (b)
+    a (data 2, model 2) mesh over ``MESH2D_FLEET`` at published widths,
+    10 layers, bf16: held to the same fleet's single-device run (equal
+    results and chain head), kernel 3 as its two stages at F/2 (no
+    fused call), kernels 1 and 2 at each column's local head counts;
+    peak memory printed; (c) the reduced f32 ``mesh2d`` fleet at (2, 2)
+    and the reduced int8-KV ``hetero`` fleet at data 4, 24 tasks each,
+    each held to its single-device run (kernel 3's f32 stages and
+    kernel 5 on the mesh). Returns {"mesh": launch counts of (a), (b)
+    and (c)}."""
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    tasks = long_prompt_tasks(16, prompt_chars=PROMPT)
+    modes = forced_modes(len(tasks))
+
+    def route(sig, indices):
+        return modes[np.asarray(indices, np.int64)]
+
+    total = dict(mesh_a)
+    tasks = tasks[:MESH2D_TASKS]
+    torch.cuda.reset_peak_memory_stats()
+    probe, ensemble = fleet_models(torch, MESH2D_FLEET, FLEET_LAYERS)
+    names = [m.name for m in ensemble]
+    base = mesh_single(torch, "mesh[(b) 2 x 2]", probe, ensemble, tasks,
+                       route)
+    label = "mesh[(b) data 2 x model 2]"
+    with MeshShapes(ops) as shapes:
+        launches, res, wall, _ = mesh_serve(
+            torch, label, probe, ensemble, tasks, route, shards=2, model=2)
+    check_path_launches(label, launches, MESH_KERNELS + (
+        "swiglu_gate_up", "swiglu_down"))
+    widths = {m.cfg.d_ff // 2 for m in [probe] + ensemble}
+    heads = {(m.cfg.num_heads // 2, m.cfg.num_kv_heads // 2)
+             for m in [probe] + ensemble}
+    if shapes.seen["swiglu_gate_up"] != widths:
+        raise AssertionError(f"{label}: gate_up ran at F "
+                             f"{shapes.seen['swiglu_gate_up']}, not {widths}")
+    for k in MESH_KERNELS:
+        if shapes.seen[k] != heads:
+            raise AssertionError(f"{label}: {k} ran at (q, kv) heads "
+                                 f"{shapes.seen[k]}, not {heads}")
+    check_mesh_heads(label, tasks, base, res, names)
+    mesh_logit_diff(torch, label, probe)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"{label}: kernel 3 as two stages at F {sorted(widths)}, kernels "
+        f"1 and 2 at (q, kv) heads {sorted(heads)}; peak {peak:.2f} GiB "
+        f"on {smi}")
+    total = add_launches(total, launches)
+    del probe, ensemble, base, res
+    free_fleet(torch, "mesh (b)")
+    log(f"mesh: (b) {time.perf_counter() - t0:.1f} s")
+
+    t1 = time.perf_counter()
+    red = reduced_mesh_fleets(torch)
+    rtasks = long_prompt_tasks(MESH_REDUCED_TASKS, prompt_chars=24)
+    rmodes = forced_modes(len(rtasks))
+
+    def rroute(sig, indices):
+        return rmodes[np.asarray(indices, np.int64)]
+
+    for fleet, shards, model, need in (
+            ("mesh2d", 2, 2, MESH_KERNELS + ("swiglu_gate_up",
+                                             "swiglu_down")),
+            ("hetero", 4, 1, ("paged_decode_attention_quant",
+                              "fused_swiglu"))):
+        probe, ensemble = red[fleet]
+        label = f"mesh[(c) reduced {fleet}, data {shards} x model {model}]"
+        knobs = dict(chunk=4 if fleet == "mesh2d" else 8, megastep=1,
+                     max_new=6)
+        base = mesh_single(torch, label, probe, ensemble, rtasks, rroute,
+                           **knobs)
+        launches, res, _, _ = mesh_serve(
+            torch, label, probe, ensemble, rtasks, rroute, shards=shards,
+            model=model, **knobs)
+        missing = [k for k in need if launches[k] <= 0]
+        if missing:
+            raise AssertionError(f"{label}: never launched {missing}")
+        check_mesh_heads(label, rtasks, base, res,
+                         [m.name for m in ensemble])
+        total = add_launches(total, launches)
+    del red
+    free_fleet(torch, "mesh (c)")
+    log(f"mesh: (c) {time.perf_counter() - t1:.1f} s; the phase's launches "
+        f"{total}")
+    return {"mesh": total}
+
+
 def report_ptxas(build) -> None:
     """ptxas's registers, static shared memory and spills for each
     kernel of the two tensor-core sources, the four split-KV decodes and
@@ -4618,6 +5205,8 @@ def main() -> int:
 
     results = run_kernel_phase(torch)
     results.update(run_train_kernel_phase(torch))
+    for name, r in mesh_stage_checks(torch).items():
+        results[(name, "bfloat16")] = r
     phase_done("kernels")
     run_reference_phase(torch)
     run_wave_reference_phase(torch)
@@ -4626,11 +5215,14 @@ def main() -> int:
     run_train_reference_phase(torch)
     phase_done("reference")
     cfg, params = full_width_params(torch)
-    launches, served = run_serve_phase(torch, gpu_name, cfg, params)
+    serve_cfg, serve_params = first_layers(cfg, params, SERVE_LAYERS)
+    launches, served = run_serve_phase(torch, gpu_name, serve_cfg,
+                                       serve_params)
     by_path = {"stepped": launches}
     phase_done("serve")
-    by_path["faults"] = run_fault_phase(torch, smi.splitlines()[0], cfg,
-                                        params, served)
+    by_path["faults"] = run_fault_phase(torch, smi.splitlines()[0],
+                                        serve_cfg, serve_params, served)
+    del serve_params
     phase_done("faults")
     cut_cfg, cut = first_layers(cfg, params, AUDIT_LAYERS)
     by_path.update(run_wave_phase(torch, gpu_name, cut_cfg, cut))
@@ -4655,6 +5247,9 @@ def main() -> int:
     phase_done("moe")
     by_path.update(run_frontend_phase(torch, smi.splitlines()[0]))
     phase_done("frontend")
+    by_path.update(run_mesh_phase(torch, smi.splitlines()[0],
+                                  by_path.pop("mesh")))
+    phase_done("mesh")
 
     sources = {
         "paged_decode_attention": "src/repro/kernels/"
@@ -4671,21 +5266,27 @@ def main() -> int:
         "selective_scan_bwd": "src/repro/kernels/selective_scan.py:76",
         "rglru_scan": "src/repro/kernels/rglru_scan.py:58",
         "rglru_scan_bwd": "src/repro/kernels/rglru_scan.py:58",
+        # kernel 3's two stages called on their own: the serving mesh's
+        # column-parallel MLPs gather h between them
+        "swiglu_gate_up": "src/repro/kernels/fused_swiglu.py:61",
+        "swiglu_down": "src/repro/kernels/fused_swiglu.py:61",
     }
     kernels = []
     for name, replaces in sources.items():
         r = results[(name, "bfloat16")]
         entry = {
             "name": name, "route": "cuda",
-            "source": "src/repro_torch/csrc/"
-                      f"{name.removesuffix('_bwd')}.cu",
+            "source": "src/repro_torch/csrc/" + (
+                "fused_swiglu.cu" if name.startswith("swiglu_")
+                else f"{name.removesuffix('_bwd')}.cu"),
             "replaces": replaces,
-            "launches": sum(c[name] for c in by_path.values()),
+            "launches": sum(c.get(name, 0) for c in by_path.values()),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "dtype": "bfloat16",
-            "launches_by_path": {p: c[name] for p, c in by_path.items()}}
+            "launches_by_path": {p: c.get(name, 0)
+                                 for p, c in by_path.items()}}
         if name.endswith("_bwd"):
             entry["note"] = (
                 "the backward of the kernel it names; no TPU counterpart: "
@@ -4732,6 +5333,15 @@ def main() -> int:
             entry["moe_shapes"] = r["moe_shapes"]
         if "frontend_shape" in r:
             entry["frontend_shape"] = r["frontend_shape"]
+        if name.startswith("swiglu_"):
+            entry["note"] = (
+                "kernel 3's stage on its own, as tensor parallelism calls "
+                "it: gate_up on a column's slice of Wg and Wu, down over "
+                "the gathered h")
+            entry["shape"] = {k: r[k] for k in (
+                "tokens", "d_model", "d_ff") if k in r}
+            if "f32" in r:
+                entry["f32"] = r["f32"]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels,
                       "launch_floor_ms": results[("launch_floor", "")]}))

@@ -340,6 +340,98 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// float32 in two stages, for tensor parallelism: the serving mesh
+// splits Wg and Wu by columns and gathers h between the stages, which one
+// fused launch cannot express. The split is at the h the fused kernel
+// already forms, and each stage runs the fused kernel's loops in the same
+// order, so gate_up then down gives fused_swiglu_kernel's bits:
+//   stage 1: one CTA a block of kRows token rows and kFChunk hidden units;
+//            each thread sums one unit's g and u over D in order (fmaf),
+//            h = silu(g) * u, as the fused kernel parks it in shared
+//            memory. A unit's value does not depend on F, so a column
+//            slice of Wg and Wu gives the same columns of h.
+//   stage 2: one CTA a block of kRows rows and kThreads output columns;
+//            each thread sums its column over F in order, kFChunk units of
+//            h at a time through shared memory, as the fused kernel does.
+__global__ void __launch_bounds__(kThreads)
+    swiglu_gate_up_f32_kernel(const float* __restrict__ x,
+                              const float* __restrict__ wg,
+                              const float* __restrict__ wu,
+                              float* __restrict__ h, int n_tokens, int D,
+                              int F) {
+  extern __shared__ float xs[];  // kRows x D
+  const int tid = threadIdx.x;
+  const int row0 = blockIdx.x * kRows;
+  const int nrows = min(kRows, n_tokens - row0);
+  for (int i = tid; i < kRows * D; i += kThreads) {
+    const int r = i / D, d = i % D;
+    xs[i] = r < nrows ? x[(size_t)(row0 + r) * D + d] : 0.f;
+  }
+  __syncthreads();
+  const int f = blockIdx.y * kFChunk + tid;
+  if (f >= F) return;
+  float g[kRows], u[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    g[r] = 0.f;
+    u[r] = 0.f;
+  }
+  for (int d = 0; d < D; ++d) {
+    const float wgv = wg[(size_t)d * F + f];
+    const float wuv = wu[(size_t)d * F + f];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const float xv = xs[r * D + d];
+      g[r] = fmaf(xv, wgv, g[r]);
+      u[r] = fmaf(xv, wuv, u[r]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    if (r < nrows) {
+      const float sg = g[r] / (1.f + expf(-g[r]));  // silu in float32
+      h[(size_t)(row0 + r) * F + f] = sg * u[r];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    swiglu_down_f32_kernel(const float* __restrict__ h,
+                           const float* __restrict__ wd,
+                           float* __restrict__ out, int n_tokens, int D,
+                           int F) {
+  __shared__ float hs[kRows * kFChunk];
+  const int tid = threadIdx.x;
+  const int row0 = blockIdx.x * kRows;
+  const int nrows = min(kRows, n_tokens - row0);
+  const int c = blockIdx.y * kThreads + tid;
+  float acc[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
+  for (int f0 = 0; f0 < F; f0 += kFChunk) {
+    for (int i = tid; i < kRows * kFChunk; i += kThreads) {
+      const int r = i / kFChunk, ff = i % kFChunk;
+      hs[i] = (r < nrows && f0 + ff < F)
+                  ? h[(size_t)(row0 + r) * F + f0 + ff]
+                  : 0.f;
+    }
+    __syncthreads();
+    const int nf = min(kFChunk, F - f0);
+    if (c < D) {
+      for (int ff = 0; ff < nf; ++ff) {
+        const float w = wd[(size_t)(f0 + ff) * D + c];
+#pragma unroll
+        for (int r = 0; r < kRows; ++r)
+          acc[r] = fmaf(hs[r * kFChunk + ff], w, acc[r]);
+      }
+    }
+    __syncthreads();
+  }
+  if (c < D) {
+    for (int r = 0; r < nrows; ++r) out[(size_t)(row0 + r) * D + c] = acc[r];
+  }
+}
+
 template <typename T, int kCols>
 cudaError_t launch_cols(const void* x, const void* wg, const void* wu,
                         const void* wd, void* out, int n_tokens, int D,
@@ -427,4 +519,40 @@ extern "C" int acar_swiglu_down(const void* h, const void* wd, void* out,
   if (D % (2 * kBN) == 0)
     return (int)launch_gemm<kDownWide>(mh, md, md, out, n_tokens, D, F, st);
   return (int)launch_gemm<kDownNarrow>(mh, md, md, out, n_tokens, D, F, st);
+}
+
+// float32 stage 1: h (T, F) = silu(x Wg) * (x Wu), the fused kernel's h
+extern "C" int acar_swiglu_gate_up_f32(const void* x, const void* wg,
+                                       const void* wu, void* h, int n_tokens,
+                                       int D, int F, void* stream) {
+  if (D > kMaxCols * kThreads) return (int)cudaErrorInvalidValue;
+  if (n_tokens <= 0) return (int)cudaSuccess;
+  const size_t smem = sizeof(float) * (size_t)kRows * D;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        swiglu_gate_up_f32_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid((n_tokens + kRows - 1) / kRows,
+                  (F + kFChunk - 1) / kFChunk);
+  swiglu_gate_up_f32_kernel<<<grid, kThreads, smem,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(wg),
+      static_cast<const float*>(wu), static_cast<float*>(h), n_tokens, D, F);
+  return (int)cudaGetLastError();
+}
+
+// float32 stage 2: out (T, D) = h Wd, the fused kernel's sums
+extern "C" int acar_swiglu_down_f32(const void* h, const void* wd, void* out,
+                                    int n_tokens, int D, int F,
+                                    void* stream) {
+  if (n_tokens <= 0) return (int)cudaSuccess;
+  const dim3 grid((n_tokens + kRows - 1) / kRows,
+                  (D + kThreads - 1) / kThreads);
+  swiglu_down_f32_kernel<<<grid, kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(h), static_cast<const float*>(wd),
+      static_cast<float*>(out), n_tokens, D, F);
+  return (int)cudaGetLastError();
 }

@@ -51,6 +51,10 @@ _SIGNATURES = {
         [_VP] * 4 + [_I] * 3 + [_VP],
     "acar_swiglu_down":
         [_VP] * 3 + [_I] * 3 + [_VP],
+    "acar_swiglu_gate_up_f32":
+        [_VP] * 4 + [_I] * 3 + [_VP],
+    "acar_swiglu_down_f32":
+        [_VP] * 3 + [_I] * 3 + [_VP],
     "acar_decode_attention":
         [_VP] * 4 + [_I] * 7 + [_VP],
     "acar_decode_attention_quant":

@@ -14,6 +14,17 @@ plain version beside it (``swiglu_gate_up_plain``,
 ``swiglu_down_plain``), which rounds where the kernel and the Pallas
 kernel round. An f32 call is one launch of the CUDA-core kernel.
 
+Tensor parallelism (the serving mesh, ``sharding/tp.py``) splits Wg and
+Wu by columns and gathers h between the stages, so it calls the two
+stages as wrappers of their own: ``swiglu_gate_up`` (x, a column slice
+of Wg and Wu -> that slice of h) and ``swiglu_down`` (the gathered h, the
+whole Wd), each with its own ``launches`` count. In bf16 they launch the
+fused wrapper's two GEMM kernels; in f32 the two CUDA-core stage kernels
+(``swiglu_gate_up_f32_kernel``, ``swiglu_down_f32_kernel``), which split
+the fused f32 kernel at the h it forms and keep its summation orders, so
+gate_up then down gives the fused call's bits. On a CPU tensor they run
+the stages' plain versions.
+
 ``fused_swiglu_plain`` rounds silu(x Wg) to x's dtype before multiplying
 by x Wu, as the oracle does; the kernels multiply in f32, as the Pallas
 kernel does. The two agree to float32 rounding in f32 and differ by
@@ -109,22 +120,9 @@ def fused_swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     return _FusedSwiGLU.apply(x, w_gate, w_up, w_down)
 
 
-def _check_shapes(name: str, x: torch.Tensor, w_gate: torch.Tensor,
-                  w_up: torch.Tensor, w_down: torch.Tensor) -> None:
-    """The shapes and dtypes the kernels take, checked before the
-    device."""
-    build.dtype_code(x.dtype, name)
-    if any(w.dtype != x.dtype for w in (w_gate, w_up, w_down)):
-        raise TypeError(f"{name}: x and the weights must share a dtype")
-    t, d = x.shape
-    f = w_gate.shape[1]
-    if (w_gate.shape != (d, f) or w_up.shape != (d, f)
-            or w_down.shape != (f, d)):
-        raise ValueError(
-            f"{name}: shapes x {tuple(x.shape)}, w_gate "
-            f"{tuple(w_gate.shape)}, w_up {tuple(w_up.shape)}, w_down "
-            f"{tuple(w_down.shape)}")
-    if x.dtype == torch.bfloat16:
+def _check_dims(name: str, dtype: torch.dtype, d: int, f: int) -> None:
+    """The widths the kernels take."""
+    if dtype == torch.bfloat16:
         if d % 8 or f % 8:
             raise ValueError(
                 f"{name}: the bf16 kernels take d_model and d_ff that are "
@@ -132,6 +130,23 @@ def _check_shapes(name: str, x: torch.Tensor, w_gate: torch.Tensor,
     elif d > F32_MAX_D:
         raise ValueError(f"{name}: the f32 kernel takes d_model <= "
                          f"{F32_MAX_D}, got {d}")
+
+
+def _check_shapes(name: str, x: torch.Tensor, *ws: torch.Tensor) -> None:
+    """The shapes and dtypes the kernels take, checked before the
+    device: ``ws`` is (w_gate, w_up, w_down), or (w_gate, w_up) for
+    stage 1."""
+    build.dtype_code(x.dtype, name)
+    if any(w.dtype != x.dtype for w in ws):
+        raise TypeError(f"{name}: x and the weights must share a dtype")
+    t, d = x.shape
+    f = ws[0].shape[1]
+    want = ((d, f), (d, f), (f, d))[:len(ws)]
+    if tuple(tuple(w.shape) for w in ws) != want:
+        raise ValueError(
+            f"{name}: shapes x {tuple(x.shape)}, weights "
+            f"{[tuple(w.shape) for w in ws]}")
+    _check_dims(name, x.dtype, d, f)
 
 
 def _check_aligned(name: str, *tensors: torch.Tensor) -> None:
@@ -173,6 +188,79 @@ def _launch_down(h: torch.Tensor, w_down: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _launch_gate_up_f32(x: torch.Tensor, w_gate: torch.Tensor,
+                        w_up: torch.Tensor) -> torch.Tensor:
+    name = "swiglu_gate_up"
+    dev = build.check_cuda(name, x=x, w_gate=w_gate, w_up=w_up)
+    t, d = x.shape
+    f = w_gate.shape[1]
+    h = torch.empty((t, f), dtype=x.dtype, device=dev)
+    with torch.cuda.device(dev):
+        err = build.load().acar_swiglu_gate_up_f32(
+            x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), h.data_ptr(),
+            t, d, f, build.stream_handle(dev))
+    build.check(err, name)
+    return h
+
+
+def _launch_down_f32(h: torch.Tensor, w_down: torch.Tensor) -> torch.Tensor:
+    name = "swiglu_down"
+    dev = build.check_cuda(name, h=h, w_down=w_down)
+    t, f = h.shape
+    d = w_down.shape[1]
+    out = torch.empty((t, d), dtype=h.dtype, device=dev)
+    with torch.cuda.device(dev):
+        err = build.load().acar_swiglu_down_f32(
+            h.data_ptr(), w_down.data_ptr(), out.data_ptr(), t, d, f,
+            build.stream_handle(dev))
+    build.check(err, name)
+    return out
+
+
+def swiglu_gate_up(x: torch.Tensor, w_gate: torch.Tensor,
+                   w_up: torch.Tensor) -> torch.Tensor:
+    """Stage 1 of the SwiGLU on its own: x (T, D), w_gate/w_up (D, F)
+    -> h = silu(x Wg) * (x Wu) (T, F), rounded to x's dtype. The
+    kernel on a CUDA tensor (counted in ``swiglu_gate_up.launches``),
+    ``swiglu_gate_up_plain`` on a CPU tensor."""
+    if x.device.type == "cpu":
+        return swiglu_gate_up_plain(x, w_gate, w_up)
+    f = w_gate.shape[1]
+    _check_shapes("swiglu_gate_up", x, w_gate, w_up)
+    if x.shape[0] == 0:
+        return torch.empty((0, f), dtype=x.dtype, device=x.device)
+    if x.dtype == torch.bfloat16:
+        h = _launch_gate_up(x, w_gate, w_up)
+    else:
+        h = _launch_gate_up_f32(x, w_gate, w_up)
+    build.count_launch(swiglu_gate_up)
+    return h
+
+
+def swiglu_down(h: torch.Tensor, w_down: torch.Tensor) -> torch.Tensor:
+    """Stage 2 of the SwiGLU on its own: h (T, F), w_down (F, D) ->
+    h Wd (T, D), summed in f32 and rounded to h's dtype. The kernel on
+    a CUDA tensor (counted in ``swiglu_down.launches``),
+    ``swiglu_down_plain`` on a CPU tensor."""
+    if h.device.type == "cpu":
+        return swiglu_down_plain(h, w_down)
+    name = "swiglu_down"
+    f, d = w_down.shape
+    if h.dtype != w_down.dtype or h.shape[1] != f:
+        raise ValueError(f"{name}: h {tuple(h.shape)} {h.dtype}, w_down "
+                         f"{tuple(w_down.shape)} {w_down.dtype}")
+    build.dtype_code(h.dtype, name)
+    _check_dims(name, h.dtype, d, f)
+    if h.shape[0] == 0:
+        return torch.empty((0, d), dtype=h.dtype, device=h.device)
+    if h.dtype == torch.bfloat16:
+        out = _launch_down(h, w_down)
+    else:
+        out = _launch_down_f32(h, w_down)
+    build.count_launch(swiglu_down)
+    return out
+
+
 def _launch(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
             w_down: torch.Tensor) -> torch.Tensor:
     name = "fused_swiglu"
@@ -198,3 +286,5 @@ def _launch(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
 
 
 fused_swiglu.launches = 0
+swiglu_gate_up.launches = 0
+swiglu_down.launches = 0

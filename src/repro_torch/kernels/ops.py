@@ -10,7 +10,8 @@ from repro_torch.kernels.chunked_prefill_attention import (
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.decode_attention_quant import (
     decode_attention_quant)
-from repro_torch.kernels.fused_swiglu import fused_swiglu
+from repro_torch.kernels.fused_swiglu import (
+    fused_swiglu, swiglu_down, swiglu_gate_up)
 from repro_torch.kernels.paged_decode_attention import (
     paged_decode_attention)
 from repro_torch.kernels.paged_decode_attention_quant import (
@@ -19,12 +20,13 @@ from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_bwd
 from repro_torch.kernels.selective_scan import (
     selective_scan, selective_scan_bwd)
 
-# each launcher with a ``launches`` count: the forward wrappers, and the
+# each launcher with a ``launches`` count: the forward wrappers, the
+# SwiGLU's two stages called on their own (tensor parallelism), and the
 # backward kernels the two scans' autograd Functions launch
 KERNELS = (paged_decode_attention, chunked_prefill_attention,
            fused_swiglu, decode_attention, paged_decode_attention_quant,
            decode_attention_quant, selective_scan, selective_scan_bwd,
-           rglru_scan, rglru_scan_bwd)
+           rglru_scan, rglru_scan_bwd, swiglu_gate_up, swiglu_down)
 
 
 def launch_counts() -> dict:
@@ -40,4 +42,5 @@ def reset_launch_counts() -> None:
 __all__ = ["KERNELS", "chunked_prefill_attention", "decode_attention",
            "decode_attention_quant", "fused_swiglu", "launch_counts",
            "paged_decode_attention", "paged_decode_attention_quant",
-           "reset_launch_counts", "rglru_scan", "selective_scan"]
+           "reset_launch_counts", "rglru_scan", "selective_scan",
+           "swiglu_down", "swiglu_gate_up"]

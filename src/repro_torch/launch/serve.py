@@ -26,10 +26,14 @@ serve over contiguous caches in every engine: their capacity dispatch
 couples rows, so no page layout takes them. A vision member
 (llava-next-mistral-7b) is served text only, as the reference's engine
 serves it, over contiguous ring caches on the step loop's member
-fallback. The sharded step loop (``--shards``) is not ported yet.
+fallback. ``--shards N`` (``serve(data_shards=N)``) runs the step loop
+on a data-sharded serving mesh (``serving/mesh.py``); the CLI makes N
+logical devices over the visible cards first (``launch.mesh.
+force_device_count``), so on one card every shard sits on it.
 
     python -m repro_torch.launch.serve --tasks 32 --train-steps 300
     python -m repro_torch.launch.serve --hetero-fleet --step-loop
+    python -m repro_torch.launch.serve --shards 4
     python -m repro_torch.launch.serve --ensemble mixtral-8x22b \
         deepseek-v2-236b --step-loop
     python -m repro_torch.launch.serve --ensemble llava-next-mistral-7b \
@@ -145,7 +149,9 @@ def main(argv=None, *, device: str = "cuda") -> dict:
                          "decode steps; needs a paged-capable probe)")
     ap.add_argument("--shards", type=int, default=None,
                     help="run the step loop on a data-sharded serving "
-                         "mesh with this many shards (not ported yet)")
+                         "mesh with this many shards (implies "
+                         "--step-loop; makes that many logical devices "
+                         "over the visible cards)")
     ap.add_argument("--megastep", type=int, default=1,
                     help="fuse up to K decode ticks per launch in the "
                          "step loop (implies --step-loop; the same "
@@ -161,8 +167,8 @@ def main(argv=None, *, device: str = "cuda") -> dict:
                          "hash on the walk (implies tracing)")
     args = ap.parse_args(argv)
     if args.shards is not None:
-        raise NotImplementedError(
-            "the data-sharded step loop (--shards) is not ported yet")
+        from repro_torch.launch.mesh import force_device_count
+        force_device_count(args.shards, device)
 
     if args.hetero_fleet:
         args.probe = HETERO_PROBE
@@ -178,6 +184,7 @@ def main(argv=None, *, device: str = "cuda") -> dict:
     return serve(tasks, probe, ensemble, acfg,
                  scheduler=args.scheduler, step_loop=args.step_loop,
                  batch_size=args.batch_size, megastep=args.megastep,
+                 data_shards=args.shards,
                  trace_path=args.trace, lineage_task=args.lineage,
                  device=device)
 
@@ -200,8 +207,10 @@ def serve(tasks: Sequence[Task], probe: ZooModel,
     loop (streaming admission, chunked prefill, mixed decode ticks;
     needs a paged-capable probe) with up to ``megastep`` decode ticks
     per launch; otherwise the whole stream runs as one wave
-    (``run_batch``). The sharded loop (``data_shards``) is not ported
-    yet and raises ``NotImplementedError``.
+    (``run_batch``). ``data_shards`` runs the step loop on a
+    data-sharded serving mesh of that many shards (it needs that many
+    logical devices of ``device``'s kind: ``launch.mesh.
+    force_device_count``).
 
     ``trace_path`` arms the deterministic span tracer and flushes the
     hash-chained span JSONL there; ``lineage_task`` (implies tracing)

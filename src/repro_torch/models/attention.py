@@ -32,6 +32,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope, rms_norm
+from repro_torch.sharding.tp import tp_all_gather
 
 _NEG_INF = -1e30
 # one-shot prefill switches to blockwise online softmax at this block
@@ -343,7 +344,9 @@ def gqa_decode_paged(cfg: ModelConfig, p: dict, x_t: torch.Tensor,
     lengths = (pos_rows + 1).to(torch.int32).contiguous()
     out = ops.paged_decode_attention(q.contiguous(), k_pages, v_pages,
                                      block_table, lengths)
-    out = out.reshape(b, cfg.num_heads * hd)
+    # tensor parallelism: gather head-local attention outputs to the
+    # full head axis before the replicated output projection
+    out = tp_all_gather(out.reshape(b, cfg.num_heads * hd))
     y = torch.matmul(out, p["wo"])
     return y, k_pages, v_pages
 
@@ -380,7 +383,8 @@ def gqa_decode_quant_paged(cfg: ModelConfig, p: dict, x_t: torch.Tensor,
     out = ops.paged_decode_attention_quant(
         q.contiguous(), pages["k"], pages["k_scale"], pages["v"],
         pages["v_scale"], block_table, lengths)
-    y = torch.matmul(out.reshape(b, cfg.num_heads * hd), p["wo"])
+    out = tp_all_gather(out.reshape(b, cfg.num_heads * hd))
+    y = torch.matmul(out, p["wo"])
     return y, pages
 
 
@@ -419,7 +423,8 @@ def gqa_decode_ring_paged(cfg: ModelConfig, p: dict, x_t: torch.Tensor,
     v_cache = pages["v"][table].reshape(b, -1, kv, hd)[:, :cache_len]
     out = decode_attention(q, k_cache, v_cache,
                            ring_positions(pos_rows, cache_len), pos_rows)
-    y = torch.matmul(out.reshape(b, cfg.num_heads * hd), p["wo"])
+    out = tp_all_gather(out.reshape(b, cfg.num_heads * hd))
+    y = torch.matmul(out, p["wo"])
     return y, pages
 
 
@@ -461,7 +466,7 @@ def gqa_prefill_chunk_paged(cfg: ModelConfig, p: dict, x: torch.Tensor,
     out = ops.chunked_prefill_attention(
         q.contiguous(), k_pages, v_pages, block_table,
         positions.to(torch.int32), prompt_len=prompt_len)
-    out = out.reshape(b, c, cfg.num_heads * hd)
+    out = tp_all_gather(out.reshape(b, c, cfg.num_heads * hd))
     y = torch.matmul(out, p["wo"])
     return y, k_pages, v_pages
 

@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.blocking import blocked_rows
+from repro_torch.sharding.tp import tp_all_gather
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -82,6 +83,10 @@ def swiglu_mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
         g = torch.matmul(xb, wg)
         u = torch.matmul(xb, wu)
         h = torch.nn.functional.silu(g.float()).to(xb.dtype) * u
+        # under tensor parallelism w_gate/w_up are column-split and
+        # w_down is replicated: gather the hidden back to full d_ff so
+        # the down-projection contracts full-length (bit-exact)
+        h = tp_all_gather(h)
         return torch.matmul(h, wd)
 
     xt = x.reshape(-1, x.shape[-1])
@@ -180,4 +185,7 @@ def lm_head(params: dict, x: torch.Tensor,
             tie_embeddings: bool) -> torch.Tensor:
     if tie_embeddings:
         return torch.matmul(x, params["embedding"].t())
-    return torch.matmul(x, params["lm_head"])
+    # an untied lm_head is vocab-column-split under tensor parallelism;
+    # tied logits contract the replicated embedding and are already
+    # full-vocab
+    return tp_all_gather(torch.matmul(x, params["lm_head"]))

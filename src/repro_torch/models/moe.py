@@ -30,6 +30,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.kernels import ops
 from repro_torch.models.blocking import blocked_rows
+from repro_torch.sharding.tp import tp_all_gather, tp_size
 
 
 def _round_up(x: int, m: int) -> int:
@@ -154,11 +155,23 @@ def _expert_swiglu(xt: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     runs once over all T rows; the plain version's matrix products
     choose their tiling by shape, so on the CPU it runs over fixed
     8-row blocks (``models.blocking``), as the reference does
-    everywhere."""
-    if xt.device.type == "cpu":
-        return blocked_rows(
-            lambda xb: ops.fused_swiglu(xb, wg, wu, wd), xt)
-    return ops.fused_swiglu(xt.contiguous(), wg, wu, wd)
+    everywhere.
+
+    Under tensor parallelism w_gate/w_up are column-split and w_down
+    replicated, so the hidden must be gathered to full d_ff before the
+    down product: the kernel's two stages run around ``tp_all_gather``
+    (gate_up on this column's slice, then down with the whole w_down),
+    with the same row blocking."""
+    cpu = xt.device.type == "cpu"
+
+    def by_rows(fn, a):
+        return blocked_rows(fn, a) if cpu else fn(a.contiguous())
+
+    if tp_size() > 1:
+        h = tp_all_gather(by_rows(
+            lambda xb: ops.swiglu_gate_up(xb, wg, wu), xt))
+        return by_rows(lambda hb: ops.swiglu_down(hb, wd), h)
+    return by_rows(lambda xb: ops.fused_swiglu(xb, wg, wu, wd), xt)
 
 
 def moe_ffn_gather(cfg: ModelConfig, p: dict,
@@ -201,6 +214,10 @@ def moe_ffn_token(cfg: ModelConfig, p: dict,
     gh = torch.einsum("bd,bkdf->bkf", x, wg)
     uh = torch.einsum("bd,bkdf->bkf", x, wu)
     h = torch.nn.functional.silu(gh.float()).to(x.dtype) * uh
+    # tensor parallelism: the gathered experts' w_gate/w_up slices are
+    # column-split; gather the hidden to full d_ff_expert before the
+    # (replicated) down-projection contracts it
+    h = tp_all_gather(h)
     out = torch.einsum("bkf,bkfd->bkd", h, wd)
     y = _sum_k(out * gates[..., None].to(x.dtype))
     if mcfg.num_shared_experts:

@@ -37,6 +37,7 @@ from repro_torch.models.layers import (
     apply_rope, embed_tokens, gelu_mlp, layer_norm, lm_head, rms_norm,
     swiglu_mlp)
 from repro_torch.models.params import torch_dtype
+from repro_torch.sharding.tp import tp_all_gather, tp_size
 
 Pages = Dict[str, torch.Tensor]
 Cache = Dict[str, Dict[str, torch.Tensor]]
@@ -60,7 +61,10 @@ def mlp_apply(cfg: ModelConfig, p: dict, x: torch.Tensor
     dispatch (``impl == "gather"``: every expert through the fused
     SwiGLU kernel) or the capacity dispatch; the audio family's GELU
     MLP plain PyTorch (no kernel in the reference either); a dense one
-    the fused SwiGLU kernel over every token."""
+    the fused SwiGLU kernel over every token — or, under tensor
+    parallelism (``tp_size() > 1``), the kernel's two stages around the
+    gather of h: gate_up on this column's slice of Wg and Wu, then down
+    with the whole Wd (``sharding/tp.py``)."""
     if "router" in p:
         if cfg.moe.impl == "gather":
             return moe_mod.moe_ffn_gather(cfg, p, x)
@@ -68,6 +72,9 @@ def mlp_apply(cfg: ModelConfig, p: dict, x: torch.Tensor
     if "w_in" in p:
         return gelu_mlp(p, x), None
     t = x.reshape(-1, x.shape[-1]).contiguous()
+    if tp_size() > 1:
+        h = tp_all_gather(ops.swiglu_gate_up(t, p["w_gate"], p["w_up"]))
+        return ops.swiglu_down(h, p["w_down"]).reshape(x.shape), None
     y = ops.fused_swiglu(t, p["w_gate"], p["w_up"], p["w_down"])
     return y.reshape(x.shape), None
 
@@ -414,6 +421,9 @@ def _attn_prefill_layer(cfg: ModelConfig, lp: dict, x: torch.Tensor,
                                  causal=True, window=cfg.window)
         b, s = x.shape[:2]
         o = o.reshape(b, s, cfg.num_heads * cfg.resolved_head_dim)
+        # tensor parallelism: gather head-local attention outputs to
+        # the full head axis before the replicated output projection
+        o = tp_all_gather(o)
         a = torch.matmul(o, lp["attn"]["wo"])
         entry = {"k": k, "v": v}
         if cfg.kv_quant:

@@ -23,6 +23,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as T
 from repro_torch.sampling import prng
+from repro_torch.sharding.tp import tp_local_cfg
 
 Pages = Dict[str, torch.Tensor]
 
@@ -393,3 +394,139 @@ def decode_megastep_rows(cfg: ModelConfig, params: dict,
         emits.append(emit)
         dones.append(done_)
     return torch.stack(emits), torch.stack(dones), lg, pages
+
+
+# ----------------------------------------------------------------------
+# mesh-sharded step programs (serving/mesh.py drives these): one call
+# advances every shard's bucket, each cell of the mesh running the
+# single-device program above on its own operands; on a 2-D ("data",
+# "model") mesh each data shard's program runs tensor-parallel across
+# its model columns (sharding/tp.py). Operands come per shard — the
+# reference's leading ``n_shards`` axis: host arrays (n_sh, ...) are
+# copied to each shard's devices — and per cell (params, pages: lists
+# in grid order, as ``ServingMesh.place_params`` and
+# ``ShardedPagedKVServer.cell_pages`` give them). Per-shard results
+# come from the shard's first column (every column computes the same
+# full-vocab logits and tokens); pages are updated in place.
+# ----------------------------------------------------------------------
+def _first_columns(mesh, results) -> list:
+    """Shard k's result: its first column's."""
+    return [results[k * mesh.n_model] for k in range(mesh.n_shards)]
+
+
+def _shard_logits(mesh, logits) -> list:
+    """Per-cell copies of per-shard logits (a no-op on the shard's own
+    device)."""
+    return [logits[k].to(dev) for k, _, dev in mesh.cells()]
+
+
+def prefill_chunk_paged_sharded(cfg: ModelConfig, params, tokens, pages,
+                                block_table, start_pos, *,
+                                prompt_len: int, mesh):
+    """``prefill_chunk_paged`` across every shard of a serving mesh.
+    tokens: (n_sh, B, C); block_table: (n_sh, B, NBp); start_pos:
+    (n_sh, B); params and pages per cell. Each cell runs the exact
+    single-device chunk program (on its column's heads under tensor
+    parallelism), so per-row results are bit-identical to unsharded
+    execution — sharding is placement, not math (under tensor
+    parallelism on the CPU only: see ``sharding.tp``). Returns
+    (per-shard chunk-final logits (B, V), pages)."""
+    lcfg = tp_local_cfg(cfg, mesh.n_model)
+
+    def body(p, tk, pgs, table, starts):
+        return prefill_chunk_paged(lcfg, p, tk, pgs, table, starts,
+                                   prompt_len=prompt_len)
+
+    out = mesh.run(body, list(zip(
+        params, mesh.shard_rows(tokens), pages,
+        mesh.shard_rows(block_table), mesh.shard_rows(start_pos))))
+    return ([lg for lg, _ in _first_columns(mesh, out)],
+            [pg for _, pg in out])
+
+
+def prefill_paged_sharded(cfg: ModelConfig, params, prompt_tokens, pages,
+                          prefill_table, *, mesh):
+    """``prefill_paged`` across every shard of a serving mesh — the
+    whole-prompt program the step loop uses for the quant layout (a
+    chunk would re-read the already-quantised prefix). prompt_tokens:
+    (n_sh, B, S); prefill_table: (n_sh, B, NBp). Returns (per-shard
+    logits0 (B, V), pages)."""
+    lcfg = tp_local_cfg(cfg, mesh.n_model)
+
+    def body(p, tk, pgs, table):
+        return prefill_paged(lcfg, p, tk, pgs, table)
+
+    out = mesh.run(body, list(zip(
+        params, mesh.shard_rows(prompt_tokens), pages,
+        mesh.shard_rows(prefill_table))))
+    return ([lg for lg, _ in _first_columns(mesh, out)],
+            [pg for _, pg in out])
+
+
+def decode_step_rows_sharded(cfg: ModelConfig, params, logits, pages,
+                             block_table, pos, row_keys, steps, done, *,
+                             cache_len: int, temperature: float,
+                             eos_id: int, pad_id: int, mesh):
+    """``decode_step_rows`` across every shard of a serving mesh:
+    logits are per shard (B, V) tensors, the other row operands
+    (n_sh, B, ...) arrays. A row emits the same token whatever shard
+    hosts it and whatever the model-axis size. Returns per-shard
+    (emit, logprob, live, new_done, next_logits) and the pages."""
+    lcfg = tp_local_cfg(cfg, mesh.n_model)
+
+    def body(p, lg, pgs, table, pos_, keys, steps_, done_):
+        return decode_step_rows(
+            lcfg, p, lg, pgs, table, pos_, keys, steps_, done_,
+            cache_len=cache_len, temperature=temperature, eos_id=eos_id,
+            pad_id=pad_id)
+
+    out = mesh.run(body, list(zip(
+        params, _shard_logits(mesh, logits), pages,
+        mesh.shard_rows(block_table), mesh.shard_rows(pos),
+        mesh.shard_rows(row_keys), mesh.shard_rows(steps),
+        mesh.shard_rows(done))))
+    return ([o[:5] for o in _first_columns(mesh, out)],
+            [o[5] for o in out])
+
+
+def decode_megastep_rows_sharded(cfg: ModelConfig, params, logits, pages,
+                                 block_table, pos, row_keys, steps, done,
+                                 *, n_ticks: int, cache_len: int,
+                                 temperature: float, eos_id: int,
+                                 pad_id: int, mesh):
+    """``decode_megastep_rows`` across every shard of a serving mesh
+    (per-shard logits, (n_sh, B, ...) row operands). Each cell runs the
+    identical fused loop, so a row emits the same tokens whatever
+    shard hosts it, whatever K the planner picked and whatever the
+    model-axis size; the model-axis gathers happen inside each cell's
+    program. Returns (per-shard emits (K, B), per-shard dones (K, B),
+    per-shard next logits (B, V), pages)."""
+    lcfg = tp_local_cfg(cfg, mesh.n_model)
+
+    def body(p, lg, pgs, table, pos_, keys, steps_, done_):
+        return decode_megastep_rows(
+            lcfg, p, lg, pgs, table, pos_, keys, steps_, done_,
+            n_ticks=n_ticks, cache_len=cache_len,
+            temperature=temperature, eos_id=eos_id, pad_id=pad_id)
+
+    out = mesh.run(body, list(zip(
+        params, _shard_logits(mesh, logits), pages,
+        mesh.shard_rows(block_table), mesh.shard_rows(pos),
+        mesh.shard_rows(row_keys), mesh.shard_rows(steps),
+        mesh.shard_rows(done))))
+    first = _first_columns(mesh, out)
+    return ([o[0] for o in first], [o[1] for o in first],
+            [o[2] for o in first], [o[3] for o in out])
+
+
+def fork_pages_sharded(pages, src, dst, *, mesh):
+    """Per-shard ``fork_pages``: src/dst (n_sh, K) shard-local page
+    ids; shards with nothing to fork pass ``src == dst`` self-copies
+    (the identity write). Each column copies its own kv-head slice of
+    the pages — page ids are the same in every column of a shard.
+    Returns the pages."""
+    src, dst = np.asarray(src), np.asarray(dst)
+    return mesh.run(
+        lambda pgs, s, d: fork_pages(pgs, s, d),
+        [(pgs, src[k], dst[k])
+         for pgs, (k, _, _) in zip(pages, mesh.cells())])

@@ -10,6 +10,7 @@ from repro_torch.serving.journal import RecoveryState, StepJournal
 from repro_torch.serving.kv_pool import (
     KVStats, PageAccountingError, PagePool, PagePoolError, PagedKVServer,
     PoolExhausted, ProbeHandle, dense_tile_slots, pages_for)
+from repro_torch.serving.mesh import ServingMesh, ShardedPagedKVServer
 from repro_torch.serving.metrics import PromCounters
 from repro_torch.serving.queue import (
     AdmissionQueue, MicroBatch, MicroBatchPolicy, Request)
@@ -28,7 +29,7 @@ __all__ = [
     "PagePool", "PagePoolError", "PagedKVServer", "PoolExhausted",
     "ProbeCache", "ProbeHandle", "PromCounters", "QueuedServeResult",
     "RecoveryState", "Request", "SITES", "SchedulerStats",
-    "ShardedStepLoopRunner", "SimulatedCrash", "SpanTracer",
+    "ServingMesh", "ShardedPagedKVServer", "ShardedStepLoopRunner", "SimulatedCrash", "SpanTracer",
     "StepJournal", "StepLoopRunner", "StepPlanner", "StepStats",
     "TorchModelBackend", "ZooModel", "bucket_size", "dense_tile_slots",
     "intern_answers", "judge_batch", "pages_for", "plan_compaction",

@@ -28,8 +28,9 @@ reference's A/B baseline and pool-exhaustion fallback do.
 The stepped engine takes a fault plan, a write-ahead journal and a span
 tracer, and ``recover`` resumes a killed journaled run to the same
 outputs and record hashes; ``run_batch`` takes a tracer too and emits
-the wave's spans after it resolves, as does ``run_queued``. The sharded
-loop (``data_shards``) is not ported yet. The engine keeps no artifact
+the wave's spans after it resolves, as does ``run_queued``.
+``run_stepped(data_shards=, model_shards=)`` serves through the sharded
+loop over a ``ServingMesh`` (``serving/mesh.py``). The engine keeps no artifact
 store of its own (a caller chains its results through ``teamllm``, as
 the orchestrator does).
 """
@@ -173,6 +174,8 @@ class BatchedACAREngine:
             deterministic_cuda()
         self._kv_servers: Dict[int, PagedKVServer] = {}
         self._stepped_servers: Dict[int, PagedKVServer] = {}
+        # the sharded step loop's servers of the last sharded run
+        self._mesh_servers: List[object] = []
         self._kv_emitted: Dict[tuple, int] = {}
         self.route_fn = route_fn or route_batch
         # a route_fn may take (sigma, admission_indices) so forced-mode
@@ -677,6 +680,7 @@ class BatchedACAREngine:
                     chunk_tokens: int = 8,
                     max_active_rows: Optional[int] = None,
                     data_shards: Optional[int] = None,
+                    model_shards: int = 1,
                     megastep=1,
                     faults=None,
                     journal_path=None,
@@ -706,13 +710,23 @@ class BatchedACAREngine:
         event, which cannot move record hashes or chain heads. Each
         hook costs one attribute check when unset.
 
-        ``data_shards`` (the sharded loop) is not ported yet and
-        raises ``NotImplementedError``."""
+        ``data_shards`` switches to the mesh-sharded loop
+        (serving/mesh.py): rows placed on the least-loaded shard of a
+        ("data",) mesh, per-shard page pools, every shard's bucket in
+        one mesh call per group — the same per-task outputs, with
+        ``max_active_rows`` interpreted per shard. ``model_shards`` > 1
+        widens the mesh to 2-D ("data", "model"): each data shard's
+        program runs tensor-parallel across its model columns
+        (column-split params, kv-head-split pages — sharding/tp.py).
+        Needs ``data_shards * model_shards`` logical devices of the
+        engine's kind (``launch.mesh.force_device_count``)."""
         from repro_torch.serving.scheduler import StepPlanner
-        from repro_torch.serving.step_loop import StepLoopRunner
-        if data_shards is not None:
-            raise NotImplementedError(
-                "run_stepped(data_shards=...) is not ported yet")
+        from repro_torch.serving.step_loop import (
+            ShardedStepLoopRunner, StepLoopRunner)
+        if data_shards is None and model_shards != 1:
+            raise ValueError(
+                "model_shards > 1 requires the sharded loop: "
+                "pass data_shards as well")
         t0 = time.perf_counter()
         injector = None
         if faults is not None:
@@ -735,11 +749,28 @@ class BatchedACAREngine:
                                   max_active_rows=rows_cap,
                                   megastep=megastep)
         metrics = PromCounters()
-        runner = StepLoopRunner(self, queue, planner, metrics,
-                                faults=injector, journal=journal,
-                                recovered=recovered, tracer=tracer)
-        step_stats = runner.run()
-        self._emit_kv_metrics(metrics)
+        smesh = None
+        if data_shards is None:
+            runner = StepLoopRunner(self, queue, planner, metrics,
+                                    faults=injector, journal=journal,
+                                    recovered=recovered, tracer=tracer)
+        else:
+            from repro_torch.serving.mesh import ServingMesh
+            smesh = ServingMesh(data=data_shards, model=model_shards)
+            runner = ShardedStepLoopRunner(
+                self, queue, planner, smesh, metrics, faults=injector,
+                journal=journal, recovered=recovered, tracer=tracer)
+        try:
+            step_stats = runner.run()
+        finally:
+            if smesh is not None:
+                smesh.close()
+        # the last sharded run's servers, for per-shard page accounting
+        self._mesh_servers = list(getattr(runner, "_sharded", {}).values())
+        # the sharded runner's servers are its own, not the engine's:
+        # emit the pool gauges and reuse counters of whichever set
+        # served the run
+        self._emit_kv_metrics(metrics, kv=runner.kv_stats())
 
         rows = [runner.done_rows[i] for i in range(len(tasks))]
         saved = sum(
@@ -777,6 +808,7 @@ class BatchedACAREngine:
                 journal_path, chunk_tokens: int = 8,
                 max_active_rows: Optional[int] = None,
                 data_shards: Optional[int] = None,
+                model_shards: int = 1,
                 megastep=1, tracer=None) -> "QueuedServeResult":
         """Resume a killed ``run_stepped`` run from its write-ahead
         journal: rows with a durable ``retire`` event are restored
@@ -791,13 +823,17 @@ class BatchedACAREngine:
         return self.run_stepped(
             tasks, policy, chunk_tokens=chunk_tokens,
             max_active_rows=max_active_rows, data_shards=data_shards,
-            megastep=megastep, recovered=state.retired, tracer=tracer)
+            model_shards=model_shards, megastep=megastep,
+            recovered=state.retired, tracer=tracer)
 
-    def _emit_kv_metrics(self, metrics: PromCounters) -> None:
+    def _emit_kv_metrics(self, metrics: PromCounters,
+                         kv: Optional[Dict[str, KVStats]] = None
+                         ) -> None:
         """Paged-KV exposition: pool gauges plus monotonic prefill-reuse
         counters (deltas since the last emission, so repeated runs on
-        one engine stay cumulative)."""
-        for st in self.kv_stats().values():
+        one engine stay cumulative). ``kv`` overrides the stats source
+        (the sharded step loop's servers, aggregated per model)."""
+        for st in (kv if kv is not None else self.kv_stats()).values():
             metrics.set_gauge(
                 "acar_kv_pages_in_use", st.pages_in_use,
                 model=st.model,

@@ -40,9 +40,9 @@ fault handling is an execution strategy, not a semantic change.
 
 The port of ``repro/serving/faults.py``: the same sites, plans and
 firing order, so a plan fires at the same coordinates in both packages.
-The port's step loop runs on one device, where ``shard_loss`` never
-fires; it stays in ``SITES`` so that plans and ``generate`` equal the
-reference's.
+``shard_loss`` fires on the sharded step loop
+(``step_loop.ShardedStepLoopRunner``) only: the single-device loop has
+no shard to lose.
 """
 from __future__ import annotations
 

@@ -306,6 +306,10 @@ class PagedKVServer:
         self.prefix_cache_entries = (int(prefix_cache_entries)
                                      if layout in ("dense", "quant")
                                      else 0)
+        # simulated shard loss (serving/faults.py): a lost server's
+        # pool is abandoned — allocations and prefix hits must fail so
+        # no new row can land on dead pages
+        self.lost = False
         self.pool: Optional[PagePool] = None
         self.pages: Optional[dict] = None
         self._scratch: Optional[np.ndarray] = None
@@ -449,7 +453,7 @@ class PagedKVServer:
 
     # -- prefix cache --------------------------------------------------
     def _prefix_lookup(self, key: bytes) -> Optional[_PrefixEntry]:
-        if self.prefix_cache_entries <= 0:
+        if self.lost or self.prefix_cache_entries <= 0:
             return None
         entry = self._prefix.get(key)
         if entry is not None:
@@ -494,6 +498,10 @@ class PagedKVServer:
         exhaustion, shed prefix-cache entries (cheapest value per page
         first) and retry; ``PoolExhausted`` escapes once eviction
         cannot free enough."""
+        if self.lost:
+            raise PoolExhausted(
+                f"server {self.stats.model!r} is marked lost; its "
+                "page pool is abandoned")
         try:
             return self.pool.alloc(n)
         except PoolExhausted:

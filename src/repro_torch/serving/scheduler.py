@@ -35,14 +35,16 @@ Cost/latency accounting is exported as Prometheus-style counters
 (``render_metrics``).
 
 ``StepPlanner`` is the per-tick policy of the step-level serving loop
-(serving/step_loop.py). Shard placement is not ported yet.
+(serving/step_loop.py). On a sharded mesh (serving/mesh.py) it also
+places each admitted row on a shard (``StepPlanner.place_shard``).
 """
 from __future__ import annotations
 
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import (
+    AbstractSet, Any, Dict, List, Optional, Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -139,6 +141,14 @@ class StepPlanner:
       pad to power-of-two row buckets (``bucket_size``), so a launch
       sees at most log2(rows)+1 shapes per (server, phase) instead of
       one per occupancy.
+    * **shard placement** — on a sharded mesh (serving/mesh.py),
+      ``place_shard`` puts an admitted row on the least-loaded shard
+      by free pages net of outstanding reservations (ties break to the
+      lowest shard index, deterministically); ``max_active_rows`` is
+      then a *per-shard* cap, so aggregate concurrency scales with the
+      mesh. Placement is pure load balancing: per-row sampling keys
+      are derived from the global admission index, so the shard a row
+      lands on can never change its tokens.
     * **megastep span** — decode groups fuse up to ``megastep`` ticks
       into one launch (``sampler.decode_megastep_rows``); lane state
       stays on the device between launches and only emitted token ids
@@ -175,6 +185,33 @@ class StepPlanner:
                   reserved_pages: int, row_need: int) -> bool:
         return (active_rows < self.max_active_rows
                 and free_pages - reserved_pages >= row_need)
+
+    def place_shard(self, active_rows: Sequence[int],
+                    free_pages: Sequence[int],
+                    reserved_pages: Sequence[int],
+                    row_need: int,
+                    blocked: Optional[AbstractSet[int]] = None
+                    ) -> Optional[int]:
+        """Least-loaded shard placement (free-pages-weighted): among
+        shards that can admit (per-shard row cap and page budget, the
+        exact ``may_admit`` predicate), pick the one with the most
+        free pages net of its outstanding reservations; ties break to
+        the lowest shard index. Returns None when no shard can admit
+        — the caller defers the row until retirements free budget.
+        ``blocked`` shards (lost to a simulated fault) are never
+        candidates regardless of their stale accounting."""
+        best = None
+        best_headroom = -1
+        for k in range(len(free_pages)):
+            if blocked is not None and k in blocked:
+                continue
+            if not self.may_admit(active_rows[k], free_pages[k],
+                                  reserved_pages[k], row_need):
+                continue
+            headroom = free_pages[k] - reserved_pages[k]
+            if headroom > best_headroom:
+                best, best_headroom = k, headroom
+        return best
 
     def attribution_quota(self, tick_cost: int, pending: int) -> int:
         """On-capacity attribution budget for this tick: how many

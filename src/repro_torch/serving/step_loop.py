@@ -43,13 +43,17 @@ a ``StepJournal`` logs admissions, decode emissions, retirements and
 fault events, and a recovered run restores retired rows verbatim from
 it; a ``SpanTracer`` records every lifecycle transition as a hashed
 span and recomputes leave-one-out attribution for full-arena rows on
-idle ticks. On one device a ``shard_loss`` never fires.
+idle ticks. A ``shard_loss`` fires on the sharded runner only.
 
 A member no page layout serves (the hybrid stack, recurrentgemma-2b)
 generates each escalated row's answer at once over a contiguous cache
-(``_dense_member``), with the row's member key stream. The sharded
-runner (``ShardedStepLoopRunner``) is not ported yet; reaching it
-raises ``NotImplementedError``.
+(``_dense_member``), with the row's member key stream.
+
+``ShardedStepLoopRunner`` runs the same loop over a ``ServingMesh``
+(``serving/mesh.py``): rows are placed on the least-loaded data shard,
+each shard keeps its own page pools, and each tick's prefill and decode
+groups run every shard's bucket in one ``ServingMesh.run`` — on a 2-D
+mesh tensor-parallel across each shard's model columns.
 """
 from __future__ import annotations
 
@@ -73,7 +77,7 @@ from repro_torch.serving.kv_pool import (
 from repro_torch.serving.metrics import (
     FAULTS_INJECTED, MEMBER_QUARANTINED, MEMBER_RETRIES, PromCounters,
     RECOVERY_ROWS_RESTORED, ROUTES_DEGRADED, ROW_DEADLINE_ABORTS,
-    STEP_REQUEUES)
+    SHARD_STEALS, STEP_REQUEUES)
 from repro_torch.serving.queue import AdmissionQueue, Request
 from repro_torch.serving.scheduler import StepPlanner
 from repro_torch.teamllm.spans import make_trace_id
@@ -146,6 +150,7 @@ class _Row:
     admitted_at: int = 0
     retired_at: int = 0
     reserved: int = 0                  # probe-server pages still owed
+    shard: int = 0                     # mesh shard hosting this row
 
     @property
     def admission(self) -> int:
@@ -218,6 +223,7 @@ class StepLoopRunner:
         self.recovered = dict(recovered) if recovered else None
         self.fault_events: List[dict] = []
         self._quarantined: set = set()
+        self._displaced: List[_Row] = []
         # span tracing rides the same discipline: a disarmed or absent
         # tracer normalises to None, so every instrumentation site
         # below is one attribute check
@@ -259,7 +265,7 @@ class StepLoopRunner:
             elif srv is not None and srv not in self._servers:
                 self._servers.append(srv)
 
-    # -- placement hooks -----------------------------------------------
+    # -- placement hooks (the sharded runner overrides these) ----------
     def _probe_server(self, row: _Row) -> PagedKVServer:
         """The probe-model server hosting ``row``'s pages."""
         return self.probe_srv
@@ -276,7 +282,8 @@ class StepLoopRunner:
 
     def _group_key(self, srv) -> int:
         """Executor identity for launch grouping and the virtual
-        clock."""
+        clock; the sharded runner collapses a server's shard views into
+        one executor (one mesh launch serves all)."""
         return id(srv)
 
     # -- geometry ------------------------------------------------------
@@ -349,19 +356,22 @@ class StepLoopRunner:
             self.journal.fault(rec, self.now)
 
     def _fault_tick(self) -> None:
-        """Tick-boundary fault checks: process kill and per-row SLO
-        deadlines (a shard loss has no shard to take on one device).
-        Runs right after admission so a crash tick is a clean
-        transaction boundary."""
+        """Tick-boundary fault checks: process kill, shard loss, and
+        per-row SLO deadlines. Runs right after admission so a crash
+        tick is a clean transaction boundary."""
         if self._fired("crash"):
             raise SimulatedCrash(
                 f"injected process kill at step-loop tick "
                 f"{self.stats.ticks}")
+        self._shard_faults()
         ddl = self.injector.plan.slo_deadline
         if ddl is not None:
             for row in list(self.active):
                 if self.now - row.request.arrival_time > ddl:
                     self._abort_row(row, "slo_deadline")
+
+    def _shard_faults(self) -> None:
+        """Shard-loss checks — meaningful only on the sharded runner."""
 
     def _member_fault_gate(self, items) -> int:
         """Pre-launch injected faults for one member decode group:
@@ -1393,7 +1403,7 @@ class StepLoopRunner:
                      "(route_pending: resolved within this step)")
 
     def run(self) -> StepStats:
-        while len(self.queue) or self.active:
+        while len(self.queue) or self.active or self._displaced:
             self._admit_ready()
             if self.injector is not None:
                 self._fault_tick()
@@ -1456,9 +1466,627 @@ class StepLoopRunner:
 
 
 class ShardedStepLoopRunner(StepLoopRunner):
-    """The mesh-sharded step loop (per-shard page pools over several
-    cards) is not ported yet."""
+    """Step-level loop over a ``ServingMesh``: rows are placed on the
+    least-loaded shard at admission (``StepPlanner.place_shard``),
+    every shard keeps its own page pool / block tables / free list /
+    prefix cache (``ShardedPagedKVServer``), and each tick's prefill
+    and decode groups run every shard's bucket in one ``ServingMesh``
+    call (``sampler.decode_megastep_rows_sharded`` /
+    ``prefill_chunk_paged_sharded``) — per-shard buckets, vector pos,
+    per-row key streams keyed by global admission index, up to
+    ``StepPlanner.megastep`` ticks fused per launch. Only the (K, B)
+    emit and done stacks come back to the host per megastep — lane
+    logits stay on their shard's device.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the sharded step loop is not ported yet")
+    Bit-equivalence with the single-device loop holds because every
+    per-row computation is placement-independent: sampling keys derive
+    from the global admission index, attention reads only the row's
+    own shard-local pages, and all host decisions are deterministic
+    functions of the admission order.
+
+    ``planner.max_active_rows`` is the *per-shard* cap here, so
+    aggregate concurrency — and aggregate KV page capacity — scale
+    with the mesh.
+
+    On a 2-D ``("data", "model")`` mesh every per-tick launch spans
+    the full mesh: each data shard's program runs tensor-parallel
+    across its model columns (params column-split, page kv-heads
+    split — ``sharding/tp.py``), while row placement, lane assembly,
+    and all host decisions stay keyed by the data axis alone. Ring and
+    lane members stay single-device: they decode on the
+    contiguous-cache member fallback, as in the reference.
+    """
+
+    def __init__(self, engine, queue: AdmissionQueue,
+                 planner: StepPlanner, smesh,
+                 metrics: Optional[PromCounters] = None, *,
+                 faults: Optional[FaultInjector] = None,
+                 journal=None,
+                 recovered: Optional[Dict[int, dict]] = None,
+                 tracer=None):
+        if smesh.device_type != engine.device.type:
+            raise ValueError(
+                f"a {smesh.device_type} serving mesh cannot serve an "
+                f"engine on {engine.device}")
+        self.smesh = smesh
+        self._lost: set = set()            # shards marked lost
+        super().__init__(engine, queue, planner, metrics,
+                         faults=faults, journal=journal,
+                         recovered=recovered, tracer=tracer)
+
+    # -- server topology -----------------------------------------------
+    def _init_servers(self) -> None:
+        from repro_torch.models.transformer import resolve_layout
+        eng = self.eng
+        if resolve_layout(eng.probe.cfg) not in ("dense", "quant"):
+            raise ValueError(
+                "sharded serving requires a dense- or quant-paged "
+                "probe model (models.transformer.resolve_layout)")
+        self._sharded: Dict[int, object] = {}      # id(params) -> server
+        self._model_by_group: Dict[int, object] = {}
+        self._params_cells: Dict[int, list] = {}
+        self.probe_sharded = self._sharded_server(eng.probe)
+        self._member_sharded: List[object] = []
+        self._twins = 0
+        for zm in eng.ensemble:
+            if resolve_layout(zm.cfg) not in ("dense", "quant"):
+                # ring / lanes members stay single-device: the
+                # contiguous-cache fallback (identical tokens)
+                continue
+            if zm.params is eng.probe.params:
+                if zm is not eng.probe:
+                    self._twins += 1
+            else:
+                srv = self._sharded_server(zm)
+                if srv not in self._member_sharded:
+                    self._member_sharded.append(srv)
+        self.page_size = self.probe_sharded.page_size
+        # shard-0 view: page geometry only — allocation always goes
+        # through the per-row _probe_server/_member_server hooks
+        self.probe_srv = self.probe_sharded.shards[0]
+        self._servers = [self.probe_srv]
+        n = self.smesh.n_shards
+        self._shard_active = [0] * n
+        self._shard_reserved = [0] * n
+
+    def _sharded_server(self, zm):
+        from repro_torch.serving.mesh import ShardedPagedKVServer
+        key = id(zm.params)
+        srv = self._sharded.get(key)
+        if srv is None:
+            srv = ShardedPagedKVServer(
+                zm.cfg, self.smesh, page_size=self.eng.kv_page_size,
+                prefix_cache_entries=self.eng.kv_prefix_cache)
+            srv.set_model_name(zm.name)
+            self._sharded[key] = srv
+            self._model_by_group[id(srv)] = zm
+            # the same on every data shard; on a 2-D mesh each column
+            # holds its column-parallel slices
+            self._params_cells[id(srv)] = self.smesh.place_params(
+                zm.cfg, zm.params)
+        return srv
+
+    # -- placement hooks -----------------------------------------------
+    def _probe_server(self, row: _Row):
+        return self.probe_sharded.shards[row.shard]
+
+    def _member_server(self, zm, row: _Row):
+        from repro_torch.models.transformer import resolve_layout
+        if resolve_layout(zm.cfg) not in ("dense", "quant"):
+            return None                    # contiguous-cache fallback
+        srv = self._sharded_server(zm)
+        home = row.shard
+        if self._reuse_member(zm, row):
+            # seeded from the row's probe pages: shard-bound
+            return srv.shards[home]
+        # work stealing for escalation skew: a fresh (non-reuse)
+        # member execution has no page affinity — its prompt prefills
+        # into whatever pool hosts it and its tokens are keyed by
+        # global admission index, so re-placing it moves bytes, never
+        # math. When the home shard's pool cannot hold the full
+        # execution (prompt + decode tail) and another healthy shard
+        # can, steal to the freest such shard (lowest index breaks
+        # ties) — deterministic, since free-page counts are a pure
+        # function of the admission-ordered allocation history.
+        g = self._geometry(srv.shards[home], row.s)
+        need = g.nbp + g.n_tail
+        home_ok = (home not in self._lost
+                   and srv.shards[home].pool is not None
+                   and srv.shards[home].pool.free_pages >= need)
+        if home_ok:
+            return srv.shards[home]
+        best = None
+        for k, sv in enumerate(srv.shards):
+            if k == home or k in self._lost or sv.pool is None:
+                continue
+            f = sv.pool.free_pages
+            if f >= need and (best is None or f > best[0]):
+                best = (f, k)
+        if best is None:
+            return srv.shards[home]    # no roomier shard: retry path
+        # metrics only, never the trace: steal placement is
+        # sharded-only bookkeeping, and the artifact chain must stay
+        # identical to the single-device run's
+        self.metrics.inc(SHARD_STEALS, src=str(home),
+                         dst=str(best[1]),
+                         help="member executions stolen to a roomier "
+                              "shard")
+        return srv.shards[best[1]]
+
+    def _reuse_member(self, zm, row: _Row) -> bool:
+        eng = self.eng
+        return (zm.cfg == eng.probe.cfg
+                and zm.params is eng.probe.params
+                and eng._member_compactable(zm))
+
+    def _group_key(self, srv) -> int:
+        return id(srv.parent)
+
+    def _server_model(self, srv):
+        return self._model_by_group[id(srv.parent)]
+
+    # -- reservations / retirement (shard-local) -----------------------
+    def _unreserve(self, row: _Row, pages: int) -> None:
+        pages = min(pages, row.reserved)
+        row.reserved -= pages
+        self._shard_reserved[row.shard] -= pages
+
+    def _retire(self, row: _Row) -> None:
+        # rows retiring off a lost shard (displaced-row aborts) were
+        # already struck from its zeroed occupancy counters
+        if row.shard not in self._lost:
+            self._shard_active[row.shard] -= 1
+        super()._retire(row)
+
+    def _rollback_admission(self, row: _Row) -> None:
+        super()._rollback_admission(row)
+        self._shard_active[row.shard] -= 1
+
+    # -- admission: least-loaded shard placement -----------------------
+    def _free_pages(self) -> List[int]:
+        return [sv.pool.free_pages for sv in self.probe_sharded.shards]
+
+    def _admit_ready(self) -> None:
+        if self._displaced:
+            self._replace_displaced()
+        while len(self.queue):
+            if self.recovered and self._restore_head():
+                continue
+            if not self.queue.ready(self.now):
+                break
+            head = self.queue.peek()
+            if head.arrival_time > self.now:
+                break
+            ids = tok.encode_aligned([head.task.text])[0]
+            s = int(ids.shape[0])
+            try:
+                self.probe_sharded.ensure_capacity_stream(
+                    self.planner.max_active_rows, s,
+                    self.n + max(self._twins, 1), self.max_new)
+                for srv in self._member_sharded:
+                    srv.ensure_capacity_stream(
+                        self.planner.max_active_rows, s, 1,
+                        self.max_new)
+            except PagePoolError:
+                # a longer prompt needs bigger per-shard pools, which
+                # only rebuild while no shard holds pages: defer until
+                # the active rows drain (see StepLoopRunner)
+                if self.active:
+                    break
+                if self._lost:
+                    # a lost shard is frozen in place, so pools can
+                    # never rebuild again: admit-or-abort keeps the
+                    # stream draining (traced, deterministic)
+                    req = self.queue.pop()
+                    row = _Row(request=req, ids=ids,
+                               admitted_at=self.now,
+                               shard=min(self._lost))
+                    self.stats.timeline[row.admission] = (
+                        req.arrival_time, self.now, -1)
+                    self._abort_row(row, "capacity_rebuild_blocked")
+                    continue
+                raise
+            need = self._row_need(s)
+            shard = self.planner.place_shard(
+                self._shard_active, self._free_pages(),
+                self._shard_reserved, need, blocked=self._lost)
+            if shard is None:
+                break
+            req = self.queue.pop()
+            row = _Row(request=req, ids=ids, admitted_at=self.now,
+                       reserved=need, shard=shard)
+            self._shard_reserved[shard] += need
+            self._shard_active[shard] += 1
+            self.stats.timeline[row.admission] = (
+                req.arrival_time, self.now, -1)
+            if self.tracer is not None:
+                self.tracer.span("admit", self._trace_id(row),
+                                 self.now, prompt_tokens=s,
+                                 arrival=req.arrival_time,
+                                 shard=shard)
+            if not self._try_begin_prefill(row):
+                break
+            self.active.append(row)
+            self.stats.admissions += 1
+            self.metrics.inc("acar_step_admissions_total",
+                             help="rows admitted into the step loop")
+            self.metrics.inc("acar_shard_placements_total",
+                             shard=str(shard),
+                             help="rows placed per mesh shard")
+            if self.journal is not None:
+                self.journal.admit(row.admission, req.request_id,
+                                   self.now)
+
+    # -- shard loss ----------------------------------------------------
+    def _shard_faults(self) -> None:
+        for k in range(self.smesh.n_shards):
+            if k not in self._lost \
+                    and self._fired("shard_loss", shard=k):
+                self._lose_shard(k)
+
+    def _lose_shard(self, k: int) -> None:
+        """Simulated shard death: every server's shard-``k`` pool is
+        abandoned (pages forfeited, never released — a dead host runs
+        no release path), resident rows are displaced for re-placement
+        on survivors, and the shard's occupancy counters zero out."""
+        self._lost.add(k)
+        self.probe_sharded.mark_shard_lost(k)
+        for srv in self._member_sharded:
+            srv.mark_shard_lost(k)
+        self._trace_fault("shard_lost", shard=k)
+        for row in [r for r in self.active if r.shard == k]:
+            self._forfeit_row(row)
+            self.active.remove(row)
+            self._displaced.append(row)
+            self._trace_fault("row_displaced",
+                              admission=row.admission, shard=k)
+            if self.tracer is not None:
+                self.tracer.span("displaced", self._trace_id(row),
+                                 self.now, shard=k)
+        self._shard_active[k] = 0
+        self._shard_reserved[k] = 0
+
+    def _forfeit_row(self, row: _Row) -> None:
+        """Strip a row of everything resident on its (lost) shard and
+        reset it to re-prefill from step 0. No pages are released —
+        the pool is abandoned with them. Admission-indexed key streams
+        make the restart emit identical tokens."""
+        for lane in row.lanes:
+            lane.done = True
+        for mx in row.members:
+            if mx.lane is not None:
+                mx.lane.done = True
+        row.shared = None
+        row.tail = None
+        row.from_cache = False
+        row.prefill_pos = 0
+        row.logits0 = None
+        row.sample_tails = None
+        row.lanes = []
+        row.probe_texts = None
+        row.probe_answers = None
+        row.sigma = 0.0
+        row.mode = 0
+        row.members = []
+        row.member_answers = None
+        row.final_answer = None
+        row.phase = "prefill"
+        row.reserved = 0
+
+    def _replace_displaced(self) -> None:
+        """Re-place displaced rows on surviving shards (admission
+        order, least-loaded placement over the healthy set). Rows that
+        do not fit yet stay displaced — retirements free pages every
+        tick, so placement is retried until they land. With no shard
+        left the rows abort with a traced null-answer retirement."""
+        if len(self._lost) >= self.smesh.n_shards:
+            for row in self._displaced:
+                self._abort_row(row, "no_healthy_shards")
+            self._displaced = []
+            return
+        still: List[_Row] = []
+        for row in sorted(self._displaced, key=lambda r: r.admission):
+            need = self._row_need(row.s)
+            shard = self.planner.place_shard(
+                self._shard_active, self._free_pages(),
+                self._shard_reserved, need, blocked=self._lost)
+            if shard is None:
+                still.append(row)
+                continue
+            row.shard = shard
+            row.reserved = need
+            self._shard_reserved[shard] += need
+            self._shard_active[shard] += 1
+            self._begin_prefill(row)
+            self.active.append(row)
+            self._trace_fault("row_replaced",
+                              admission=row.admission, shard=shard)
+            if self.tracer is not None:
+                self.tracer.span("replaced", self._trace_id(row),
+                                 self.now, shard=shard)
+            self.metrics.inc("acar_shard_placements_total",
+                             shard=str(shard),
+                             help="rows placed per mesh shard")
+        self._displaced = still
+
+    # -- page plumbing: per-shard forks in one mesh call ---------------
+    def _fork(self, srv, src: Sequence[int],
+              dst: Sequence[int]) -> None:
+        parent = srv.parent
+        src_a = parent.pad_fork_ids(len(src))
+        dst_a = src_a.copy()
+        src_a[srv.index] = src
+        dst_a[srv.index] = dst
+        S.fork_pages_sharded(parent.cell_pages(), src_a, dst_a,
+                             mesh=self.smesh)
+
+    def _per_shard(self, parent, items, key) -> List[list]:
+        per: List[list] = [[] for _ in range(parent.n_shards)]
+        for it in items:
+            per[it[0].index].append(it)
+        for p in per:
+            p.sort(key=key)
+        return per
+
+    # -- device programs: one mesh call per group ----------------------
+    def _run_prefill_group(self, key, items) -> int:
+        _, c, s = key
+        if c < 0:
+            return self._run_one_shot_prefill_group(key, items)
+        t0 = time.perf_counter() if self.tracer is not None else 0.0
+        parent = items[0][0].parent
+        nsh = parent.n_shards
+        nbp = pages_for(s, self.page_size)
+        per = self._per_shard(parent, items, lambda it: it[1].admission)
+        bucket = self.planner.decode_bucket(max(len(p) for p in per))
+        tokens = np.zeros((nsh, bucket, c), np.int32)
+        tables = np.empty((nsh, bucket, nbp), np.int32)
+        starts = np.zeros((nsh, bucket), np.int32)
+        for k in range(nsh):
+            scratch = parent.shards[k]._scratch[:nbp]
+            for i in range(bucket):
+                if i < len(per[k]):
+                    _, row, mx = per[k][i]
+                    target = mx if mx is not None else row
+                    starts[k, i] = target.prefill_pos
+                    tokens[k, i] = row.ids[
+                        starts[k, i]:starts[k, i] + c]
+                    tables[k, i, :target.shared.size] = target.shared
+                    if target.tail is not None:
+                        tables[k, i, -1] = target.tail
+                else:
+                    # pad rows prefill zeros into scratch pages
+                    tables[k, i] = scratch
+        zm = self._model_by_group[id(parent)]
+        lg, _ = S.prefill_chunk_paged_sharded(
+            zm.cfg, self._params_cells[id(parent)], tokens,
+            parent.cell_pages(), tables, starts, prompt_len=s,
+            mesh=self.smesh)
+        for sv in parent.shards:
+            sv.stats.prefill_tokens_computed += bucket * c
+            sv.stats.prefill_chunks += 1
+        self.stats.prefill_chunks += 1
+        self.metrics.inc("acar_prefill_chunks_total",
+                         model=parent.model_name,
+                         help="chunked-prefill device programs run")
+        self.stats.launches += 1
+        # chunk-final logits stay on each shard's device in the
+        # model's dtype
+        for k in range(nsh):
+            for i, (srv, row, mx) in enumerate(per[k]):
+                target = mx if mx is not None else row
+                target.prefill_pos = int(starts[k, i]) + c
+                sid = None
+                if self.tracer is not None:
+                    sid = self.tracer.span(
+                        "prefill_chunk", self._trace_id(row),
+                        self.now,
+                        key=None if mx is None else ("m", mx.member),
+                        model=parent.model_name,
+                        start=int(starts[k, i]), tokens=c)
+                if target.prefill_pos == s:
+                    target.logits0 = lg[k][i]
+                    srv._prefix_insert(row.ids.tobytes(),
+                                       target.shared, target.tail,
+                                       target.logits0, tokens=s)
+                    if sid is not None:
+                        self.tracer.kv_insert(
+                            parent.model_name,
+                            hashlib.sha256(
+                                row.ids.tobytes()).hexdigest(),
+                            self._trace_id(row), sid)
+        if self.tracer is not None:
+            self._observe_span("prefill", t0)
+        return 1
+
+    def _run_one_shot_prefill_group(self, key, items) -> int:
+        """Whole-prompt prefill for the quant layout, every shard in
+        one mesh call (only dense/quant reach the sharded runner, and
+        dense always chunks)."""
+        _, _, s = key
+        t0 = time.perf_counter() if self.tracer is not None else 0.0
+        parent = items[0][0].parent
+        nsh = parent.n_shards
+        g = self._geometry(items[0][0], s)
+        per = self._per_shard(parent, items, lambda it: it[1].admission)
+        bucket = self.planner.decode_bucket(max(len(p) for p in per))
+        tokens = np.zeros((nsh, bucket, s), np.int32)
+        tables = np.empty((nsh, bucket, g.nbp), np.int32)
+        for k in range(nsh):
+            scratch = parent.shards[k]._scratch[:g.nbp]
+            for i in range(bucket):
+                if i < len(per[k]):
+                    _, row, mx = per[k][i]
+                    target = mx if mx is not None else row
+                    tokens[k, i] = row.ids
+                    tables[k, i, :target.shared.size] = target.shared
+                    if target.tail is not None:
+                        tables[k, i, -1] = target.tail
+                else:
+                    # pad rows prefill zeros into scratch pages
+                    tables[k, i] = scratch
+        zm = self._model_by_group[id(parent)]
+        lg, _ = S.prefill_paged_sharded(
+            zm.cfg, self._params_cells[id(parent)], tokens,
+            parent.cell_pages(), tables, mesh=self.smesh)
+        for sv in parent.shards:
+            sv.stats.prefill_tokens_computed += bucket * s
+        self.metrics.inc("acar_prefill_oneshot_total",
+                         model=parent.model_name,
+                         help="one-shot prefill device programs run "
+                              "for non-chunkable page layouts")
+        self.stats.launches += 1
+        for k in range(nsh):
+            for i, (srv, row, mx) in enumerate(per[k]):
+                target = mx if mx is not None else row
+                target.prefill_pos = s
+                target.logits0 = lg[k][i]
+                srv._prefix_insert(row.ids.tobytes(), target.shared,
+                                   target.tail, target.logits0,
+                                   tokens=s)
+                if self.tracer is not None:
+                    sid = self.tracer.span(
+                        "prefill_chunk", self._trace_id(row),
+                        self.now,
+                        key=None if mx is None else ("m", mx.member),
+                        model=parent.model_name, start=0, tokens=s,
+                        oneshot=1)
+                    self.tracer.kv_insert(
+                        parent.model_name,
+                        hashlib.sha256(row.ids.tobytes()).hexdigest(),
+                        self._trace_id(row), sid)
+        if self.tracer is not None:
+            self._observe_span("prefill", t0)
+        return self.planner.chunk_count(s)
+
+    def _run_decode_group(self, key, items) -> int:
+        _, temperature, cache_len = key
+        t0 = time.perf_counter() if self.tracer is not None else 0.0
+        parent = items[0][0].parent
+        nsh = parent.n_shards
+        nb = items[0][0].table_width(cache_len - self.max_new,
+                                     self.max_new)
+        penalty = 0
+        if self.injector is not None:
+            penalty = self._member_fault_gate(items)
+            if penalty < 0:
+                return 0               # group quarantined pre-launch
+        per = self._per_shard(parent, items,
+                              lambda it: (it[1].admission, it[2].tag))
+        tok0 = {id(lane): len(lane.tokens) for _, _, lane in items} \
+            if self.journal is not None else None
+        bucket = self.planner.decode_bucket(max(len(p) for p in per))
+        # one fused span for the whole group: every shard advances in
+        # the same mesh call, so K must be uniform — take it over all
+        # lanes across shards
+        kl = self._megastep_span([lane for _, _, lane in items])
+        tables = np.empty((nsh, bucket, nb), np.int32)
+        pos = np.full((nsh, bucket), cache_len - self.max_new, np.int32)
+        keys = np.zeros((nsh, bucket, 2), np.int64)
+        steps = np.zeros((nsh, bucket), np.int32)
+        done = np.ones((nsh, bucket), bool)
+        filler = items[0][2].logits    # pad rows sample masked pads
+        live_total = 0
+        logits = []
+        for k in range(nsh):
+            dev = self.smesh.device(k)
+            scratch = parent.shards[k]._scratch[:nb]
+            rows_k = []
+            for i in range(bucket):
+                if i < len(per[k]):
+                    _, row, lane = per[k][i]
+                    # a prefix-cache hit or a stolen member lives on its
+                    # own shard's device already: a no-op copy
+                    rows_k.append(lane.logits.to(dev))
+                    tables[k, i] = lane.block_table
+                    pos[k, i] = cache_len - self.max_new + lane.steps
+                    keys[k, i] = lane.row_key
+                    steps[k, i] = lane.steps
+                    # a lane dropped by a quarantine or shard loss
+                    # earlier this tick decodes masked
+                    done[k, i] = lane.done
+                    live_total += 1
+                else:
+                    rows_k.append(filler.to(dev))
+                    tables[k, i] = scratch
+            logits.append(torch.stack(rows_k))
+        zm = self._model_by_group[id(parent)]
+        emits, dones, next_logits, _ = S.decode_megastep_rows_sharded(
+            zm.cfg, self._params_cells[id(parent)], logits,
+            parent.cell_pages(), tables, pos, keys, steps, done,
+            n_ticks=kl, cache_len=cache_len, temperature=temperature,
+            eos_id=tok.EOS, pad_id=tok.PAD, mesh=self.smesh)
+        # the megastep's only host pulls: (K, B) token ids + done bits
+        # per shard
+        emits = [e.cpu().numpy() for e in emits]
+        dones = [d.cpu().numpy() for d in dones]
+        self.stats.launches += 1
+        self.stats.decode_h2d += 5     # tables, pos, keys, steps, done
+        self.stats.decode_d2h += 2     # emits, dones
+        if (self.injector is not None
+                and all(it[2].tag >= 100 for it in items)
+                and not all(torch.isfinite(
+                    next_logits[k][:len(per[k])].float()).all().item()
+                            for k in range(nsh))):
+            # genuine non-finite member logits (see StepLoopRunner)
+            self._quarantine_group(items, parent.model_name,
+                                   "nan_logits")
+            return kl + penalty
+        for k in range(nsh):
+            for i, (_, row, lane) in enumerate(per[k]):
+                self._replay_megastep(lane, emits[k], dones[k], kl, i)
+                lane.logits = next_logits[k][i]
+        if self.tracer is not None:
+            for k in range(nsh):
+                for _, row, lane in per[k]:
+                    probe = lane.tag < 100
+                    self.tracer.span(
+                        "probe_decode" if probe else "member_decode",
+                        self._trace_id(row), self.now,
+                        key=("p", lane.tag) if probe
+                        else ("m", lane.tag - 100),
+                        member=None if probe else lane.tag - 100,
+                        model=parent.model_name, ticks=kl,
+                        steps=lane.steps, done=int(lane.done))
+            d = time.perf_counter() - t0
+            self.metrics.observe(
+                "acar_span_duration", d,
+                phase="probe_decode" if items[0][2].tag < 100
+                else "ensemble_decode",
+                help="host wall seconds per traced lifecycle phase")
+            self.metrics.observe(
+                "acar_decode_launch_seconds", d,
+                server=parent.model_name,
+                help="wall seconds per megastep decode launch")
+        if self.journal is not None:
+            self.journal.emit(self.now, parent.model_name, [
+                [row.admission, lane.tag, lane.steps, int(lane.done),
+                 lane.tokens[tok0[id(lane)]:]]
+                for k in range(nsh) for _, row, lane in per[k]])
+        self.metrics.set_gauge(
+            "acar_step_bucket_occupancy",
+            live_total / (nsh * bucket), server=parent.model_name,
+            bucket=str(bucket),
+            help="live-lane fill of the last step-decode bucket")
+        return kl + penalty
+
+    # -- observability -------------------------------------------------
+    def _emit_phase_gauges(self) -> None:
+        super()._emit_phase_gauges()
+        counts = [0] * self.smesh.n_shards
+        for row in self.active:
+            counts[row.shard] += 1
+        for k, v in enumerate(counts):
+            self.metrics.set_gauge(
+                "acar_shard_rows_active", v, shard=str(k),
+                help="active rows resident per mesh shard")
+        for srv in [self.probe_sharded] + self._member_sharded:
+            for k, used in srv.per_shard_pages_in_use().items():
+                self.metrics.set_gauge(
+                    "acar_shard_pages_in_use", used, shard=str(k),
+                    model=srv.model_name,
+                    help="KV pool pages in use per mesh shard")
+
+    def kv_stats(self):
+        return {srv.model_name: srv.aggregate_stats()
+                for srv in self._sharded.values()}

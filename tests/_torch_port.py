@@ -18,10 +18,13 @@ through ``serve``) and ``moe`` (the gather-MoE fleet of ``mesh2d_zoo``
 on pages, and the serve CLI's capacity-MoE/MLA fleet on the
 contiguous-cache fallback) and ``vision`` (the serve CLI's fleet with a
 llava member on the contiguous-cache fallback beside llama3-8b on
-pages; whisper's and llava's sampling with frames and patches)::
+pages; whisper's and llava's sampling with frames and patches) and
+``mesh`` (the serving mesh at data=4 and (data 2, model 2): each port
+leg against the reference's same leg, served in a subprocess under
+forced host devices, and against the port's single-device run)::
 
     PYTHONPATH=src:tests:. JAX_PLATFORMS=cpu python tests/_torch_port.py \
-        [engine] [faults] [queued] [hetero] [moe] [vision]
+        [engine] [faults] [queued] [hetero] [moe] [vision] [mesh]
 """
 from __future__ import annotations
 
@@ -1336,6 +1339,315 @@ def frontend_generate_legs(n_prompts: int = 32):
             for arch in ("whisper-medium", "llava-next-mistral-7b")}
 
 
+# ----------------------------------------------------------------------
+# the serving mesh: reference legs under forced host devices
+# ----------------------------------------------------------------------
+# the port's CPU mesh and the reference's forced host devices: enough
+# cells for data=4 and for (data 2, model 2)
+MESH_DEVICES = 4
+
+
+def _mesh_fleets(name: str):
+    """The reference's and the port's fleet ``name`` (``paged_zoo``,
+    ``mesh2d_zoo``, ``hetero_zoo``). The reference's is the harness's
+    own, ``use_pallas`` off, as its mesh legs serve it: its Pallas
+    dispatch has no column-parallel form, and on the CPU the kernels'
+    oracles and the plain path give the same records at these
+    scales."""
+    from harness import simulate
+    probe, ensemble = getattr(simulate, f"{name}_zoo")(seed=0)
+    return (probe, ensemble), torch_zoo(probe, ensemble)
+
+
+def mesh_stream(spec):
+    """A leg's task stream: ``("sharded", n)`` is
+    ``tests/test_sharded_serving.py``'s data=4 stream (16-digit "+ 1"
+    sums, a quarter of them repeats), ``("long", n)`` the reference
+    harness's 24-character duplicate-bearing stream."""
+    kind, n = spec
+    if kind == "long":
+        from harness.simulate import long_prompt_workload
+        return long_prompt_workload(n, 24, seed=0, duplicate_rate=0.15)
+    from repro.data.tasks import Task
+    rng = np.random.default_rng(1)
+    tasks = []
+    for i in range(n):
+        if tasks and rng.random() < 0.25:
+            tasks.append(tasks[int(rng.integers(len(tasks)))])
+            continue
+        digits = "".join(str(rng.integers(10)) for _ in range(16))
+        tasks.append(Task(task_id=f"t{i}", benchmark="x", kind="math",
+                          text=f"{digits} + 1 = ", gold="0",
+                          difficulty=0.0))
+    return tasks
+
+
+def run_mesh_legs(pkg: str, legs: dict, workdir) -> dict:
+    """Serve every leg of ``legs`` (name -> spec, in order) through one
+    package's ``run_stepped`` (``pkg``: "ref" or "port"); returns {name:
+    (engine, result)}. A spec names its ``fleet`` (``paged``,
+    ``mesh2d``, ``hetero``), its ``stream`` (``mesh_stream``), the
+    engine ``knobs`` of ``stepped_pair`` and the ``run`` keywords
+    (``data_shards``, ``model_shards``, ``megastep``); ``plan`` is a
+    list of ``FaultSpec`` dicts; ``crash_of`` names an earlier leg:
+    this one kills a journaled run at 3/4 of that leg's ticks and
+    recovers it with the same keywords. The port's legs run on a CPU
+    mesh of ``MESH_DEVICES`` logical devices; the reference's need as
+    many forced host devices (``reference_mesh_json``)."""
+    from repro.serving.faults import FaultPlan as JPlan
+    from repro.serving.faults import SimulatedCrash as JCrash
+    from repro_torch.serving import FaultPlan, SimulatedCrash
+    if pkg == "port":
+        from repro_torch.launch.mesh import force_device_count
+        force_device_count(MESH_DEVICES, "cpu")
+    workdir = Path(workdir)
+    fleets: dict = {}
+    out: dict = {}
+    for name, leg in legs.items():
+        if leg["fleet"] not in fleets:
+            fleets[leg["fleet"]] = _mesh_fleets(leg["fleet"])
+        tasks = mesh_stream(leg["stream"])
+        ref, port = stepped_pair(fleets[leg["fleet"]], tasks,
+                                 **leg.get("knobs", {}))
+        fn = ref if pkg == "ref" else port
+        kw = dict(leg.get("run", {}))
+        if leg.get("plan"):
+            kw["faults"] = fault_plans(*leg["plan"])[pkg == "port"]
+        if "crash_of" in leg:
+            tick = max(1, out[leg["crash_of"]][1].step.ticks * 3 // 4)
+            plan = (JPlan if pkg == "ref" else FaultPlan).crash_at(tick)
+            jp = workdir / f"{pkg}-{name}.jsonl"
+            try:
+                fn(journal_path=jp, faults=plan, **kw)
+                raise AssertionError(f"{name}: no crash at tick {tick}")
+            except (JCrash, SimulatedCrash):
+                pass
+            out[name] = fn(recover=jp, **kw)
+        else:
+            out[name] = fn(**kw)
+    return out
+
+
+def result_json(res, eng=None) -> dict:
+    """The judge-visible outputs and step accounting of one engine
+    result as JSON (floats keep their bits: an f32 round-trips through
+    a Python float)."""
+    st = res.step
+    out = dict(
+        sigma=[float(x) for x in res.sigma],
+        modes=[int(m) for m in res.modes],
+        final_answers=list(res.final_answers),
+        member_answers=[list(m) for m in res.member_answers],
+        probe_texts=[list(p) for p in res.probe_texts],
+        faults=res.faults, restored_rows=int(res.restored_rows),
+        step={f: int(getattr(st, f)) for f in (
+            "ticks", "retired", "requeues", "retries", "aborted",
+            "restored", "decode_tokens")},
+        timeline=[[int(k), [int(x) for x in v]]
+                  for k, v in sorted(st.timeline.items())],
+        placements=[int(res.metrics.get("acar_shard_placements_total",
+                                        shard=str(k)))
+                    for k in range(MESH_DEVICES)])
+    return out
+
+
+def result_from_json(d: dict):
+    """A result object with the fields ``check_served_equal`` and the
+    record materialisations read."""
+    import types
+    step = types.SimpleNamespace(
+        **d["step"], timeline={k: tuple(v) for k, v in d["timeline"]})
+    return types.SimpleNamespace(
+        sigma=np.asarray(d["sigma"], np.float32),
+        modes=np.asarray(d["modes"], np.int32),
+        final_answers=d["final_answers"],
+        member_answers=d["member_answers"],
+        probe_texts=d["probe_texts"], faults=d["faults"],
+        restored_rows=d["restored_rows"], step=step, spans=None,
+        span_head=None, placements=d["placements"])
+
+
+def forced_subprocess(snippet: str, count: int = MESH_DEVICES,
+                      timeout: int = 1200) -> str:
+    """Run ``snippet`` in a python subprocess under ``count`` forced
+    host devices (``tests/conftest.py``'s ``forced_devices``: jax locks
+    its device count at first init) and return its stdout."""
+    import os
+    import subprocess
+    from repro.xla_flags import merge_host_device_count
+    root = Path(__file__).resolve().parent.parent
+    env = dict(os.environ)
+    env["XLA_FLAGS"] = merge_host_device_count(env.get("XLA_FLAGS"),
+                                               count)
+    env["JAX_PLATFORMS"] = "cpu"
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(root / "src"), str(root / "tests"), str(root)]
+        + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    proc = subprocess.run([sys.executable, "-c", snippet], env=env,
+                          text=True, capture_output=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(
+            f"forced-device subprocess failed (exit {proc.returncode}):"
+            f"\n{proc.stderr[-4000:]}")
+    return proc.stdout
+
+
+def reference_mesh_json(legs: dict, cache=None) -> dict:
+    """The reference's results of ``legs`` (``run_mesh_legs``), served
+    in a subprocess under ``MESH_DEVICES`` forced host devices: {name:
+    ``result_json``}. ``cache``, a JSON file path, is read when it holds
+    the same legs and written otherwise."""
+    import json
+    if cache is not None and Path(cache).is_file():
+        got = json.loads(Path(cache).read_text())
+        if got.get("legs") == legs:
+            return got["results"]
+    snippet = (
+        "import json, tempfile\n"
+        "import _torch_port as tp\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        f"    out = tp.run_mesh_legs('ref', json.loads({json.dumps(json.dumps(legs))}), d)\n"
+        "    print('MESHJSON' + json.dumps(\n"
+        "        {k: tp.result_json(r) for k, (_, r) in out.items()}))\n")
+    text = forced_subprocess(snippet)
+    line = next(ln for ln in text.splitlines()
+                if ln.startswith("MESHJSON"))
+    results = json.loads(line[len("MESHJSON"):])
+    if cache is not None:
+        Path(cache).write_text(json.dumps({"legs": legs,
+                                           "results": results}))
+    return results
+
+
+def check_mesh_leg(name, leg, jdict, tres, member_names,
+                   single=None) -> None:
+    """One port mesh leg against the reference's same leg (``jdict``,
+    its ``result_json``): zero mismatches in sigma, mode, answers,
+    member answers and probe texts, equal record hashes and chain heads,
+    equal fault events, restored rows, step accounting and placements;
+    and, given the port's single-device result of the same stream
+    (``single``), equal outputs and chain heads to it."""
+    import json
+    tasks = mesh_stream(leg["stream"])
+    jres = result_from_json(jdict)
+    mism = _mismatches(jres, tres, len(tasks))
+    assert all(not v for v in mism.values()), (name, mism)
+    check_records_against_reference(name, member_names,
+                                    [(tasks, jres, tres)])
+    assert json.loads(json.dumps(tres.faults)) == jres.faults, name
+    assert tres.restored_rows == jres.restored_rows, name
+    for f, v in jdict["step"].items():
+        assert getattr(tres.step, f) == v, (name, f)
+    assert {k: tuple(v) for k, v in tres.step.timeline.items()} == \
+        jres.step.timeline, name
+    assert result_json(tres)["placements"] == jres.placements, name
+    if single is not None:
+        check_port_runs_equal(name, tasks, single, tres, member_names)
+
+
+def mesh_legs(n_tasks: int = 200, cache=None) -> dict:
+    """The 200-task legs of the reference harness's mesh checks, each
+    port leg against the same reference leg (served under forced host
+    devices) and against the port's single-device run of its stream:
+    ``run_sharded_equivalence`` (data=4), the sharded
+    ``run_megastep_equivalence`` (K 4 and 16 at data=4), the data=4
+    legs of ``run_crash_recovery_equivalence`` (kill at 3/4, recover)
+    and of ``run_degraded_fleet`` (the shard loss alone, and the full
+    degraded plan twice), ``run_hetero_equivalence``'s data4 leg and
+    every leg of ``run_mesh2d_equivalence`` (2 x 2, K 4, "auto",
+    recovered at 3/4). ``cache``: a JSON file of the reference's
+    results (``reference_mesh_json``). Returns {leg: callable}."""
+    long = ("long", n_tasks)
+    knobs = dict(max_new_tokens=6, chunk_tokens=8, batch_size=8)
+    k2d = dict(max_new_tokens=6, chunk_tokens=4, batch_size=8)
+    d4 = dict(data_shards=4)
+    m22 = dict(data_shards=2, model_shards=2)
+    loss = [dict(tick=6, site="shard_loss", shard=1)]
+
+    def degraded(names):
+        return [dict(tick=2, site="member_launch", model=names[0]),
+                dict(tick=4, site="member_nan", model=names[0]),
+                dict(tick=7, site="member_nan", model=names[1]),
+                dict(tick=10, site="shard_loss", shard=2)]
+
+    paged = [m.name for m in _mesh_fleets("paged")[0][1]]
+    legs = {
+        "paged single": dict(fleet="paged", stream=long, knobs=knobs),
+        "sharded data4": dict(fleet="paged", stream=long, knobs=knobs,
+                              run=d4),
+        "megastep K4 data4": dict(fleet="paged", stream=long,
+                                  knobs=knobs, run=dict(d4, megastep=4)),
+        "megastep K16 data4": dict(fleet="paged", stream=long,
+                                   knobs=knobs,
+                                   run=dict(d4, megastep=16)),
+        "crash data4 recovered@3/4": dict(
+            fleet="paged", stream=long, knobs=knobs, run=d4,
+            crash_of="sharded data4"),
+        "degraded data4 shard loss": dict(
+            fleet="paged", stream=long, knobs=knobs, run=d4, plan=loss),
+        "degraded data4 full plan": dict(
+            fleet="paged", stream=long, knobs=knobs, run=d4,
+            plan=degraded(paged)),
+        "hetero single": dict(fleet="hetero", stream=long, knobs=knobs),
+        "hetero data4": dict(fleet="hetero", stream=long, knobs=knobs,
+                             run=d4),
+        "mesh2d single": dict(fleet="mesh2d", stream=long, knobs=k2d),
+        "mesh2d 2x2": dict(fleet="mesh2d", stream=long, knobs=k2d,
+                           run=m22),
+        "mesh2d 2x2 K4": dict(fleet="mesh2d", stream=long, knobs=k2d,
+                              run=dict(m22, megastep=4)),
+        "mesh2d 2x2 auto": dict(fleet="mesh2d", stream=long, knobs=k2d,
+                                run=dict(m22, megastep="auto")),
+        "mesh2d 2x2 recovered@3/4": dict(
+            fleet="mesh2d", stream=long, knobs=k2d, run=m22,
+            crash_of="mesh2d 2x2"),
+    }
+    # the leg each is held to in the port itself: its stream's
+    # single-device run (the full degraded plan changes outputs, so it
+    # is held to its own replay instead)
+    single_of = {n: f"{leg['fleet']} single" for n, leg in legs.items()
+                 if "single" not in n}
+    single_of["degraded data4 full plan"] = None
+    state: dict = {}
+
+    def served():
+        if not state:
+            with tempfile.TemporaryDirectory(prefix="acar-mesh-") as d:
+                state["ref"] = reference_mesh_json(legs, cache)
+                with one_torch_thread():
+                    state["port"] = run_mesh_legs("port", legs, d)
+                    # the degraded plan's replay
+                    replay = {"degraded replay": legs[
+                        "degraded data4 full plan"]}
+                    state["replay"] = run_mesh_legs("port", replay, d)
+        return state
+
+    def leg_check(name):
+        def run():
+            st = served()
+            leg = legs[name]
+            teng, tres = st["port"][name]
+            names = [m.name for m in teng.ensemble]
+            base = single_of.get(name)
+            check_mesh_leg(name, leg, st["ref"][name], tres, names,
+                           st["port"][base][1] if base else None)
+            if name == "degraded data4 full plan":
+                check_port_runs_equal(
+                    name, mesh_stream(leg["stream"]), tres,
+                    st["replay"]["degraded replay"][1], names)
+                assert tres.faults == \
+                    st["replay"]["degraded replay"][1].faults
+            if "run" in leg:
+                placed = result_json(tres)["placements"]
+                return (f"{tres.step.ticks} ticks, placements {placed}"
+                        + (f", restored {tres.restored_rows}"
+                           if tres.restored_rows else ""))
+            return f"{tres.step.ticks} ticks"
+        return run
+
+    return {f"mesh {n}": leg_check(n) for n in legs}
+
+
 def engine_legs():
     """The 200-task legs of the engine gate: (name, callable)."""
     # the prompt lengths of tier-1's legs: 24 characters stepped, 21
@@ -1467,9 +1779,11 @@ def main(argv=None) -> int:
     megastep 1 and "auto", and the serve CLI's MoE/MLA fleet stepped and
     queued), ``vision`` (the serve CLI's llava fleet stepped and queued,
     and whisper's and llava's ``generate`` / ``generate_samples`` with
-    frames and patches), or all six when no group is named."""
+    frames and patches), ``mesh`` (the serving mesh's legs), or all
+    seven when no group is named."""
     groups = list(argv if argv is not None else sys.argv[1:]) \
-        or ["engine", "faults", "queued", "hetero", "moe", "vision"]
+        or ["engine", "faults", "queued", "hetero", "moe", "vision",
+            "mesh"]
     failed = 0
     with tempfile.TemporaryDirectory(prefix="acar-port-legs-") as d:
         legs = []
@@ -1489,6 +1803,12 @@ def main(argv=None) -> int:
         if "vision" in groups:
             legs += list(vision_fleet_legs().items())
             legs += list(frontend_generate_legs().items())
+        if "mesh" in groups:
+            # ACAR_MESH_REFERENCE names a file that keeps the reference's
+            # 200-task mesh results between runs
+            import os
+            legs += list(mesh_legs(
+                cache=os.environ.get("ACAR_MESH_REFERENCE")).items())
         for name, leg in legs:
             t = time.perf_counter()
             sampling = "generate" in name     # no engine, no records

@@ -49,11 +49,16 @@ def test_run_stepped_matches_reference(fleets):
 def test_run_stepped_rejects_unported_options(fleets):
     _, (tprobe, tens), tasks = fleets
     eng = BatchedACAREngine(ACARConfig(), tprobe, tens, device="cpu")
-    # faults, journal_path and tracer are ported
-    # (tests/test_torch_faults.py, test_torch_recovery.py and
-    # test_torch_tracing.py); the sharded loop is not
-    with pytest.raises(NotImplementedError):
+    # faults, journal_path, tracer and the sharded loop are ported
+    # (tests/test_torch_faults.py, test_torch_recovery.py,
+    # test_torch_tracing.py, test_torch_engine_sharded.py); a mesh needs
+    # its logical devices first, and model_shards needs data_shards
+    from repro_torch.launch.mesh import clear_forced_devices
+    clear_forced_devices()
+    with pytest.raises(RuntimeError, match="force_device_count"):
         eng.run_stepped([torch_task(tasks[0])], data_shards=2)
+    with pytest.raises(ValueError, match="data_shards"):
+        eng.run_stepped([torch_task(tasks[0])], model_shards=2)
 
 
 # ----------------------------------------------------------------------

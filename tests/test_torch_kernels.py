@@ -342,7 +342,7 @@ def test_cpu_tensors_take_the_plain_versions_without_launching():
         "fused_swiglu": 0, "decode_attention": 0,
         "paged_decode_attention_quant": 0, "decode_attention_quant": 0,
         "selective_scan": 0, "selective_scan_bwd": 0, "rglru_scan": 0,
-        "rglru_scan_bwd": 0}
+        "rglru_scan_bwd": 0, "swiglu_gate_up": 0, "swiglu_down": 0}
 
 
 def test_wrappers_raise_off_the_cpu_instead_of_falling_back():

@@ -83,13 +83,57 @@ def test_serve_traced_queued_report_matches_reference(fleets, tmp_path):
 
 def test_serve_refuses_what_is_not_ported(fleets):
     _, (tprobe, tens), tasks = fleets
-    # the sharded loop, through serve and through the CLI (which
-    # refuses it before building a fleet)
-    with pytest.raises(NotImplementedError):
+    # the sharded loop is ported (tests/test_torch_engine_sharded.py):
+    # serve refuses a mesh with no logical devices to place it on, and
+    # the CLI a shard count below one, before building a fleet
+    from repro_torch.launch.mesh import clear_forced_devices
+    clear_forced_devices()
+    with pytest.raises(RuntimeError, match="force_device_count"):
         tserve.serve([torch_task(tasks[0])], tprobe, tens, ACARConfig(),
                      verbose=False, device="cpu", data_shards=2)
-    with pytest.raises(NotImplementedError):
-        tserve.main(["--shards", "2"], device="cpu")
+    with pytest.raises(ValueError, match="n >= 1"):
+        tserve.main(["--shards", "0"], device="cpu")
+    clear_forced_devices()
+
+
+def test_serve_cli_shards_equals_the_step_loop(monkeypatch):
+    """``main(["--shards", "2"])`` serves the CLI's default fleet
+    (reduced, two training steps) on a data-sharded mesh of two CPU
+    cells: the same report, answers, modes and sigma as the unsharded
+    step loop, rows placed on both shards, and no shard's pool holds
+    more than its scratch region and prefix cache afterwards."""
+    import numpy as np
+    from _torch_port import result_json
+    from repro_torch.launch.mesh import clear_forced_devices
+    runs = []
+
+    class Engine(tserve.BatchedACAREngine):
+        def run_stepped(self, *a, **kw):
+            res = super().run_stepped(*a, **kw)
+            runs.append((self, res))
+            return res
+
+    monkeypatch.setattr(tserve, "BatchedACAREngine", Engine)
+    argv = ["--tasks", "8", "--train-steps", "2", "--batch-size", "4"]
+    try:
+        sharded = tserve.main(argv + ["--shards", "2"], device="cpu")
+    finally:
+        clear_forced_devices()
+    plain = tserve.main(argv + ["--step-loop"], device="cpu")
+    for report in (sharded, plain):
+        del report["wall_ms"]
+    assert sharded == plain
+    (eng, res), (_, want) = runs
+    assert res.final_answers == want.final_answers
+    assert list(res.modes) == list(want.modes)
+    np.testing.assert_array_equal(res.sigma, want.sigma)
+    placed = result_json(res)["placements"]
+    assert all(placed[:2]) and not any(placed[2:]) and sum(placed) >= 8
+    assert eng._mesh_servers
+    for srv in eng._mesh_servers:
+        for sv in srv.shards:
+            cache = sum(e.pages_held for e in sv._prefix.values())
+            assert sv.pool.pages_in_use == sv._scratch.size + cache
 
 
 def test_parse_member_matches_reference():
