@@ -41,18 +41,24 @@ Phases (each raises on failure, and the script then exits non-zero):
    SwiGLU at the shapes phase 12 gives it (mixtral-8x22b's experts, d
    6144 / F 16384, over a decode tick's 8 rows and a 256-token chunk;
    deepseek-v2-236b's dense layer 0, d 5120 / F 12288, over a 97-token
-   prompt) and in f32 at d 5120 and 6144, whose 20- and 24-column
-   instantiations must give the 16-column one's bits on zero-padded
-   inputs; and hold, check bit for bit and time kernel 4 at
-   whisper-medium's decode (MHA, H 16, d 64, 8 rows of 32 positions)
-   and kernel 3 at llava-next-mistral-7b's prefill (d 4096 / F 14336
+   prompt) and in f32 at d 5120, 6144 and 8192 (the two stage kernels,
+   x streamed through shared memory in 1024-column chunks: zero-padded
+   inputs must give the unpadded call's bits); and hold, check bit for
+   bit and time kernel 4 at whisper-medium's decode (MHA, H 16, d 64,
+   8 rows of 32 positions) and kernel 3 at llava-next-mistral-7b's
+   prefill (d 4096 / F 14336
    over 1152 patch positions and 97 text tokens), the shapes phase 13
    gives them; and hold kernel 3's stages as the serving mesh calls
    them (``ops.swiglu_gate_up`` on a column slice, ``ops.swiglu_down``
    over the gathered h): in bf16 and f32 the column slices' h equal the
    unsliced call's bit for bit and gate_up then down equals the fused
-   call bit for bit (f32: the fused CUDA-core kernel), each stage
-   against its plain version, timed at llama3-8b's F/2;
+   call bit for bit, each stage against its plain version, timed at
+   llama3-8b's F/2; and hold and time the column-invariant projection
+   (``ops.projection``, every product against a column-split weight) at
+   the mesh's and phase 5's decode shapes against ``torch.matmul``, its
+   column slices bit for bit the unsliced call's (cuBLAS's difference
+   logged); and hold and time kernels 1, 4, 5 and 6 at more than 8 query
+   heads per kv head (granite-34b's G 48 at d 128; G 12 at d 64);
 4. reference — a reduced float32 model on the card agrees with the same
    calls on the CPU, where every kernel runs its plain version: chunked
    prefill and a paged decode step; one-shot prefill and decode steps
@@ -63,7 +69,7 @@ Phases (each raises on failure, and the script then exits non-zero):
    (frames) and llava-next-mistral-7b (patches): forward, prefill, two
    decode steps and greedy tokens;
 5. serve — the stepped ACAR engine serves 16 long-prompt tasks through
-   a full-width smollm-135m fleet cut to its first 15 of 30 layers
+   a full-width smollm-135m fleet cut to its first 10 of 30 layers
    (``SERVE_LAYERS``; bf16, seed-initialised weights): every
    task retires, its three kernels launch during the run, no page leaks
    outside the prefix cache, and a second run reproduces sigma, modes
@@ -150,7 +156,13 @@ Phases (each raises on failure, and the script then exits non-zero):
    twice, every task retired, its kernels and no other, no page or lane
    leaked, the rerun's results and chain head identical; whether the
    stepped head equals the baseline's is printed (a finding); each
-   fleet freed before the next is built; (c) ``launch.serve.main`` for
+   fleet freed before the next is built; (d) granite-34b (2 of its 88
+   layers; 48 query heads on one kv head, G 48) behind the smollm-135m
+   probe and its twin, over 8 tasks, stepped and through the
+   ``paged=False`` queued baseline, each twice with the same gates, the
+   decodes seen at G 48; every placed model's param bytes equal
+   ``launch.dryrun.account``'s, each pool printed beside the cache
+   ``account`` counts for its positions; (c) ``launch.serve.main`` for
    both fleets (reduced models trained 2 steps, 8 tasks), and for the
    default fleet with ``--step-loop`` and with ``--shards 4`` (the step
    loop on a data-sharded mesh of logical devices on the one card):
@@ -172,11 +184,12 @@ Phases (each raises on failure, and the script then exits non-zero):
    24 layers) through ``generate`` over 8 rows of 1500 synthetic frames
    (4-token prompts, 28 greedy tokens) and ``generate_samples`` (3
    samples of 4 prompts at 0.9), each twice bit for bit, kernel 4 once a
-   decoder layer and decode step and no other kernel; llava-next-
-   mistral-7b at its first 10 of 32 layers through ``generate`` over 4
-   rows of 1152 synthetic patches and 97 text tokens (8 new tokens,
-   twice bit for bit, kernel 3 once a layer on the prefill, no kernel
-   on the ring decodes), then phase 5's stream through the probe, llava
+   decoder layer and decode step, the projection, and no other kernel;
+   llava-next-mistral-7b at its first 10 of 32 layers through
+   ``generate`` over 4 rows of 1152 synthetic patches and 97 text tokens
+   (8 new tokens, twice bit for bit, kernel 3 once a layer on the
+   prefill, the projection, no attention kernel on the ring decodes),
+   then phase 5's stream through the probe, llava
    and the probe's twin, stepped (llava on the contiguous-cache member
    fallback) and the ``paged=False`` queued baseline, each twice
    (``serve_twice``'s gates); walls, launches and the peak memory
@@ -194,11 +207,12 @@ Phases (each raises on failure, and the script then exits non-zero):
    published widths, 10 layers, bf16: kernel 3 as its two stages at F/2
    (7168, 5504) around the gather and never fused, kernels 1 and 2 at
    each column's head counts (16 / 4 and 16 / 16), the peak memory
-   printed, and the probe's logits over one prefill chunk and one
-   decode tick on a (data 1, model 2) mesh against one device's, their
-   largest difference printed (cuBLAS's column-parallel projections
-   are not column-slice invariant, so on the card the mesh is not bit
-   for bit the single-device program; the head gates decide); (c) the reduced f32 ``mesh2d`` fleet (a gather-MoE member
+   printed, every column-split projection at a column's N / 2, and the
+   probe's logits over one prefill chunk and one decode tick on a (data
+   1, model 2) mesh against one device's, their largest difference 0
+   (the projections run the column-invariant projection kernel on one
+   device and on each column alike); (c) the reduced f32 ``mesh2d``
+   fleet (a gather-MoE member
    beside a dense one) at (2, 2) and the reduced int8-KV fleet at data 4
    (kernel 5), 24 tasks each.
 
@@ -693,19 +707,21 @@ def frontend_shape_checks(torch) -> dict:
     return out
 
 
-# kernel 3 at the shapes phase 12 gives it, and in f32 at the widths of
-# the 20- and 24-column instantiations: (label, dtype, T, d_model, d_ff,
-# timed launches). mixtral-8x22b's gather experts run over a decode
-# tick's 8 rows and a 32-token chunk of 8 rows; deepseek-v2-236b's dense
-# layer 0 over one 97-token prompt on the contiguous-cache fallback. The
-# f32 kernel keeps 8 rows a CTA on CUDA cores (tens of ms at these
-# widths), so it is timed over 5 launches.
+# kernel 3 at the shapes phase 12 gives it, and in f32 at d_model 5120
+# and 6144 (where a one-kernel f32 version took 91.42 and 135.28 ms)
+# and 8192 (past that version's 6144 limit): (label, dtype, T, d_model,
+# d_ff, timed launches). mixtral-8x22b's gather experts run over a
+# decode tick's 8 rows and a 32-token chunk of 8 rows; deepseek-v2-236b's
+# dense layer 0 over one 97-token prompt on the contiguous-cache
+# fallback. The f32 stage kernels keep 8 rows a CTA on CUDA cores, so
+# they are timed over 5 launches.
 MOE_SWIGLU_SHAPES = (
     ("mixtral-8x22b decode tick", "bfloat16", 8, 6144, 16384, 50),
     ("mixtral-8x22b prefill chunk", "bfloat16", 256, 6144, 16384, 50),
     ("deepseek-v2-236b layer 0", "bfloat16", PROMPT, 5120, 12288, 50),
     ("f32 d 5120", "float32", 64, 5120, 12288, 5),
     ("f32 d 6144", "float32", 256, 6144, 16384, 5),
+    ("f32 d 8192", "float32", 64, 8192, 4096, 5),
 )
 
 
@@ -760,12 +776,12 @@ def moe_swiglu_checks(torch) -> dict:
 
 
 def f32_width_bits(torch, gen) -> dict:
-    """The f32 kernel's instantiations agree bit for bit: x, Wg and Wu
-    zero-padded from d_model 4096 (the 16-column instantiation) to 5120
-    and 6144 (20 and 24 columns) add exact zeros to every gate and up
-    sum and leave h as it was, so the first 4096 output columns must
-    equal the unpadded call's bits (column c's sum is the same loop in
-    every instantiation)."""
+    """The f32 stage kernels give the same bits whatever the count of
+    the gate_up stage's 1024-column chunks of x: x, Wg and Wu
+    zero-padded from d_model 4096 (4 chunks) to 5120, 6144 and 8192 (5,
+    6 and 8) add exact zeros to every gate and up sum and leave h as it
+    was, so the first 4096 output columns must equal the unpadded call's
+    bits (each sum runs over d in one order)."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops
     t, d, f = 64, 4096, 1024
@@ -773,17 +789,20 @@ def f32_width_bits(torch, gen) -> dict:
                  for sh in ((t, d), (d, f), (d, f)))
     wd = torch.randn((f, d), generator=gen, device="cuda") / f ** 0.5
     base = ops.fused_swiglu(x, wg, wu, wd)
-    for wide in (5120, 6144):
+    for wide in F32_PADDED:
         p = wide - d
         got = ops.fused_swiglu(F.pad(x, (0, p)), F.pad(wg, (0, 0, 0, p)),
                                F.pad(wu, (0, 0, 0, p)), F.pad(wd, (0, p)))
         check_same_rows(f"fused_swiglu[float32] d {d} zero-padded to "
                         f"{wide}, columns 0-{d - 1}", got[:, :d], base)
-    log(f"fused_swiglu[float32]: d {d} zero-padded to 5120 and 6144 (20 "
-        "and 24 columns a thread) gives the 16-column instantiation's "
-        "bits")
-    return dict(tokens=t, d_model=d, d_ff=f, padded_to=[5120, 6144],
+    log(f"fused_swiglu[float32]: d {d} zero-padded to {F32_PADDED} "
+        "(more chunks of x through shared memory) gives the unpadded "
+        "call's bits")
+    return dict(tokens=t, d_model=d, d_ff=f, padded_to=list(F32_PADDED),
                 bitwise=True)
+
+
+F32_PADDED = (5120, 6144, 8192)
 
 
 def swiglu_case(torch, gen, dtype):
@@ -2377,10 +2396,12 @@ def run_moe_reference_phase(torch):
         torch.cuda.synchronize()
         launches = ops.launch_counts()
         if launches["fused_swiglu"] != swiglu_calls or any(
-                v for k, v in launches.items() if k != "fused_swiglu"):
+                v for k, v in launches.items()
+                if k not in ("fused_swiglu", "projection")) or (
+                    launches["projection"] <= 0):
             raise AssertionError(f"reference check: {label} launched "
                                  f"{launches}, not {swiglu_calls} SwiGLU "
-                                 "calls alone")
+                                 "calls and the projection alone")
         for i, (a, bref) in enumerate(zip(got, want)):
             a = a.cpu()
             if a.shape != bref.shape or not torch.isfinite(a).all():
@@ -2394,8 +2415,8 @@ def run_moe_reference_phase(torch):
             what = "prefill" if i == 0 else f"decode step {i}"
             log(f"reference: {label} {what} logits card vs cpu max abs "
                 f"diff {err:.3e}")
-        log(f"reference: {label}: {swiglu_calls} fused_swiglu calls, no "
-            "other kernel")
+        log(f"reference: {label}: {swiglu_calls} fused_swiglu calls, "
+            f"{launches['projection']} projections, no other kernel")
 
 
 def run_frontend_reference_phase(torch):
@@ -2449,7 +2470,9 @@ def run_frontend_reference_phase(torch):
         else:
             # forward, prefill and generate's prefill, kernel 3 a layer
             need = {"fused_swiglu": 3 * cfg.num_layers}
-        if launches != dict({k: 0 for k in launches}, **need):
+        need["projection"] = launches["projection"]   # wq, wk, wv, lm_head
+        if launches != dict({k: 0 for k in launches}, **need) or (
+                need["projection"] <= 0):
             raise AssertionError(f"reference check: {arch} launched "
                                  f"{launches}, not {need} alone")
         for i, (a, bref) in enumerate(zip(got, want)):
@@ -2478,12 +2501,14 @@ def run_frontend_reference_phase(torch):
 # runs its experts as batched matmuls (as the reference, outside any
 # kernel); deepseek-v2's dense layer 0 and the gather experts run kernel 3
 TRAIN_REFERENCE_KERNELS = {
-    "smollm-135m": ("fused_swiglu",),
-    "falcon-mamba-7b": ("selective_scan", "selective_scan_bwd"),
-    "recurrentgemma-2b": ("fused_swiglu", "rglru_scan", "rglru_scan_bwd"),
-    "mixtral-8x22b": (),
-    "mixtral-8x22b:gather": ("fused_swiglu",),
-    "deepseek-v2-236b": ("fused_swiglu",),
+    "smollm-135m": ("fused_swiglu", "projection"),
+    "falcon-mamba-7b": ("selective_scan", "selective_scan_bwd",
+                        "projection"),
+    "recurrentgemma-2b": ("fused_swiglu", "rglru_scan", "rglru_scan_bwd",
+                          "projection"),
+    "mixtral-8x22b": ("projection",),
+    "mixtral-8x22b:gather": ("fused_swiglu", "projection"),
+    "deepseek-v2-236b": ("fused_swiglu", "projection"),
 }
 
 
@@ -2808,10 +2833,12 @@ def report_profile(events, t_read: float, wall: float,
     unprofiled run's wall time: the device work is the same, so its
     busy share there is busy / wall. With ``swiglu_calls`` (the bf16
     fused_swiglu wrapper calls the profiled run made), check that each
-    ran as the two tensor-core stages; with ``launches`` (the wrappers'
-    counts over the profiled run), that each call of the split-KV
-    decodes and of the two scans (forward, backward) ran as exactly one
-    kernel of its name."""
+    ran as the two tensor-core stages (and each bf16 projection, counted
+    in ``launches``, as one more ``swiglu_gemm_kernel``: it runs the
+    down stage's kernel); with ``launches`` (the wrappers' counts over
+    the profiled run), that each call of the split-KV decodes and of the
+    two scans (forward, backward) ran as exactly one kernel of its
+    name."""
     def dev_us(e):
         return e.dev_us
     events = sorted(events, key=dev_us, reverse=True)
@@ -2859,18 +2886,59 @@ def report_profile(events, t_read: float, wall: float,
             log(f"profile: {ran} {wrapper} calls = {ran} {kernel}s, "
                 f"{ms:.2f} ms of device time")
     if swiglu_calls is not None:
-        stages = sum(e.count for e in events
-                     if "swiglu_gemm_kernel" in e.key)
-        old = sum(e.count for e in events
-                  if "fused_swiglu_kernel" in e.key)
-        if stages != 2 * swiglu_calls or old:
+        gemms = sum(e.count for e in events
+                    if "swiglu_gemm_kernel" in e.key)
+        f32 = sum(e.count for e in events if "_f32_kernel" in e.key)
+        proj = (launches or {}).get("projection", 0)
+        if gemms != 2 * swiglu_calls + proj or f32:
             raise AssertionError(
-                f"profile: {swiglu_calls} bf16 fused_swiglu calls ran "
-                f"{stages} tensor-core stage kernels and {old} CUDA-core "
-                "ones")
-        log(f"profile: {swiglu_calls} fused_swiglu calls = {stages} "
-            "tensor-core stage kernels (gate_up + down), no other kernel "
-            "under the wrapper")
+                f"profile: {swiglu_calls} bf16 fused_swiglu calls and "
+                f"{proj} projections ran {gemms} tensor-core GEMM kernels "
+                f"and {f32} CUDA-core ones")
+        log(f"profile: {swiglu_calls} fused_swiglu calls and {proj} "
+            f"projections = {gemms} tensor-core GEMM kernels (gate_up + "
+            "down, and one each projection), no other kernel under the "
+            "wrappers")
+
+
+def account_params(label: str, cfg, params) -> int:
+    """``launch.dryrun.account``'s param bytes for ``cfg`` beside the
+    bytes the placed tensors ``params`` take: equal, or raise. Returns
+    the bytes."""
+    from repro_torch.launch.dryrun import account, tree_bytes
+    want = account(cfg, pool_shape(S_WAVE))["param_bytes"]
+    placed = tree_bytes(params)
+    if placed != want:
+        raise AssertionError(f"{label}: the placed params take {placed} "
+                             f"bytes, account() says {want}")
+    log(f"{label}: {cfg.name} ({cfg.num_layers} layers) params "
+        f"{placed} bytes placed = account()'s {want}")
+    return placed
+
+
+def pool_shape(positions: int, rows: int = 1):
+    """A decode ``InputShape`` of ``rows`` rows of ``positions``: the
+    cache ``account`` counts beside a KV pool's."""
+    from repro_torch.configs.base import InputShape
+    return InputShape("pool", int(positions), int(rows), "decode")
+
+
+def account_pools(label: str, engine, models) -> None:
+    """Each member server's pool bytes (pages x bytes a page) beside the
+    cache ``account`` counts for the same positions of one row of its
+    model (equal for dense pages; ring pages and lanes hold less than a
+    contiguous cache of their positions, int8 pages their codes and
+    scales). Printed, not a gate."""
+    from repro_torch.launch.dryrun import account
+    cfgs = {m.name: m.cfg for m in models}
+    for name, st in engine.kv_stats().items():
+        if name not in cfgs or not st.pool_pages:
+            continue
+        pos = st.pool_pages * st.page_size
+        acc = account(cfgs[name], pool_shape(pos))["cache_bytes"]
+        log(f"{label}: {name} pool {st.pool_pages} pages x {st.page_bytes} "
+            f"bytes = {st.pool_pages * st.page_bytes} bytes; account()'s "
+            f"cache for {pos} positions of one row: {acc} bytes")
 
 
 def full_width_params(torch):
@@ -2893,7 +2961,7 @@ def full_width_params(torch):
 
 # the kernels the stepped engine runs over a dense fleet
 STEPPED_KERNELS = ("paged_decode_attention", "chunked_prefill_attention",
-                   "fused_swiglu")
+                   "fused_swiglu", "projection")
 
 
 def stepped_fleet(cfg, params):
@@ -2946,9 +3014,12 @@ def run_serve_phase(torch, gpu_name: str, cfg, params):
     runs to: the chain head of the run's records, its loop ticks and
     its wall."""
     tasks, member_names, serve = stepped_fleet(cfg, params)
-    launches, (_, res, wall), _, head = serve_twice(
+    for i, p in enumerate(params):
+        account_params(f"serve[params {i}]", cfg, p)
+    launches, (eng, res, wall), _, head = serve_twice(
         torch, "serve", "stepped", serve, STEPPED_KERNELS, tasks,
         member_names, rerun=profiled_rerun(torch, serve))
+    account_pools("serve", eng, [eng.probe] + list(eng.ensemble))
     st = res.step
     log(f"serve: {len(tasks)} tasks on {gpu_name}: wall {wall:.3f} s, "
         f"{len(tasks) / wall:.2f} tasks/s, {st.decode_tokens} decode "
@@ -3228,11 +3299,12 @@ def run_fault_phase(torch, smi: str, cfg, params, served: dict) -> dict:
 # the kernels each path must launch, and no other
 WAVE_PATHS = {
     "wave_paged": ("paged_decode_attention", "fused_swiglu",
-                   "paged_decode_attention_quant"),
+                   "paged_decode_attention_quant", "projection"),
     "wave_dense": ("fused_swiglu", "decode_attention",
-                   "decode_attention_quant"),
+                   "decode_attention_quant", "projection"),
     "stepped_int8": ("paged_decode_attention", "chunked_prefill_attention",
-                     "fused_swiglu", "paged_decode_attention_quant"),
+                     "fused_swiglu", "paged_decode_attention_quant",
+                     "projection"),
 }
 
 
@@ -3305,8 +3377,9 @@ def run_wave_phase(torch, gpu_name: str, cfg, params) -> dict:
 # phase 8: the audit substrate — Algorithm 1 through the orchestrator
 # ----------------------------------------------------------------------
 # the kernels a TorchModelBackend's generate launches: the one-shot
-# prefill's MLP and the decode over its contiguous cache
-AUDIT_KERNELS = ("fused_swiglu", "decode_attention")
+# prefill's MLP, the decode over its contiguous cache and the
+# column-split projections (wq, wk, wv, the decode MLP's w_gate / w_up)
+AUDIT_KERNELS = ("fused_swiglu", "decode_attention", "projection")
 
 
 def link_chain(record_hashes) -> str:
@@ -3329,10 +3402,12 @@ AUDIT_TRAIN_STEPS = 20
 # task or one micro-batch at a time); at full depth phases 8 and 10
 # took 258-310 s of the script's 800 s budget and phase 6 73-99 s
 AUDIT_LAYERS = 10
-# phases 5 and 9 serve phase 5's models cut to their first 15 of 30
-# layers (since phase 14 was added): at full depth they took 162 s of
-# the script's budget on the faster host, host-bound by layer
-SERVE_LAYERS = 15
+# phases 5 and 9 serve phase 5's models cut to their first 10 of 30
+# layers, the depth of phases 6, 8 and 10: host-bound by layer, at 15
+# layers they took 65.8 and 64.1 s of the script's budget on the slower
+# host, which phase 3's G-tile and projection checks and phase 11's
+# granite-34b leg now share
+SERVE_LAYERS = 10
 
 
 def first_layers(cfg, params, n: int):
@@ -3503,11 +3578,13 @@ def run_audit_phase(torch, smi: str, cfg, params) -> tuple[dict, dict]:
 # caches; the masked baseline (the probe's tiled (B*N) decode over
 # contiguous caches beside members decoding whole waves from pages)
 QUEUED_PATHS = {
-    "queued_paged": ({}, ("paged_decode_attention", "fused_swiglu")),
-    "queued_dense": ({"paged": False}, ("fused_swiglu", "decode_attention")),
+    "queued_paged": ({}, ("paged_decode_attention", "fused_swiglu",
+                          "projection")),
+    "queued_dense": ({"paged": False}, ("fused_swiglu", "decode_attention",
+                                        "projection")),
     "queued_masked": ({"compact": False, "shared_prefix": False},
                       ("paged_decode_attention", "fused_swiglu",
-                       "decode_attention")),
+                       "decode_attention", "projection")),
 }
 # the traced leg's stream (phase 5's generator; 7 full-arena rows under
 # the forced routes) and its members' sampling temperature. After
@@ -3804,9 +3881,10 @@ def run_queued_phase(torch, smi: str, cfg, params, audited: dict) -> dict:
 TRAIN_CELLS = {
     # path: (arch, layers kept, batch, sequence, kernels it must launch)
     "train_mamba": ("falcon-mamba-7b", 2, 4, 1024,
-                    ("selective_scan", "selective_scan_bwd")),
+                    ("selective_scan", "selective_scan_bwd", "projection")),
     "train_griffin": ("recurrentgemma-2b", 3, 1, 4096,
-                      ("rglru_scan", "rglru_scan_bwd", "fused_swiglu")),
+                      ("rglru_scan", "rglru_scan_bwd", "fused_swiglu",
+                       "projection")),
 }
 TRAIN_STEPS = 4
 
@@ -3986,7 +4064,9 @@ def run_moe_train_phase(torch) -> dict:
     from repro_torch.optim import init as opt_init
 
     by_path = {}
-    for arch, needed in (("mixtral-8x22b", ()),
+    # train() ties the embeddings: deepseek-v2's MLA and tied lm_head
+    # reach no projection, mixtral-8x22b's GQA does
+    for arch, needed in (("mixtral-8x22b", ("projection",)),
                          ("deepseek-v2-236b", ("fused_swiglu",))):
         runs = []
         for _ in range(2):
@@ -4038,7 +4118,8 @@ def run_moe_train_phase(torch) -> dict:
     per_step = cfg.num_layers * cfg.moe.num_experts
     if launches["fused_swiglu"] != MOE_TRAIN_STEPS * per_step:
         raise AssertionError(f"train moe[gather]: launches {launches}")
-    check_path_launches("train moe[gather]", launches, ("fused_swiglu",))
+    check_path_launches("train moe[gather]", launches,
+                        ("fused_swiglu", "projection"))
     if (not all(np.isfinite(losses)) or losses2 != losses
             or launches2 != launches
             or any(not torch.equal(p1[k], p2[k]) for k in p1)):
@@ -4059,9 +4140,10 @@ def run_frontend_train_phase(torch) -> dict:
     """``train()`` on reduced whisper-medium (synthetic frames) and
     llava-next-mistral-7b (synthetic patches) for 4 arithmetic steps,
     twice each: every loss and param finite, the rerun's params bit for
-    bit the run's; whisper launches no kernel (GELU MLPs), llava kernel
-    3 once a layer and step, and its MLP weights move, which only the
-    kernel's backward can move. Returns each run's launch counts."""
+    bit the run's; whisper launches only the projection (GELU MLPs),
+    llava kernel 3 once a layer and step and the projection, and its
+    MLP weights move, which only the kernel's backward can move.
+    Returns each run's launch counts."""
     from repro_torch.kernels import ops
     from repro_torch.launch.train import train
     from repro_torch.models import params as params_lib
@@ -4081,7 +4163,8 @@ def run_frontend_train_phase(torch) -> dict:
         (p1, loss, launches, wall), (p2, loss2, launches2, _) = runs
         vision = cfg.frontend == "vision"
         check_path_launches(f"train frontend[{arch}]", launches,
-                            ("fused_swiglu",) if vision else ())
+                            (("fused_swiglu",) if vision else ())
+                            + ("projection",))
         if vision and launches["fused_swiglu"] != (MOE_TRAIN_STEPS
                                                    * cfg.num_layers):
             raise AssertionError(f"train frontend[{arch}]: launches "
@@ -4125,28 +4208,35 @@ def run_frontend_train_phase(torch) -> dict:
 # decodes through the int8 kernels, its llama3-8b through the dense
 # ones.
 FLEET_PATHS = {
-    "fleet_wave": ("paged_decode_attention", "fused_swiglu"),
+    "fleet_wave": ("paged_decode_attention", "fused_swiglu", "projection"),
     "fleet_stepped": ("paged_decode_attention", "chunked_prefill_attention",
-                      "fused_swiglu"),
+                      "fused_swiglu", "projection"),
     "hetero_stepped": ("paged_decode_attention",
                        "chunked_prefill_attention", "fused_swiglu",
-                       "paged_decode_attention_quant"),
+                       "paged_decode_attention_quant", "projection"),
     "hetero_dense": ("fused_swiglu", "decode_attention",
-                     "decode_attention_quant"),
+                     "decode_attention_quant", "projection"),
+    # phase 11 (d): granite-34b (G 48 on one kv head) behind the
+    # smollm-135m probe, stepped and paged=False
+    "granite_stepped": ("paged_decode_attention",
+                        "chunked_prefill_attention", "fused_swiglu",
+                        "projection"),
+    "granite_dense": ("fused_swiglu", "decode_attention", "projection"),
     # phase 12: the probe's paged kernels, and kernel 3 for the gather
     # member's experts (its ring pages reach no attention kernel) and
     # deepseek-v2's dense layer 0 on the fallback; the paged=False
     # baseline decodes the probe over contiguous caches (kernel 4)
     "moe_stepped": ("paged_decode_attention", "chunked_prefill_attention",
-                    "fused_swiglu"),
-    "moe_dense": ("fused_swiglu", "decode_attention"),
+                    "fused_swiglu", "projection"),
+    "moe_dense": ("fused_swiglu", "decode_attention", "projection"),
     # phase 13: llava on the contiguous-cache member fallback (kernel 3
     # on its prefill; its ring decodes reach no kernel) beside the
     # probe's paged kernels, or beside its contiguous decodes in the
     # paged=False baseline
     "vision_stepped": ("paged_decode_attention",
-                       "chunked_prefill_attention", "fused_swiglu"),
-    "vision_dense": ("fused_swiglu", "decode_attention"),
+                       "chunked_prefill_attention", "fused_swiglu",
+                       "projection"),
+    "vision_dense": ("fused_swiglu", "decode_attention", "projection"),
 }
 FLEET_FREED_BYTES = 1 << 30
 # phase 11 serves every model at its first 10 layers, as phases 6, 8
@@ -4190,6 +4280,7 @@ def fleet_models(torch, specs, layers=None):
         if cut is not None and cut < cfg.num_layers:
             cfg = cfg.replace(num_layers=cut)
         zoo.append(ZooModel(spec, cfg, init_params(cfg, i, device="cuda")))
+        account_params(f"fleets[{spec}]", cfg, zoo[-1].params)
         log(f"fleets: {spec} {cfg.family} {cfg.num_layers} layers d_model "
             f"{cfg.d_model} heads {cfg.num_heads}/{cfg.num_kv_heads} "
             f"head_dim {cfg.resolved_head_dim} d_ff {cfg.d_ff} window "
@@ -4232,6 +4323,7 @@ def serve_fleet(torch, label, probe, ensemble, tasks, route, path, smi):
     launches, (eng, res, wall), _, _ = serve_twice(
         torch, f"fleets[{label} {path}]", path, run, FLEET_PATHS[path],
         tasks, [m.name for m in ensemble])
+    account_pools(f"fleets[{label} {path}]", eng, [probe] + ensemble)
     hw = {m: (st.pages_highwater, st.pool_pages)
           for m, st in eng.kv_stats().items()}
     log(f"fleets[{label} {path}]: {len(tasks)} tasks on {smi}: wall "
@@ -4261,7 +4353,8 @@ def run_fleet_phase(torch, smi: str) -> dict:
     through the stepped engine and the ``paged=False`` queued baseline,
     with whether their heads agree (a finding); both at published
     widths, every model at its first ``FLEET_LAYERS`` layers, over phase
-    5's stream and forced routes; (c) the CLI (``main``) on the card for
+    5's stream and forced routes; (d) granite-34b behind the smollm-135m
+    probe (``run_granite_leg``); (c) the CLI (``main``) on the card for
     both fleets. Returns each path's launch counts."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve as serve_mod
@@ -4314,6 +4407,8 @@ def run_fleet_phase(torch, smi: str) -> dict:
     free_fleet(torch, "heterogeneous")
     log(f"fleets: (b) heterogeneous fleet {time.perf_counter() - t0:.1f} s")
 
+    by_path.update(run_granite_leg(torch, tasks, route, smi))
+
     t0 = time.perf_counter()
     reports = {}
     cli = ["--tasks", "8", "--train-steps", "2"]
@@ -4346,6 +4441,51 @@ def run_fleet_phase(torch, smi: str) -> dict:
     log("fleets[cli_shards]: the report equals the unsharded step loop's")
     free_fleet(torch, "CLI")
     log(f"fleets: (c) CLI {time.perf_counter() - t0:.1f} s")
+    return by_path
+
+
+# (d) granite-34b (multi-query attention: 48 query heads on one kv head,
+# so G 48, the decode kernels' G-tiles) at published widths, 2 of its 88
+# layers (~2.2 GB of bf16 weights beside a 1.2 GB embedding and
+# lm_head), behind the smollm-135m probe and its twin, over the first 8
+# of phase 5's tasks
+GRANITE_FLEET = ("smollm-135m", "granite-34b", "smollm-135m-twin")
+GRANITE_LAYERS = {"smollm-135m": FLEET_LAYERS, "granite-34b": 2}
+GRANITE_TASKS = 8
+
+
+def run_granite_leg(torch, tasks, route, smi) -> dict:
+    """Phase 11 (d): ``GRANITE_FLEET`` stepped (granite-34b on pages:
+    kernels 1 and 2 at G 48, kernel 3 on its prefill MLP, the
+    projection) and through the ``paged=False`` queued baseline (kernel
+    4 at G 48), each twice through ``serve_twice`` (every task retired,
+    each path's kernels and no other, no page leaked, the rerun's
+    results and chain head identical); the decodes' head geometries
+    recorded, (48, 1) among them, and their launches printed. Returns
+    each path's launch counts."""
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    tasks = tasks[:GRANITE_TASKS]
+    probe, ensemble = fleet_models(torch, GRANITE_FLEET, GRANITE_LAYERS)
+    granite = ensemble[0].cfg
+    g48 = (granite.num_heads, granite.num_kv_heads)
+    by_path = {}
+    for path, kernel in (("granite_stepped", "paged_decode_attention"),
+                         ("granite_dense", "decode_attention")):
+        with MeshShapes(ops) as shapes:
+            by_path[path] = serve_fleet(torch, "granite", probe, ensemble,
+                                        tasks, route, path, smi)[0]
+        if g48 not in shapes.seen[kernel]:
+            raise AssertionError(f"fleets[granite {path}]: {kernel} never "
+                                 f"ran at (q, kv) heads {g48}: "
+                                 f"{shapes.seen[kernel]}")
+        log(f"fleets[granite {path}]: {kernel} at (q, kv) heads "
+            f"{sorted(shapes.seen[kernel])} (G {g48[0] // g48[1]} in "
+            f"{-(-g48[0] // g48[1] // 8)} tiles), {by_path[path][kernel]} "
+            f"launches over both models; launches {by_path[path]}")
+    del probe, ensemble
+    free_fleet(torch, "granite-34b")
+    log(f"fleets: (d) granite-34b {time.perf_counter() - t0:.1f} s")
     return by_path
 
 
@@ -4478,8 +4618,9 @@ VISION_FLEET = ("smollm-135m", "llava-next-mistral-7b", "smollm-135m-twin")
 def generate_twice(torch, label, fn, need):
     """``fn()`` -> GenerateOutput twice, the launch counts set to 0 just
     before each and read just after: tokens, lengths and logprobs
-    finite and bit for bit equal, the launches exactly ``need`` and no
-    other kernel. Returns (launches, output, wall of the first run)."""
+    finite and bit for bit equal, the launches exactly ``need`` (a
+    count, or None: some) and no other kernel. Returns (launches,
+    output, wall of the first run)."""
     from repro_torch.kernels import ops
     runs = []
     for _ in range(2):
@@ -4490,7 +4631,9 @@ def generate_twice(torch, label, fn, need):
         torch.cuda.synchronize()
         runs.append((ops.launch_counts(), out, time.perf_counter() - t))
     (launches, out, wall), (launches2, out2, wall2) = runs
-    if launches != dict({k: 0 for k in launches}, **need):
+    ran = {k for k, v in launches.items() if v}
+    if ran != set(need) or any(n is not None and launches[k] != n
+                               for k, n in need.items()):
         raise AssertionError(f"{label}: launched {launches}, not {need} "
                              "alone")
     if not torch.isfinite(out.logprobs).all():
@@ -4500,8 +4643,8 @@ def generate_twice(torch, label, fn, need):
         raise AssertionError(f"{label}: the rerun's tokens, lengths, "
                              "logprobs or launches differ")
     log(f"{label}: {tuple(out.tokens.shape)} tokens in {wall:.3f} s "
-        f"(rerun {wall2:.3f} s), rerun bit for bit; launches {need}, no "
-        "other kernel")
+        f"(rerun {wall2:.3f} s), rerun bit for bit; launches "
+        f"{ {k: launches[k] for k in need} }, no other kernel")
     return launches, out, wall
 
 
@@ -4511,11 +4654,12 @@ def run_frontend_phase(torch, smi: str) -> dict:
     synthetic frames and ``WHISPER_PROMPT``-token prompts, greedy, then
     ``generate_samples`` (n 3, temperature 0.9) over 4 of them, each
     twice (``generate_twice``: bit for bit), kernel 4 once a decoder
-    layer and decode step and no other kernel; (b) llava-next-mistral-7b
-    at published widths, its first ``VISION_LAYERS`` layers: ``generate``
-    over 4 rows of 1152 synthetic patches and 97 text tokens, 8 new
-    tokens, twice, kernel 3 once a layer on the prefill and no kernel on
-    the ring decodes; then phase 5's stream and forced routes through
+    layer and decode step, the projection and no other kernel; (b)
+    llava-next-mistral-7b at published widths, its first
+    ``VISION_LAYERS`` layers: ``generate`` over 4 rows of 1152 synthetic
+    patches and 97 text tokens, 8 new tokens, twice, kernel 3 once a
+    layer on the prefill, the projection, and no attention kernel on the
+    ring decodes; then phase 5's stream and forced routes through
     ``VISION_FLEET``, stepped (llava on the contiguous-cache member
     fallback) and the ``paged=False`` queued baseline, each twice through
     ``serve_twice``. Walls, launches and the peak memory are printed.
@@ -4545,7 +4689,10 @@ def run_frontend_phase(torch, smi: str) -> dict:
         f"{cfg.vocab_size}, {cfg.dtype}: "
         f"{count_params(params) / 1e9:.3f} B params; frames "
         f"{tuple(frames.shape)}")
-    need = {"decode_attention": WHISPER_NEW * cfg.num_layers}
+    # kernel 4 once a decoder layer and decode step; the projection
+    # for every wq, wk, wv (encoder, decoder, cross) and the lm_head
+    need = {"decode_attention": WHISPER_NEW * cfg.num_layers,
+            "projection": None}
     by_path["whisper_generate"], out, _ = generate_twice(
         torch, "frontend[whisper-medium generate]",
         lambda: S.generate(cfg, params, prompts,
@@ -4586,7 +4733,7 @@ def run_frontend_phase(torch, smi: str) -> dict:
         lambda: S.generate(vcfg, llava.params, text,
                            max_new_tokens=MAX_NEW,
                            frontend_embeds=patches),
-        {"fused_swiglu": vcfg.num_layers})
+        {"fused_swiglu": vcfg.num_layers, "projection": None})
     log(f"frontend: llava-next-mistral-7b prompt {tuple(text.shape)} "
         f"({vcfg.num_patches} patch positions), peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -4620,11 +4767,6 @@ def run_frontend_phase(torch, smi: str) -> dict:
 # the reduced mesh2d fleet's width and at d 4096
 MESH_STAGE_BF16 = (FLEET_ROWS * 32, 4096, 14336, 2)     # T, d, F, columns
 MESH_STAGE_F32 = ((97, 64, 256, 2), (64, 4096, 1024, 4))
-# the column-parallel projections (b) hands cuBLAS through torch.matmul,
-# (rows, d_model, columns) unsliced: a decode block's wq, wk / wv,
-# w_gate and lm_head, and a prefill chunk's wq
-MESH_CUBLAS_SHAPES = ((8, 4096, 4096), (8, 4096, 1024), (8, 4096, 14336),
-                      (8, 4096, 128256), (256, 4096, 4096))
 
 
 def _swiglu_inputs(torch, gen, t, d, f, dtype):
@@ -4646,12 +4788,11 @@ def mesh_stage_checks(torch) -> dict:
     ``ops.swiglu_down`` over the gathered h): in bf16 and f32 the
     column slices' h concatenated in column order equal the unsliced
     call's bit for bit, and gate_up then down equals the fused wrapper
-    bit for bit (in f32 the fused CUDA-core kernel: the stage kernels
-    keep its summation orders); each stage against its plain version,
-    and timed at the bf16 shape beside its bound, its plain version and
-    a library expression (silu(x Wg) * (x Wu); h Wd). Returns
-    {"swiglu_gate_up": result, "swiglu_down": result}, the f32 checks
-    under "f32"."""
+    bit for bit (which launches the same two stages); each stage
+    against its plain version, and timed at the bf16 shape beside its
+    bound, its plain version and a library expression (silu(x Wg) *
+    (x Wu); h Wd). Returns {"swiglu_gate_up": result, "swiglu_down":
+    result}, the f32 checks under "f32"."""
     import torch.nn.functional as F
     from repro_torch.kernels import fused_swiglu as fs
     from repro_torch.kernels import ops
@@ -4750,25 +4891,6 @@ def mesh_stage_checks(torch) -> dict:
         plain_ms=time_ms(torch, lambda: fs.swiglu_down_plain(h_plain, wd)),
         library_ms=time_ms(torch, lambda: torch.matmul(h_plain, wd)),
         bitwise_fused=True)
-    # a finding, not a gate: cuBLAS picks its kernel by shape, so a
-    # projection's column slice may round apart from the same columns of
-    # the unsliced product (the decodes' projections are torch.matmul)
-    cublas = {}
-    for rows, k, n in MESH_CUBLAS_SHAPES:
-        a = torch.randn((rows, k), generator=gen, device="cuda").to(
-            torch.bfloat16)
-        w = (torch.randn((k, n), generator=gen, device="cuda")
-             / k ** 0.5).to(torch.bfloat16)
-        full = torch.matmul(a, w)
-        cols = torch.cat([torch.matmul(a, c) for c in _column_slices(w, m)],
-                         dim=-1)
-        cublas[f"{rows}x{k}x{n}"] = float(
-            (cols.float() - full.float()).abs().max())
-        del a, w, full, cols
-    gate_up["cublas_column_slice_max_diff"] = cublas
-    log(f"finding: torch.matmul (cuBLAS, bf16) over {m} column slices "
-        f"against the unsliced product, max abs diff by (rows x d x "
-        f"columns): {cublas}")
     for label, r in (("swiglu_gate_up", gate_up), ("swiglu_down", down)):
         log(f"kernel {label} [{name}]: max_abs_err {r['max_abs_err']:.3e}"
             f"  kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
@@ -4779,6 +4901,196 @@ def mesh_stage_checks(torch) -> dict:
     del x, wg, wu, wd, h, h_plain
     torch.cuda.empty_cache()
     return {"swiglu_gate_up": gate_up, "swiglu_down": down}
+
+
+# ----------------------------------------------------------------------
+# phase 3, the column-invariant projection and the G-tiled decodes
+# ----------------------------------------------------------------------
+# the column-split products (rows, K, N) unsliced: a decode block's wq,
+# wk / wv, w_gate and lm_head and a prefill chunk's wq at llama3-8b's
+# widths (phase 14 (b)), and deepseek-7b's w_gate / w_up (whose half,
+# 5504, takes the 128-column tiles where 11008 takes the 256-column
+# ones); the first is the kernels line's shape
+PROJ_MESH_SHAPES = ((8, 4096, 4096), (8, 4096, 1024), (8, 4096, 14336),
+                    (8, 4096, 128256), (256, 4096, 4096), (8, 4096, 11008))
+# phase 5's decode block: smollm-135m's wq, wk / wv and w_gate / w_up
+PROJ_SERVE_SHAPES = ((8, 576, 576), (8, 576, 192), (8, 576, 1536))
+# f32 (the reduced models): the CUDA-core kernel
+PROJ_F32_SHAPES = ((8, 4096, 4096), (97, 192, 512))
+PROJ_TOL = {"bfloat16": TOL[("attention", "bfloat16")],
+            "float32": TOL[("swiglu", "float32")]}
+
+
+def _projection_case(torch, gen, rows, k, n, dtype):
+    a = torch.randn((rows, k), generator=gen, device="cuda").to(dtype)
+    w = (torch.randn((k, n), generator=gen, device="cuda")
+         / k ** 0.5).to(dtype)
+    return a, w
+
+
+def projection_checks(torch) -> dict:
+    """The projection kernel (``ops.projection``) at ``PROJ_MESH_SHAPES``
+    (bf16) and ``PROJ_F32_SHAPES``: against its plain version
+    (``torch.matmul``) at the attention tolerance (f32: the SwiGLU's);
+    bit for bit, the unsliced call's columns equal the concatenated
+    calls on its m column slices (m 2 and 4 where N divides), a
+    non-contiguous column view's call (the wrapper's copy) and rows 0-3
+    called alone; cuBLAS's column slices against its unsliced product
+    logged beside (the reason for the kernel, a finding); each shape
+    timed beside its bound and one ``torch.mm``, and at phase 5's decode
+    shapes (``PROJ_SERVE_SHAPES``). Returns the kernels line's entry
+    (the first shape) with every shape under "shapes"."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.projection import projection_plain
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(26)
+    shapes, cublas = [], {}
+    for dname, cases in (("bfloat16", PROJ_MESH_SHAPES),
+                         ("float32", PROJ_F32_SHAPES),
+                         ("bfloat16", PROJ_SERVE_SHAPES)):
+        dtype = getattr(torch, dname)
+        serve = cases is PROJ_SERVE_SHAPES
+        for rows, k, n in cases:
+            name = f"projection[{dname}, {rows} x {k} x {n}]"
+            a, w = _projection_case(torch, gen, rows, k, n, dtype)
+            full = ops.projection(a, w)
+            err = check_close(name, full, projection_plain(a, w),
+                              PROJ_TOL[dname])
+            split = [m for m in (2, 4) if n % m == 0 and not serve]
+            for m in split:
+                require_bits(f"{name} over {m} column slices", torch.cat(
+                    [ops.projection(a, c) for c in _column_slices(w, m)],
+                    dim=-1), full)
+                if dname == "bfloat16":
+                    c = n // m
+                    cb = torch.cat([torch.matmul(a, w[:, j * c:(j + 1) * c]
+                                                 .contiguous())
+                                    for j in range(m)], dim=-1)
+                    cublas[f"{rows}x{k}x{n}/{m}"] = float(
+                        (cb.float() - torch.matmul(a, w).float()).abs()
+                        .max())
+            if split:
+                half = w[:, :n // 2]                      # a strided view
+                require_bits(f"{name} on a non-contiguous column view",
+                             ops.projection(a, half), full[:, :n // 2])
+            require_bits(f"{name} rows 0-3 alone",
+                         ops.projection(a[:4].contiguous(), w), full[:4])
+            item = a.element_size()
+            bnd, by = bound_ms((rows * k + k * n + rows * n) * item,
+                               2.0 * rows * k * n, dname)
+            r = dict(dtype=dname, rows=rows, k=k, n=n, max_abs_err=err,
+                     bound_ms=bnd, bound_by=by, column_slices=split,
+                     phase5_decode=serve,
+                     ms=time_ms(torch, lambda: ops.projection(a, w)),
+                     plain_ms=time_ms(torch, lambda: projection_plain(a, w)),
+                     library_ms=time_ms(torch, lambda: torch.mm(a, w)))
+            shapes.append(r)
+            log(f"kernel {name}: max_abs_err {err:.3e}  kernel "
+                f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  library "
+                f"{r['library_ms']:.4f} ms  bound {bnd:.5f} ms ({by}); "
+                f"column slices {split} bit for bit, rows 0-3 alone bit "
+                "for bit")
+            del a, w, full
+    log("finding: torch.matmul (cuBLAS, bf16) over m column slices against "
+        "the unsliced product, max abs diff by (rows x K x N / m): "
+        f"{cublas}")
+    torch.cuda.empty_cache()
+    main = dict(shapes[0])
+    main.update(shapes=shapes, cublas_column_slice_max_diff=cublas)
+    return main
+
+
+# kernels 1, 4, 5 and 6 at more than 8 query heads per kv head (G-tiles
+# of 8): granite-34b's decode (H 48 on one kv head, d 128; G 48, six
+# tiles) and a ragged G 12 at d 64 (a tile of 8 and one of 4), 8 rows
+# at 97-104 positions (paged) or 105 (contiguous)
+GTILE_GEOMETRIES = (("granite-34b", 48, 1, 128), ("G 12", 12, 1, 64))
+
+
+def _gtile_quant(torch, gen, name, h, kv, d, paged: bool) -> dict:
+    """Kernel 5 (``paged``) or 6 over int8 codes at (h, kv, d): 8 rows,
+    q in bf16, against the plain version, rows 0-3 alone bit for bit,
+    timed beside the bound (D + 4 bytes a cached vector and head)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention_quant import (
+        decode_attention_quant_plain)
+    from repro_torch.kernels.paged_decode_attention_quant import (
+        paged_decode_attention_quant_plain)
+    b = FLEET_ROWS
+    q = torch.randn((b, h, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    if paged:
+        nb = -(-S_WAVE // PAGE)
+        shape = (b * nb, PAGE, kv, d)
+        table = torch.randperm(b * nb, generator=gen, device="cuda").to(
+            torch.int32).reshape(b, nb).contiguous()
+        lengths = (PROMPT + torch.arange(b, device="cuda")).to(torch.int32)
+        extra, rows4 = (table, lengths), (table[:4].contiguous(),
+                                          lengths[:4].contiguous())
+        kernel, plain = (ops.paged_decode_attention_quant,
+                         paged_decode_attention_quant_plain)
+        n_keys = unique_keys(torch, table, lengths)
+        flops_keys = float(lengths.sum())
+    else:
+        shape = (b, S_WAVE, kv, d)
+        extra = rows4 = (S_WAVE,)
+        kernel, plain = (ops.decode_attention_quant,
+                         decode_attention_quant_plain)
+        n_keys = flops_keys = b * S_WAVE
+    kc, ks = _quantize(torch.randn(shape, generator=gen, device="cuda"))
+    vc, vs = _quantize(torch.randn(shape, generator=gen, device="cuda"))
+    got = kernel(q, kc, ks, vc, vs, *extra)
+    err = check_close(name, got, plain(q, kc, ks, vc, vs, *extra),
+                      TOL[("attention", "bfloat16")])
+    cut = ((kc, ks, vc, vs) if paged else
+           tuple(t[:4].contiguous() for t in (kc, ks, vc, vs)))
+    check_same_rows(f"{name} rows 0-3 of {b} alone", got[:4],
+                    kernel(q[:4].contiguous(), *cut, *rows4))
+    bnd, by = bound_ms(2 * q.numel() * 2 + 2 * n_keys * kv * (d + 4)
+                       + (4 * (extra[0].numel() + b) if paged else 0),
+                       4.0 * h * d * flops_keys, "bfloat16")
+    lengths_r = ([int(extra[1].min()), int(extra[1].max())] if paged
+                 else [S_WAVE, S_WAVE])
+    return dict(rows=b, lengths=lengths_r, max_abs_err=err, bound_ms=bnd,
+                bound_by=by, **_measure(
+                    torch, lambda: kernel(q, kc, ks, vc, vs, *extra),
+                    lambda: plain(q, kc, ks, vc, vs, *extra), None))
+
+
+def gtile_checks(torch) -> dict:
+    """Kernels 1, 4, 5 and 6 in bf16 at ``GTILE_GEOMETRIES``: each
+    against its plain version at the attention tolerance, rows 0-3 alone
+    bit for bit, and timed beside its bound and (kernels 1 and 4) SDPA.
+    Returns {kernel: {geometry: result}}."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(48)
+    out = {k: {} for k in ("paged_decode_attention", "decode_attention",
+                           "paged_decode_attention_quant",
+                           "decode_attention_quant")}
+    for label, h, kv, d in GTILE_GEOMETRIES:
+        geo = f"bfloat16, {label}: H {h} / KV {kv}, d {d}"
+        out["paged_decode_attention"][label] = _fleet_paged(
+            torch, gen, f"paged_decode_attention[{geo}]", h, kv, d)
+        out["decode_attention"][label] = _fleet_dense(
+            torch, gen, f"decode_attention[{geo}]", h, kv, d)
+        out["paged_decode_attention_quant"][label] = _gtile_quant(
+            torch, gen, f"paged_decode_attention_quant[{geo}]", h, kv, d,
+            paged=True)
+        out["decode_attention_quant"][label] = _gtile_quant(
+            torch, gen, f"decode_attention_quant[{geo}]", h, kv, d,
+            paged=False)
+        for name in out:
+            r = out[name][label]
+            lib = r["library_ms"]
+            log(f"kernel {name} [{geo}, G {h // kv} in "
+                f"{-(-(h // kv) // 8)} tiles, {r['rows']} rows at "
+                f"{r['lengths'][0]}-{r['lengths'][1]} positions]: "
+                f"max_abs_err {r['max_abs_err']:.3e}  kernel "
+                f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  library "
+                f"{'none' if lib is None else f'{lib:.4f} ms'}  bound "
+                f"{r['bound_ms']:.5f} ms ({r['bound_by']}); rows 0-3 "
+                "bit-identical alone")
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -4794,17 +5106,21 @@ MESH2D_FLEET = ("llama3-8b", "deepseek-7b", "llama3-8b-twin")
 # a single-device run's host time)
 MESH2D_TASKS = 8
 MESH_REDUCED_TASKS = 24
-MESH_KERNELS = ("paged_decode_attention", "chunked_prefill_attention")
+MESH_KERNELS = ("paged_decode_attention", "chunked_prefill_attention",
+                "projection")
 MESH_SHAPED = ("swiglu_gate_up", "paged_decode_attention",
-               "chunked_prefill_attention", "paged_decode_attention_quant")
+               "chunked_prefill_attention", "paged_decode_attention_quant",
+               "projection", "decode_attention")
+# the kernels held to each column's local head counts
+MESH_HEADED = ("paged_decode_attention", "chunked_prefill_attention")
 
 
 class MeshShapes:
-    """Records the shapes the model hands four wrappers while a block
+    """Records the shapes the model hands six wrappers while a block
     runs (the wrappers stay as they are; ``ops``' attributes are swapped
-    for recorders that call them): kernel 3's gate_up stage's F, and
-    the query and kv head counts of the paged decodes and the chunked
-    prefill. Launch counts are untouched."""
+    for recorders that call them): kernel 3's gate_up stage's F, the
+    projection's N, and the query and kv head counts of the decodes and
+    the chunked prefill. Launch counts are untouched."""
 
     def __init__(self, ops):
         self.ops = ops
@@ -4813,7 +5129,7 @@ class MeshShapes:
 
     def _wrap(self, name, fn):
         def rec(*a, **kw):
-            if name == "swiglu_gate_up":
+            if name in ("swiglu_gate_up", "projection"):
                 key = int(a[1].shape[1])
             elif name == "chunked_prefill_attention":
                 key = (int(a[0].shape[2]), int(a[1].shape[2]))
@@ -4833,6 +5149,17 @@ class MeshShapes:
     def __exit__(self, *exc):
         for k, fn in self.saved.items():
             setattr(self.ops, k, fn)
+
+
+def column_widths(cfg, m: int) -> set:
+    """N of each column-split projection of ``cfg`` on one of ``m``
+    model columns: wq, wk / wv, w_gate / w_up, an untied lm_head."""
+    hd = cfg.resolved_head_dim
+    out = {cfg.num_heads * hd // m, cfg.num_kv_heads * hd // m,
+           cfg.d_ff // m}
+    if not cfg.tie_embeddings:
+        out.add(cfg.vocab_size // m)
+    return out
 
 
 def mesh_serve(torch, label, probe, ensemble, tasks, route, *, shards,
@@ -4979,11 +5306,10 @@ def mesh_logit_diff(torch, label, zm, rows=8, chunk=32) -> dict:
     """One prefill chunk and one decode tick of member ``zm`` on a
     (data 1, model 2) mesh against the single-device programs on the
     same inputs (the decode from the same logits and pages): the
-    largest logit difference of each, and the rows whose argmax agree.
-    A measurement, not a gate: on the card the column-parallel
-    projections go through cuBLAS, whose product over a column slice
-    can round apart from the unsliced one, so the mesh is bit-exact on
-    the CPU only; the record and head gates decide."""
+    largest logit difference of each, which must be 0 (the
+    column-parallel projections run the column-invariant projection
+    kernel on one device and on each column alike, so the mesh computes
+    the single-device bits), and the rows whose argmax agree."""
     from repro_torch.models.params import torch_dtype
     from repro_torch.sampling import prng
     from repro_torch.sampling import sampler as S
@@ -5048,6 +5374,11 @@ def mesh_logit_diff(torch, label, zm, rows=8, chunk=32) -> dict:
     if not torch.equal(sem[0].cpu(), em.cpu()):
         raise AssertionError(f"{label}: the decode tick sampled other "
                              "tokens from the same logits")
+    for stage in ("prefill", "decode"):
+        if out[f"{stage}_max_abs_diff"] != 0.0:
+            raise AssertionError(
+                f"{label}: the {stage} logits on (data 1, model 2) differ "
+                f"from one device's by {out[f'{stage}_max_abs_diff']}")
     log(f"{label}: {zm.name} on (data 1, model 2) against one device, "
         f"{rows} rows: a {chunk}-token prefill chunk's logits max abs "
         f"diff {out['prefill_max_abs_diff']:.6g} (argmax agree "
@@ -5096,16 +5427,24 @@ def run_mesh_phase(torch, smi: str, mesh_a: dict) -> dict:
     if shapes.seen["swiglu_gate_up"] != widths:
         raise AssertionError(f"{label}: gate_up ran at F "
                              f"{shapes.seen['swiglu_gate_up']}, not {widths}")
-    for k in MESH_KERNELS:
+    for k in MESH_HEADED:
         if shapes.seen[k] != heads:
             raise AssertionError(f"{label}: {k} ran at (q, kv) heads "
                                  f"{shapes.seen[k]}, not {heads}")
+    # every column-split projection ran on a column's slice: wq, wk / wv,
+    # the decode MLP's w_gate / w_up and the untied lm_head at N / 2
+    cols = set().union(*(column_widths(zm.cfg, 2)
+                         for zm in [probe] + ensemble))
+    if shapes.seen["projection"] != cols:
+        raise AssertionError(f"{label}: the projection ran at N "
+                             f"{sorted(shapes.seen['projection'])}, not "
+                             f"{sorted(cols)}")
     check_mesh_heads(label, tasks, base, res, names)
     mesh_logit_diff(torch, label, probe)
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"{label}: kernel 3 as two stages at F {sorted(widths)}, kernels "
-        f"1 and 2 at (q, kv) heads {sorted(heads)}; peak {peak:.2f} GiB "
-        f"on {smi}")
+        f"1 and 2 at (q, kv) heads {sorted(heads)}, the projection at N "
+        f"{sorted(cols)}; peak {peak:.2f} GiB on {smi}")
     total = add_launches(total, launches)
     del probe, ensemble, base, res
     free_fleet(torch, "mesh (b)")
@@ -5207,6 +5546,9 @@ def main() -> int:
     results.update(run_train_kernel_phase(torch))
     for name, r in mesh_stage_checks(torch).items():
         results[(name, "bfloat16")] = r
+    results[("projection", "bfloat16")] = projection_checks(torch)
+    for name, r in gtile_checks(torch).items():
+        results[(name, "bfloat16")]["g_tiles"] = r
     phase_done("kernels")
     run_reference_phase(torch)
     run_wave_reference_phase(torch)
@@ -5270,6 +5612,9 @@ def main() -> int:
         # column-parallel MLPs gather h between them
         "swiglu_gate_up": "src/repro/kernels/fused_swiglu.py:61",
         "swiglu_down": "src/repro/kernels/fused_swiglu.py:61",
+        # no TPU kernel: the products against column-split weights, which
+        # the reference leaves to XLA (its q projection's einsum)
+        "projection": "src/repro/models/attention.py:225",
     }
     kernels = []
     for name, replaces in sources.items():
@@ -5278,6 +5623,7 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/" + (
                 "fused_swiglu.cu" if name.startswith("swiglu_")
+                or name == "projection"
                 else f"{name.removesuffix('_bwd')}.cu"),
             "replaces": replaces,
             "launches": sum(c.get(name, 0) for c in by_path.values()),
@@ -5333,6 +5679,19 @@ def main() -> int:
             entry["moe_shapes"] = r["moe_shapes"]
         if "frontend_shape" in r:
             entry["frontend_shape"] = r["frontend_shape"]
+        if "g_tiles" in r:
+            entry["g_tiles"] = r["g_tiles"]
+        if name == "projection":
+            entry["note"] = (
+                "no TPU counterpart: x @ w against every column-split "
+                "weight (wq, wk, wv, the decode MLP's w_gate / w_up, an "
+                "untied lm_head), column-invariant so that the mesh's "
+                "columns compute the single-device bits; runs the SwiGLU "
+                "down stage's kernels")
+            entry["shape"] = {k: r[k] for k in ("rows", "k", "n")}
+            entry["shapes"] = r["shapes"]
+            entry["cublas_column_slice_max_diff"] = r[
+                "cublas_column_slice_max_diff"]
         if name.startswith("swiglu_"):
             entry["note"] = (
                 "kernel 3's stage on its own, as tensor parallelism calls "

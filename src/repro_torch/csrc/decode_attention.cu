@@ -16,10 +16,11 @@
 // rows, a hundred-odd positions) the call moves a few megabytes at most, so
 // latency bounds it: the launch, the K/V round trip and the combine.
 //
-// Design: decode_split.cuh's loop, one launch of a grid (kSplit, KV, B) in
-// clusters of kSplit CTAs, each cluster one (row, kv head) with all G query
-// heads, its ranks splitting [0, length) by the length alone and combining
-// over distributed shared memory in rank order. Any S works (no padding to
+// Design: decode_split.cuh's loop, one launch of a grid (kSplit, KV *
+// G-tiles, B) in clusters of kSplit CTAs, each cluster one (row, kv head)
+// with its G query heads (a G above 8 in tiles of 8), its ranks splitting
+// [0, length) by the length alone and combining over distributed shared
+// memory in rank order. Any S works (no padding to
 // a block grid); positions at or past length are never read. Left for
 // later: TMA tile loads, and more rows per CTA at short lengths.
 #include "decode_split.cuh"
@@ -29,36 +30,37 @@ namespace {
 using acar::split::kSplit;
 using acar::split::kThreads;
 
-template <typename T, int G>
+template <typename T, int GT>
 __global__ void __cluster_dims__(kSplit, 1, 1) __launch_bounds__(kThreads)
     dense_decode_split_kernel(const T* __restrict__ q,
                               const T* __restrict__ k_cache,
                               const T* __restrict__ v_cache,
-                              T* __restrict__ out, int S, int KV, int D,
-                              int length, float scale, bool vec16) {
-  const int kv = blockIdx.y, b = blockIdx.z;
+                              T* __restrict__ out, int S, int G, int KV,
+                              int D, int length, float scale, bool vec16) {
+  const acar::split::HeadTile ht = acar::split::head_tile<GT>(G);
+  const int kv = ht.kv, b = blockIdx.z;
   const size_t row = ((size_t)b * S * KV + kv) * D;
   const acar::split::Rows<T, false> ld{k_cache + row, v_cache + row,
                                        (long long)KV * D};
-  const size_t head0 = ((size_t)b * KV + kv) * G * D;
-  acar::split::attend<T, G>(q + head0, out + head0, D, length, scale, vec16,
-                            ld);
+  const size_t head0 = (((size_t)b * KV + kv) * G + ht.g0) * D;
+  acar::split::attend<T, GT>(q + head0, out + head0, D, length, scale,
+                             vec16, ld, ht.n);
 }
 
-template <typename T, int G>
+template <typename T, int GT>
 struct Launch {
-  static cudaError_t run(const void* q, const void* k_cache,
+  static cudaError_t run(int G, const void* q, const void* k_cache,
                          const void* v_cache, void* out, int B, int S,
                          int KV, int D, int length, float scale, bool vec16,
                          cudaStream_t st) {
-    const int bytes = acar::split::Layout<T, T>(G, D, false).total;
+    const int bytes = acar::split::Layout<T, T>(GT, D, false).total;
     const cudaError_t err = acar::split::reserve_smem(
-        dense_decode_split_kernel<T, G>, bytes);
+        dense_decode_split_kernel<T, GT>, bytes);
     if (err != cudaSuccess) return err;
-    dense_decode_split_kernel<T, G><<<dim3(kSplit, KV, B), kThreads, bytes,
-                                      st>>>(
+    const dim3 grid(kSplit, KV * acar::split::g_tiles(G), B);
+    dense_decode_split_kernel<T, GT><<<grid, kThreads, bytes, st>>>(
         static_cast<const T*>(q), static_cast<const T*>(k_cache),
-        static_cast<const T*>(v_cache), static_cast<T*>(out), S, KV, D,
+        static_cast<const T*>(v_cache), static_cast<T*>(out), S, G, KV, D,
         length, scale, vec16);
     return cudaGetLastError();
   }
@@ -70,10 +72,9 @@ extern "C" int acar_decode_attention(const void* q, const void* k_cache,
                                      const void* v_cache, void* out, int B,
                                      int H, int KV, int D, int S, int length,
                                      int dtype, void* stream) {
-  const int G = H / KV;
-  if (G > acar::split::kMaxG || D > acar::split::kMaxD || H % KV != 0 ||
-      length < 0 || length > S || B > 65535 || KV > 65535)
+  if (!acar::split::heads_ok(B, H, KV, D) || length < 0 || length > S)
     return (int)cudaErrorInvalidValue;
+  const int G = H / KV;
   const float scale = 1.4426950408889634f / sqrtf((float)D);  // log2(e)
   const bool vec16 = acar::split::vec16(D, dtype == acar::kBF16 ? 2 : 4, q,
                                         k_cache, v_cache);

@@ -16,7 +16,20 @@
 // rows (D contiguous elements) sit at index * stride of k and v, the two
 // scales at index * sstride of k_scale and v_scale.
 //
-// One launch, one cluster of kSplit CTAs per (row, kv head):
+// G-tiles. A cluster serves at most kMaxG query heads (q, acc and the
+// partials of all its heads live in registers and shared memory). A kv
+// head with G <= kMaxG query heads is one tile of exactly G; a larger G
+// (granite-34b's multi-query attention: 48 heads on one kv head) runs
+// g_tiles(G) = ceil(G / kMaxG) clusters of kMaxG heads over the same kv
+// head's keys, the last tile ragged: its missing heads read zeros for q
+// and write nothing. The plan is a function of G alone, never of the
+// batch or the lengths, and a head's arithmetic does not depend on the
+// other heads of its tile, so a head's bits do not depend on the tiling.
+// Each tile reads the kv head's K/V once: a G of 48 reads them six times
+// (left for a later redesign: more heads a cluster, or a tile loop inside
+// one cluster).
+//
+// One launch, one cluster of kSplit CTAs per (row, kv head, G-tile):
 // - Key ranges. Rank r of the cluster takes the positions
 //   [r * chunk, (r + 1) * chunk) clipped to len, chunk = ceil(len / kSplit)
 //   rounded up to kGran. The ranges depend on the row's own length and on
@@ -73,7 +86,26 @@ constexpr int kTile = 16;    // keys per pipeline stage
 constexpr int kStages = 3;   // tiles in shared memory; kStages - 1 in flight
 constexpr int kWin = 256;    // positions per window of page ids
 constexpr int kMaxD = 128;
-constexpr int kMaxG = 8;
+constexpr int kMaxG = 8;     // query heads a cluster serves: one G-tile
+
+// clusters per (row, kv head): the G-tiles of G query heads
+__host__ __device__ __forceinline__ int g_tiles(int G) {
+  return (G + kMaxG - 1) / kMaxG;
+}
+
+// The query heads of this cluster, from blockIdx.y = kv * tiles + tile
+// (tiles of GT heads, GT = G when G <= kMaxG): its kv head, the first of
+// its heads within that kv head's G, and how many it has (GT but in a
+// ragged last tile).
+struct HeadTile {
+  int kv, g0, n;
+};
+template <int GT>
+__device__ __forceinline__ HeadTile head_tile(int G) {
+  const int tiles = (G + GT - 1) / GT;
+  const int tile = (int)blockIdx.y % tiles;
+  return HeadTile{(int)blockIdx.y / tiles, tile * GT, min(GT, G - tile * GT)};
+}
 
 // the length of every non-final range of a row of len positions
 __host__ __device__ __forceinline__ int chunk_len(int len) {
@@ -188,16 +220,19 @@ __device__ __forceinline__ float merge_scale(float m, float m_new) {
   return m == -INFINITY ? 0.f : exp2f(m - m_new);
 }
 
-// q and out point at the G query heads of this (row, kv head): G * D
-// values each; scale is log2(e) / sqrt(D), so that scores are in base 2
-// and every exponential is one exp2f. vec16: K/V rows and q rows are whole
-// 16-byte chunks at 16-byte aligned bases (D * sizeof(TKV) % 16 == 0),
-// so they load by cp.async; otherwise element by element.
+// q and out point at the first query head of this (row, kv head,
+// G-tile), head g of the tile D values after head g - 1; only the first
+// n_heads of the tile's G exist (fewer in a ragged last tile): the others
+// read q as zeros and are never written. scale is log2(e) / sqrt(D), so
+// that scores are in base 2 and every exponential is one exp2f. vec16:
+// K/V rows and q rows are whole 16-byte chunks at 16-byte aligned bases
+// (D * sizeof(TKV) % 16 == 0), so they load by cp.async; otherwise
+// element by element.
 template <typename TQ, int G, typename Loader>
 __device__ __forceinline__ void attend(const TQ* __restrict__ q,
                                        TQ* __restrict__ out, int D, int len,
                                        float scale, bool vec16,
-                                       const Loader& ld) {
+                                       const Loader& ld, int n_heads) {
   namespace cg = cooperative_groups;
   using TKV = typename Loader::TKV;
   constexpr int kVec = Lane<TKV>::kVec;          // K/V elements a lane
@@ -320,11 +355,13 @@ __device__ __forceinline__ void attend(const TQ* __restrict__ q,
         kbuf[(i / pad) * dp + D + i % pad] = from_f32<TKV>(0.f);
     }
     if (vec16) {
-      for (int c = tid; c < G * D / kQVec; c += kThreads)
+      for (int c = tid; c < n_heads * D / kQVec; c += kThreads)
         hopper::cp_async16(qs + c * kQVec, q + c * kQVec, 16);
     } else {
-      for (int i = tid; i < G * D; i += kThreads) qs[i] = q[i];
+      for (int i = tid; i < n_heads * D; i += kThreads) qs[i] = q[i];
     }
+    for (int i = n_heads * D + tid; i < G * D; i += kThreads)
+      qs[i] = from_f32<TQ>(0.f);  // a ragged tile's missing heads
     if constexpr (kPaged) {
       issue_pids(0);
       hopper::cp_async_commit();
@@ -507,6 +544,7 @@ __device__ __forceinline__ void attend(const TQ* __restrict__ q,
   hopper::mbar_wait_cluster(&inbox_full, 0);
 #pragma unroll
   for (int g = 0; g < G; ++g) {
+    if (g >= n_heads) break;
     float mr[kSplit], c[kSplit], mx = -INFINITY, lsum = 0.f;
 #pragma unroll
     for (int r = 0; r < kSplit; ++r) {
@@ -528,20 +566,31 @@ __device__ __forceinline__ void attend(const TQ* __restrict__ q,
   }
 }
 
-// The kernels' host side: the instantiation for G query heads.
+// The kernels' host side: the instantiation for G query heads, its
+// G-tile GT = G up to kMaxG, kMaxG above (g_tiles(G) tiles). Launch<T,
+// GT>::run takes G first and launches KV * g_tiles(G) clusters a row.
 template <template <typename, int> class Launch, typename T, typename... A>
 cudaError_t dispatch_g(int G, A... args) {
   switch (G) {
-    case 1: return Launch<T, 1>::run(args...);
-    case 2: return Launch<T, 2>::run(args...);
-    case 3: return Launch<T, 3>::run(args...);
-    case 4: return Launch<T, 4>::run(args...);
-    case 5: return Launch<T, 5>::run(args...);
-    case 6: return Launch<T, 6>::run(args...);
-    case 7: return Launch<T, 7>::run(args...);
-    case 8: return Launch<T, 8>::run(args...);
-    default: return cudaErrorInvalidValue;
+    case 1: return Launch<T, 1>::run(G, args...);
+    case 2: return Launch<T, 2>::run(G, args...);
+    case 3: return Launch<T, 3>::run(G, args...);
+    case 4: return Launch<T, 4>::run(G, args...);
+    case 5: return Launch<T, 5>::run(G, args...);
+    case 6: return Launch<T, 6>::run(G, args...);
+    case 7: return Launch<T, 7>::run(G, args...);
+    case 8: return Launch<T, 8>::run(G, args...);
+    default:
+      if (G > kMaxG) return Launch<T, kMaxG>::run(G, args...);
+      return cudaErrorInvalidValue;
   }
+}
+
+// the C entry points' check of a head geometry: H = KV * G, head_dim up
+// to kMaxD, and the grid's y (KV * g_tiles(G)) and z (B) within 65535
+inline bool heads_ok(int B, int H, int KV, int D) {
+  return KV > 0 && H > 0 && H % KV == 0 && D <= kMaxD && B <= 65535 &&
+         (long long)KV * g_tiles(H / KV) <= 65535;
 }
 
 // allow more than 48 KB of dynamic shared memory where a shape needs it

@@ -52,13 +52,15 @@
 // raises otherwise.
 //
 // float32 (the reduced f32 models only; TF32 is off, so f32 operands never
-// go through the tensor cores): the first version's CUDA-core kernel,
-// unchanged bit for bit. One CTA per fixed block of kRows = 8 token rows
-// (models.blocking.TOKEN_BLOCK) walks F in chunks of 256 hidden units:
-// each thread forms the gate and up products of one unit for the 8 rows in
-// float32, h = silu(g) * u rounded to x's dtype parks in shared memory,
-// and the CTA accumulates h @ Wd[chunk] into float32 registers, one set of
-// output columns per thread, in one fixed order with no atomics.
+// go through the tensor cores): two CUDA-core stage kernels, gate_up then
+// down, one CTA per fixed block of kRows = 8 token rows
+// (models.blocking.TOKEN_BLOCK), every sum in one fixed order with no
+// atomics; x's rows stream through shared memory in chunks, so any d_model
+// runs (see the stage kernels below).
+//
+// The down stage's kernels also serve the column-invariant projection
+// (acar_projection, kernels/projection.py), which replaces no TPU kernel:
+// see its entry point at the end of this file.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -246,146 +248,68 @@ cudaError_t launch_gemm(const CUtensorMap& a, const CUtensorMap& b0,
 }
 
 // ---------------------------------------------------------------------
-// float32: the CUDA-core kernel
+// float32: two CUDA-core stage kernels
 // ---------------------------------------------------------------------
 constexpr int kRows = 8;     // token rows per CTA (models.blocking.TOKEN_BLOCK)
 constexpr int kThreads = 256;
 constexpr int kFChunk = kThreads;  // one hidden unit per thread per chunk
-// output columns per thread: the kernel is instantiated for 4, 8, 12,
-// 16, 20 and 24 columns (D <= 1024, 2048, 3072, 4096, 5120, 6144) and
-// the launch takes the fewest that cover D. Column c's sum is the same
-// loop in every instantiation, so its bits do not depend on which one
-// runs.
-constexpr int kMaxCols = 24;
+constexpr int kDChunk = 1024;      // x columns in shared memory at a time
 
-template <typename T, int kCols>
-__global__ void __launch_bounds__(kThreads)
-    fused_swiglu_kernel(const T* __restrict__ x, const T* __restrict__ wg,
-                        const T* __restrict__ wu, const T* __restrict__ wd,
-                        T* __restrict__ out, int n_tokens, int D, int F) {
-  extern __shared__ float smem[];
-  float* xs = smem;              // kRows x D
-  float* hs = xs + kRows * D;    // kRows x kFChunk
-
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * kRows;
-  const int nrows = min(kRows, n_tokens - row0);
-
-  for (int i = tid; i < kRows * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    xs[i] = r < nrows ? acar::to_f32(x[(size_t)(row0 + r) * D + d]) : 0.f;
-  }
-
-  float acc[kRows][kCols];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[r][j] = 0.f;
-  }
-  __syncthreads();
-
-  for (int f0 = 0; f0 < F; f0 += kFChunk) {
-    const int f = f0 + tid;
-    if (f < F) {
-      float g[kRows], u[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        g[r] = 0.f;
-        u[r] = 0.f;
-      }
-      for (int d = 0; d < D; ++d) {
-        const float wgv = acar::to_f32(wg[(size_t)d * F + f]);
-        const float wuv = acar::to_f32(wu[(size_t)d * F + f]);
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const float xv = xs[r * D + d];
-          g[r] = fmaf(xv, wgv, g[r]);
-          u[r] = fmaf(xv, wuv, u[r]);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float sg = g[r] / (1.f + expf(-g[r]));  // silu in float32
-        hs[r * kFChunk + tid] = acar::to_f32(acar::from_f32<T>(sg * u[r]));
-      }
-    } else {
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) hs[r * kFChunk + tid] = 0.f;
-    }
-    __syncthreads();
-
-    const int nf = min(kFChunk, F - f0);
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      const int c = tid + j * kThreads;
-      if (c < D) {
-        for (int ff = 0; ff < nf; ++ff) {
-          const float w = acar::to_f32(wd[(size_t)(f0 + ff) * D + c]);
-#pragma unroll
-          for (int r = 0; r < kRows; ++r)
-            acc[r][j] = fmaf(hs[r * kFChunk + ff], w, acc[r][j]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int j = 0; j < kCols; ++j) {
-    const int c = tid + j * kThreads;
-    if (c < D) {
-      for (int r = 0; r < nrows; ++r)
-        out[(size_t)(row0 + r) * D + c] = acar::from_f32<T>(acc[r][j]);
-    }
-  }
-}
-
-// float32 in two stages, for tensor parallelism: the serving mesh
-// splits Wg and Wu by columns and gathers h between the stages, which one
-// fused launch cannot express. The split is at the h the fused kernel
-// already forms, and each stage runs the fused kernel's loops in the same
-// order, so gate_up then down gives fused_swiglu_kernel's bits:
+// float32 runs as two stages, h = silu(x Wg) * (x Wu) then h Wd, each a
+// kernel of its own (the wrapper launches both, and the serving mesh's
+// tensor parallelism calls them apart, gathering h between them):
 //   stage 1: one CTA a block of kRows token rows and kFChunk hidden units;
 //            each thread sums one unit's g and u over D in order (fmaf),
-//            h = silu(g) * u, as the fused kernel parks it in shared
-//            memory. A unit's value does not depend on F, so a column
-//            slice of Wg and Wu gives the same columns of h.
+//            x's rows streamed through shared memory kDChunk columns at a
+//            time (any D), then h = silu(g) * u. A unit's value does not
+//            depend on F, so a column slice of Wg and Wu gives the same
+//            columns of h.
 //   stage 2: one CTA a block of kRows rows and kThreads output columns;
 //            each thread sums its column over F in order, kFChunk units of
-//            h at a time through shared memory, as the fused kernel does.
+//            h at a time through shared memory.
+// Each element's sums run in one fixed order with no atomics, so a row's
+// bits depend on neither its neighbours nor the count of rows, and a
+// column's on neither the other columns nor their count.
 __global__ void __launch_bounds__(kThreads)
     swiglu_gate_up_f32_kernel(const float* __restrict__ x,
                               const float* __restrict__ wg,
                               const float* __restrict__ wu,
                               float* __restrict__ h, int n_tokens, int D,
                               int F) {
-  extern __shared__ float xs[];  // kRows x D
+  __shared__ float xs[kRows * kDChunk];
   const int tid = threadIdx.x;
   const int row0 = blockIdx.x * kRows;
   const int nrows = min(kRows, n_tokens - row0);
-  for (int i = tid; i < kRows * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    xs[i] = r < nrows ? x[(size_t)(row0 + r) * D + d] : 0.f;
-  }
-  __syncthreads();
   const int f = blockIdx.y * kFChunk + tid;
-  if (f >= F) return;
   float g[kRows], u[kRows];
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     g[r] = 0.f;
     u[r] = 0.f;
   }
-  for (int d = 0; d < D; ++d) {
-    const float wgv = wg[(size_t)d * F + f];
-    const float wuv = wu[(size_t)d * F + f];
+  for (int d0 = 0; d0 < D; d0 += kDChunk) {
+    const int nd = min(kDChunk, D - d0);
+    __syncthreads();  // the previous chunk is read
+    for (int i = tid; i < kRows * nd; i += kThreads) {
+      const int r = i / nd, d = i % nd;
+      xs[r * kDChunk + d] =
+          r < nrows ? x[(size_t)(row0 + r) * D + d0 + d] : 0.f;
+    }
+    __syncthreads();
+    if (f < F) {
+      for (int d = 0; d < nd; ++d) {
+        const float wgv = wg[(size_t)(d0 + d) * F + f];
+        const float wuv = wu[(size_t)(d0 + d) * F + f];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float xv = xs[r * D + d];
-      g[r] = fmaf(xv, wgv, g[r]);
-      u[r] = fmaf(xv, wuv, u[r]);
+        for (int r = 0; r < kRows; ++r) {
+          const float xv = xs[r * kDChunk + d];
+          g[r] = fmaf(xv, wgv, g[r]);
+          u[r] = fmaf(xv, wuv, u[r]);
+        }
+      }
     }
   }
+  if (f >= F) return;
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     if (r < nrows) {
@@ -395,6 +319,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// stage 2, and the f32 projection: out (T, D) = h (T, F) Wd (F, D)
 __global__ void __launch_bounds__(kThreads)
     swiglu_down_f32_kernel(const float* __restrict__ h,
                            const float* __restrict__ wd,
@@ -432,43 +357,14 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int kCols>
-cudaError_t launch_cols(const void* x, const void* wg, const void* wu,
-                        const void* wd, void* out, int n_tokens, int D,
-                        int F, cudaStream_t st) {
-  // x rows and one chunk of h in shared memory: 36 KB at D = 1024, 80 KB
-  // of x at D = 2560, 128 KB at D = 4096, 200 KB in all at D = 6144 (the
-  // opt-in covers up to 227 KB)
-  const size_t smem = sizeof(float) * ((size_t)kRows * D + kRows * kFChunk);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fused_swiglu_kernel<T, kCols>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  const int grid = (n_tokens + kRows - 1) / kRows;
-  fused_swiglu_kernel<T, kCols><<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(wg),
-      static_cast<const T*>(wu), static_cast<const T*>(wd),
-      static_cast<T*>(out), n_tokens, D, F);
+cudaError_t launch_down_f32(const void* h, const void* wd, void* out,
+                            int n_tokens, int D, int F, cudaStream_t st) {
+  const dim3 grid((n_tokens + kRows - 1) / kRows,
+                  (D + kThreads - 1) / kThreads);
+  swiglu_down_f32_kernel<<<grid, kThreads, 0, st>>>(
+      static_cast<const float*>(h), static_cast<const float*>(wd),
+      static_cast<float*>(out), n_tokens, D, F);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch(const void* x, const void* wg, const void* wu,
-                   const void* wd, void* out, int n_tokens, int D, int F,
-                   cudaStream_t st) {
-  if (D <= 4 * kThreads)
-    return launch_cols<T, 4>(x, wg, wu, wd, out, n_tokens, D, F, st);
-  if (D <= 8 * kThreads)
-    return launch_cols<T, 8>(x, wg, wu, wd, out, n_tokens, D, F, st);
-  if (D <= 12 * kThreads)
-    return launch_cols<T, 12>(x, wg, wu, wd, out, n_tokens, D, F, st);
-  if (D <= 16 * kThreads)
-    return launch_cols<T, 16>(x, wg, wu, wd, out, n_tokens, D, F, st);
-  if (D <= 20 * kThreads)
-    return launch_cols<T, 20>(x, wg, wu, wd, out, n_tokens, D, F, st);
-  return launch_cols<T, 24>(x, wg, wu, wd, out, n_tokens, D, F, st);
 }
 
 bool bf16_shapes_ok(int D, int F, std::initializer_list<const void*> ptrs) {
@@ -479,16 +375,6 @@ bool bf16_shapes_ok(int D, int F, std::initializer_list<const void*> ptrs) {
 }
 
 }  // namespace
-
-// float32: x (T, D), weights (D, F), (F, D) -> out (T, D)
-extern "C" int acar_fused_swiglu(const void* x, const void* wg,
-                                 const void* wu, const void* wd, void* out,
-                                 int n_tokens, int D, int F, void* stream) {
-  if (D > kMaxCols * kThreads) return (int)cudaErrorInvalidValue;
-  if (n_tokens <= 0) return (int)cudaSuccess;
-  return (int)launch<float>(x, wg, wu, wd, out, n_tokens, D, F,
-                            static_cast<cudaStream_t>(stream));
-}
 
 // bf16 stage 1: h (T, F) = bf16(silu(x Wg) * (x Wu))
 extern "C" int acar_swiglu_gate_up(const void* x, const void* wg,
@@ -521,38 +407,55 @@ extern "C" int acar_swiglu_down(const void* h, const void* wd, void* out,
   return (int)launch_gemm<kDownNarrow>(mh, md, md, out, n_tokens, D, F, st);
 }
 
-// float32 stage 1: h (T, F) = silu(x Wg) * (x Wu), the fused kernel's h
+// float32 stage 1: h (T, F) = silu(x Wg) * (x Wu)
 extern "C" int acar_swiglu_gate_up_f32(const void* x, const void* wg,
                                        const void* wu, void* h, int n_tokens,
                                        int D, int F, void* stream) {
-  if (D > kMaxCols * kThreads) return (int)cudaErrorInvalidValue;
   if (n_tokens <= 0) return (int)cudaSuccess;
-  const size_t smem = sizeof(float) * (size_t)kRows * D;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        swiglu_gate_up_f32_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
   const dim3 grid((n_tokens + kRows - 1) / kRows,
                   (F + kFChunk - 1) / kFChunk);
-  swiglu_gate_up_f32_kernel<<<grid, kThreads, smem,
+  swiglu_gate_up_f32_kernel<<<grid, kThreads, 0,
                               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(wg),
       static_cast<const float*>(wu), static_cast<float*>(h), n_tokens, D, F);
   return (int)cudaGetLastError();
 }
 
-// float32 stage 2: out (T, D) = h Wd, the fused kernel's sums
+// float32 stage 2: out (T, D) = h Wd
 extern "C" int acar_swiglu_down_f32(const void* h, const void* wd, void* out,
                                     int n_tokens, int D, int F,
                                     void* stream) {
   if (n_tokens <= 0) return (int)cudaSuccess;
-  const dim3 grid((n_tokens + kRows - 1) / kRows,
-                  (D + kThreads - 1) / kThreads);
-  swiglu_down_f32_kernel<<<grid, kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(h), static_cast<const float*>(wd),
-      static_cast<float*>(out), n_tokens, D, F);
-  return (int)cudaGetLastError();
+  return (int)launch_down_f32(h, wd, out, n_tokens, D, F,
+                              static_cast<cudaStream_t>(stream));
+}
+
+// The column-invariant projection (kernels/projection.py): out (M, N) =
+// x (M, K) w (K, N), summed in f32 and rounded once to x's dtype, on the
+// down stage's kernels with K in the place of F and N in that of D. Each
+// output element sums its K products in one fixed order in its own
+// accumulator, and no tile size is chosen from M: bf16 runs the
+// tensor-core GEMM (128-row tiles, 256 or 128 columns a CTA by N, no
+// split-K, no atomics), f32 the CUDA-core kernel (8-row blocks, a column
+// a thread). So a column's bits depend on neither N nor the columns
+// beside it (a column slice of w gives the same columns), and a row's on
+// neither M nor its neighbours. The wide and the narrow bf16 tile run the
+// same wgmma over K in the same order, so the tile width N picks does not
+// change a column's bits. bf16 needs K and N multiples of 8 and 16-byte
+// aligned tensors (TMA); the wrapper pads and copies to give it those.
+extern "C" int acar_projection(const void* x, const void* w, void* out,
+                               int M, int K, int N, int dtype,
+                               void* stream) {
+  if (M <= 0) return (int)cudaSuccess;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype != acar::kBF16)
+    return (int)launch_down_f32(x, w, out, M, N, K, st);
+  if (!bf16_shapes_ok(N, K, {x, w, out})) return (int)cudaErrorInvalidValue;
+  CUtensorMap mx, mw;
+  cudaError_t err = hp::make_tmap_bf16(&mx, x, M, K, kBM);
+  if (err == cudaSuccess) err = hp::make_tmap_bf16(&mw, w, K, N, kBK);
+  if (err != cudaSuccess) return (int)err;
+  if (N % (2 * kBN) == 0)
+    return (int)launch_gemm<kDownWide>(mx, mw, mw, out, M, N, K, st);
+  return (int)launch_gemm<kDownNarrow>(mx, mw, mw, out, M, N, K, st);
 }

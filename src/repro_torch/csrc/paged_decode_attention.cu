@@ -15,9 +15,11 @@
 // a hundred-odd positions) the call moves well under a megabyte, so latency
 // bounds it: the launch, the block-table and K/V round trips, the combine.
 //
-// Design: decode_split.cuh's loop, one launch of a grid (kSplit, KV, B) in
-// clusters of kSplit CTAs. A cluster serves one (row, kv head) with all G
-// query heads, so each K/V byte is read once and used G times; its ranks
+// Design: decode_split.cuh's loop, one launch of a grid (kSplit, KV *
+// G-tiles, B) in clusters of kSplit CTAs. A cluster serves one (row, kv
+// head) with its G query heads (up to 8; a larger G in tiles of 8, each
+// reading the kv head's keys), so each K/V byte is read once a tile and
+// used by every head of it; its ranks
 // split the row's positions by the row's own length and combine their
 // partial softmax states over distributed shared memory in rank order. A
 // CTA copies the page ids of its positions from the block table once per
@@ -33,43 +35,44 @@ namespace {
 using acar::split::kSplit;
 using acar::split::kThreads;
 
-template <typename T, int G>
+template <typename T, int GT>
 __global__ void __cluster_dims__(kSplit, 1, 1) __launch_bounds__(kThreads)
     paged_decode_split_kernel(const T* __restrict__ q,
                               const T* __restrict__ k_pages,
                               const T* __restrict__ v_pages,
                               const int* __restrict__ block_table,
                               const int* __restrict__ lengths,
-                              T* __restrict__ out, int KV, int D,
+                              T* __restrict__ out, int G, int KV, int D,
                               int page_size, int NB, float scale,
                               bool vec16) {
-  const int kv = blockIdx.y, b = blockIdx.z;
+  const acar::split::HeadTile ht = acar::split::head_tile<GT>(G);
+  const int kv = ht.kv, b = blockIdx.z;
   const int len = min(lengths[b], NB * page_size);
   acar::split::Rows<T, true> ld{k_pages + (size_t)kv * D,
                                 v_pages + (size_t)kv * D, (long long)KV * D};
   ld.bt = block_table + (size_t)b * NB;
   ld.page_size = page_size;
-  const size_t head0 = ((size_t)b * KV + kv) * G * D;
-  acar::split::attend<T, G>(q + head0, out + head0, D, len, scale, vec16,
-                            ld);
+  const size_t head0 = (((size_t)b * KV + kv) * G + ht.g0) * D;
+  acar::split::attend<T, GT>(q + head0, out + head0, D, len, scale, vec16,
+                             ld, ht.n);
 }
 
-template <typename T, int G>
+template <typename T, int GT>
 struct Launch {
-  static cudaError_t run(const void* q, const void* k_pages,
+  static cudaError_t run(int G, const void* q, const void* k_pages,
                          const void* v_pages, const void* block_table,
                          const void* lengths, void* out, int B, int KV,
                          int D, int page_size, int NB, float scale,
                          bool vec16, cudaStream_t st) {
-    const int bytes = acar::split::Layout<T, T>(G, D, true).total;
+    const int bytes = acar::split::Layout<T, T>(GT, D, true).total;
     const cudaError_t err = acar::split::reserve_smem(
-        paged_decode_split_kernel<T, G>, bytes);
+        paged_decode_split_kernel<T, GT>, bytes);
     if (err != cudaSuccess) return err;
-    paged_decode_split_kernel<T, G><<<dim3(kSplit, KV, B), kThreads, bytes,
-                                      st>>>(
+    const dim3 grid(kSplit, KV * acar::split::g_tiles(G), B);
+    paged_decode_split_kernel<T, GT><<<grid, kThreads, bytes, st>>>(
         static_cast<const T*>(q), static_cast<const T*>(k_pages),
         static_cast<const T*>(v_pages), static_cast<const int*>(block_table),
-        static_cast<const int*>(lengths), static_cast<T*>(out), KV, D,
+        static_cast<const int*>(lengths), static_cast<T*>(out), G, KV, D,
         page_size, NB, scale, vec16);
     return cudaGetLastError();
   }
@@ -81,10 +84,8 @@ extern "C" int acar_paged_decode_attention(
     const void* q, const void* k_pages, const void* v_pages,
     const void* block_table, const void* lengths, void* out, int B, int H,
     int KV, int D, int page_size, int NB, int dtype, void* stream) {
+  if (!acar::split::heads_ok(B, H, KV, D)) return (int)cudaErrorInvalidValue;
   const int G = H / KV;
-  if (G > acar::split::kMaxG || D > acar::split::kMaxD || H % KV != 0 ||
-      B > 65535 || KV > 65535)
-    return (int)cudaErrorInvalidValue;
   const float scale = 1.4426950408889634f / sqrtf((float)D);  // log2(e)
   const bool vec16 = acar::split::vec16(D, dtype == acar::kBF16 ? 2 : 4, q,
                                         k_pages, v_pages);

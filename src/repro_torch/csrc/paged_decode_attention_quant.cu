@@ -24,8 +24,9 @@
 //
 // Design: decode_split.cuh's loop, as the bf16/f32 paged decode
 // (paged_decode_attention.cu) runs it, with an int8 loader: one launch of
-// a grid (kSplit, KV, B) in clusters of kSplit CTAs, a cluster one (row,
-// kv head) with all G query heads, its ranks splitting the row's positions
+// a grid (kSplit, KV * G-tiles, B) in clusters of kSplit CTAs, a cluster
+// one (row, kv head) with its G query heads (a G above 8 in tiles of 8),
+// its ranks splitting the row's positions
 // by the row's own length and combining in rank order over distributed
 // shared memory. Codes go to shared memory by 16-byte cp.async (element
 // by element where D is not a multiple of 16), a tile's scales by 4-byte
@@ -44,7 +45,7 @@ using acar::split::kThreads;
 
 // (kThreads, 1), as decode_attention_quant.cu has it (there ptxas spilled
 // the G 6 instantiation without the second bound)
-template <typename TQ, int G>
+template <typename TQ, int GT>
 __global__ void __cluster_dims__(kSplit, 1, 1) __launch_bounds__(kThreads, 1)
     paged_decode_quant_split_kernel(const TQ* __restrict__ q,
                                     const int8_t* __restrict__ k_pages,
@@ -53,10 +54,11 @@ __global__ void __cluster_dims__(kSplit, 1, 1) __launch_bounds__(kThreads, 1)
                                     const float* __restrict__ v_scale,
                                     const int* __restrict__ block_table,
                                     const int* __restrict__ lengths,
-                                    TQ* __restrict__ out, int KV, int D,
-                                    int page_size, int NB, float scale,
-                                    bool vec16) {
-  const int kv = blockIdx.y, b = blockIdx.z;
+                                    TQ* __restrict__ out, int G, int KV,
+                                    int D, int page_size, int NB,
+                                    float scale, bool vec16) {
+  const acar::split::HeadTile ht = acar::split::head_tile<GT>(G);
+  const int kv = ht.kv, b = blockIdx.z;
   const int len = min(lengths[b], NB * page_size);
   acar::split::Rows<int8_t, true> ld{k_pages + (size_t)kv * D,
                                      v_pages + (size_t)kv * D,
@@ -66,31 +68,31 @@ __global__ void __cluster_dims__(kSplit, 1, 1) __launch_bounds__(kThreads, 1)
   ld.sstride = KV;
   ld.bt = block_table + (size_t)b * NB;
   ld.page_size = page_size;
-  const size_t head0 = ((size_t)b * KV + kv) * G * D;
-  acar::split::attend<TQ, G>(q + head0, out + head0, D, len, scale, vec16,
-                             ld);
+  const size_t head0 = (((size_t)b * KV + kv) * G + ht.g0) * D;
+  acar::split::attend<TQ, GT>(q + head0, out + head0, D, len, scale, vec16,
+                              ld, ht.n);
 }
 
-template <typename TQ, int G>
+template <typename TQ, int GT>
 struct Launch {
-  static cudaError_t run(const void* q, const void* k_pages,
+  static cudaError_t run(int G, const void* q, const void* k_pages,
                          const void* k_scale, const void* v_pages,
                          const void* v_scale, const void* block_table,
                          const void* lengths, void* out, int B, int KV,
                          int D, int page_size, int NB, float scale,
                          bool vec16, cudaStream_t st) {
-    const int bytes = acar::split::Layout<TQ, int8_t>(G, D, true).total;
+    const int bytes = acar::split::Layout<TQ, int8_t>(GT, D, true).total;
     const cudaError_t err = acar::split::reserve_smem(
-        paged_decode_quant_split_kernel<TQ, G>, bytes);
+        paged_decode_quant_split_kernel<TQ, GT>, bytes);
     if (err != cudaSuccess) return err;
-    paged_decode_quant_split_kernel<TQ, G><<<dim3(kSplit, KV, B), kThreads,
-                                             bytes, st>>>(
+    const dim3 grid(kSplit, KV * acar::split::g_tiles(G), B);
+    paged_decode_quant_split_kernel<TQ, GT><<<grid, kThreads, bytes, st>>>(
         static_cast<const TQ*>(q), static_cast<const int8_t*>(k_pages),
         static_cast<const float*>(k_scale),
         static_cast<const int8_t*>(v_pages),
         static_cast<const float*>(v_scale),
         static_cast<const int*>(block_table),
-        static_cast<const int*>(lengths), static_cast<TQ*>(out), KV, D,
+        static_cast<const int*>(lengths), static_cast<TQ*>(out), G, KV, D,
         page_size, NB, scale, vec16);
     return cudaGetLastError();
   }
@@ -103,10 +105,8 @@ extern "C" int acar_paged_decode_attention_quant(
     const void* v_pages, const void* v_scale, const void* block_table,
     const void* lengths, void* out, int B, int H, int KV, int D,
     int page_size, int NB, int dtype, void* stream) {
+  if (!acar::split::heads_ok(B, H, KV, D)) return (int)cudaErrorInvalidValue;
   const int G = H / KV;
-  if (G > acar::split::kMaxG || D > acar::split::kMaxD || H % KV != 0 ||
-      B > 65535 || KV > 65535)
-    return (int)cudaErrorInvalidValue;
   const float scale = 1.4426950408889634f / sqrtf((float)D);  // log2(e)
   const bool vec16 = acar::split::vec16(D, 1, q, k_pages, v_pages);
   cudaStream_t st = static_cast<cudaStream_t>(stream);

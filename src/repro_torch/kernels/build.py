@@ -45,8 +45,6 @@ _SIGNATURES = {
         [_VP] * 6 + [_I] * 7 + [_VP],
     "acar_chunked_prefill_attention":
         [_VP] * 6 + [_I] * 9 + [_VP],
-    "acar_fused_swiglu":
-        [_VP] * 5 + [_I] * 3 + [_VP],
     "acar_swiglu_gate_up":
         [_VP] * 4 + [_I] * 3 + [_VP],
     "acar_swiglu_down":
@@ -55,6 +53,8 @@ _SIGNATURES = {
         [_VP] * 4 + [_I] * 3 + [_VP],
     "acar_swiglu_down_f32":
         [_VP] * 3 + [_I] * 3 + [_VP],
+    "acar_projection":
+        [_VP] * 3 + [_I] * 4 + [_VP],
     "acar_decode_attention":
         [_VP] * 4 + [_I] * 7 + [_VP],
     "acar_decode_attention_quant":

@@ -12,18 +12,19 @@ bf16 call is two CUDA launches, one tensor-core GEMM kernel per stage:
 into a (T, F) scratch) and ``swiglu_down`` (h Wd). Each stage has its
 plain version beside it (``swiglu_gate_up_plain``,
 ``swiglu_down_plain``), which rounds where the kernel and the Pallas
-kernel round. An f32 call is one launch of the CUDA-core kernel.
+kernel round. An f32 call is two launches too, the CUDA-core stage
+kernels (``swiglu_gate_up_f32_kernel``, ``swiglu_down_f32_kernel``),
+which take any d_model (x's rows stream through shared memory in
+chunks).
 
 Tensor parallelism (the serving mesh, ``sharding/tp.py``) splits Wg and
 Wu by columns and gathers h between the stages, so it calls the two
 stages as wrappers of their own: ``swiglu_gate_up`` (x, a column slice
 of Wg and Wu -> that slice of h) and ``swiglu_down`` (the gathered h, the
 whole Wd), each with its own ``launches`` count. In bf16 they launch the
-fused wrapper's two GEMM kernels; in f32 the two CUDA-core stage kernels
-(``swiglu_gate_up_f32_kernel``, ``swiglu_down_f32_kernel``), which split
-the fused f32 kernel at the h it forms and keep its summation orders, so
-gate_up then down gives the fused call's bits. On a CPU tensor they run
-the stages' plain versions.
+fused wrapper's two GEMM kernels, in f32 its two CUDA-core stage
+kernels, so gate_up then down gives the fused call's bits. On a CPU
+tensor they run the stages' plain versions.
 
 ``fused_swiglu_plain`` rounds silu(x Wg) to x's dtype before multiplying
 by x Wu, as the oracle does; the kernels multiply in f32, as the Pallas
@@ -42,11 +43,6 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-
-# the f32 kernel's widest instantiation: 24 output columns a thread of
-# 256 (csrc/fused_swiglu.cu kMaxCols), 8 rows of x in shared memory
-F32_MAX_D = 6144
-
 
 def fused_swiglu_plain(x: torch.Tensor, w_gate: torch.Tensor,
                        w_up: torch.Tensor,
@@ -121,15 +117,12 @@ def fused_swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
 
 
 def _check_dims(name: str, dtype: torch.dtype, d: int, f: int) -> None:
-    """The widths the kernels take."""
-    if dtype == torch.bfloat16:
-        if d % 8 or f % 8:
-            raise ValueError(
-                f"{name}: the bf16 kernels take d_model and d_ff that are "
-                f"multiples of 8 (TMA's 16-byte rows), got {d} and {f}")
-    elif d > F32_MAX_D:
-        raise ValueError(f"{name}: the f32 kernel takes d_model <= "
-                         f"{F32_MAX_D}, got {d}")
+    """The widths the kernels take: bf16 needs multiples of 8, f32 takes
+    any."""
+    if dtype == torch.bfloat16 and (d % 8 or f % 8):
+        raise ValueError(
+            f"{name}: the bf16 kernels take d_model and d_ff that are "
+            f"multiples of 8 (TMA's 16-byte rows), got {d} and {f}")
 
 
 def _check_shapes(name: str, x: torch.Tensor, *ws: torch.Tensor) -> None:
@@ -265,22 +258,13 @@ def _launch(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
             w_down: torch.Tensor) -> torch.Tensor:
     name = "fused_swiglu"
     _check_shapes(name, x, w_gate, w_up, w_down)
-    dev = build.check_cuda(name, x=x, w_gate=w_gate, w_up=w_up,
-                           w_down=w_down)
-    t, d = x.shape
-    f = w_gate.shape[1]
-    if t == 0:
+    build.check_cuda(name, x=x, w_gate=w_gate, w_up=w_up, w_down=w_down)
+    if x.shape[0] == 0:
         return torch.empty_like(x)
     if x.dtype == torch.bfloat16:
         out = _launch_down(_launch_gate_up(x, w_gate, w_up), w_down)
     else:
-        out = torch.empty_like(x)
-        with torch.cuda.device(dev):
-            err = build.load().acar_fused_swiglu(
-                x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
-                w_down.data_ptr(), out.data_ptr(), t, d, f,
-                build.stream_handle(dev))
-        build.check(err, name)
+        out = _launch_down_f32(_launch_gate_up_f32(x, w_gate, w_up), w_down)
     build.count_launch(fused_swiglu)
     return out
 

@@ -16,17 +16,20 @@ from repro_torch.kernels.paged_decode_attention import (
     paged_decode_attention)
 from repro_torch.kernels.paged_decode_attention_quant import (
     paged_decode_attention_quant)
+from repro_torch.kernels.projection import projection
 from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_bwd
 from repro_torch.kernels.selective_scan import (
     selective_scan, selective_scan_bwd)
 
 # each launcher with a ``launches`` count: the forward wrappers, the
-# SwiGLU's two stages called on their own (tensor parallelism), and the
-# backward kernels the two scans' autograd Functions launch
+# SwiGLU's two stages called on their own (tensor parallelism), the
+# backward kernels the two scans' autograd Functions launch, and the
+# column-invariant projection (no TPU counterpart)
 KERNELS = (paged_decode_attention, chunked_prefill_attention,
            fused_swiglu, decode_attention, paged_decode_attention_quant,
            decode_attention_quant, selective_scan, selective_scan_bwd,
-           rglru_scan, rglru_scan_bwd, swiglu_gate_up, swiglu_down)
+           rglru_scan, rglru_scan_bwd, swiglu_gate_up, swiglu_down,
+           projection)
 
 
 def launch_counts() -> dict:
@@ -42,5 +45,5 @@ def reset_launch_counts() -> None:
 __all__ = ["KERNELS", "chunked_prefill_attention", "decode_attention",
            "decode_attention_quant", "fused_swiglu", "launch_counts",
            "paged_decode_attention", "paged_decode_attention_quant",
-           "reset_launch_counts", "rglru_scan", "selective_scan",
-           "swiglu_down", "swiglu_gate_up"]
+           "projection", "reset_launch_counts", "rglru_scan",
+           "selective_scan", "swiglu_down", "swiglu_gate_up"]

@@ -1,18 +1,24 @@
-"""The training step.
+"""Step builders and abstract input specs.
 
-The port of ``repro/launch/steps.py::make_train_step`` on one device
-(the reference's ``moe_shards`` is 1 there). Abstract input specs,
-shardings and the dry-run lowering have no counterpart here yet.
+The port of ``repro/launch/steps.py``: ``make_train_step`` on one
+device (the reference's ``moe_shards`` is 1 there), ``make_prefill_step``
+and ``make_serve_step``, and ``input_specs``, one step's model inputs as
+tensors on the ``meta`` device (shapes and dtypes, no storage), for
+the dry-run accounting (``launch/dryrun.py``). The reference's sharding
+helpers and its lowering onto the production mesh are XLA's and have no
+counterpart here.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict
 
 import torch
 
-from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.configs.base import InputShape, ModelConfig, TrainConfig
 from repro_torch.models import transformer as T
-from repro_torch.models.params import _leaves, _set
+from repro_torch.models.frontends import (
+    audio_frame_shape, vision_patch_shape)
+from repro_torch.models.params import _leaves, _set, torch_dtype
 from repro_torch.optim import AdamWState, softmax_cross_entropy, update
 from repro_torch.optim.adamw import tree_map
 
@@ -58,3 +64,58 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig):
         return new_params, new_state, {**met, **om, "total_loss": total}
 
     return train_step
+
+
+def make_prefill_step(cfg: ModelConfig):
+    """(params, tokens[, frontend]) -> (last-position logits, decode
+    cache)."""
+
+    def prefill_step(params, tokens, frontend_embeds=None):
+        return T.prefill(cfg, params, tokens, frontend_embeds)
+
+    return prefill_step
+
+
+def make_serve_step(cfg: ModelConfig):
+    """One decode step: (params, cache, token, pos) -> (logits, cache)."""
+
+    def serve_step(params, cache, token, pos):
+        return T.decode_step(cfg, params, cache, token, pos)
+
+    return serve_step
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _frontend_spec(cfg: ModelConfig, batch: int):
+    if cfg.frontend == "audio":
+        return _meta(audio_frame_shape(cfg, batch), torch_dtype(cfg))
+    if cfg.frontend == "vision":
+        return _meta(vision_patch_shape(cfg, batch), torch_dtype(cfg))
+    return None
+
+
+def input_specs(cfg: ModelConfig, shape: InputShape) -> Dict[str, Any]:
+    """One step's model inputs as ``meta`` tensors (no storage):
+
+    train   -> {tokens, labels, loss_mask[, frontend_embeds]}
+    prefill -> {tokens[, frontend_embeds]}
+    decode  -> {cache, token, pos}, the cache ``init_cache``'s tree
+    """
+    b, s = shape.global_batch, shape.seq_len
+    if shape.kind == "decode":
+        return {"cache": T.init_cache(cfg, b, s, device="meta"),
+                "token": _meta((b,), torch.int32),
+                "pos": _meta((), torch.int32)}
+    if shape.kind not in ("train", "prefill"):
+        raise ValueError(f"unknown input-shape kind {shape.kind!r}")
+    out = {"tokens": _meta((b, s), torch.int32)}
+    if shape.kind == "train":
+        out["labels"] = _meta((b, s), torch.int32)
+        out["loss_mask"] = _meta((b, s), torch.float32)
+    fe = _frontend_spec(cfg, b)
+    if fe is not None:
+        out["frontend_embeds"] = fe
+    return out

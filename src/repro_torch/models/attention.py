@@ -31,7 +31,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import apply_rope, rms_norm
+from repro_torch.models.layers import apply_rope, project, rms_norm
 from repro_torch.sharding.tp import tp_all_gather
 
 _NEG_INF = -1e30
@@ -149,9 +149,9 @@ def gqa_project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor):
     """x: (B,S,d) -> q (B,S,H,Dh), k/v (B,S,KV,Dh)."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = torch.matmul(x, p["wq"]).reshape(b, s, cfg.num_heads, hd)
-    k = torch.matmul(x, p["wk"]).reshape(b, s, cfg.num_kv_heads, hd)
-    v = torch.matmul(x, p["wv"]).reshape(b, s, cfg.num_kv_heads, hd)
+    q = project(x, p["wq"]).reshape(b, s, cfg.num_heads, hd)
+    k = project(x, p["wk"]).reshape(b, s, cfg.num_kv_heads, hd)
+    v = project(x, p["wv"]).reshape(b, s, cfg.num_kv_heads, hd)
     return q, k, v
 
 
@@ -178,9 +178,9 @@ def _decode_qkv(cfg: ModelConfig, p: dict, x_t: torch.Tensor,
     q (B, H, Dh), k/v (B, KV, Dh); positions broadcasts to (B, 1)."""
     b = x_t.shape[0]
     hd = cfg.resolved_head_dim
-    q = torch.matmul(x_t, p["wq"]).reshape(b, cfg.num_heads, hd)
-    k = torch.matmul(x_t, p["wk"]).reshape(b, cfg.num_kv_heads, hd)
-    v = torch.matmul(x_t, p["wv"]).reshape(b, cfg.num_kv_heads, hd)
+    q = project(x_t, p["wq"]).reshape(b, cfg.num_heads, hd)
+    k = project(x_t, p["wk"]).reshape(b, cfg.num_kv_heads, hd)
+    v = project(x_t, p["wv"]).reshape(b, cfg.num_kv_heads, hd)
     if cfg.use_rope:
         q = apply_rope(q[:, None], positions, cfg.rope_theta)[:, 0]
         k = apply_rope(k[:, None], positions, cfg.rope_theta)[:, 0]
@@ -573,7 +573,7 @@ def cross_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
         x = x[:, None]
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = torch.matmul(x, p["wq"]).reshape(b, s, cfg.num_heads, hd)
+    q = project(x, p["wq"]).reshape(b, s, cfg.num_heads, hd)
     mask = torch.ones((s, enc_k.shape[1]), dtype=torch.bool,
                       device=x.device)
     out = full_attention(q, enc_k, enc_v, mask)
@@ -586,6 +586,6 @@ def cross_kv(cfg: ModelConfig, p: dict, enc_out: torch.Tensor):
     (B, F, d)."""
     b, f, _ = enc_out.shape
     hd = cfg.resolved_head_dim
-    k = torch.matmul(enc_out, p["wk"]).reshape(b, f, cfg.num_kv_heads, hd)
-    v = torch.matmul(enc_out, p["wv"]).reshape(b, f, cfg.num_kv_heads, hd)
+    k = project(enc_out, p["wk"]).reshape(b, f, cfg.num_kv_heads, hd)
+    v = project(enc_out, p["wv"]).reshape(b, f, cfg.num_kv_heads, hd)
     return k, v

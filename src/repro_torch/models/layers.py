@@ -12,6 +12,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ops
 from repro_torch.models.blocking import blocked_rows
 from repro_torch.sharding.tp import tp_all_gather
 
@@ -67,6 +68,20 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 # ----------------------------------------------------------------------
+# projections against column-split weights
+# ----------------------------------------------------------------------
+def project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., K) @ w (K, N) for a weight that tensor parallelism splits
+    by columns (``sharding/tp.py``'s ``_COL_PARALLEL``: wq, wk, wv, the
+    decode MLP's w_gate / w_up, an untied lm_head): every such product
+    goes through ``ops.projection``, whose kernel gives a column the
+    same bits whatever the columns beside it, so one device and each
+    model column of the mesh compute the same values. On the CPU it is
+    ``torch.matmul``."""
+    return ops.projection(x, w)
+
+
+# ----------------------------------------------------------------------
 # MLPs
 # ----------------------------------------------------------------------
 def swiglu_mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -75,13 +90,14 @@ def swiglu_mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
     Runs over fixed-shape token blocks (``models.blocking``) so each
     token's bits are independent of batch composition. The decode MLP
     takes this path; the prefill MLP goes through the fused kernel
-    (``transformer.mlp_apply``).
+    (``transformer.mlp_apply``). g and u are ``project``'s (column-split
+    weights); silu(g) rounds to x's dtype before the multiply by u.
     """
     wg, wu, wd = params["w_gate"], params["w_up"], params["w_down"]
 
     def blk(xb: torch.Tensor) -> torch.Tensor:
-        g = torch.matmul(xb, wg)
-        u = torch.matmul(xb, wu)
+        g = project(xb, wg)
+        u = project(xb, wu)
         h = torch.nn.functional.silu(g.float()).to(xb.dtype) * u
         # under tensor parallelism w_gate/w_up are column-split and
         # w_down is replicated: gather the hidden back to full d_ff so
@@ -188,4 +204,4 @@ def lm_head(params: dict, x: torch.Tensor,
     # an untied lm_head is vocab-column-split under tensor parallelism;
     # tied logits contract the replicated embedding and are already
     # full-vocab
-    return tp_all_gather(torch.matmul(x, params["lm_head"]))
+    return tp_all_gather(project(x, params["lm_head"]))

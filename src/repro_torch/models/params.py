@@ -20,7 +20,7 @@ not params).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -44,6 +44,9 @@ class WeightDef:
     shape: Tuple[int, ...]
     init: str = "normal"          # normal | zeros | ones | a_log | lam
     scale: float = 0.02
+    # the reference's logical axis names, one per dim (``param_specs``
+    # maps them to mesh axes through a rule table)
+    axes: Tuple[Optional[str], ...] = ()
 
 
 # inits whose leaves stay float32 in a bf16 model (the reference's
@@ -53,9 +56,9 @@ _RG_C = 8.0   # RG-LRU's recurrence constant (models.rglru._C)
 
 
 def _norm_def(d: int, with_bias: bool = False) -> Dict[str, WeightDef]:
-    out = {"scale": WeightDef((d,), "ones")}
+    out = {"scale": WeightDef((d,), "ones", axes=("embed",))}
     if with_bias:
-        out["bias"] = WeightDef((d,), "zeros")
+        out["bias"] = WeightDef((d,), "zeros", axes=("embed",))
     return out
 
 
@@ -63,10 +66,10 @@ def _attn_defs(cfg: ModelConfig) -> Dict[str, WeightDef]:
     d, hd = cfg.d_model, cfg.resolved_head_dim
     h, kv = cfg.num_heads, cfg.num_kv_heads
     return {
-        "wq": WeightDef((d, h * hd)),
-        "wk": WeightDef((d, kv * hd)),
-        "wv": WeightDef((d, kv * hd)),
-        "wo": WeightDef((h * hd, d)),
+        "wq": WeightDef((d, h * hd), axes=("embed", "heads")),
+        "wk": WeightDef((d, kv * hd), axes=("embed", "kv_heads")),
+        "wv": WeightDef((d, kv * hd), axes=("embed", "kv_heads")),
+        "wo": WeightDef((h * hd, d), axes=("heads", "embed")),
     }
 
 
@@ -78,14 +81,17 @@ def _mla_defs(cfg: ModelConfig) -> Dict[str, WeightDef]:
     d, h = cfg.d_model, cfg.num_heads
     qk = m.qk_nope_head_dim + m.qk_rope_head_dim
     return {
-        "wq_a": WeightDef((d, m.q_lora_rank)),
-        "q_norm": WeightDef((m.q_lora_rank,), "ones"),
-        "wq_b": WeightDef((m.q_lora_rank, h * qk)),
-        "wkv_a": WeightDef((d, m.kv_lora_rank + m.qk_rope_head_dim)),
-        "kv_norm": WeightDef((m.kv_lora_rank,), "ones"),
-        "wk_b": WeightDef((m.kv_lora_rank, h * m.qk_nope_head_dim)),
-        "wv_b": WeightDef((m.kv_lora_rank, h * m.v_head_dim)),
-        "wo": WeightDef((h * m.v_head_dim, d)),
+        "wq_a": WeightDef((d, m.q_lora_rank), axes=("embed", None)),
+        "q_norm": WeightDef((m.q_lora_rank,), "ones", axes=(None,)),
+        "wq_b": WeightDef((m.q_lora_rank, h * qk), axes=(None, "heads")),
+        "wkv_a": WeightDef((d, m.kv_lora_rank + m.qk_rope_head_dim),
+                           axes=("embed", None)),
+        "kv_norm": WeightDef((m.kv_lora_rank,), "ones", axes=(None,)),
+        "wk_b": WeightDef((m.kv_lora_rank, h * m.qk_nope_head_dim),
+                          axes=(None, "heads")),
+        "wv_b": WeightDef((m.kv_lora_rank, h * m.v_head_dim),
+                          axes=(None, "heads")),
+        "wo": WeightDef((h * m.v_head_dim, d), axes=("heads", "embed")),
     }
 
 
@@ -94,15 +100,15 @@ def _mlp_defs(cfg: ModelConfig) -> Dict[str, WeightDef]:
     d, f = cfg.d_model, cfg.d_ff
     if cfg.family == "audio":
         return {
-            "w_in": WeightDef((d, f)),
-            "b_in": WeightDef((f,), "zeros"),
-            "w_out": WeightDef((f, d)),
-            "b_out": WeightDef((d,), "zeros"),
+            "w_in": WeightDef((d, f), axes=("embed", "ff")),
+            "b_in": WeightDef((f,), "zeros", axes=("ff",)),
+            "w_out": WeightDef((f, d), axes=("ff", "embed")),
+            "b_out": WeightDef((d,), "zeros", axes=("embed",)),
         }
     return {
-        "w_gate": WeightDef((d, f)),
-        "w_up": WeightDef((d, f)),
-        "w_down": WeightDef((f, d)),
+        "w_gate": WeightDef((d, f), axes=("embed", "ff")),
+        "w_up": WeightDef((d, f), axes=("embed", "ff")),
+        "w_down": WeightDef((f, d), axes=("ff", "embed")),
     }
 
 
@@ -113,17 +119,19 @@ def _moe_defs(cfg: ModelConfig) -> Dict[str, WeightDef]:
     m = cfg.moe
     d, e, f = cfg.d_model, m.num_experts, m.d_ff_expert
     out = {
-        "router": WeightDef((d, e)),
-        "w_gate": WeightDef((e, d, f)),
-        "w_up": WeightDef((e, d, f)),
-        "w_down": WeightDef((e, f, d)),
+        "router": WeightDef((d, e), axes=("embed", None)),
+        "w_gate": WeightDef((e, d, f),
+                            axes=("experts", "embed", "expert_ff")),
+        "w_up": WeightDef((e, d, f), axes=("experts", "embed", "expert_ff")),
+        "w_down": WeightDef((e, f, d),
+                            axes=("experts", "expert_ff", "embed")),
     }
     if m.num_shared_experts:
         sf = m.num_shared_experts * m.d_ff_shared
         out.update({
-            "shared_w_gate": WeightDef((d, sf)),
-            "shared_w_up": WeightDef((d, sf)),
-            "shared_w_down": WeightDef((sf, d)),
+            "shared_w_gate": WeightDef((d, sf), axes=("embed", "ff")),
+            "shared_w_up": WeightDef((d, sf), axes=("embed", "ff")),
+            "shared_w_down": WeightDef((sf, d), axes=("ff", "embed")),
         })
     return out
 
@@ -133,16 +141,17 @@ def _ssm_defs(cfg: ModelConfig) -> Dict[str, WeightDef]:
     d = cfg.d_model
     d_in, dt_rank, n = ssm_dims(cfg)
     return {
-        "w_in_x": WeightDef((d, d_in)),
-        "w_in_z": WeightDef((d, d_in)),
-        "conv_w": WeightDef((s.conv_width, d_in)),
-        "conv_b": WeightDef((d_in,), "zeros"),
-        "w_xproj": WeightDef((d_in, dt_rank + 2 * n)),
-        "w_dt": WeightDef((dt_rank, d_in)),
-        "b_dt": WeightDef((d_in,), "zeros"),
-        "a_log": WeightDef((d_in, n), "a_log"),
-        "d_skip": WeightDef((d_in,), "ones"),
-        "w_out": WeightDef((d_in, d)),
+        "w_in_x": WeightDef((d, d_in), axes=("embed", "d_inner")),
+        "w_in_z": WeightDef((d, d_in), axes=("embed", "d_inner")),
+        "conv_w": WeightDef((s.conv_width, d_in), axes=(None, "d_inner")),
+        "conv_b": WeightDef((d_in,), "zeros", axes=("d_inner",)),
+        "w_xproj": WeightDef((d_in, dt_rank + 2 * n),
+                             axes=("d_inner", None)),
+        "w_dt": WeightDef((dt_rank, d_in), axes=(None, "d_inner")),
+        "b_dt": WeightDef((d_in,), "zeros", axes=("d_inner",)),
+        "a_log": WeightDef((d_in, n), "a_log", axes=("d_inner", None)),
+        "d_skip": WeightDef((d_in,), "ones", axes=("d_inner",)),
+        "w_out": WeightDef((d_in, d), axes=("d_inner", "embed")),
     }
 
 
@@ -151,16 +160,16 @@ def _rglru_defs(cfg: ModelConfig) -> Dict[str, WeightDef]:
     d = cfg.d_model
     w = r.lru_width or d
     return {
-        "w_x": WeightDef((d, w)),
-        "w_g": WeightDef((d, w)),
-        "conv_w": WeightDef((r.conv_width, w)),
-        "conv_b": WeightDef((w,), "zeros"),
-        "w_a": WeightDef((w, w)),
-        "b_a": WeightDef((w,), "zeros"),
-        "w_i": WeightDef((w, w)),
-        "b_i": WeightDef((w,), "zeros"),
-        "lam": WeightDef((w,), "lam"),
-        "w_out": WeightDef((w, d)),
+        "w_x": WeightDef((d, w), axes=("embed", "d_inner")),
+        "w_g": WeightDef((d, w), axes=("embed", "d_inner")),
+        "conv_w": WeightDef((r.conv_width, w), axes=(None, "d_inner")),
+        "conv_b": WeightDef((w,), "zeros", axes=("d_inner",)),
+        "w_a": WeightDef((w, w), axes=("d_inner", None)),
+        "b_a": WeightDef((w,), "zeros", axes=(None,)),
+        "w_i": WeightDef((w, w), axes=("d_inner", None)),
+        "b_i": WeightDef((w,), "zeros", axes=(None,)),
+        "lam": WeightDef((w,), "lam", axes=(None,)),
+        "w_out": WeightDef((w, d), axes=("d_inner", "embed")),
     }
 
 
@@ -196,7 +205,8 @@ def layer_defs(cfg: ModelConfig, kind: str, layer_idx: int = 0,
 def _stack_defs(defs: dict, n: int) -> dict:
     """Prepend a (stacked) layers axis to every WeightDef in a tree."""
     return {k: _stack_defs(v, n) if isinstance(v, dict)
-            else WeightDef((n,) + v.shape, v.init, v.scale)
+            else WeightDef((n,) + v.shape, v.init, v.scale,
+                           ("layers",) + v.axes)
             for k, v in defs.items()}
 
 
@@ -204,11 +214,11 @@ def model_defs(cfg: ModelConfig) -> dict:
     """Full parameter def tree for an architecture of any family."""
     d, v = cfg.d_model, cfg.vocab_size
     defs: dict = {
-        "embedding": WeightDef((v, d)),
+        "embedding": WeightDef((v, d), axes=("vocab", "embed")),
         "final_norm": _norm_def(d, cfg.family == "audio"),
     }
     if not cfg.tie_embeddings:
-        defs["lm_head"] = WeightDef((d, v))
+        defs["lm_head"] = WeightDef((d, v), axes=("embed", "vocab"))
     kinds = cfg.layer_kinds
     if cfg.family == "hybrid":
         # non-uniform layer stack: per-layer subtrees
@@ -221,7 +231,8 @@ def model_defs(cfg: ModelConfig) -> dict:
         defs["enc_final_norm"] = _norm_def(d, True)
         defs["dec_layers"] = _stack_defs(
             layer_defs(cfg, "attn", 0, cross_attn=True), cfg.num_layers)
-        defs["dec_pos"] = WeightDef((cfg.max_position, d))
+        defs["dec_pos"] = WeightDef((cfg.max_position, d),
+                                    axes=(None, "embed"))
     elif cfg.moe is not None and cfg.moe.first_moe_layer > 0:
         # deepseek-v2: dense layer(s) first, a uniform MoE stack after
         k = cfg.moe.first_moe_layer
@@ -332,5 +343,44 @@ def count_params(params: dict) -> int:
     return sum(int(t.numel()) for _, t in _leaves(params))
 
 
-__all__ = ["WeightDef", "count_params", "from_jax_numpy", "init_params",
-           "layer_defs", "model_defs", "torch_dtype"]
+def _map_defs(fn, tree: dict) -> dict:
+    return {k: _map_defs(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def abstract_params(cfg: ModelConfig) -> dict:
+    """The parameter tree as tensors on the ``meta`` device (shapes and
+    dtypes, no storage), for accounting: the model's dtype, float32 for
+    ``a_log`` and ``lam`` as ``init_params`` makes them."""
+    dtype = torch_dtype(cfg)
+
+    def meta(wd: WeightDef) -> torch.Tensor:
+        dt = torch.float32 if wd.init in _F32_INITS else dtype
+        return torch.empty(wd.shape, dtype=dt, device="meta")
+
+    return _map_defs(meta, model_defs(cfg))
+
+
+def param_specs(cfg: ModelConfig, rules: dict) -> dict:
+    """Per-leaf tuples of mesh-axis names (None = not sharded), one per
+    dim, mirroring the param tree: each logical axis maps through
+    ``rules`` (``sharding/partitioning.py``'s tables), a mesh axis at
+    most once per leaf, as the reference's ``PartitionSpec`` tree."""
+
+    def spec(wd: WeightDef) -> tuple:
+        out, used = [], set()
+        for ax in wd.axes:
+            mesh_axis = rules.get(ax) if ax is not None else None
+            if mesh_axis is None or mesh_axis in used:
+                out.append(None)
+            else:
+                out.append(mesh_axis)
+                used.add(mesh_axis)
+        return tuple(out)
+
+    return _map_defs(spec, model_defs(cfg))
+
+
+__all__ = ["WeightDef", "abstract_params", "count_params", "from_jax_numpy",
+           "init_params", "layer_defs", "model_defs", "param_specs",
+           "torch_dtype"]

@@ -541,6 +541,12 @@ def resolve_layout(cfg: ModelConfig) -> Optional[str]:
     return "dense"
 
 
+def paged_supported(cfg: ModelConfig) -> bool:
+    """True when some page layout serves the config bit-identically to
+    its dense (contiguous-cache) path (``resolve_layout``)."""
+    return resolve_layout(cfg) is not None
+
+
 def prefill_paged(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                   pages: Pages, prefill_table: torch.Tensor, *,
                   cache_len: Optional[int] = None

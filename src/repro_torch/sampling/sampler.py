@@ -530,3 +530,11 @@ def fork_pages_sharded(pages, src, dst, *, mesh):
         lambda pgs, s, d: fork_pages(pgs, s, d),
         [(pgs, src[k], dst[k])
          for pgs, (k, _, _) in zip(pages, mesh.cells())])
+
+
+def decode_text(tokens, detok) -> list:
+    """Apply a detokenizer callable row-wise (host-side helper): tokens
+    (B, S), a tensor or an array -> B decoded rows."""
+    if isinstance(tokens, torch.Tensor):
+        tokens = tokens.cpu().numpy()
+    return [detok(row) for row in np.asarray(tokens)]

@@ -25,13 +25,23 @@ raises instead of waiting. Outside a ``tp_context`` it returns its
 input unchanged, so the single-device and 1-D ("data",) paths run the
 single-device program bit for bit.
 
-On the CPU a column slice of a projection gives the unsliced product's
-bits, so a model column's program is bit for bit the single-device one.
-On a CUDA device the projections are ``torch.matmul`` (cuBLAS), which
-picks its kernel by shape: a bf16 product over a column slice can round
-apart from the same columns of the unsliced product, so there the mesh
-is not bit-exact under tensor parallelism. Kernel 3's stages keep their
-bits across column widths by construction.
+Every product against a ``_COL_PARALLEL`` leaf goes through
+``models.layers.project`` (the prefill MLP's through kernel 3's stages),
+on one device as on the mesh. On the CPU that is ``torch.matmul``, whose
+product over a column slice gives the unsliced product's columns. On a
+CUDA device it is the column-invariant projection kernel
+(``kernels/projection.py``): cuBLAS picks its kernel by shape, so its
+bf16 product over a column slice can round apart from the unsliced
+one, while the kernel sums every output element in one order that
+depends on neither N nor the columns beside it. Kernel 3's stages keep
+their bits across column widths the same way. So on either device a
+model column's program computes the single-device program's bits.
+
+Not column-parallel in either package: the capacity MoE
+(``models.moe.moe_ffn``) contracts its experts' column-split hidden
+with the replicated ``w_down`` without gathering it first, so it cannot
+run model-sharded; the gather and per-token MoE gather before
+``w_down``.
 """
 from __future__ import annotations
 

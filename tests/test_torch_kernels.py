@@ -78,6 +78,10 @@ DECODE_CASES = [
     (3, 9, 3, 64, 8, 14, [98, 101, 105]),          # serving geometry
     (5, 6, 2, 32, 4, 6, [3, 4, 5, 17, 24]),        # page boundaries
     (2, 4, 4, 16, 16, 3, [33, 7]),                 # MHA, spare slots
+    # more than 8 query heads per kv head (the kernel's G-tiles):
+    # granite-34b's G 48 and a ragged G 12, one kv head
+    (2, 48, 1, 32, 8, 4, [13, 32]),
+    (3, 12, 1, 16, 8, 3, [5, 17, 24]),
 ]
 
 
@@ -342,7 +346,8 @@ def test_cpu_tensors_take_the_plain_versions_without_launching():
         "fused_swiglu": 0, "decode_attention": 0,
         "paged_decode_attention_quant": 0, "decode_attention_quant": 0,
         "selective_scan": 0, "selective_scan_bwd": 0, "rglru_scan": 0,
-        "rglru_scan_bwd": 0, "swiglu_gate_up": 0, "swiglu_down": 0}
+        "rglru_scan_bwd": 0, "swiglu_gate_up": 0, "swiglu_down": 0,
+        "projection": 0}
 
 
 def test_wrappers_raise_off_the_cpu_instead_of_falling_back():

@@ -73,6 +73,10 @@ DECODE_CASES = [
     (3, 6, 3, 32, 384, 288),
     (48, 9, 3, 64, 105, 105),      # the wave's serving shape, full
     (48, 9, 3, 64, 105, 98),       # ... its first decode step
+    # more than 8 query heads per kv head (the kernel's G-tiles):
+    # granite-34b's G 48 and a ragged G 12, one kv head
+    (2, 48, 1, 32, 64, 50),
+    (3, 12, 1, 16, 48, 33),
 ]
 
 
@@ -135,6 +139,8 @@ QUANT_CASES = [
     (3, 6, 3, 32, 384, 384, 288),      # block = the whole cache
     (48, 9, 3, 64, 105, 512, 105),     # the wave's serving shape
     (48, 9, 3, 64, 105, 512, 98),
+    (2, 48, 1, 32, 64, 64, 50),        # G 48 (G-tiles)
+    (3, 12, 1, 16, 48, 16, 33),        # G 12, a ragged last tile
 ]
 
 
@@ -199,6 +205,8 @@ PAGED_CASES = [
     (2, 8, 1, 64, 32, 3),          # MQA
     (3, 6, 3, 32, 8, 5),
     (48, 9, 3, 64, 8, 14),         # the wave's serving shape
+    (2, 48, 1, 32, 8, 4),          # G 48 (G-tiles)
+    (3, 12, 1, 16, 8, 3),          # G 12, a ragged last tile
 ]
 
 
@@ -335,6 +343,34 @@ def test_cpu_tensors_take_the_plain_decode_versions_without_launching():
         tref.paged_decode_attention_quant_ref(
             q, _t(kq), _t(ks), _t(kq), _t(ks), table, lengths).numpy())
     assert not any(ops.launch_counts().values())
+
+
+@pytest.mark.parametrize("h", [48, 12])
+def test_decode_wrappers_take_more_than_8_heads_per_kv_head(h):
+    """G 48 (granite-34b) and G 12 pass every wrapper's checks (the
+    kernels run G-tiles of 8) and raise only because ``meta`` has no
+    kernel."""
+    m = dict(device="meta")
+    i8 = dict(dtype=torch.int8, **m)
+    i32 = dict(dtype=torch.int32, **m)
+    q = torch.empty(2, h, 32, **m)
+    for call in (
+            lambda: ops.decode_attention(
+                q, torch.empty(2, 9, 1, 32, **m),
+                torch.empty(2, 9, 1, 32, **m), 5),
+            lambda: ops.decode_attention_quant(
+                q, torch.empty(2, 9, 1, 32, **i8), torch.empty(2, 9, 1, **m),
+                torch.empty(2, 9, 1, 32, **i8), torch.empty(2, 9, 1, **m), 5),
+            lambda: ops.paged_decode_attention(
+                q, torch.empty(4, 8, 1, 32, **m),
+                torch.empty(4, 8, 1, 32, **m), torch.empty(2, 2, **i32),
+                torch.empty(2, **i32)),
+            lambda: ops.paged_decode_attention_quant(
+                q, torch.empty(4, 8, 1, 32, **i8), torch.empty(4, 8, 1, **m),
+                torch.empty(4, 8, 1, 32, **i8), torch.empty(4, 8, 1, **m),
+                torch.empty(2, 2, **i32), torch.empty(2, **i32))):
+        with pytest.raises(ValueError, match="no kernel"):
+            call()
 
 
 def test_decode_wrappers_raise_off_the_cpu_instead_of_falling_back():

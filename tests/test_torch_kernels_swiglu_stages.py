@@ -92,8 +92,8 @@ def test_bf16_wrapper_raises_for_widths_tma_cannot_stride(d, f):
                                        (torch.float32, 12, 36)])
 def test_wrapper_shapes_it_takes_reach_the_device_check(dtype, d, f):
     """A bf16 call with widths the kernels take, and an f32 call (the
-    CUDA-core kernel takes any width up to 6144), pass the shape checks
-    and raise only because ``meta`` has no kernel."""
+    CUDA-core stage kernels take any width), pass the shape checks and
+    raise only because ``meta`` has no kernel."""
     args = _meta((8, d), (d, f), (d, f), (f, d), dtype=dtype)
     with pytest.raises(ValueError, match="no kernel"):
         ops.fused_swiglu(*args)
