@@ -57,8 +57,13 @@ Phases (each raises on failure, and the script then exits non-zero):
    (``ops.projection``, every product against a column-split weight) at
    the mesh's and phase 5's decode shapes against ``torch.matmul``, its
    column slices bit for bit the unsliced call's (cuBLAS's difference
-   logged); and hold and time kernels 1, 4, 5 and 6 at more than 8 query
-   heads per kv head (granite-34b's G 48 at d 128; G 12 at d 64);
+   logged), and its split (``projection_plan``) against the kernel's;
+   and hold and time kernels 1, 4, 5 and 6 at more than 8 query heads
+   per kv head (granite-34b's G 48 at d 128; G 12 at d 64); and hold,
+   check bit for bit and time kernels 1, 4, 5 and 6 at head_dim 256 (G
+   8, G 1) and at dk 192 / dv 128, kernel 2 at bf16 d 32, 96, 256 and dk
+   192 / dv 128 and f32 d 256, and the selective scan (forward and
+   backward) at a state size of 12, padded to 16;
 4. reference — a reduced float32 model on the card agrees with the same
    calls on the CPU, where every kernel runs its plain version: chunked
    prefill and a paged decode step; one-shot prefill and decode steps
@@ -268,6 +273,8 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 TIMED_LAUNCHES = 50
 SPIN_CYCLES = 400_000_000          # ~0.2 s at the H100's 1.98 GHz
+# ~25 ms: enough to queue TIMED_LAUNCHES single-launch calls
+SHORT_SPIN = SPIN_CYCLES // 8
 # tolerances of the reference's kernel tests (tests/test_kernels.py,
 # tests/test_paged_attention.py): f32 attention 2e-5; bf16 2e-2; the
 # fused SwiGLU's relative tolerance is ten times its absolute one. In
@@ -299,20 +306,22 @@ def log(msg: str) -> None:
 
 
 def time_ms(torch, fn, n: int = TIMED_LAUNCHES, warmup: int = 5,
-            flush=None) -> float:
+            flush=None, spin: int = SPIN_CYCLES) -> float:
     """Median device time of ``fn`` over ``n`` calls, by CUDA events.
     A spin kernel holds the stream while the host queues all ``n``
     calls, so each event pair brackets the device work of one call and
     not the host's launch overhead (a plain version that issues
     thousands of kernels a call may outrun the spin, and then its time
     includes the host's). ``flush``, where given, runs before each call,
-    outside its events (an L2 flush: inputs read cold from HBM)."""
+    outside its events (an L2 flush: inputs read cold from HBM).
+    ``spin`` shortens the spin where each call is one launch
+    (``SHORT_SPIN``)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     ev = [(torch.cuda.Event(enable_timing=True),
            torch.cuda.Event(enable_timing=True)) for _ in range(n)]
-    torch.cuda._sleep(SPIN_CYCLES)
+    torch.cuda._sleep(spin)
     for start, end in ev:
         if flush is not None:
             flush()
@@ -436,15 +445,17 @@ def decode_case(torch, gen, dtype):
     return q, k_pages, v_pages, table.contiguous(), lengths
 
 
-def prefill_case(torch, gen, dtype, h=H, kv=KV, d=D):
+def prefill_case(torch, gen, dtype, h=H, kv=KV, d=D, dv=None):
     """Prefill chunk of 32 tokens for a bucket of 8 rows at different
     depths of a 97-token prompt (13 pages), the last two rows pad rows
-    on scratch pages; smollm-135m's heads by default."""
+    on scratch pages; smollm-135m's heads by default (value width ``dv``
+    where it differs from the key width ``d``)."""
     b, c, nb = 8, 32, -(-PROMPT // PAGE)
     n_pages = b * nb + nb
     shape = (n_pages, PAGE, kv, d)
     k_pages = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-    v_pages = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    v_pages = torch.randn((*shape[:-1], dv or d), generator=gen,
+                          device="cuda").to(dtype)
     perm = torch.randperm(n_pages - nb, generator=gen, device="cuda")
     table = perm[:b * nb].reshape(b, nb).to(torch.int32)
     starts = torch.tensor([0, 32, 64, 0, 32, 64, 64, 64], device="cuda")
@@ -455,7 +466,8 @@ def prefill_case(torch, gen, dtype, h=H, kv=KV, d=D):
     return q, k_pages, v_pages, table.contiguous(), qpos
 
 
-def prefill_checks(torch, dname, q, kp, vp, table, qpos) -> dict:
+def prefill_checks(torch, dname, q, kp, vp, table, qpos,
+                   spin: int = SPIN_CYCLES) -> dict:
     """Kernel 2 on one case: within the attention tolerance of its
     plain version, positions 0-7 of the 32-position chunk bit-identical
     to an 8-position chunk, and timed beside its plain version and SDPA
@@ -464,10 +476,11 @@ def prefill_checks(torch, dname, q, kp, vp, table, qpos) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.kernels.chunked_prefill_attention import (
         chunked_prefill_attention_plain)
-    h, d = q.shape[2], q.shape[3]
+    h, d, dv = q.shape[2], q.shape[3], vp.shape[3]
     kv = kp.shape[2]
     item = q.element_size()
-    label = f"chunked_prefill_attention[{dname}, H {h}/KV {kv}, d {d}]"
+    width = f"d {d}" if dv == d else f"dk {d} / dv {dv}"
+    label = f"chunked_prefill_attention[{dname}, H {h}/KV {kv}, {width}]"
     got = ops.chunked_prefill_attention(q, kp, vp, table, qpos,
                                         prompt_len=PROMPT)
     want = chunked_prefill_attention_plain(q, kp, vp, table, qpos,
@@ -480,7 +493,7 @@ def prefill_checks(torch, dname, q, kp, vp, table, qpos) -> dict:
             q[:, :8].contiguous(), kp, vp, table,
             qpos[:, :8].contiguous(), prompt_len=PROMPT))
     ms = time_ms(torch, lambda: ops.chunked_prefill_attention(
-        q, kp, vp, table, qpos, prompt_len=PROMPT))
+        q, kp, vp, table, qpos, prompt_len=PROMPT), spin=spin)
     plain = time_ms(torch, lambda: chunked_prefill_attention_plain(
         q, kp, vp, table, qpos, prompt_len=PROMPT))
     kc = _gather(torch, kp, table)[:, :PROMPT]
@@ -491,14 +504,15 @@ def prefill_checks(torch, dname, q, kp, vp, table, qpos) -> dict:
             [None, None])[:, None]
     q4 = q.transpose(1, 2)
     lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        q4, kc, vc, attn_mask=mask))
+        q4, kc, vc, attn_mask=mask), spin=spin)
     # keys each row needs: up to its last query position; the two pad
     # rows share their scratch pages
     keys_row = (qpos.max(dim=1).values + 1).clamp(max=PROMPT)
     n_keys = unique_keys(torch, table, keys_row)
-    bytes_moved = (2 * q.numel() * item + 2 * n_keys * kv * d * item
+    bytes_moved = ((q.numel() + got.numel()) * item
+                   + n_keys * kv * (d + dv) * item
                    + 4 * (table.numel() + qpos.numel()))
-    flops = 4.0 * h * d * float((qpos + 1).sum())
+    flops = 2.0 * h * (d + dv) * float((qpos + 1).sum())
     bnd, by = bound_ms(bytes_moved, flops, dname)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
                 bound_by=by, library_ms=lib)
@@ -536,71 +550,84 @@ FLEET_SHAPES = {"llama3-8b": (32, 8, 128, 14336),
 FLEET_D_MODEL, FLEET_ROWS = 4096, 8
 
 
-def _fleet_paged(torch, gen, name, h, kv, d) -> dict:
+def _fleet_paged(torch, gen, name, h, kv, d, dv=None, dtype=None,
+                 spin: int = SPIN_CYCLES) -> dict:
     """Kernel 1 over pages: 8 rows at depths 97..104 (the prompt and
-    0..7 new tokens), 14 pages each."""
+    0..7 new tokens), 14 pages each; bf16 unless ``dtype``, value width
+    ``dv`` where it differs from the key width ``d``."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.paged_decode_attention import (
         paged_decode_attention_plain as plain)
     b, nb = FLEET_ROWS, -(-S_WAVE // PAGE)
+    dtype = dtype or torch.bfloat16
+    dv = dv or d
+    dname = str(dtype).split(".")[-1]
 
     def rnd(*shape):
-        return torch.randn(shape, generator=gen, device="cuda").to(
-            torch.bfloat16)
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
     q, kp, vp = rnd(b, h, d), rnd(b * nb, PAGE, kv, d), rnd(
-        b * nb, PAGE, kv, d)
+        b * nb, PAGE, kv, dv)
     table = torch.randperm(b * nb, generator=gen, device="cuda").to(
         torch.int32).reshape(b, nb).contiguous()
     lengths = (PROMPT + torch.arange(b, device="cuda")).to(torch.int32)
     got = ops.paged_decode_attention(q, kp, vp, table, lengths)
     err = check_close(name, got, plain(q, kp, vp, table, lengths),
-                      TOL[("attention", "bfloat16")])
+                      TOL[("attention", dname)])
     check_same_rows(f"{name} rows 0-3 of {b} alone", got[:4],
                     ops.paged_decode_attention(
                         q[:4].contiguous(), kp, vp, table[:4].contiguous(),
                         lengths[:4].contiguous()))
     n_keys = unique_keys(torch, table, lengths)
-    bnd, by = bound_ms(2 * q.numel() * 2 + 2 * n_keys * kv * d * 2
+    item = q.element_size()
+    bnd, by = bound_ms((q.numel() + got.numel()) * item
+                       + n_keys * kv * (d + dv) * item
                        + 4 * (table.numel() + lengths.numel()),
-                       4.0 * h * d * float(lengths.sum()), "bfloat16")
+                       2.0 * h * (d + dv) * float(lengths.sum()), dname)
     return dict(rows=b, lengths=[int(lengths.min()), int(lengths.max())],
                 max_abs_err=err, bound_ms=bnd, bound_by=by, **_measure(
                     torch, lambda: ops.paged_decode_attention(
                         q, kp, vp, table, lengths),
                     lambda: plain(q, kp, vp, table, lengths),
                     _sdpa(torch, q, _gather(torch, kp, table),
-                          _gather(torch, vp, table), lengths)))
+                          _gather(torch, vp, table), lengths), spin=spin))
 
 
-def _fleet_dense(torch, gen, name, h, kv, d, s=None) -> dict:
+def _fleet_dense(torch, gen, name, h, kv, d, s=None, dv=None, dtype=None,
+                 spin: int = SPIN_CYCLES) -> dict:
     """Kernel 4 over contiguous caches: 8 rows of ``s`` positions (the
     wave's 105 by default), at 60 positions (or s // 2 where s is
-    shorter) and at all s."""
+    shorter) and at all s; bf16 unless ``dtype``, value width ``dv``
+    where it differs from the key width ``d``."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.decode_attention import (
         decode_attention_plain as plain)
     b, s = FLEET_ROWS, s or S_WAVE
+    dtype = dtype or torch.bfloat16
+    dv = dv or d
+    dname = str(dtype).split(".")[-1]
 
     def rnd(*shape):
-        return torch.randn(shape, generator=gen, device="cuda").to(
-            torch.bfloat16)
-    q, k, v = rnd(b, h, d), rnd(b, s, kv, d), rnd(b, s, kv, d)
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    q, k, v = rnd(b, h, d), rnd(b, s, kv, d), rnd(b, s, kv, dv)
     err = 0.0
     for length in (min(60, s // 2), s):
         got = ops.decode_attention(q, k, v, length)
         err = max(err, check_close(f"{name} length {length}", got,
                                    plain(q, k, v, length),
-                                   TOL[("attention", "bfloat16")]))
+                                   TOL[("attention", dname)]))
     check_same_rows(f"{name} rows 0-3 of {b} alone", got[:4],
                     ops.decode_attention(q[:4].contiguous(),
                                          k[:4].contiguous(),
                                          v[:4].contiguous(), s))
-    bnd, by = bound_ms(2 * q.numel() * 2 + 2 * b * s * kv * d * 2,
-                       4.0 * h * d * b * s, "bfloat16")
+    item = q.element_size()
+    bnd, by = bound_ms((q.numel() + got.numel()) * item
+                       + b * s * kv * (d + dv) * item,
+                       2.0 * h * (d + dv) * b * s, dname)
     return dict(rows=b, lengths=[s, s], max_abs_err=err, bound_ms=bnd,
                 bound_by=by, **_measure(
                     torch, lambda: ops.decode_attention(q, k, v, s),
-                    lambda: plain(q, k, v, s), _sdpa(torch, q, k, v, s)))
+                    lambda: plain(q, k, v, s), _sdpa(torch, q, k, v, s),
+                    spin=spin))
 
 
 def _fleet_swiglu(torch, gen, name, d, f, t=FLEET_ROWS * 32) -> dict:
@@ -932,13 +959,16 @@ def _sdpa(torch, q, kc, vc, lengths):
     return lambda: F.scaled_dot_product_attention(q4, kc, vc, attn_mask=mask)
 
 
-def _measure(torch, kernel, plain, library, flush=None) -> dict:
+def _measure(torch, kernel, plain, library, flush=None,
+             spin: int = SPIN_CYCLES) -> dict:
     """Kernel, plain version and library call (None where there is no
-    such call) timed alike."""
-    return dict(ms=time_ms(torch, kernel, flush=flush),
+    such call) timed alike; ``spin`` for the kernel and the library
+    call, one launch each (the plain version keeps the long spin)."""
+    return dict(ms=time_ms(torch, kernel, flush=flush, spin=spin),
                 plain_ms=time_ms(torch, plain, flush=flush),
                 library_ms=(None if library is None
-                            else time_ms(torch, library, flush=flush)))
+                            else time_ms(torch, library, flush=flush,
+                                         spin=spin)))
 
 
 def long_paged_case(torch, gen, dtype):
@@ -1403,6 +1433,11 @@ def log_decode_checks(results: dict) -> None:
 # by element), G = 7 at D 16, G = 2 at D 80 (padded lanes); kernels 1
 # and 4 also at phase 11's G 4 and G 1 at D 128 (FLEET_SHAPES)
 DECODE_GEOMETRIES = ((16, 2, 128), (4, 4, 42), (14, 2, 16), (6, 3, 80))
+# (H, KV, dk, dv) past 128 and with dk != dv: G 10 at 256 (tiles
+# of 4, 4 and 2), dk 192 / dv 128, dk 64 / dv 136, 248 at G 3, G 2 (one
+# ragged tile)
+WIDE_GEOMETRIES = ((10, 1, 256, 256), (6, 2, 192, 128), (4, 4, 64, 136),
+                   (6, 2, 248, 248), (4, 2, 256, 256))
 
 
 def run_decode_geometry_checks(torch) -> None:
@@ -1420,34 +1455,36 @@ def run_decode_geometry_checks(torch) -> None:
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         tol = TOL[("attention", dname)]
-        for h, kv, d in DECODE_GEOMETRIES + tuple(
-                g[:3] for g in FLEET_SHAPES.values()):
+        for h, kv, d, dv in tuple(
+                (*g[:3], g[2]) for g in DECODE_GEOMETRIES + tuple(
+                    f[:3] for f in FLEET_SHAPES.values())) + WIDE_GEOMETRIES:
             b, nb = len(lens), -(-max(lens) // PAGE)
 
             def rnd(*shape):
                 return torch.randn(shape, generator=gen,
                                    device="cuda").to(dtype)
             q, kp, vp = rnd(b, h, d), rnd(b * nb, PAGE, kv, d), rnd(
-                b * nb, PAGE, kv, d)
+                b * nb, PAGE, kv, dv)
             table = torch.randperm(b * nb, generator=gen, device="cuda").to(
                 torch.int32).reshape(b, nb).contiguous()
             lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
             check_close(f"paged_decode_attention[{dname}, H {h} KV {kv} "
-                        f"D {d}]",
+                        f"D {d} / {dv}]",
                         ops.paged_decode_attention(q, kp, vp, table,
                                                    lengths),
                         paged_decode_attention_plain(q, kp, vp, table,
                                                      lengths), tol)
-            k, v = rnd(b, max(lens), kv, d), rnd(b, max(lens), kv, d)
+            k, v = rnd(b, max(lens), kv, d), rnd(b, max(lens), kv, dv)
             for length in lens:
                 check_close(f"decode_attention[{dname}, H {h} KV {kv} D {d}"
-                            f", length {length}]",
+                            f" / {dv}, length {length}]",
                             ops.decode_attention(q, k, v, length),
                             decode_attention_plain(q, k, v, length), tol)
     log(f"kernels 1 and 4 agree with their plain versions at (H, KV, D) in "
         f"{list(DECODE_GEOMETRIES)} and "
-        f"{[g[:3] for g in FLEET_SHAPES.values()]}, lengths {list(lens)} "
-        "(float32 and bfloat16)")
+        f"{[g[:3] for g in FLEET_SHAPES.values()]}, (H, KV, dk, dv) in "
+        f"{list(WIDE_GEOMETRIES)}, lengths {list(lens)} (float32 and "
+        "bfloat16)")
 
 
 
@@ -1466,7 +1503,8 @@ def run_quant_decode_geometry_checks(torch) -> None:
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         tol = TOL[("attention", dname)]
-        for h, kv, d in DECODE_GEOMETRIES:
+        for h, kv, d, dv in tuple((*g, g[2]) for g in DECODE_GEOMETRIES) + (
+                WIDE_GEOMETRIES):
             b, nb = len(lens), -(-max(lens) // PAGE)
 
             def quant(*shape):
@@ -1475,27 +1513,28 @@ def run_quant_decode_geometry_checks(torch) -> None:
             q = torch.randn((b, h, d), generator=gen, device="cuda").to(
                 dtype)
             (kc, ks), (vc, vs) = (quant(b * nb, PAGE, kv, d),
-                                  quant(b * nb, PAGE, kv, d))
+                                  quant(b * nb, PAGE, kv, dv))
             table = torch.randperm(b * nb, generator=gen, device="cuda").to(
                 torch.int32).reshape(b, nb).contiguous()
             lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
             check_close(f"paged_decode_attention_quant[{dname}, H {h} KV "
-                        f"{kv} D {d}]",
+                        f"{kv} D {d} / {dv}]",
                         ops.paged_decode_attention_quant(
                             q, kc, ks, vc, vs, table, lengths),
                         paged_decode_attention_quant_plain(
                             q, kc, ks, vc, vs, table, lengths), tol)
             (kc, ks), (vc, vs) = (quant(b, max(lens), kv, d),
-                                  quant(b, max(lens), kv, d))
+                                  quant(b, max(lens), kv, dv))
             for length in lens:
                 check_close(f"decode_attention_quant[{dname}, H {h} KV {kv} "
-                            f"D {d}, length {length}]",
+                            f"D {d} / {dv}, length {length}]",
                             ops.decode_attention_quant(q, kc, ks, vc, vs,
                                                        length),
                             decode_attention_quant_plain(q, kc, ks, vc, vs,
                                                          length), tol)
     log(f"kernels 5 and 6 agree with their plain versions at (H, KV, D) in "
-        f"{list(DECODE_GEOMETRIES)}, lengths {list(lens)} (float32 and "
+        f"{list(DECODE_GEOMETRIES)}, (H, KV, dk, dv) in "
+        f"{list(WIDE_GEOMETRIES)}, lengths {list(lens)} (float32 and "
         "bfloat16)")
 
 
@@ -1853,9 +1892,14 @@ def check_scan_plan() -> None:
     to 300 and 8,192; logs the thread count, ring depth and dynamic
     shared memory that only the kernels read."""
     from repro_torch.kernels import build
-    from repro_torch.kernels.selective_scan import scan_plan
+    from repro_torch.kernels.selective_scan import (
+        padded_state_size, scan_plan)
     lib = build.load()
-    for n in (1, 2, 4, 8, 16, 32):
+    # every N up to 32 runs at its padded size, one of the kernels' N
+    sizes = sorted({padded_state_size(n) for n in range(1, 33)})
+    if sizes != [1, 2, 4, 8, 16, 32]:
+        raise AssertionError(f"N 1..32 pad to {sizes}")
+    for n in sizes:
         for d in (*range(1, 301), 8192):
             p = scan_plan(d, n)
             want = tuple(getattr(p, k) for k in SCAN_PLAN_FIELDS)
@@ -1869,8 +1913,8 @@ def check_scan_plan() -> None:
                 for k, f in SCAN_PLAN_KERNEL_FIELDS.items()}
         log(f"scan plan at D 8,192, N {n}: {scan_plan(8192, n)}; kernels "
             f"only: {kern} (shared memory in bytes)")
-    log("scan_plan matches the kernels' compiled constants at N in 1..32, "
-        "D in 1..300 and 8,192")
+    log("scan_plan matches the kernels' compiled constants at every N in "
+        "1..32 padded to its power of two, D in 1..300 and 8,192")
 
 
 # (B, S, D, N), each in f32 and bf16: ragged tiles and channel blocks,
@@ -2780,6 +2824,7 @@ def profiled(torch, fn):
 # the port's tensor-core and split-KV kernels, reported by the profiles
 # even when they fall out of the top ten
 REPORTED_KERNELS = ("swiglu_gemm_kernel", "chunked_prefill_mma_kernel",
+                    "projection_split_kernel",
                     "paged_decode_split_kernel", "dense_decode_split_kernel",
                     "paged_decode_quant_split_kernel",
                     "dense_decode_quant_split_kernel",
@@ -2802,7 +2847,9 @@ SPLIT_KERNELS = {"paged_decode_attention": "paged_decode_split_kernel",
                  "selective_scan": "scan_fwd_kernel",
                  "selective_scan_bwd": "scan_bwd_kernel",
                  "rglru_scan": "rglru_fwd_kernel",
-                 "rglru_scan_bwd": "rglru_bwd_kernel"}
+                 "rglru_scan_bwd": "rglru_bwd_kernel",
+                 # bf16 and f32 (projection_split_f32_kernel)
+                 "projection": "projection_split"}
 
 
 def kernel_totals(prof) -> list:
@@ -2833,12 +2880,11 @@ def report_profile(events, t_read: float, wall: float,
     unprofiled run's wall time: the device work is the same, so its
     busy share there is busy / wall. With ``swiglu_calls`` (the bf16
     fused_swiglu wrapper calls the profiled run made), check that each
-    ran as the two tensor-core stages (and each bf16 projection, counted
-    in ``launches``, as one more ``swiglu_gemm_kernel``: it runs the
-    down stage's kernel); with ``launches`` (the wrappers' counts over
-    the profiled run), that each call of the split-KV decodes and of the
-    two scans (forward, backward) ran as exactly one kernel of its
-    name."""
+    ran as the two tensor-core stages and no other kernel ran under the
+    wrapper; with ``launches`` (the wrappers' counts over the profiled
+    run), that each call of the split-KV decodes, of the two scans
+    (forward, backward) and of the projection ran as exactly one kernel
+    of its name."""
     def dev_us(e):
         return e.dev_us
     events = sorted(events, key=dev_us, reverse=True)
@@ -2888,17 +2934,16 @@ def report_profile(events, t_read: float, wall: float,
     if swiglu_calls is not None:
         gemms = sum(e.count for e in events
                     if "swiglu_gemm_kernel" in e.key)
-        f32 = sum(e.count for e in events if "_f32_kernel" in e.key)
-        proj = (launches or {}).get("projection", 0)
-        if gemms != 2 * swiglu_calls + proj or f32:
+        f32 = sum(e.count for e in events if "swiglu" in e.key
+                  and "_f32_kernel" in e.key)
+        if gemms != 2 * swiglu_calls or f32:
             raise AssertionError(
-                f"profile: {swiglu_calls} bf16 fused_swiglu calls and "
-                f"{proj} projections ran {gemms} tensor-core GEMM kernels "
-                f"and {f32} CUDA-core ones")
-        log(f"profile: {swiglu_calls} fused_swiglu calls and {proj} "
-            f"projections = {gemms} tensor-core GEMM kernels (gate_up + "
-            "down, and one each projection), no other kernel under the "
-            "wrappers")
+                f"profile: {swiglu_calls} bf16 fused_swiglu calls ran "
+                f"{gemms} tensor-core GEMM kernels and {f32} CUDA-core "
+                "ones")
+        log(f"profile: {swiglu_calls} fused_swiglu calls = {gemms} "
+            "tensor-core GEMM kernels (gate_up + down), no other kernel "
+            "under the wrapper")
 
 
 def account_params(label: str, cfg, params) -> int:
@@ -4908,11 +4953,12 @@ def mesh_stage_checks(torch) -> dict:
 # ----------------------------------------------------------------------
 # the column-split products (rows, K, N) unsliced: a decode block's wq,
 # wk / wv, w_gate and lm_head and a prefill chunk's wq at llama3-8b's
-# widths (phase 14 (b)), and deepseek-7b's w_gate / w_up (whose half,
-# 5504, takes the 128-column tiles where 11008 takes the 256-column
-# ones); the first is the kernels line's shape
+# widths (phase 14 (b)), deepseek-7b's w_gate / w_up, and the (1, 2)
+# mesh's local wq and wk / wv (N / 2); the first is the kernels line's
+# shape
 PROJ_MESH_SHAPES = ((8, 4096, 4096), (8, 4096, 1024), (8, 4096, 14336),
-                    (8, 4096, 128256), (256, 4096, 4096), (8, 4096, 11008))
+                    (8, 4096, 128256), (256, 4096, 4096), (8, 4096, 11008),
+                    (8, 4096, 2048), (8, 4096, 512))
 # phase 5's decode block: smollm-135m's wq, wk / wv and w_gate / w_up
 PROJ_SERVE_SHAPES = ((8, 576, 576), (8, 576, 192), (8, 576, 1536))
 # f32 (the reduced models): the CUDA-core kernel
@@ -4981,9 +5027,12 @@ def projection_checks(torch) -> dict:
             r = dict(dtype=dname, rows=rows, k=k, n=n, max_abs_err=err,
                      bound_ms=bnd, bound_by=by, column_slices=split,
                      phase5_decode=serve,
-                     ms=time_ms(torch, lambda: ops.projection(a, w)),
-                     plain_ms=time_ms(torch, lambda: projection_plain(a, w)),
-                     library_ms=time_ms(torch, lambda: torch.mm(a, w)))
+                     ms=time_ms(torch, lambda: ops.projection(a, w),
+                                spin=SHORT_SPIN),
+                     plain_ms=time_ms(torch, lambda: projection_plain(a, w),
+                                      spin=SHORT_SPIN),
+                     library_ms=time_ms(torch, lambda: torch.mm(a, w),
+                                        spin=SHORT_SPIN))
             shapes.append(r)
             log(f"kernel {name}: max_abs_err {err:.3e}  kernel "
                 f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  library "
@@ -5007,18 +5056,23 @@ def projection_checks(torch) -> dict:
 GTILE_GEOMETRIES = (("granite-34b", 48, 1, 128), ("G 12", 12, 1, 64))
 
 
-def _gtile_quant(torch, gen, name, h, kv, d, paged: bool) -> dict:
+def _gtile_quant(torch, gen, name, h, kv, d, paged: bool, dv=None,
+                 dtype=None, spin: int = SPIN_CYCLES) -> dict:
     """Kernel 5 (``paged``) or 6 over int8 codes at (h, kv, d): 8 rows,
-    q in bf16, against the plain version, rows 0-3 alone bit for bit,
-    timed beside the bound (D + 4 bytes a cached vector and head)."""
+    q in bf16 unless ``dtype``, value width ``dv`` where it differs from
+    the key width ``d``, against the plain version, rows 0-3 alone bit
+    for bit, timed beside the bound (the width + 4 bytes a cached vector
+    and head)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.decode_attention_quant import (
         decode_attention_quant_plain)
     from repro_torch.kernels.paged_decode_attention_quant import (
         paged_decode_attention_quant_plain)
     b = FLEET_ROWS
-    q = torch.randn((b, h, d), generator=gen, device="cuda").to(
-        torch.bfloat16)
+    dtype = dtype or torch.bfloat16
+    dv = dv or d
+    dname = str(dtype).split(".")[-1]
+    q = torch.randn((b, h, d), generator=gen, device="cuda").to(dtype)
     if paged:
         nb = -(-S_WAVE // PAGE)
         shape = (b * nb, PAGE, kv, d)
@@ -5038,23 +5092,27 @@ def _gtile_quant(torch, gen, name, h, kv, d, paged: bool) -> dict:
                          decode_attention_quant_plain)
         n_keys = flops_keys = b * S_WAVE
     kc, ks = _quantize(torch.randn(shape, generator=gen, device="cuda"))
-    vc, vs = _quantize(torch.randn(shape, generator=gen, device="cuda"))
+    vc, vs = _quantize(torch.randn((*shape[:-1], dv), generator=gen,
+                                   device="cuda"))
     got = kernel(q, kc, ks, vc, vs, *extra)
     err = check_close(name, got, plain(q, kc, ks, vc, vs, *extra),
-                      TOL[("attention", "bfloat16")])
+                      TOL[("attention", dname)])
     cut = ((kc, ks, vc, vs) if paged else
            tuple(t[:4].contiguous() for t in (kc, ks, vc, vs)))
     check_same_rows(f"{name} rows 0-3 of {b} alone", got[:4],
                     kernel(q[:4].contiguous(), *cut, *rows4))
-    bnd, by = bound_ms(2 * q.numel() * 2 + 2 * n_keys * kv * (d + 4)
+    item = q.element_size()
+    bnd, by = bound_ms((q.numel() + got.numel()) * item
+                       + n_keys * kv * (d + dv + 8)
                        + (4 * (extra[0].numel() + b) if paged else 0),
-                       4.0 * h * d * flops_keys, "bfloat16")
+                       2.0 * h * (d + dv) * flops_keys, dname)
     lengths_r = ([int(extra[1].min()), int(extra[1].max())] if paged
                  else [S_WAVE, S_WAVE])
     return dict(rows=b, lengths=lengths_r, max_abs_err=err, bound_ms=bnd,
                 bound_by=by, **_measure(
                     torch, lambda: kernel(q, kc, ks, vc, vs, *extra),
-                    lambda: plain(q, kc, ks, vc, vs, *extra), None))
+                    lambda: plain(q, kc, ks, vc, vs, *extra), None,
+                    spin=spin))
 
 
 def gtile_checks(torch) -> dict:
@@ -5091,6 +5149,172 @@ def gtile_checks(torch) -> dict:
                 f"{r['bound_ms']:.5f} ms ({r['bound_by']}); rows 0-3 "
                 "bit-identical alone")
     return out
+
+
+# ----------------------------------------------------------------------
+# phase 3, head widths past 128, dk != dv and padded state sizes
+# ----------------------------------------------------------------------
+# kernels 1, 4, 5 and 6 at (label, H, KV, dk, dv): recurrentgemma-2b's
+# head_dim 256 at G 8 (one G-tile of 4 heads twice) and G 1, and
+# DeepSeek's dk 192 / dv 128 at G 4; bf16, and f32 at d 256, G 8
+HEAD_WIDTHS = (("d 256, G 8", 8, 1, 256, 256), ("d 256, G 1", 8, 8, 256, 256),
+               ("dk 192 / dv 128", 8, 2, 192, 128))
+HEAD_WIDTHS_F32 = ("d 256, G 8",)
+# kernel 2: (dtype, dk, dv) at H 8 / KV 2 over phase 3's prefill chunk:
+# the reference sweep's d 32, 96, recurrentgemma's 256, dk 192 / dv 128
+PREFILL_WIDTHS = (("bfloat16", 32, 32), ("bfloat16", 96, 96),
+                  ("bfloat16", 256, 256), ("bfloat16", 192, 128),
+                  ("float32", 256, 256))
+# the selective scan at a state size off the powers of two (padded to 16)
+SCAN_PADDED = (2, 512, 8192, 12)
+SCAN_PADDED_TIMED = 20
+
+
+def head_width_checks(torch) -> dict:
+    """Kernels 1, 4, 5 and 6 at ``HEAD_WIDTHS`` and kernel 2 at
+    ``PREFILL_WIDTHS``: each against its plain version at the attention
+    tolerance, rows 0-3 alone (prefill: positions 0-7 of 32) bit for
+    bit, and timed beside its bound and the library call (SDPA where
+    there is one). Returns {kernel: {label: result}}."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(27)
+    out = {k: {} for k in ("paged_decode_attention", "decode_attention",
+                           "paged_decode_attention_quant",
+                           "decode_attention_quant",
+                           "chunked_prefill_attention")}
+    cases = [(label, h, kv, dk, dv, torch.bfloat16)
+             for label, h, kv, dk, dv in HEAD_WIDTHS]
+    cases += [(label, h, kv, dk, dv, torch.float32)
+              for label, h, kv, dk, dv in HEAD_WIDTHS
+              if label in HEAD_WIDTHS_F32]
+    for label, h, kv, dk, dv, dtype in cases:
+        dname = str(dtype).split(".")[-1]
+        key = f"{dname}, {label}"
+        geo = f"{key}: H {h} / KV {kv}"
+        kw = dict(dv=dv, dtype=dtype, spin=SHORT_SPIN)
+        out["paged_decode_attention"][key] = _fleet_paged(
+            torch, gen, f"paged_decode_attention[{geo}]", h, kv, dk, **kw)
+        out["decode_attention"][key] = _fleet_dense(
+            torch, gen, f"decode_attention[{geo}]", h, kv, dk, **kw)
+        out["paged_decode_attention_quant"][key] = _gtile_quant(
+            torch, gen, f"paged_decode_attention_quant[{geo}]", h, kv, dk,
+            paged=True, **kw)
+        out["decode_attention_quant"][key] = _gtile_quant(
+            torch, gen, f"decode_attention_quant[{geo}]", h, kv, dk,
+            paged=False, **kw)
+    for dname, dk, dv in PREFILL_WIDTHS:
+        key = f"{dname}, " + (f"d {dk}" if dk == dv else
+                              f"dk {dk} / dv {dv}")
+        out["chunked_prefill_attention"][key] = prefill_checks(
+            torch, dname, *prefill_case(torch, gen, getattr(torch, dname),
+                                        h=8, kv=2, d=dk, dv=dv),
+            spin=SHORT_SPIN)
+    for name, by_width in out.items():
+        for key, r in by_width.items():
+            lib = r["library_ms"]
+            log(f"kernel {name} [{key}]: max_abs_err "
+                f"{r['max_abs_err']:.3e}  kernel {r['ms']:.4f} ms  plain "
+                f"{r['plain_ms']:.4f} ms  library "
+                f"{'none' if lib is None else f'{lib:.4f} ms'}  bound "
+                f"{r['bound_ms']:.5f} ms ({r['bound_by']}); rows 0-3 "
+                "(prefill: positions 0-7) bit-identical alone")
+    return out
+
+
+def padded_scan_checks(torch) -> dict:
+    """The selective scan (kernels 7 and 7b, through ``ops.
+    selective_scan``, which pads N to ``padded_state_size``) at
+    ``SCAN_PADDED``'s N 12 in bf16: y within TOL of the plain version on
+    the unpadded inputs, h_final bit for bit (a state's recurrence is
+    elementwise), batch row 1 alone bit for bit, every gradient by
+    ``check_grads``; forward and backward timed beside their bounds."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import selective_scan as ss
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    b, s, d, n = SCAN_PADDED
+    dname = "bfloat16"
+    x, dt, a_log, bm, cm = _scan_case(torch, gen, torch.bfloat16,
+                                      SCAN_PADDED)
+    leaves = [t.clone().requires_grad_() for t in (x, dt, a_log, bm, cm)]
+    y, h = ops.selective_scan(*leaves)
+    yp, hp = ss.selective_scan_plain(x, dt, a_log, bm, cm)
+    name = f"selective_scan[{dname}, {SCAN_PADDED}, N padded to " \
+           f"{ss.padded_state_size(n)}]"
+    err = check_close(f"{name} y", y, yp, TOL[("scan_y", dname)])
+    require_bits(f"{name} h_final", h, hp)
+    y1, h1 = ops.selective_scan(*(t[1:2].contiguous() for t in (
+        x, dt)), a_log, *(t[1:2].contiguous() for t in (bm, cm)))
+    require_bits(f"{name} batch row 1 alone, y", y1, y[1:2])
+    require_bits(f"{name} batch row 1 alone, h_final", h1, h[1:2])
+    dy = torch.randn((b, s, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    dh = torch.randn((b, d, n), generator=gen, device="cuda")
+    got = torch.autograd.grad((y, h), leaves, (dy, dh))
+    want = ss.selective_scan_bwd_plain(x, dt, a_log, bm, cm, dy, dh)
+    grad = check_grads(f"{name} gradients", got, want, dname)
+
+    def fwd():
+        return ops.selective_scan(x, dt, a_log, bm, cm)
+
+    def fwd_bwd():
+        ls = [t.detach().requires_grad_() for t in (x, dt, a_log, bm, cm)]
+        yy, hh = ops.selective_scan(*ls)
+        return torch.autograd.grad((yy, hh), ls, (dy, dh))
+    # the forward's bound at the N the data has (12), as rows 7's
+    item, elems = 2, float(b * s * d * n)
+    bnd, by, terms = scan_bound(
+        2 * b * s * d * item + 4 * b * s * d + 2 * b * s * n * item
+        + 4 * d * n + 4 * b * d * n, SS_FWD_OPS * elems, SS_FWD_SFU * elems,
+        sm_clock_mhz(torch))
+    r = dict(shape=list(SCAN_PADDED), padded_n=ss.padded_state_size(n),
+             max_abs_err=err, grad_err_share=grad, bound_ms=bnd,
+             bound_by=by, bound_terms=terms,
+             ms=time_ms(torch, fwd, n=SCAN_PADDED_TIMED),
+             fwd_bwd_ms=time_ms(torch, fwd_bwd, n=SCAN_PADDED_TIMED),
+             plain_ms=time_ms(torch, lambda: ss.selective_scan_plain(
+                 x, dt, a_log, bm, cm), n=3, warmup=1), library_ms=None)
+    log(f"kernel {name}: y max_abs_err {err:.3e}, h_final and batch row 1 "
+        f"alone bit for bit, gradients {grad:.2e} of their max; forward "
+        f"{r['ms']:.4f} ms, forward + backward {r['fwd_bwd_ms']:.4f} ms, "
+        f"plain {r['plain_ms']:.4f} ms, bound {bnd:.5f} ms ({by})")
+    return r
+
+
+def check_projection_plan() -> None:
+    """``projection_plan`` (the wrapper's mirror of the split) against
+    the library's ``acar_projection_plan`` at every K up to 4,160 and
+    the served widths, and the grid sizes the split promises at a
+    decode's 8 rows: >= 128 CTAs at (4096, 4096), >= 64 at (4096, 1024)
+    and the mesh's (4096, 512)."""
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.projection import projection_plan
+    lib = build.load()
+    for k in (*range(1, 4161), 5120, 6144, 8192, 14336):
+        for n in (1, 64, 513, 1024, 4096):
+            p = projection_plan(k, n)
+            want = (p.split, p.chunk, p.cols, p.rows_bf16, p.rows_f32,
+                    p.col_tiles) + tuple(lo for lo, _ in p.ranges) + (k,)
+            got = tuple(lib.acar_projection_plan(k, n, f)
+                        for f in range(7 + p.split))
+            if got != want:
+                raise AssertionError(f"projection_plan({k}, {n}) = {want}, "
+                                     f"the kernel's {got}")
+    for k, n, least in ((4096, 4096, 128), (4096, 1024, 64),
+                        (4096, 512, 64)):
+        ctas = projection_plan(k, n).ctas(8, torch.bfloat16)
+        if ctas < least:
+            raise AssertionError(f"projection at (8, {k}, {n}) runs {ctas} "
+                                 f"CTAs, fewer than {least}")
+    log("projection_plan matches the kernel's split at K in 1..4,160 and "
+        "5,120-14,336; bf16 at 8 rows: "
+        f"{projection_plan(4096, 4096).ctas(8, torch.bfloat16)} CTAs at "
+        f"(4096, 4096), "
+        f"{projection_plan(4096, 1024).ctas(8, torch.bfloat16)} at "
+        f"(4096, 1024), {projection_plan(4096, 512).ctas(8, torch.bfloat16)}"
+        " at (4096, 512)")
 
 
 # ----------------------------------------------------------------------
@@ -5487,13 +5711,14 @@ def run_mesh_phase(torch, smi: str, mesh_a: dict) -> dict:
 
 def report_ptxas(build) -> None:
     """ptxas's registers, static shared memory and spills for each
-    kernel of the two tensor-core sources, the four split-KV decodes and
+    kernel of the tensor-core sources, the four split-KV decodes and
     the two scans (the build compiles with ``-Xptxas=-v``; the scans'
     dynamic shared memory is ``check_scan_plan``'s and
     ``check_rglru_plan``'s line). A kernel's name keeps its mangled
     template arguments (``13__nv_bfloat16`` shown as ``bf16``)."""
     import re
-    for src in ("fused_swiglu.cu", "chunked_prefill_attention.cu",
+    for src in ("fused_swiglu.cu", "projection.cu",
+                "chunked_prefill_attention.cu",
                 "paged_decode_attention.cu", "decode_attention.cu",
                 "paged_decode_attention_quant.cu", "decode_attention_quant.cu",
                 "selective_scan.cu", "rglru_scan.cu"):
@@ -5547,8 +5772,13 @@ def main() -> int:
     for name, r in mesh_stage_checks(torch).items():
         results[(name, "bfloat16")] = r
     results[("projection", "bfloat16")] = projection_checks(torch)
+    check_projection_plan()
     for name, r in gtile_checks(torch).items():
         results[(name, "bfloat16")]["g_tiles"] = r
+    for name, r in head_width_checks(torch).items():
+        results[(name, "bfloat16")]["head_widths"] = r
+    results[("selective_scan", "bfloat16")]["padded_n"] = (
+        padded_scan_checks(torch))
     phase_done("kernels")
     run_reference_phase(torch)
     run_wave_reference_phase(torch)
@@ -5623,7 +5853,6 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/" + (
                 "fused_swiglu.cu" if name.startswith("swiglu_")
-                or name == "projection"
                 else f"{name.removesuffix('_bwd')}.cu"),
             "replaces": replaces,
             "launches": sum(c.get(name, 0) for c in by_path.values()),
@@ -5681,13 +5910,17 @@ def main() -> int:
             entry["frontend_shape"] = r["frontend_shape"]
         if "g_tiles" in r:
             entry["g_tiles"] = r["g_tiles"]
+        if "head_widths" in r:
+            entry["head_widths"] = r["head_widths"]
+        if "padded_n" in r:
+            entry["padded_n"] = r["padded_n"]
         if name == "projection":
             entry["note"] = (
                 "no TPU counterpart: x @ w against every column-split "
                 "weight (wq, wk, wv, the decode MLP's w_gate / w_up, an "
                 "untied lm_head), column-invariant so that the mesh's "
-                "columns compute the single-device bits; runs the SwiGLU "
-                "down stage's kernels")
+                "columns compute the single-device bits; one launch a "
+                "call, split-K over a cluster of 8 CTAs")
             entry["shape"] = {k: r[k] for k in ("rows", "k", "n")}
             entry["shapes"] = r["shapes"]
             entry["cublas_column_slice_max_diff"] = r[

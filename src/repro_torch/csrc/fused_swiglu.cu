@@ -57,10 +57,6 @@
 // (models.blocking.TOKEN_BLOCK), every sum in one fixed order with no
 // atomics; x's rows stream through shared memory in chunks, so any d_model
 // runs (see the stage kernels below).
-//
-// The down stage's kernels also serve the column-invariant projection
-// (acar_projection, kernels/projection.py), which replaces no TPU kernel:
-// see its entry point at the end of this file.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -319,7 +315,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// stage 2, and the f32 projection: out (T, D) = h (T, F) Wd (F, D)
+// stage 2: out (T, D) = h (T, F) Wd (F, D)
 __global__ void __launch_bounds__(kThreads)
     swiglu_down_f32_kernel(const float* __restrict__ h,
                            const float* __restrict__ wd,
@@ -428,34 +424,4 @@ extern "C" int acar_swiglu_down_f32(const void* h, const void* wd, void* out,
   if (n_tokens <= 0) return (int)cudaSuccess;
   return (int)launch_down_f32(h, wd, out, n_tokens, D, F,
                               static_cast<cudaStream_t>(stream));
-}
-
-// The column-invariant projection (kernels/projection.py): out (M, N) =
-// x (M, K) w (K, N), summed in f32 and rounded once to x's dtype, on the
-// down stage's kernels with K in the place of F and N in that of D. Each
-// output element sums its K products in one fixed order in its own
-// accumulator, and no tile size is chosen from M: bf16 runs the
-// tensor-core GEMM (128-row tiles, 256 or 128 columns a CTA by N, no
-// split-K, no atomics), f32 the CUDA-core kernel (8-row blocks, a column
-// a thread). So a column's bits depend on neither N nor the columns
-// beside it (a column slice of w gives the same columns), and a row's on
-// neither M nor its neighbours. The wide and the narrow bf16 tile run the
-// same wgmma over K in the same order, so the tile width N picks does not
-// change a column's bits. bf16 needs K and N multiples of 8 and 16-byte
-// aligned tensors (TMA); the wrapper pads and copies to give it those.
-extern "C" int acar_projection(const void* x, const void* w, void* out,
-                               int M, int K, int N, int dtype,
-                               void* stream) {
-  if (M <= 0) return (int)cudaSuccess;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype != acar::kBF16)
-    return (int)launch_down_f32(x, w, out, M, N, K, st);
-  if (!bf16_shapes_ok(N, K, {x, w, out})) return (int)cudaErrorInvalidValue;
-  CUtensorMap mx, mw;
-  cudaError_t err = hp::make_tmap_bf16(&mx, x, M, K, kBM);
-  if (err == cudaSuccess) err = hp::make_tmap_bf16(&mw, w, K, N, kBK);
-  if (err != cudaSuccess) return (int)err;
-  if (N % (2 * kBN) == 0)
-    return (int)launch_gemm<kDownWide>(mx, mw, mw, out, M, N, K, st);
-  return (int)launch_gemm<kDownNarrow>(mx, mw, mw, out, M, N, K, st);
 }

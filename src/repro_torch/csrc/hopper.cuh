@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks for the port's tensor-core kernels, as
 // inline PTX: mbarriers, TMA tile loads and tensor maps, wgmma with shared-
-// memory descriptors (fused_swiglu.cu); 3-D TMA tile loads and stores
-// (selective_scan.cu); cp.async, ldmatrix and
-// mma.sync.m16n8k16 (chunked_prefill_attention.cu); the cluster barrier and
-// distributed shared memory (decode_split.cuh).
+// memory descriptors (fused_swiglu.cu; TMA and mbarriers in projection.cu
+// too); 3-D TMA tile loads and stores (selective_scan.cu); cp.async,
+// ldmatrix and mma.sync.m16n8k16 (chunked_prefill_attention.cu,
+// projection.cu); the cluster barrier and distributed shared memory
+// (decode_split.cuh, projection.cu).
 //
 // Everything here is bf16 in, f32 accumulate: the port keeps TF32 off, so
 // f32 operands never go through the tensor cores.
@@ -316,6 +317,11 @@ __device__ __forceinline__ void cluster_arrive_relaxed() {
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
+// arrive releasing this thread's earlier writes to the cluster (a wait
+// after it acquires every CTA's)
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
 // the shared::cluster address of `p`'s counterpart in CTA `rank`
 __device__ __forceinline__ uint32_t cluster_map(const void* p,
                                                 uint32_t rank) {
@@ -327,6 +333,13 @@ __device__ __forceinline__ uint32_t cluster_map(const void* p,
 }
 __device__ __forceinline__ void st_cluster(uint32_t addr, float v) {
   asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v)
+               : "memory");
+}
+// two floats at an 8-byte aligned shared::cluster address
+__device__ __forceinline__ void st_cluster_v2(uint32_t addr, float a,
+                                              float b) {
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(addr),
+               "f"(a), "f"(b)
                : "memory");
 }
 // arrive on an mbarrier of another CTA of the cluster, releasing this

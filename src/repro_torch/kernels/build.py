@@ -32,7 +32,7 @@ BUILD_DIR = REPO_ROOT / "build" / "kernels"
 SOURCES = ("paged_decode_attention.cu", "chunked_prefill_attention.cu",
            "fused_swiglu.cu", "decode_attention.cu",
            "decode_attention_quant.cu", "paged_decode_attention_quant.cu",
-           "selective_scan.cu", "rglru_scan.cu")
+           "selective_scan.cu", "rglru_scan.cu", "projection.cu")
 HEADERS = ("common.cuh", "decode_split.cuh", "hopper.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -42,9 +42,9 @@ _I = ctypes.c_int
 # C entry point -> argument types (pointers and the stream as void*)
 _SIGNATURES = {
     "acar_paged_decode_attention":
-        [_VP] * 6 + [_I] * 7 + [_VP],
+        [_VP] * 6 + [_I] * 8 + [_VP],
     "acar_chunked_prefill_attention":
-        [_VP] * 6 + [_I] * 9 + [_VP],
+        [_VP] * 6 + [_I] * 10 + [_VP],
     "acar_swiglu_gate_up":
         [_VP] * 4 + [_I] * 3 + [_VP],
     "acar_swiglu_down":
@@ -55,12 +55,13 @@ _SIGNATURES = {
         [_VP] * 3 + [_I] * 3 + [_VP],
     "acar_projection":
         [_VP] * 3 + [_I] * 4 + [_VP],
+    "acar_projection_plan": [_I] * 3,
     "acar_decode_attention":
-        [_VP] * 4 + [_I] * 7 + [_VP],
+        [_VP] * 4 + [_I] * 8 + [_VP],
     "acar_decode_attention_quant":
-        [_VP] * 6 + [_I] * 7 + [_VP],
+        [_VP] * 6 + [_I] * 8 + [_VP],
     "acar_paged_decode_attention_quant":
-        [_VP] * 8 + [_I] * 7 + [_VP],
+        [_VP] * 8 + [_I] * 8 + [_VP],
     "acar_decode_split_ctas": [],
     "acar_decode_split_start": [_I] * 2,
     "acar_selective_scan_chunk": [],

@@ -11,8 +11,9 @@ the reference oracle
 ``kernels/ref.py::chunked_prefill_attention_ref``.
 ``chunked_prefill_attention.launches`` counts kernel launches. In bf16
 the kernel runs on the tensor cores (mma.sync: q.k and p.v in bf16 with
-f32 sums, p rounded to bf16 for the second product) at head_dim 64 or
-128; in f32 on the CUDA cores at head_dim <= 128.
+f32 sums, p rounded to bf16 for the second product) at key and value
+widths that are multiples of 8 up to 256, equal or not; in f32 on the
+CUDA cores at any widths up to 256.
 """
 from __future__ import annotations
 
@@ -20,6 +21,10 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build
+
+# the head widths the kernel takes: Dk and Dv each up to MAX_HEAD_DIM;
+# bf16 stages whole 16-byte rows, so its widths are multiples of 8
+MAX_HEAD_DIM = 256
 
 
 def chunked_prefill_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
@@ -63,10 +68,10 @@ def chunked_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
                               block_table: torch.Tensor,
                               q_positions: torch.Tensor, *,
                               prompt_len: int) -> torch.Tensor:
-    """q: (B, C, H, D); k_pages/v_pages: (P, page_size, KV, D);
+    """q: (B, C, H, Dk); k_pages/v_pages: (P, page_size, KV, Dk/Dv);
     block_table: (B, NB) int32 covering ``prompt_len``; q_positions:
     (B, C) int32 absolute positions, all below ``prompt_len`` ->
-    (B, C, H, D)."""
+    (B, C, H, Dv)."""
     if q.device.type == "cpu":
         return chunked_prefill_attention_plain(
             q, k_pages, v_pages, block_table, q_positions,
@@ -82,8 +87,9 @@ def chunked_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
                         "int32")
     b, c, h, d = q.shape
     _, page_size, kv, dk = k_pages.shape
+    dv = v_pages.shape[-1]
     nb = block_table.shape[1]
-    if (dk != d or v_pages.shape != k_pages.shape or h % kv
+    if (dk != d or v_pages.shape[:-1] != k_pages.shape[:-1] or h % kv
             or block_table.shape[0] != b or q_positions.shape != (b, c)
             or not 0 < prompt_len <= nb * page_size):
         raise ValueError(
@@ -91,21 +97,23 @@ def chunked_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
             f"{tuple(k_pages.shape)}/{tuple(v_pages.shape)}, table "
             f"{tuple(block_table.shape)}, q_positions "
             f"{tuple(q_positions.shape)}, prompt_len {prompt_len}")
-    if d > 128:
-        raise ValueError(f"{name}: the kernel takes head_dim <= 128")
-    if q.dtype == torch.bfloat16 and d not in (64, 128):
-        raise ValueError(f"{name}: the bf16 kernel takes head_dim 64 or "
-                         f"128, got {d}")
+    for what, w in (("dk", dk), ("dv", dv)):
+        if not 0 < w <= MAX_HEAD_DIM:
+            raise ValueError(f"{name}: the kernel takes head widths up to "
+                             f"{MAX_HEAD_DIM}, got {what} {w}")
+        if q.dtype == torch.bfloat16 and w % 8:
+            raise ValueError(f"{name}: the bf16 kernel takes head widths "
+                             f"that are multiples of 8, got {what} {w}")
     dev = build.check_cuda(name, q=q, k_pages=k_pages, v_pages=v_pages,
                            block_table=block_table, q_positions=q_positions)
-    out = torch.empty_like(q)
+    out = q.new_empty((b, c, h, dv))
     if b == 0 or c == 0:
         return out
     with torch.cuda.device(dev):
         err = build.load().acar_chunked_prefill_attention(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block_table.data_ptr(), q_positions.data_ptr(), out.data_ptr(),
-            b, c, h, kv, d, page_size, nb, int(prompt_len), code,
+            b, c, h, kv, dk, dv, page_size, nb, int(prompt_len), code,
             build.stream_handle(dev))
     build.check(err, name)
     build.count_launch(chunked_prefill_attention)

@@ -20,7 +20,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.paged_decode_attention import (  # noqa: F401
-    split_ranges)  # re-exported: the dense-cache kernel splits alike
+    check_head_dims, split_ranges)  # the dense-cache kernel splits alike
 
 
 def _scale(dk: int) -> float:
@@ -52,37 +52,37 @@ def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, length: int) -> torch.Tensor:
-    """q: (B, H, D); k_cache/v_cache: (B, S, KV, D) in q's dtype;
+    """q: (B, H, Dk); k_cache/v_cache: (B, S, KV, Dk/Dv) in q's dtype;
     length: valid cache prefix, a Python int (0 <= length <= S) passed
-    to the kernel as a launch argument -> (B, H, D). Positions at or
+    to the kernel as a launch argument -> (B, H, Dv). Positions at or
     past ``length`` are never read."""
     length = int(length)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, length)
     name = "decode_attention"
-    dev = build.check_cuda(name, q=q, k_cache=k_cache, v_cache=v_cache)
     code = build.dtype_code(q.dtype, name)
     if k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
         raise TypeError(f"{name}: q, k_cache and v_cache must share a "
                         "dtype")
     b, h, d = q.shape
     _, s, kv, dk = k_cache.shape
-    if (dk != d or v_cache.shape != k_cache.shape or h % kv
+    dv = v_cache.shape[-1]
+    if (dk != d or v_cache.shape[:-1] != k_cache.shape[:-1] or h % kv
             or k_cache.shape[0] != b or not 0 <= length <= s):
         raise ValueError(
             f"{name}: shapes q {tuple(q.shape)}, caches "
             f"{tuple(k_cache.shape)}/{tuple(v_cache.shape)}, length "
             f"{length}")
-    if d > 128:
-        # any G: above 8 query heads per kv head the kernel runs G-tiles
-        raise ValueError(f"{name}: the kernel takes head_dim <= 128")
-    out = torch.empty_like(q)
+    # any G: the kernel runs G-tiles, as the paged decode's
+    check_head_dims(name, dk, dv)
+    dev = build.check_cuda(name, q=q, k_cache=k_cache, v_cache=v_cache)
+    out = q.new_empty((b, h, dv))
     if b == 0:
         return out
     with torch.cuda.device(dev):
         err = build.load().acar_decode_attention(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            out.data_ptr(), b, h, kv, d, s, length, code,
+            out.data_ptr(), b, h, kv, dk, dv, s, length, code,
             build.stream_handle(dev))
     build.check(err, name)
     build.count_launch(decode_attention)

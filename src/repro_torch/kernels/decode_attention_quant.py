@@ -21,7 +21,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention import _scale
 from repro_torch.kernels.paged_decode_attention import (  # noqa: F401
-    split_ranges)  # re-exported: the int8 kernel splits alike
+    check_head_dims, split_ranges)  # the int8 kernel splits alike
 
 # the masking constant of the reference's jnp quant path
 _NEG_INF = -1e30
@@ -60,17 +60,15 @@ def decode_attention_quant(q: torch.Tensor, k_codes: torch.Tensor,
                            k_scale: torch.Tensor, v_codes: torch.Tensor,
                            v_scale: torch.Tensor,
                            length: int) -> torch.Tensor:
-    """q: (B, H, D) f32 or bf16; k_codes/v_codes: (B, S, KV, D) int8;
-    k_scale/v_scale: (B, S, KV) f32; length: valid cache prefix, a
-    Python int passed as a launch argument -> (B, H, D) in q's dtype.
+    """q: (B, H, Dk) f32 or bf16; k_codes/v_codes: (B, S, KV, Dk/Dv)
+    int8; k_scale/v_scale: (B, S, KV) f32; length: valid cache prefix, a
+    Python int passed as a launch argument -> (B, H, Dv) in q's dtype.
     The kernel dispatches on q's dtype alone."""
     length = int(length)
     if q.device.type == "cpu":
         return decode_attention_quant_plain(q, k_codes, k_scale, v_codes,
                                             v_scale, length)
     name = "decode_attention_quant"
-    dev = build.check_cuda(name, q=q, k_codes=k_codes, k_scale=k_scale,
-                           v_codes=v_codes, v_scale=v_scale)
     code = build.dtype_code(q.dtype, name)
     if k_codes.dtype != torch.int8 or v_codes.dtype != torch.int8:
         raise TypeError(f"{name}: k_codes and v_codes must be int8")
@@ -78,7 +76,8 @@ def decode_attention_quant(q: torch.Tensor, k_codes: torch.Tensor,
         raise TypeError(f"{name}: k_scale and v_scale must be float32")
     b, h, d = q.shape
     _, s, kv, dk = k_codes.shape
-    if (dk != d or v_codes.shape != k_codes.shape or h % kv
+    dv = v_codes.shape[-1]
+    if (dk != d or v_codes.shape[:-1] != k_codes.shape[:-1] or h % kv
             or k_codes.shape[0] != b or k_scale.shape != (b, s, kv)
             or v_scale.shape != (b, s, kv) or not 0 <= length <= s):
         raise ValueError(
@@ -86,17 +85,18 @@ def decode_attention_quant(q: torch.Tensor, k_codes: torch.Tensor,
             f"{tuple(k_codes.shape)}/{tuple(v_codes.shape)}, scales "
             f"{tuple(k_scale.shape)}/{tuple(v_scale.shape)}, length "
             f"{length}")
-    if d > 128:
-        # any G: above 8 query heads per kv head the kernel runs G-tiles
-        raise ValueError(f"{name}: the kernel takes head_dim <= 128")
-    out = torch.empty_like(q)
+    # any G: the kernel runs G-tiles, as the paged decode's
+    check_head_dims(name, dk, dv)
+    dev = build.check_cuda(name, q=q, k_codes=k_codes, k_scale=k_scale,
+                           v_codes=v_codes, v_scale=v_scale)
+    out = q.new_empty((b, h, dv))
     if b == 0:
         return out
     with torch.cuda.device(dev):
         err = build.load().acar_decode_attention_quant(
             q.data_ptr(), k_codes.data_ptr(), k_scale.data_ptr(),
             v_codes.data_ptr(), v_scale.data_ptr(), out.data_ptr(),
-            b, h, kv, d, s, length, code, build.stream_handle(dev))
+            b, h, kv, dk, dv, s, length, code, build.stream_handle(dev))
     build.check(err, name)
     build.count_launch(decode_attention_quant)
     return out

@@ -28,6 +28,22 @@ from repro_torch.kernels import build
 # csrc/decode_split.cuh: CTAs per cluster, and the granule of a range
 SPLIT = 8
 SPLIT_GRANULE = 16
+# the head widths the four split decodes take: Dk and Dv each up to
+# MAX_HEAD_DIM; above WIDE_HEAD_DIM a lane holds two 16-byte vectors of a
+# key row, so those widths must be multiples of 8 (whole vectors of bf16)
+MAX_HEAD_DIM = 256
+WIDE_HEAD_DIM = 128
+
+
+def check_head_dims(name: str, dk: int, dv: int) -> None:
+    """Raise unless the split decodes take key width ``dk`` and value
+    width ``dv``: each in 1..128, or a multiple of 8 up to 256."""
+    for what, d in (("dk", dk), ("dv", dv)):
+        if not 0 < d <= MAX_HEAD_DIM or (d > WIDE_HEAD_DIM and d % 8):
+            raise ValueError(
+                f"{name}: the kernel takes head widths up to "
+                f"{WIDE_HEAD_DIM}, or multiples of 8 up to {MAX_HEAD_DIM}; "
+                f"got {what} {d}")
 
 
 def split_ranges(length: int) -> List[Tuple[int, int]]:
@@ -77,15 +93,13 @@ def paged_decode_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, block_table: torch.Tensor,
                            lengths: torch.Tensor) -> torch.Tensor:
-    """q: (B, H, D); k_pages/v_pages: (P, page_size, KV, D);
-    block_table: (B, NB) int32; lengths: (B,) int32 -> (B, H, D).
+    """q: (B, H, Dk); k_pages/v_pages: (P, page_size, KV, Dk/Dv);
+    block_table: (B, NB) int32; lengths: (B,) int32 -> (B, H, Dv).
     Positions at or past ``lengths[b]`` are masked and never read."""
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pages, v_pages,
                                             block_table, lengths)
     name = "paged_decode_attention"
-    dev = build.check_cuda(name, q=q, k_pages=k_pages, v_pages=v_pages,
-                           block_table=block_table, lengths=lengths)
     code = build.dtype_code(q.dtype, name)
     if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
         raise TypeError(f"{name}: q, k_pages and v_pages must share a "
@@ -94,23 +108,26 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
         raise TypeError(f"{name}: block_table and lengths must be int32")
     b, h, d = q.shape
     _, page_size, kv, dk = k_pages.shape
-    if (dk != d or v_pages.shape != k_pages.shape or h % kv
+    dv = v_pages.shape[-1]
+    if (dk != d or v_pages.shape[:-1] != k_pages.shape[:-1] or h % kv
             or block_table.shape[0] != b or lengths.shape != (b,)):
         raise ValueError(
             f"{name}: shapes q {tuple(q.shape)}, pages "
             f"{tuple(k_pages.shape)}/{tuple(v_pages.shape)}, table "
             f"{tuple(block_table.shape)}, lengths {tuple(lengths.shape)}")
-    if d > 128:
-        # any G: above 8 query heads per kv head the kernel runs G-tiles
-        raise ValueError(f"{name}: the kernel takes head_dim <= 128")
-    out = torch.empty_like(q)
+    # any G: the kernel runs G-tiles of up to 8 query heads (4 above
+    # head width 128)
+    check_head_dims(name, dk, dv)
+    dev = build.check_cuda(name, q=q, k_pages=k_pages, v_pages=v_pages,
+                           block_table=block_table, lengths=lengths)
+    out = q.new_empty((b, h, dv))
     if b == 0:
         return out
     with torch.cuda.device(dev):
         err = build.load().acar_paged_decode_attention(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            b, h, kv, d, page_size, block_table.shape[1], code,
+            b, h, kv, dk, dv, page_size, block_table.shape[1], code,
             build.stream_handle(dev))
     build.check(err, name)
     build.count_launch(paged_decode_attention)

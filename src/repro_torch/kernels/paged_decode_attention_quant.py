@@ -21,7 +21,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention import _scale
 from repro_torch.kernels.paged_decode_attention import (  # noqa: F401
-    split_ranges)  # re-exported: the int8 kernel splits alike
+    check_head_dims, split_ranges)  # the int8 kernel splits alike
 
 
 def paged_decode_attention_quant_plain(q: torch.Tensor,
@@ -70,9 +70,9 @@ def paged_decode_attention_quant(q: torch.Tensor, k_pages: torch.Tensor,
                                  v_scale_pages: torch.Tensor,
                                  block_table: torch.Tensor,
                                  lengths: torch.Tensor) -> torch.Tensor:
-    """q: (B, H, D) f32 or bf16; k_pages/v_pages: (P, page_size, KV, D)
-    int8; k_scale_pages/v_scale_pages: (P, page_size, KV) f32;
-    block_table: (B, NB) int32; lengths: (B,) int32 -> (B, H, D) in q's
+    """q: (B, H, Dk) f32 or bf16; k_pages/v_pages: (P, page_size, KV,
+    Dk/Dv) int8; k_scale_pages/v_scale_pages: (P, page_size, KV) f32;
+    block_table: (B, NB) int32; lengths: (B,) int32 -> (B, H, Dv) in q's
     dtype. Positions at or past ``lengths[b]`` are masked and never
     read; the kernel dispatches on q's dtype alone."""
     if q.device.type == "cpu":
@@ -80,10 +80,6 @@ def paged_decode_attention_quant(q: torch.Tensor, k_pages: torch.Tensor,
             q, k_pages, k_scale_pages, v_pages, v_scale_pages,
             block_table, lengths)
     name = "paged_decode_attention_quant"
-    dev = build.check_cuda(name, q=q, k_pages=k_pages,
-                           k_scale_pages=k_scale_pages, v_pages=v_pages,
-                           v_scale_pages=v_scale_pages,
-                           block_table=block_table, lengths=lengths)
     code = build.dtype_code(q.dtype, name)
     if k_pages.dtype != torch.int8 or v_pages.dtype != torch.int8:
         raise TypeError(f"{name}: k_pages and v_pages must be int8")
@@ -94,7 +90,8 @@ def paged_decode_attention_quant(q: torch.Tensor, k_pages: torch.Tensor,
         raise TypeError(f"{name}: block_table and lengths must be int32")
     b, h, d = q.shape
     n_pages, page_size, kv, dk = k_pages.shape
-    if (dk != d or v_pages.shape != k_pages.shape or h % kv
+    dv = v_pages.shape[-1]
+    if (dk != d or v_pages.shape[:-1] != k_pages.shape[:-1] or h % kv
             or k_scale_pages.shape != (n_pages, page_size, kv)
             or v_scale_pages.shape != k_scale_pages.shape
             or block_table.shape[0] != b or lengths.shape != (b,)):
@@ -104,10 +101,13 @@ def paged_decode_attention_quant(q: torch.Tensor, k_pages: torch.Tensor,
             f"{tuple(k_scale_pages.shape)}/{tuple(v_scale_pages.shape)}, "
             f"table {tuple(block_table.shape)}, lengths "
             f"{tuple(lengths.shape)}")
-    if d > 128:
-        # any G: above 8 query heads per kv head the kernel runs G-tiles
-        raise ValueError(f"{name}: the kernel takes head_dim <= 128")
-    out = torch.empty_like(q)
+    # any G: the kernel runs G-tiles, as the paged decode's
+    check_head_dims(name, dk, dv)
+    dev = build.check_cuda(name, q=q, k_pages=k_pages,
+                           k_scale_pages=k_scale_pages, v_pages=v_pages,
+                           v_scale_pages=v_scale_pages,
+                           block_table=block_table, lengths=lengths)
+    out = q.new_empty((b, h, dv))
     if b == 0:
         return out
     with torch.cuda.device(dev):
@@ -115,7 +115,7 @@ def paged_decode_attention_quant(q: torch.Tensor, k_pages: torch.Tensor,
             q.data_ptr(), k_pages.data_ptr(), k_scale_pages.data_ptr(),
             v_pages.data_ptr(), v_scale_pages.data_ptr(),
             block_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            b, h, kv, d, page_size, block_table.shape[1], code,
+            b, h, kv, dk, dv, page_size, block_table.shape[1], code,
             build.stream_handle(dev))
     build.check(err, name)
     build.count_launch(paged_decode_attention_quant)

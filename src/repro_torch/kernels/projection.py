@@ -12,21 +12,23 @@ It exists for the mesh's bit-exactness on the card. cuBLAS picks its
 kernel by shape, so a bf16 product over a column slice of w can round
 apart from the same columns of the unsliced product (a (1, 2) mesh's
 decode logits differed from one device's by 0.0547), and its choice by
-M can make a row's bits depend on how many rows share the call. This
-kernel fixes both: on a CUDA tensor it launches ``acar_projection``
-(``csrc/fused_swiglu.cu``), which runs the SwiGLU's down-stage kernels
-with K in the place of F: in bf16 the tensor-core GEMM (a fixed 128-row
-tile, 256 or 128 columns a CTA by N, K in one fixed order, no split-K,
-no atomics), in f32 the CUDA-core kernel (8-row blocks, one thread a
-column, K summed in order). Every output element's sum runs in one
-order that depends on neither M nor N nor the columns beside it, so the
-single device and each model column get the same bits.
+M can make a row's bits depend on how many rows share the call. On a
+CUDA tensor this launches ``acar_projection`` (``csrc/projection.cu``):
+one launch a call, split-K over a cluster of ``SPLIT`` CTAs. Each
+cluster serves a tile of ``COLS`` columns by a constant number of token
+rows (bf16 ``ROWS_BF16``, on the tensor cores with ``mma.sync``; f32
+``ROWS_F32``, on the CUDA cores), rank r sums its range of K
+(``projection_plan``: a function of K alone), and the ranks' f32
+partials meet over distributed shared memory, added in rank order and
+rounded once. Every output element's sum runs in one order that depends
+on neither M nor N nor the columns beside it, so the single device and
+each model column get the same bits.
 
 What bounds it on the H100: at a decode tick's 8 rows, bytes (each
-weight read once: 33.6 MB at (8, 4096, 4096) is 10 us at 3.35 TB/s);
-the kernel runs one CTA a 256-column tile, 16 CTAs there on 132 SMs, so
-it runs several times that bound; at a prefill chunk's hundreds of rows,
-operations on the tensor cores.
+weight read once: 33.6 MB at (8, 4096, 4096) is 10 us at 3.35 TB/s),
+which the 512 CTAs of that shape stream together; at a prefill chunk's
+hundreds of rows, the tensor cores and the L2 traffic of x re-read once
+a column tile.
 
 bf16 needs K and N that are multiples of 8 and 16-byte-aligned tensors
 (TMA's row strides). A misaligned or non-contiguous operand is copied
@@ -45,12 +47,56 @@ leaves those gradients to XLA.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import Tuple
+
 import torch
 
 from repro_torch.kernels import build
 
 # bf16: TMA's 16-byte row strides, in elements
 _BF16_GRID = 8
+
+# csrc/projection.cu: CTAs a cluster, the granule of a K range, a tile's
+# columns and its token rows
+SPLIT = 8
+K_GRANULE = 64
+COLS = 64
+ROWS_BF16 = 128
+ROWS_F32 = 8
+
+
+@dataclass(frozen=True)
+class ProjectionPlan:
+    """The kernel's split of a (K, N) product, as ``csrc/projection.cu``
+    computes it (``acar_projection_plan`` reports each field)."""
+    split: int                         # CTAs a cluster: one tile's ranks
+    chunk: int                         # K a rank (the last ones clipped)
+    ranges: Tuple[Tuple[int, int], ...]  # rank r's [lo, hi) of K
+    cols: int                          # output columns a tile
+    rows_bf16: int                     # token rows a tile, bf16
+    rows_f32: int                      # token rows a tile, f32
+    col_tiles: int                     # tiles along N
+
+    def ctas(self, m: int, dtype: torch.dtype) -> int:
+        """The grid's CTAs for m rows: ``split`` a tile."""
+        rows = self.rows_bf16 if dtype == torch.bfloat16 else self.rows_f32
+        return self.split * self.col_tiles * -(-m // rows)
+
+
+def projection_plan(k: int, n: int) -> ProjectionPlan:
+    """The K ranges, tile sizes and column tiles of the kernel for x
+    (M, k) @ w (k, n): rank r sums k over ``ranges[r]``, chunk =
+    ceil(k / SPLIT) rounded up to ``K_GRANULE``. The ranges are a
+    function of k alone (never of M or N), so a column slice of w and a
+    call on fewer rows take the same ones."""
+    k, n = int(k), int(n)
+    chunk = -(-(-(-k // SPLIT)) // K_GRANULE) * K_GRANULE
+    ranges = tuple((min(r * chunk, k), min((r + 1) * chunk, k))
+                   for r in range(SPLIT))
+    return ProjectionPlan(split=SPLIT, chunk=chunk, ranges=ranges,
+                          cols=COLS, rows_bf16=ROWS_BF16,
+                          rows_f32=ROWS_F32, col_tiles=-(-n // COLS))
 
 
 def projection_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -152,4 +198,5 @@ def projection(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 projection.launches = 0
 
-__all__ = ["projection", "projection_plain"]
+__all__ = ["ProjectionPlan", "projection", "projection_plain",
+           "projection_plan"]

@@ -19,6 +19,14 @@ the state axis in another order (in the thread, then a shuffle
 butterfly in the kernel). ``scan_plan`` gives the kernels' tile
 constants, which depend on the state size alone, and the scratch the
 wrappers allocate follows it.
+
+The kernels take a state size N that is a power of two up to 32.
+``selective_scan`` pads any other N up to 32 to the next power of two
+(``padded_state_size``) for both routes: b_in, c_in and a_log get zero
+columns, so the padded states stay exactly 0 (their B is 0) and add
+C h = 0 to y, and autograd slices dB, dC and d a_log back. A power of
+two runs unpadded, so those bits do not change; an N above 32 is not
+padded (the plain version takes it, the kernel raises).
 """
 from __future__ import annotations
 
@@ -42,6 +50,12 @@ class ScanPlan:
     per_thread: int   # states a thread holds (k)
     lanes: int        # lanes of one channel (N / k)
     blocks: int       # channel blocks: CTAs along D
+
+
+def padded_state_size(n: int) -> int:
+    """The state size ``selective_scan`` runs N at: the next power of
+    two up to 32, N itself above."""
+    return 1 << max(int(n) - 1, 0).bit_length() if 0 < n <= 32 else n
 
 
 def scan_plan(d: int, n: int) -> ScanPlan:
@@ -156,8 +170,6 @@ def _codes(name: str, tensors) -> int:
 
 
 def _check(name: str, x, dt, a_log, b_in, c_in) -> torch.device:
-    dev = build.check_cuda(name, x=x, dt=dt, a_log=a_log, b_in=b_in,
-                           c_in=c_in)
     bsz, s, d = x.shape
     n = a_log.shape[1]
     if (dt.shape != x.shape or a_log.shape != (d, n)
@@ -167,7 +179,8 @@ def _check(name: str, x, dt, a_log, b_in, c_in) -> torch.device:
             f"a_log {tuple(a_log.shape)}, b_in {tuple(b_in.shape)}, "
             f"c_in {tuple(c_in.shape)}")
     scan_plan(d, n)         # raises on a state size it does not take
-    return dev
+    return build.check_cuda(name, x=x, dt=dt, a_log=a_log, b_in=b_in,
+                            c_in=c_in)
 
 
 def _launch_fwd(x, dt, a_log, b_in, c_in):
@@ -264,11 +277,20 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
                    b_in: torch.Tensor, c_in: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x, dt: (B, S, D); a_log: (D, N); b_in, c_in: (B, S, N), each
-    float32 or bfloat16 on its own (contiguous on a CUDA device).
+    float32 or bfloat16 on its own (contiguous on a CUDA device); N up
+    to 32 on a CUDA device.
 
     Returns (y (B, S, D) in x's dtype, h_final (B, D, N) f32),
-    differentiable in every input."""
-    return _SelectiveScan.apply(x, dt, a_log, b_in, c_in)
+    differentiable in every input. N is padded to
+    ``padded_state_size(N)`` with zero states first."""
+    n = a_log.shape[-1]
+    pad = padded_state_size(n) - n
+    if not pad:
+        return _SelectiveScan.apply(x, dt, a_log, b_in, c_in)
+    a_log, b_in, c_in = (torch.nn.functional.pad(t, (0, pad))
+                         for t in (a_log, b_in, c_in))
+    y, h_final = _SelectiveScan.apply(x, dt, a_log, b_in, c_in)
+    return y, h_final[..., :n]
 
 
 selective_scan.launches = 0

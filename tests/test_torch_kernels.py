@@ -373,10 +373,15 @@ def test_wrappers_raise_off_the_cpu_instead_of_falling_back():
 
 
 def test_kernel_sources_name_the_tpu_kernel_they_replace():
+    """Each source names the Pallas kernel it replaces; the projection,
+    which has no TPU counterpart, says so and why it is there."""
     from repro_torch.kernels import build
     for name in build.SOURCES:
         text = (build.CSRC / name).read_text()
         stem = name[:-3]
-        assert f"src/repro/kernels/{stem}.py::{stem}" in text, name
+        if stem == "projection":
+            assert "Replaces no TPU kernel" in text, name
+        else:
+            assert f"src/repro/kernels/{stem}.py::{stem}" in text, name
         assert "bounds it on the H100" in text, name
         assert 'extern "C"' in text and "cudaGetLastError" in text, name

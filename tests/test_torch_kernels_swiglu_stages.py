@@ -100,12 +100,15 @@ def test_wrapper_shapes_it_takes_reach_the_device_check(dtype, d, f):
 
 
 def test_bf16_prefill_raises_for_head_dims_without_a_kernel():
-    """The bf16 chunked-prefill kernel is built for head_dim 64 and 128,
-    the served models'; another head_dim raises rather than falling
-    back (64 and 128 pass the check and reach the device test)."""
+    """The bf16 chunked-prefill kernel takes head widths that are
+    multiples of 8 up to 256 (the reference sweep's 32 and 96 too); a
+    width off that grid or past 256 raises rather than falling back, and
+    every taken one passes the check and reaches the device test."""
     m = dict(device="meta")
-    for d, match in ((32, "head_dim 64 or 128"), (96, "head_dim 64 or 128"),
-                     (128, "no kernel"), (64, "no kernel")):
+    for d, match in ((32, "no kernel"), (96, "no kernel"),
+                     (128, "no kernel"), (64, "no kernel"),
+                     (256, "no kernel"), (12, "multiples of 8"),
+                     (264, "up to 256")):
         with pytest.raises(ValueError, match=match):
             ops.chunked_prefill_attention(
                 torch.empty(2, 4, 3, d, dtype=torch.bfloat16, **m),
