@@ -42,8 +42,15 @@ Phases (each raises on failure, and the script then exits non-zero):
    6144 / F 16384, over a decode tick's 8 rows and a 256-token chunk;
    deepseek-v2-236b's dense layer 0, d 5120 / F 12288, over a 97-token
    prompt) and in f32 at d 5120, 6144 and 8192 (the two stage kernels,
-   x streamed through shared memory in 1024-column chunks: zero-padded
-   inputs must give the unpadded call's bits); and hold, check bit for
+   K split over a cluster by K alone: d 4093, copied 4 bytes at a time,
+   zero-padded to 4094-4096 must give the unpadded call's bits); and
+   hold, check bit for bit (positions 0-7) and time the f32
+   prefill at llama3-8b's heads (d 128) and over a 32-query chunk at the
+   end of a 2,048-token prompt from a cold L2, profile one f32 SwiGLU
+   call, one call of each stage and one f32 prefill (one
+   ``swiglu_f32_gemm_kernel`` a stage, one ``chunked_prefill_f32_kernel``,
+   nothing else), and check ``swiglu_f32_plan`` against the library's
+   ``acar_swiglu_f32_plan`` at every K to 8,192; and hold, check bit for
    bit and time kernel 4 at whisper-medium's decode (MHA, H 16, d 64,
    8 rows of 32 positions) and kernel 3 at llava-next-mistral-7b's
    prefill (d 4096 / F 14336
@@ -52,8 +59,9 @@ Phases (each raises on failure, and the script then exits non-zero):
    them (``ops.swiglu_gate_up`` on a column slice, ``ops.swiglu_down``
    over the gathered h): in bf16 and f32 the column slices' h equal the
    unsliced call's bit for bit and gate_up then down equals the fused
-   call bit for bit, each stage against its plain version, timed at
-   llama3-8b's F/2; and hold and time the column-invariant projection
+   call bit for bit (f32: slices at m 2 and 4), each stage against its
+   plain version, timed at llama3-8b's F/2; and hold and time the
+   column-invariant projection
    (``ops.projection``, every product against a column-split weight) at
    the mesh's and phase 5's decode shapes against ``torch.matmul``, its
    column slices bit for bit the unsliced call's (cuBLAS's difference
@@ -241,10 +249,12 @@ batch row 1 computed alone equals its bits inside the batch, and the
 wrapper's ``rglru_plan`` against the compiled tile constants.
 
 The build prints ptxas's registers, static shared memory and spills
-for the two tensor-core kernel sources, the four split-KV decodes and
-the two scans, and the serve and train profiles count the SwiGLU's
-tensor-core kernels (two for every bf16 wrapper call), the decodes'
-and the scans' (one for every wrapper call).
+for the two tensor-core kernel sources (with their f32 kernels), the
+four split-KV decodes and the two scans, and the serve and train
+profiles count the SwiGLU's tensor-core kernels (two for every bf16
+wrapper call, and no f32 kernel under it), the decodes' and the scans'
+(one for every wrapper call). The kernels' JSON line gives kernels 2
+and 3 their f32 times and their f32 launches by path apart.
 It prints one JSON line describing the kernels, the ``nvidia-smi``
 line, and last ``{"ok": true, "device": {...}}``.
 """
@@ -467,11 +477,13 @@ def prefill_case(torch, gen, dtype, h=H, kv=KV, d=D, dv=None):
 
 
 def prefill_checks(torch, dname, q, kp, vp, table, qpos,
-                   spin: int = SPIN_CYCLES) -> dict:
+                   spin: int = SPIN_CYCLES, prompt_len: int = PROMPT,
+                   flush=None) -> dict:
     """Kernel 2 on one case: within the attention tolerance of its
     plain version, positions 0-7 of the 32-position chunk bit-identical
     to an 8-position chunk, and timed beside its plain version and SDPA
-    over the gathered K/V, with its bound."""
+    over the gathered K/V, with its bound (``flush``, where given, before
+    each timed call: an L2 flush, so that K and V are read cold)."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops
     from repro_torch.kernels.chunked_prefill_attention import (
@@ -482,32 +494,33 @@ def prefill_checks(torch, dname, q, kp, vp, table, qpos,
     width = f"d {d}" if dv == d else f"dk {d} / dv {dv}"
     label = f"chunked_prefill_attention[{dname}, H {h}/KV {kv}, {width}]"
     got = ops.chunked_prefill_attention(q, kp, vp, table, qpos,
-                                        prompt_len=PROMPT)
+                                        prompt_len=prompt_len)
     want = chunked_prefill_attention_plain(q, kp, vp, table, qpos,
-                                           prompt_len=PROMPT)
+                                           prompt_len=prompt_len)
     torch.cuda.synchronize()
     err = check_close(label, got, want, TOL[("attention", dname)])
     check_same_rows(
         f"{label} positions 0-7 of 32",
         got[:, :8], ops.chunked_prefill_attention(
             q[:, :8].contiguous(), kp, vp, table,
-            qpos[:, :8].contiguous(), prompt_len=PROMPT))
+            qpos[:, :8].contiguous(), prompt_len=prompt_len))
     ms = time_ms(torch, lambda: ops.chunked_prefill_attention(
-        q, kp, vp, table, qpos, prompt_len=PROMPT), spin=spin)
+        q, kp, vp, table, qpos, prompt_len=prompt_len), spin=spin,
+        flush=flush)
     plain = time_ms(torch, lambda: chunked_prefill_attention_plain(
-        q, kp, vp, table, qpos, prompt_len=PROMPT))
-    kc = _gather(torch, kp, table)[:, :PROMPT]
-    vc = _gather(torch, vp, table)[:, :PROMPT]
+        q, kp, vp, table, qpos, prompt_len=prompt_len), flush=flush)
+    kc = _gather(torch, kp, table)[:, :prompt_len]
+    vc = _gather(torch, vp, table)[:, :prompt_len]
     kc = kc.repeat_interleave(h // kv, 2).transpose(1, 2)
     vc = vc.repeat_interleave(h // kv, 2).transpose(1, 2)
-    mask = (qpos[:, :, None] >= torch.arange(PROMPT, device="cuda")
+    mask = (qpos[:, :, None] >= torch.arange(prompt_len, device="cuda")
             [None, None])[:, None]
     q4 = q.transpose(1, 2)
     lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        q4, kc, vc, attn_mask=mask), spin=spin)
+        q4, kc, vc, attn_mask=mask), spin=spin, flush=flush)
     # keys each row needs: up to its last query position; the two pad
     # rows share their scratch pages
-    keys_row = (qpos.max(dim=1).values + 1).clamp(max=PROMPT)
+    keys_row = (qpos.max(dim=1).values + 1).clamp(max=prompt_len)
     n_keys = unique_keys(torch, table, keys_row)
     bytes_moved = ((q.numel() + got.numel()) * item
                    + n_keys * kv * (d + dv) * item
@@ -740,8 +753,8 @@ def frontend_shape_checks(torch) -> dict:
 # d_ff, timed launches). mixtral-8x22b's gather experts run over a
 # decode tick's 8 rows and a 32-token chunk of 8 rows; deepseek-v2-236b's
 # dense layer 0 over one 97-token prompt on the contiguous-cache
-# fallback. The f32 stage kernels keep 8 rows a CTA on CUDA cores, so
-# they are timed over 5 launches.
+# fallback. The f32 calls take milliseconds on the CUDA cores, so they
+# are timed over 5 launches.
 MOE_SWIGLU_SHAPES = (
     ("mixtral-8x22b decode tick", "bfloat16", 8, 6144, 16384, 50),
     ("mixtral-8x22b prefill chunk", "bfloat16", 256, 6144, 16384, 50),
@@ -803,33 +816,40 @@ def moe_swiglu_checks(torch) -> dict:
 
 
 def f32_width_bits(torch, gen) -> dict:
-    """The f32 stage kernels give the same bits whatever the count of
-    the gate_up stage's 1024-column chunks of x: x, Wg and Wu
-    zero-padded from d_model 4096 (4 chunks) to 5120, 6144 and 8192 (5,
-    6 and 8) add exact zeros to every gate and up sum and leave h as it
-    was, so the first 4096 output columns must equal the unpadded call's
-    bits (each sum runs over d in one order)."""
+    """The f32 stage kernels give the same bits whatever path stages the
+    operands: at d_model 4093 (not a multiple of 4) they copy 4 bytes at
+    a time, and x, Wg and Wu zero-padded along d to 4094, 4095 and 4096
+    (the last by 16-byte copies) take the same split of K
+    (``swiglu_f32_plan``: 8 ranks of 512) and add exact zeros to every
+    gate and up sum, and Wd's added columns are columns of their own, so
+    the first 4093 output columns must equal the unpadded call's bits
+    (each sum runs over K in an order fixed by K's plan)."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops
-    t, d, f = 64, 4096, 1024
+    from repro_torch.kernels.fused_swiglu import swiglu_f32_plan
+    t, d, f = 64, 4093, 1024
     x, wg, wu = (torch.randn(sh, generator=gen, device="cuda") / sh[0] ** 0.5
                  for sh in ((t, d), (d, f), (d, f)))
     wd = torch.randn((f, d), generator=gen, device="cuda") / f ** 0.5
     base = ops.fused_swiglu(x, wg, wu, wd)
+    plan = swiglu_f32_plan(d, f).ranges
     for wide in F32_PADDED:
         p = wide - d
+        if swiglu_f32_plan(wide, f).ranges[:-1] != plan[:-1]:
+            raise AssertionError(f"f32 plan at d {wide} splits K apart "
+                                 f"from d {d}")
         got = ops.fused_swiglu(F.pad(x, (0, p)), F.pad(wg, (0, 0, 0, p)),
                                F.pad(wu, (0, 0, 0, p)), F.pad(wd, (0, p)))
         check_same_rows(f"fused_swiglu[float32] d {d} zero-padded to "
                         f"{wide}, columns 0-{d - 1}", got[:, :d], base)
-    log(f"fused_swiglu[float32]: d {d} zero-padded to {F32_PADDED} "
-        "(more chunks of x through shared memory) gives the unpadded "
+    log(f"fused_swiglu[float32]: d {d} (4-byte copies) zero-padded to "
+        f"{F32_PADDED} (the last by 16-byte copies) gives the unpadded "
         "call's bits")
     return dict(tokens=t, d_model=d, d_ff=f, padded_to=list(F32_PADDED),
                 bitwise=True)
 
 
-F32_PADDED = (5120, 6144, 8192)
+F32_PADDED = (4094, 4095, 4096)
 
 
 def swiglu_case(torch, gen, dtype):
@@ -2824,6 +2844,7 @@ def profiled(torch, fn):
 # the port's tensor-core and split-KV kernels, reported by the profiles
 # even when they fall out of the top ten
 REPORTED_KERNELS = ("swiglu_gemm_kernel", "chunked_prefill_mma_kernel",
+                    "swiglu_f32_gemm_kernel", "chunked_prefill_f32_kernel",
                     "projection_split_kernel",
                     "paged_decode_split_kernel", "dense_decode_split_kernel",
                     "paged_decode_quant_split_kernel",
@@ -2934,8 +2955,7 @@ def report_profile(events, t_read: float, wall: float,
     if swiglu_calls is not None:
         gemms = sum(e.count for e in events
                     if "swiglu_gemm_kernel" in e.key)
-        f32 = sum(e.count for e in events if "swiglu" in e.key
-                  and "_f32_kernel" in e.key)
+        f32 = sum(e.count for e in events if "swiglu_f32" in e.key)
         if gemms != 2 * swiglu_calls or f32:
             raise AssertionError(
                 f"profile: {swiglu_calls} bf16 fused_swiglu calls ran "
@@ -4847,10 +4867,13 @@ def mesh_stage_checks(torch) -> dict:
     for t, d, f, m in MESH_STAGE_F32:
         x, wg, wu, wd = _swiglu_inputs(torch, gen, t, d, f, torch.float32)
         name = f"swiglu stages[float32, T {t}, d {d}, F {f}]"
-        h = torch.cat([ops.swiglu_gate_up(x, a, b) for a, b in zip(
-            _column_slices(wg, m), _column_slices(wu, m))], dim=-1)
-        require_bits(f"{name} gate_up over {m} column slices",
-                     h, ops.swiglu_gate_up(x, wg, wu))
+        h = ops.swiglu_gate_up(x, wg, wu)
+        for mm in (2, 4):
+            require_bits(f"{name} gate_up over {mm} column slices",
+                         torch.cat([ops.swiglu_gate_up(x, a, b) for a, b in
+                                    zip(_column_slices(wg, mm),
+                                        _column_slices(wu, mm))], dim=-1),
+                         h)
         err_h = check_close(f"{name} gate_up", h,
                             fs.swiglu_gate_up_plain(x, wg, wu),
                             TOL[("swiglu", "float32")])
@@ -4887,7 +4910,7 @@ def mesh_stage_checks(torch) -> dict:
                         gate_up_bound_ms=bnd_h, gate_up_bound_by=by_h,
                         down_bound_ms=bnd_o, down_bound_by=by_o,
                         bitwise_columns=True, bitwise_fused=True, **times))
-        log(f"kernel {name}: {m} column slices of gate_up give the "
+        log(f"kernel {name}: 2 and 4 column slices of gate_up give the "
             "unsliced bits; gate_up then down gives the fused kernel's "
             f"bits; errors {err_h:.3e} / {err_o:.3e}; gate_up on a "
             f"column's F/{m} {times['gate_up_ms']:.4f} ms (plain "
@@ -5281,6 +5304,138 @@ def padded_scan_checks(torch) -> dict:
     return r
 
 
+# ----------------------------------------------------------------------
+# phase 3, the f32 paths of kernels 2 and 3 (redesigned for Hopper)
+# ----------------------------------------------------------------------
+# kernel 2 in f32 at llama3-8b's heads (H 32 / KV 8, d 128) over phase 3's
+# prefill chunk, and over a 32-query chunk at the end of a 2,048-token
+# prompt (8 rows, smollm-135m's heads), timed from a cold L2
+PREFILL_F32_D128 = (32, 8, 128)
+PREFILL_F32_LONG = 2048
+
+
+def long_prefill_case(torch, gen):
+    """8 rows, each its own 256 pages of a 2,048-token prompt in a
+    shuffled pool, querying its last 32 positions (2,016-2,047)."""
+    b, c, nb = 8, 32, PREFILL_F32_LONG // PAGE
+    shape = (b * nb, PAGE, KV, D)
+    kp = torch.randn(shape, generator=gen, device="cuda")
+    vp = torch.randn(shape, generator=gen, device="cuda")
+    table = torch.randperm(b * nb, generator=gen, device="cuda").to(
+        torch.int32).reshape(b, nb).contiguous()
+    qpos = (PREFILL_F32_LONG - c + torch.arange(c, device="cuda"))[
+        None].repeat(b, 1).to(torch.int32).contiguous()
+    q = torch.randn((b, c, H, D), generator=gen, device="cuda")
+    return q, kp, vp, table, qpos
+
+
+def f32_kernel_kind(key: str) -> str:
+    """The f32 kernel of kernels 2 and 3 a profiled kernel name is:
+    "gate_up" or "down" (``swiglu_f32_gemm_kernel<true|false, ...>``),
+    "prefill" (``chunked_prefill_f32_kernel``), else the name itself."""
+    if "chunked_prefill_f32_kernel" in key:
+        return "prefill"
+    if "swiglu_f32_gemm_kernel" in key:
+        tail = key.split("swiglu_f32_gemm_kernel", 1)[1]
+        return "gate_up" if tail.startswith(("<true", "ILb1E")) else "down"
+    return key
+
+
+def f32_redesign_checks(torch) -> dict:
+    """The f32 kernels 2 and 3: kernel 2 at ``PREFILL_F32_D128`` and over
+    the long prompt (cold L2), each held, positions 0-7 checked bit for
+    bit and timed by ``prefill_checks``; then one profiled window over
+    an f32 ``fused_swiglu`` call, one call of each stage and one f32
+    prefill call at phase 3's serving shapes: exactly one
+    ``swiglu_f32_gemm_kernel`` a stage (gate_up twice, down twice), one
+    ``chunked_prefill_f32_kernel``, no other kernel, and each wrapper's
+    f32 count 1. Returns {"d128": result, "long": result, "profile":
+    kernel counts}."""
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(28)
+    h, kv, d = PREFILL_F32_D128
+    out = {"d128": prefill_checks(
+        torch, "float32", *prefill_case(torch, gen, torch.float32, h=h,
+                                        kv=kv, d=d), spin=SHORT_SPIN)}
+    flush = _l2_flush(torch)
+    out["long"] = prefill_checks(
+        torch, "float32", *long_prefill_case(torch, gen), spin=SHORT_SPIN,
+        prompt_len=PREFILL_F32_LONG, flush=flush)
+    for key, label in (("d128", f"H {h} / KV {kv}, d {d}, phase 3's chunk"),
+                       ("long", f"H {H} / KV {KV}, d {D}, 8 rows x 32 "
+                                f"queries at {PREFILL_F32_LONG - 32}-"
+                                f"{PREFILL_F32_LONG - 1}, cold L2")):
+        r = out[key]
+        log(f"kernel chunked_prefill_attention [float32, {label}]: "
+            f"max_abs_err {r['max_abs_err']:.3e}  kernel {r['ms']:.4f} ms  "
+            f"plain {r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} "
+            f"ms  bound {r['bound_ms']:.5f} ms ({r['bound_by']}); "
+            "positions 0-7 bit-identical to an 8-position chunk")
+    del flush
+    x, wg, wu, wd = swiglu_case(torch, gen, torch.float32)
+    hh = ops.swiglu_gate_up(x, wg, wu)
+    q, kp, vp, table, qpos = prefill_case(torch, gen, torch.float32)
+
+    def calls():
+        ops.fused_swiglu(x, wg, wu, wd)
+        ops.swiglu_gate_up(x, wg, wu)
+        ops.swiglu_down(hh, wd)
+        ops.chunked_prefill_attention(q, kp, vp, table, qpos,
+                                      prompt_len=PROMPT)
+    calls()
+    torch.cuda.synchronize()
+    _, events, _, launches = profiled(torch, calls)
+    if not any(MARKER_KERNEL in e.key for e in events):
+        raise AssertionError("f32 profile: the profiler lost the end of "
+                             "the window")
+    kinds: dict = {}
+    for e in events:
+        if MARKER_KERNEL not in e.key and e.dev_us > 0:
+            k = f32_kernel_kind(e.key)
+            kinds[k] = kinds.get(k, 0) + e.count
+    want = {"gate_up": 2, "down": 2, "prefill": 1}
+    counted = {k: launches.f32[k] for k in (
+        "fused_swiglu", "swiglu_gate_up", "swiglu_down",
+        "chunked_prefill_attention")}
+    if kinds != want or set(counted.values()) != {1}:
+        raise AssertionError(
+            f"f32 profile: an f32 fused_swiglu call, one call of each "
+            f"stage and an f32 prefill call ran {kinds} (want {want}); "
+            f"f32 launch counts {counted}")
+    log("profile: an f32 fused_swiglu call = one swiglu_f32_gemm_kernel "
+        "a stage (gate_up, down), each stage called alone = one, an f32 "
+        "prefill call = one chunked_prefill_f32_kernel; no other kernel")
+    out["profile"] = kinds
+    return out
+
+
+def check_swiglu_f32_plan() -> None:
+    """``swiglu_f32_plan`` (the wrapper's mirror of the f32 stages' split)
+    against the library's ``acar_swiglu_f32_plan`` at every K up to
+    8,192 (every f32 d_model and d_ff phases 3-14 give the stages) and
+    at 12,288-16,384."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.fused_swiglu import swiglu_f32_plan
+    lib = build.load()
+    for k in (*range(1, 8193), 12288, 14336, 16384):
+        for n in (1, 250, 4096):
+            p = swiglu_f32_plan(k, n)
+            want = (p.split, p.chunk, p.rows, p.gate_up_cols, p.down_cols,
+                    p.k_step, p.gate_up_col_tiles, p.down_col_tiles) + tuple(
+                        lo for lo, _ in p.ranges) + (k,)
+            got = tuple(lib.acar_swiglu_f32_plan(k, n, f)
+                        for f in range(9 + p.split))
+            if got != want:
+                raise AssertionError(f"swiglu_f32_plan({k}, {n}) = {want}, "
+                                     f"the kernel's {got}")
+    log("swiglu_f32_plan matches the f32 stage kernels' split at K in "
+        "1..8,192 and 12,288-16,384: "
+        + ", ".join(f"K {k}: {swiglu_f32_plan(k, 1).split} ranks of "
+                    f"{swiglu_f32_plan(k, 1).chunk}"
+                    for k in (64, 576, 1536, 4096)))
+
+
 def check_projection_plan() -> None:
     """``projection_plan`` (the wrapper's mirror of the split) against
     the library's ``acar_projection_plan`` at every K up to 4,160 and
@@ -5467,7 +5622,13 @@ def check_mesh_heads(label, tasks, base, res, member_names) -> str:
 
 
 def add_launches(total: dict, launches: dict) -> dict:
-    return {k: total.get(k, 0) + v for k, v in launches.items()}
+    """The two runs' launch counts added, their f32 counts too."""
+    from repro_torch.kernels.ops import LaunchCounts
+    f32 = dict(getattr(total, "f32", {}))
+    for k, v in getattr(launches, "f32", {}).items():
+        f32[k] = f32.get(k, 0) + v
+    return LaunchCounts({k: total.get(k, 0) + v
+                         for k, v in launches.items()}, f32)
 
 
 def run_mesh_default_fleet(torch, probe, ensemble, tasks, route, base,
@@ -5632,7 +5793,7 @@ def run_mesh_phase(torch, smi: str, mesh_a: dict) -> dict:
     def route(sig, indices):
         return modes[np.asarray(indices, np.int64)]
 
-    total = dict(mesh_a)
+    total = add_launches({}, mesh_a)
     tasks = tasks[:MESH2D_TASKS]
     torch.cuda.reset_peak_memory_stats()
     probe, ensemble = fleet_models(torch, MESH2D_FLEET, FLEET_LAYERS)
@@ -5717,6 +5878,20 @@ def report_ptxas(build) -> None:
     ``check_rglru_plan``'s line). A kernel's name keeps its mangled
     template arguments (``13__nv_bfloat16`` shown as ``bf16``)."""
     import re
+
+    def kernel_name(line):
+        # the mangled name's length-prefixed identifier ending in _kernel,
+        # and its template arguments, where the template arguments end
+        # the name (else None)
+        for m in re.finditer(r"\d+", line):
+            for i in range(len(m.group())):  # a hash's digits may lead
+                n = int(m.group()[i:])
+                name = line[m.end():m.end() + n]
+                if (len(name) == n and name.endswith("_kernel")
+                        and re.fullmatch(r"[a-z]\w*", name)):
+                    args = re.match(r"I\w*?E(?=Ev)", line[m.end() + n:])
+                    return name + (args.group() if args else "")
+        return None
     for src in ("fused_swiglu.cu", "projection.cu",
                 "chunked_prefill_attention.cu",
                 "paged_decode_attention.cu", "decode_attention.cu",
@@ -5727,7 +5902,9 @@ def report_ptxas(build) -> None:
             m = re.search(r"Compiling entry function '\w*?([a-z_]+_kernel)"
                           r"(I\w*?E(?=Ev))?", line)
             if m:
-                name = (m.group(1) + (m.group(2) or "")).replace(
+                # a name with digits (swiglu_f32_...) by its length prefix
+                name = (kernel_name(line)
+                        or m.group(1) + (m.group(2) or "")).replace(
                     "13__nv_bfloat16", "bf16")
             elif name and "spill" in line:
                 spills = line.split(",", 1)[-1].strip()
@@ -5773,6 +5950,8 @@ def main() -> int:
         results[(name, "bfloat16")] = r
     results[("projection", "bfloat16")] = projection_checks(torch)
     check_projection_plan()
+    f32_new = f32_redesign_checks(torch)
+    check_swiglu_f32_plan()
     for name, r in gtile_checks(torch).items():
         results[(name, "bfloat16")]["g_tiles"] = r
     for name, r in head_width_checks(torch).items():
@@ -5925,6 +6104,27 @@ def main() -> int:
             entry["shapes"] = r["shapes"]
             entry["cublas_column_slice_max_diff"] = r[
                 "cublas_column_slice_max_diff"]
+        if name in ("chunked_prefill_attention", "fused_swiglu",
+                    "swiglu_gate_up", "swiglu_down"):
+            # f32 calls counted apart (kernels of their own)
+            f32_paths = {p: getattr(c, "f32", {}).get(name, 0)
+                         for p, c in by_path.items()}
+            entry["launches_f32"] = sum(f32_paths.values())
+            entry["launches_f32_by_path"] = f32_paths
+        if name in ("chunked_prefill_attention", "fused_swiglu"):
+            f = results[(name, "float32")]
+            entry["f32"] = {k: f[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "max_abs_err")}
+            if name == "fused_swiglu":
+                t = results[("fused_swiglu_train", "float32")]
+                entry["f32"]["train_shape"] = {k: t[k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "max_abs_err", "grad_err_share")}
+            else:
+                entry["f32"]["d128"] = f32_new["d128"]
+                entry["f32"]["long"] = f32_new["long"]
+            entry["f32"]["profile"] = f32_new["profile"]
         if name.startswith("swiglu_"):
             entry["note"] = (
                 "kernel 3's stage on its own, as tensor parallelism calls "

@@ -58,12 +58,27 @@
 // of dynamic shared memory).
 //
 // float32 (the reduced f32 models only; TF32 is off, so f32 operands never
-// go through the tensor cores): the first version's CUDA-core kernel, any
-// Dk and Dv up to 256, unchanged bit for bit where Dk = Dv. One CTA per
-// (row, kv head, block of kQB query rows) walks key tiles of kTile up to
-// min(prompt_len, largest query position of its rows + 1); the online
-// softmax (m, l, acc) lives in shared memory in float32, the sum over keys
-// runs in a fixed order with no atomics.
+// go through the tensor cores): chunked_prefill_f32_kernel, a flash
+// attention on the CUDA cores laid out like the bf16 kernel: rows r =
+// c * G + g, each warp a fixed 8 of them, a CTA four warps (32 rows):
+// grid (B, KV, ceil(C*G / 32)). The CTA walks key tiles of 32 positions
+// from 0; q's rows and each tile's K and V rows come in by cp.async (K and
+// V through a ring of 4 tiles at d 64, else 2) into rows padded to kD +
+// 4 floats (16-byte copies where Dk and Dv are multiples of 4, else
+// 4-byte copies), the tiles' page ids read once a page by warp 0 and kept
+// as slots a ring ahead. A lane owns one key of the tile: its 8 scores
+// (one fmaf chain over d each, q and k by 16-byte loads, q scaled once in
+// shared memory) feed the online softmax in registers, the row
+// maxima reduced by warp shuffles and l kept as the lane's share, summed
+// by a butterfly at the end; p goes once through shared memory for p . v,
+// where a lane owns kD / 32 output columns of the warp's 8 rows (8 at d
+// 256, so the accumulator stays in registers). Any Dk and Dv up to 256,
+// in three families by the wider (64, 128, 256); zeros past a width add
+// exact zero products. What bounds it at the serving shapes: latency (a
+// few key tiles of dependent steps); at long prompts the FMAs and the
+// shared-memory reads of q and k. Masking and order as in bf16: a masked
+// key has p = 0 and leaves m and l unchanged, the tile is a constant, no
+// split-KV, and it finishes with acc / max(l, 1e-30).
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -71,166 +86,343 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kTile = 32;  // key positions per iteration
-constexpr int kQB = 32;    // query rows (chunk position x group head) per CTA
 constexpr int kMaxD = 256;
 
-size_t smem_bytes(int Dk, int Dv) {
-  return sizeof(float) *
-             ((size_t)kQB * (Dk + Dv) + (size_t)kTile * (Dk + Dv + 2) +
-              (size_t)kQB * kTile + 3 * kQB) +
-         sizeof(int) * kQB;
-}
+// ---------------------------------------------------------------------
+// float32: a register-tiled flash attention on the CUDA cores
+// ---------------------------------------------------------------------
+namespace hp = acar::hopper;
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) chunked_prefill_kernel(
-    const T* __restrict__ q, const T* __restrict__ k_pages,
-    const T* __restrict__ v_pages, const int* __restrict__ block_table,
-    const int* __restrict__ q_positions, T* __restrict__ out, int C, int KV,
-    int G, int Dk, int Dv, int page_size, int NB, int prompt_len,
-    float scale) {
-  extern __shared__ float smem[];
-  float* qs = smem;                       // kQB x Dk
-  float* ks = qs + kQB * Dk;              // kTile x (Dk + 1)
-  float* vs = ks + kTile * (Dk + 1);      // kTile x (Dv + 1)
-  float* ps = vs + kTile * (Dv + 1);      // kQB x kTile
-  float* acc = ps + kQB * kTile;          // kQB x Dv
-  float* m_run = acc + kQB * Dv;          // kQB
-  float* l_run = m_run + kQB;             // kQB
-  float* alpha_s = l_run + kQB;           // kQB
-  int* qpos_s = reinterpret_cast<int*>(alpha_s + kQB);  // kQB
-  __shared__ int key_end_s;
+constexpr int kF32Warps = 4;
+constexpr int kF32WarpRows = 8;                      // query rows a warp
+constexpr int kF32Rows = kF32Warps * kF32WarpRows;  // query rows a CTA
+constexpr int kF32KT = 32;                           // keys a tile: one a lane
 
-  const int b = blockIdx.x;
-  const int kv = blockIdx.y;
-  const int r0 = blockIdx.z * kQB;
-  const int tid = threadIdx.x;
-  const int H = KV * G;
-  const int nq = min(kQB, C * G - r0);
+// kD: the family's width (64, 128 or 256), Dk and Dv <= kD. Rows of K, V
+// and q padded to kD + 4 floats (4 mod 32): eight lanes reading 16 bytes
+// each of eight different key rows hit 32 distinct banks. K and V tiles
+// in a ring of kStages: 4 at d 64, else 2 (three at d 128 leave one CTA
+// an SM).
+template <int kD>
+struct F32Smem {
+  static constexpr int kStride = kD + 4;
+  static constexpr int kStages = kD <= 64 ? 4 : 2;
+  static constexpr int kKV = kF32KT * kStride;  // one operand's tile
+  static constexpr int kFloats = 2 * kStages * kKV + kF32Rows * kStride +
+                                 kF32Warps * kF32KT * kF32WarpRows;
+  // + the ring's key slots
+  static constexpr int kBytes = kFloats * 4 + kStages * kF32KT * 8;
+};
 
-  for (int i = tid; i < nq * Dk; i += kThreads) {
-    const int r = i / Dk, d = i % Dk;
-    const int c = (r0 + r) / G, g = (r0 + r) % G;
-    qs[r * Dk + d] =
-        acar::to_f32(q[(((size_t)b * C + c) * H + kv * G + g) * Dk + d]) *
-        scale;
+// vec: Dk and Dv multiples of 4 and q and the pages 16-byte aligned, so q,
+// K and V rows come in by 16-byte copies; else by 4-byte copies
+template <int kD>
+__global__ void __launch_bounds__(32 * kF32Warps) chunked_prefill_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k_pages,
+    const float* __restrict__ v_pages, const int* __restrict__ block_table,
+    const int* __restrict__ q_positions, float* __restrict__ out, int C,
+    int KV, int G, int Dk, int Dv, int page_size, int NB, int prompt_len,
+    float scale, int vec) {
+  using L = F32Smem<kD>;
+  constexpr int S = L::kStride;
+  constexpr int kStages = L::kStages;
+  constexpr int kCols = kD / 32;  // output columns a lane
+  extern __shared__ __align__(16) float f32_smem[];
+  float* ks = f32_smem;                   // [kStages][kF32KT][S]
+  float* vs = ks + kStages * L::kKV;      // [kStages][kF32KT][S]
+  float* qs = vs + kStages * L::kKV;      // [kF32Rows][S], scaled
+  float* ps = qs + kF32Rows * S;          // [warp][key][row]
+  long long* slots = reinterpret_cast<long long*>(
+      ps + kF32Warps * kF32KT * kF32WarpRows);  // [kStages][kF32KT]
+  __shared__ int warp_end_s[kF32Warps];
+
+  const int b = blockIdx.x, kv = blockIdx.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int H = KV * G, R = C * G;
+  const int r0 = blockIdx.z * kF32Rows;
+
+  // q's rows by cp.async, zero past Dk and past C*G (scaled in place once
+  // they are in)
+  constexpr int kQWidth = kD / 4;  // a thread's copies: 4 floats, or 1
+  auto q_row = [&](int r) {
+    const int row = r0 + r;
+    return q + (((size_t)b * C + row / G) * H + kv * G + row % G) * Dk;
+  };
+  if (vec) {
+    for (int i = threadIdx.x; i < kF32Rows * kQWidth; i += 32 * kF32Warps) {
+      const int r = i / kQWidth, d = (i % kQWidth) * 4;
+      const bool in = r0 + r < R && d < Dk;
+      hp::cp_async16(qs + r * S + d, in ? q_row(r) + d : q, in ? 16u : 0u);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kF32Rows * kD; i += 32 * kF32Warps) {
+      const int r = i / kD, d = i % kD;
+      const bool in = r0 + r < R && d < Dk;
+      hp::cp_async4_zfill(qs + r * S + d, in ? q_row(r) + d : q,
+                          in ? 4u : 0u);
+    }
   }
-  for (int i = tid; i < nq * Dv; i += kThreads) acc[i] = 0.f;
-  if (tid < nq) {
-    qpos_s[tid] = q_positions[(size_t)b * C + (r0 + tid) / G];
-    m_run[tid] = -INFINITY;
-    l_run[tid] = 0.f;
+  hp::cp_async_commit();
+  // lane i < 8 reads the position of the warp's row i (-1: past C*G)
+  const int wrow0 = r0 + warp * kF32WarpRows;
+  int my_pos = -1;
+  if (lane < kF32WarpRows && wrow0 + lane < R)
+    my_pos = q_positions[(size_t)b * C + (wrow0 + lane) / G];
+  int wmax = my_pos;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    wmax = max(wmax, __shfl_xor_sync(0xffffffffu, wmax, o));
+  // a row past C*G attends key 0 only, so its softmax stays finite, and
+  // is never stored
+  int qp[kF32WarpRows];
+  bool live[kF32WarpRows];
+#pragma unroll
+  for (int i = 0; i < kF32WarpRows; ++i) {
+    const int p = __shfl_sync(0xffffffffu, my_pos, i);
+    live[i] = p >= 0;
+    qp[i] = max(p, 0);
   }
+  const int wend = min(prompt_len, min(wmax + 1, NB * page_size));
+  if (lane == 0) warp_end_s[warp] = wend;
   __syncthreads();
-  if (tid == 0) {
-    int last = -1;
-    for (int r = 0; r < nq; ++r) last = max(last, qpos_s[r]);
-    key_end_s = min(prompt_len, min(last + 1, NB * page_size));
-  }
-  __syncthreads();
-  const int key_end = key_end_s;
+  int cta_end = 0;
+#pragma unroll
+  for (int w = 0; w < kF32Warps; ++w) cta_end = max(cta_end, warp_end_s[w]);
+  const int n_tiles = (cta_end + kF32KT - 1) / kF32KT;
 
   const int* bt = block_table + (size_t)b * NB;
-  for (int t0 = 0; t0 < key_end; t0 += kTile) {
-    const int nk = min(kTile, key_end - t0);
-    for (int i = tid; i < nk * Dk; i += kThreads) {
-      const int s = i / Dk, d = i % Dk;
-      const int pos = t0 + s;
-      const size_t page = (size_t)bt[pos / page_size];
-      const size_t slot = (page * page_size + pos % page_size) * KV + kv;
-      ks[s * (Dk + 1) + d] = acar::to_f32(k_pages[slot * Dk + d]);
-    }
-    for (int i = tid; i < nk * Dv; i += kThreads) {
-      const int s = i / Dv, d = i % Dv;
-      const int pos = t0 + s;
-      const size_t page = (size_t)bt[pos / page_size];
-      const size_t slot = (page * page_size + pos % page_size) * KV + kv;
-      vs[s * (Dv + 1) + d] = acar::to_f32(v_pages[slot * Dv + d]);
-    }
-    __syncthreads();
-
-    for (int i = tid; i < nq * kTile; i += kThreads) {
-      const int r = i / kTile, s = i % kTile;
-      float sc = -INFINITY;
-      if (s < nk && t0 + s <= qpos_s[r]) {
-        const float* qr = qs + r * Dk;
-        const float* kr = ks + s * (Dk + 1);
-        float a = 0.f;
-        for (int d = 0; d < Dk; ++d) a = fmaf(qr[d], kr[d], a);
-        sc = a;
+  // warp 0: the slots of tile `tile`'s keys (-1 at or past cta_end).
+  // Each page id is read once, by the lane of the page's first key in the
+  // tile (read_page), and passed to the others by a shuffle (put_slots,
+  // into slots[buf]), so a read's latency can pass behind a tile's work
+  auto read_page = [&](int tile) {
+    const int pos = tile * kF32KT + lane;
+    return lane == max(0, lane - pos % page_size) && pos < cta_end
+               ? bt[pos / page_size] : 0;
+  };
+  auto put_slots = [&](int tile, int buf, int page) {
+    const int pos = tile * kF32KT + lane, in = pos % page_size;
+    page = __shfl_sync(0xffffffffu, page, max(0, lane - in));
+    slots[buf * kF32KT + lane] =
+        pos < cta_end ? ((long long)page * page_size + in) * KV + kv : -1;
+  };
+  // one tile's K and V rows into buffer `buf`, zero past Dk / Dv and
+  // past cta_end
+  auto load_tile = [&](int buf) {
+    float* kd = ks + buf * L::kKV;
+    float* vd = vs + buf * L::kKV;
+    const long long* sl = slots + buf * kF32KT;
+    if (vec) {
+      constexpr int kChunks = kD / 4;
+      for (int i = threadIdx.x; i < kF32KT * kChunks; i += 32 * kF32Warps) {
+        const int s = i / kChunks, c = (i % kChunks) * 4;
+        const long long slot = sl[s];
+        const bool kin = slot >= 0 && c < Dk, vin = slot >= 0 && c < Dv;
+        hp::cp_async16(kd + s * S + c, kin ? k_pages + slot * Dk + c : k_pages,
+                       kin ? 16u : 0u);
+        hp::cp_async16(vd + s * S + c, vin ? v_pages + slot * Dv + c : v_pages,
+                       vin ? 16u : 0u);
       }
-      ps[r * kTile + s] = sc;
+    } else {
+      for (int i = threadIdx.x; i < kF32KT * kD; i += 32 * kF32Warps) {
+        const int s = i / kD, c = i % kD;
+        const long long slot = sl[s];
+        const bool kin = slot >= 0 && c < Dk, vin = slot >= 0 && c < Dv;
+        hp::cp_async4_zfill(kd + s * S + c,
+                            kin ? k_pages + slot * Dk + c : k_pages,
+                            kin ? 4u : 0u);
+        hp::cp_async4_zfill(vd + s * S + c,
+                            vin ? v_pages + slot * Dv + c : v_pages,
+                            vin ? 4u : 0u);
+      }
     }
-    __syncthreads();
+  };
 
-    if (tid < nq) {
-      const int r = tid;
-      float* pr = ps + r * kTile;
-      float mt = -INFINITY;
-      for (int s = 0; s < nk; ++s) mt = fmaxf(mt, pr[s]);
-      const float m_old = m_run[r];
-      const float m_new = fmaxf(m_old, mt);
-      const float alpha = (m_old == -INFINITY) ? 0.f : expf(m_old - m_new);
-      float lsum = 0.f;
+  float o[kF32WarpRows][kCols];
+  float m[kF32WarpRows], l[kF32WarpRows];  // l: this lane's keys only
+#pragma unroll
+  for (int i = 0; i < kF32WarpRows; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) o[i][j] = 0.f;
+  }
+  // output columns of this lane: 2 lane, + 1 at kD 64; else 4 lane + 128 j
+  // .. + 3, so a warp's 16-byte reads of a V row are contiguous
+  auto col_of = [&](int j) {
+    return kD == 64 ? 2 * lane + j : 4 * lane + 128 * (j / 4) + j % 4;
+  };
+
+  if (warp == 0) {
+    for (int t = 0; t < kStages && t < n_tiles; ++t)
+      put_slots(t, t, read_page(t));
+  }
+  __syncthreads();
+  // tiles 0 .. kStages - 2 in flight; q's copies are in, scaled by the
+  // threads that made them
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < n_tiles) load_tile(t);
+    hp::cp_async_commit();
+  }
+  hp::cp_async_wait<kStages - 1>();
+  if (vec) {
+    for (int i = threadIdx.x; i < kF32Rows * kQWidth; i += 32 * kF32Warps) {
+      float4* p = reinterpret_cast<float4*>(qs + (i / kQWidth) * S +
+                                            (i % kQWidth) * 4);
+      const float4 v = *p;
+      *p = make_float4(v.x * scale, v.y * scale, v.z * scale, v.w * scale);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kF32Rows * kD; i += 32 * kF32Warps)
+      qs[(i / kD) * S + i % kD] *= scale;
+  }
+  float* pw = ps + warp * kF32KT * kF32WarpRows;
+  const float* qw = qs + warp * kF32WarpRows * S;
+  const int nd4 = (Dk + 3) / 4;  // past Dk: zeros in q and K
+  for (int it = 0; it < n_tiles; ++it) {
+    const int buf = it % kStages;
+    hp::cp_async_wait<kStages - 2>();
+    // tile it is in, q is scaled, the slots of tile it + kStages - 1 are
+    // written, and every warp is done with that tile's buffer
+    __syncthreads();
+    if (it + kStages - 1 < n_tiles) load_tile((it + kStages - 1) % kStages);
+    hp::cp_async_commit();
+    // tile it + kStages's slots take tile it's place (its loads are issued)
+    const bool slots_ahead = warp == 0 && it + kStages < n_tiles;
+    const int page = slots_ahead ? read_page(it + kStages) : 0;
+    const int t0 = it * kF32KT;
+    if (t0 < wend) {  // else past all of this warp's rows
+      const float* kb = ks + buf * L::kKV;
+      const float* vb = vs + buf * L::kKV;
+
+      // s = q . k: this lane's key t0 + lane against the warp's 8 rows, one
+      // fmaf chain over d in order
+      float sc[kF32WarpRows];
+#pragma unroll
+      for (int i = 0; i < kF32WarpRows; ++i) sc[i] = 0.f;
+      const float* kr = kb + lane * S;
+#pragma unroll 4
+      for (int d4 = 0; d4 < nd4; ++d4) {
+        const float4 kk = *reinterpret_cast<const float4*>(kr + 4 * d4);
+#pragma unroll
+        for (int i = 0; i < kF32WarpRows; ++i) {
+          const float4 qq =
+              *reinterpret_cast<const float4*>(qw + i * S + 4 * d4);
+          sc[i] = fmaf(qq.x, kk.x, sc[i]);
+          sc[i] = fmaf(qq.y, kk.y, sc[i]);
+          sc[i] = fmaf(qq.z, kk.z, sc[i]);
+          sc[i] = fmaf(qq.w, kk.w, sc[i]);
+        }
+      }
+      // mask (key position <= query position), the online softmax: row
+      // maxima over the warp, p in f32, l this lane's share
+      const int kp = t0 + lane;
+#pragma unroll
+      for (int i = 0; i < kF32WarpRows; ++i) {
+        const float s = kp <= qp[i] && kp < prompt_len ? sc[i] : -INFINITY;
+        float mt = s;
+#pragma unroll
+        for (int x = 16; x > 0; x >>= 1)
+          mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, x));
+        const float m_new = fmaxf(m[i], mt);
+        const float alpha = m[i] == -INFINITY ? 0.f : expf(m[i] - m_new);
+        m[i] = m_new;
+        const float p = s == -INFINITY ? 0.f : expf(s - m_new);
+        l[i] = l[i] * alpha + p;
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) o[i][j] *= alpha;
+        sc[i] = p;
+      }
+      *reinterpret_cast<float4*>(pw + lane * kF32WarpRows) =
+          make_float4(sc[0], sc[1], sc[2], sc[3]);
+      *reinterpret_cast<float4*>(pw + lane * kF32WarpRows + 4) =
+          make_float4(sc[4], sc[5], sc[6], sc[7]);
+      __syncwarp();
+      // o += p . v over the tile's keys in order; keys at or past the
+      // warp's end have p = 0 for all its rows and are skipped
+      const int nk = min(kF32KT, wend - t0);
       for (int s = 0; s < nk; ++s) {
-        const float p = (pr[s] == -INFINITY) ? 0.f : expf(pr[s] - m_new);
-        pr[s] = p;
-        lsum += p;
+        const float4 pa = *reinterpret_cast<const float4*>(pw + s * kF32WarpRows);
+        const float4 pb =
+            *reinterpret_cast<const float4*>(pw + s * kF32WarpRows + 4);
+        const float pr[kF32WarpRows] = {pa.x, pa.y, pa.z, pa.w,
+                                        pb.x, pb.y, pb.z, pb.w};
+        const float* vr = vb + s * S;
+        float vv[kCols];
+        if constexpr (kD == 64) {
+          const float2 v2 = *reinterpret_cast<const float2*>(vr + 2 * lane);
+          vv[0] = v2.x;
+          vv[1] = v2.y;
+        } else {
+#pragma unroll
+          for (int j = 0; j < kCols / 4; ++j) {
+            const float4 v4 =
+                *reinterpret_cast<const float4*>(vr + 4 * lane + 128 * j);
+            vv[4 * j] = v4.x;
+            vv[4 * j + 1] = v4.y;
+            vv[4 * j + 2] = v4.z;
+            vv[4 * j + 3] = v4.w;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < kF32WarpRows; ++i)
+#pragma unroll
+          for (int j = 0; j < kCols; ++j) o[i][j] = fmaf(pr[i], vv[j], o[i][j]);
       }
-      l_run[r] = l_run[r] * alpha + lsum;
-      m_run[r] = m_new;
-      alpha_s[r] = alpha;
+      __syncwarp();  // p is read before the next tile writes it
     }
-    __syncthreads();
-
-    for (int i = tid; i < nq * Dv; i += kThreads) {
-      const int r = i / Dv, d = i % Dv;
-      const float* pr = ps + r * kTile;
-      float a = acc[i] * alpha_s[r];
-      for (int s = 0; s < nk; ++s) {
-        if (pr[s] != 0.f) a = fmaf(pr[s], vs[s * (Dv + 1) + d], a);
-      }
-      acc[i] = a;
-    }
-    __syncthreads();
+    if (slots_ahead) put_slots(it + kStages, buf, page);
   }
 
-  for (int i = tid; i < nq * Dv; i += kThreads) {
-    const int r = i / Dv, d = i % Dv;
-    const int c = (r0 + r) / G, g = (r0 + r) % G;
-    const float l = fmaxf(l_run[r], 1e-30f);
-    out[(((size_t)b * C + c) * H + kv * G + g) * Dv + d] =
-        acar::from_f32<T>(acc[i] / l);
+  // l over the warp's lanes: a butterfly, the same bits on every lane
+#pragma unroll
+  for (int i = 0; i < kF32WarpRows; ++i) {
+#pragma unroll
+    for (int x = 16; x > 0; x >>= 1)
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], x);
+    l[i] = fmaxf(l[i], 1e-30f);
+  }
+#pragma unroll
+  for (int i = 0; i < kF32WarpRows; ++i) {
+    if (!live[i]) continue;
+    const int row = wrow0 + i, c = row / G, g = row % G;
+    float* orow = out + (((size_t)b * C + c) * H + kv * G + g) * Dv;
+#pragma unroll
+    for (int j = 0; j < kCols; ++j)
+      if (col_of(j) < Dv) orow[col_of(j)] = o[i][j] / l[i];
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
-                   const void* block_table, const void* q_positions, void* out,
-                   int B, int C, int H, int KV, int Dk, int Dv, int page_size,
-                   int NB, int prompt_len, cudaStream_t st) {
+template <int kD>
+cudaError_t launch_f32(const void* q, const void* k_pages,
+                       const void* v_pages, const void* block_table,
+                       const void* q_positions, void* out, int B, int C,
+                       int H, int KV, int Dk, int Dv, int page_size, int NB,
+                       int prompt_len, cudaStream_t st) {
   const int G = H / KV;
-  const size_t smem = smem_bytes(Dk, Dv);
-  if (smem > 48 * 1024) {
+  constexpr int kBytes = F32Smem<kD>::kBytes;
+  if (kBytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        chunked_prefill_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        chunked_prefill_f32_kernel<kD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid(B, KV, (C * G + kQB - 1) / kQB);
-  chunked_prefill_kernel<T><<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pages),
-      static_cast<const T*>(v_pages), static_cast<const int*>(block_table),
-      static_cast<const int*>(q_positions), static_cast<T*>(out), C, KV, G, Dk,
-      Dv, page_size, NB, prompt_len, 1.0f / sqrtf((float)Dk));
+  const int vec = Dk % 4 == 0 && Dv % 4 == 0 &&
+                  reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(k_pages) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(v_pages) % 16 == 0;
+  const dim3 grid(B, KV, (C * G + kF32Rows - 1) / kF32Rows);
+  chunked_prefill_f32_kernel<kD><<<grid, 32 * kF32Warps, kBytes, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k_pages),
+      static_cast<const float*>(v_pages), static_cast<const int*>(block_table),
+      static_cast<const int*>(q_positions), static_cast<float*>(out), C, KV, G,
+      Dk, Dv, page_size, NB, prompt_len, 1.0f / sqrtf((float)Dk), vec);
   return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------
 // bf16: mma.sync kernel
 // ---------------------------------------------------------------------
-namespace hp = acar::hopper;
 using bf16 = __nv_bfloat16;
 
 constexpr int kMmaWarps = 4;
@@ -533,7 +725,15 @@ extern "C" int acar_chunked_prefill_attention(
                                 q_positions, out, B, C, H, KV, Dk, Dv,
                                 page_size, NB, prompt_len, st);
   }
-  return (int)launch<float>(q, k_pages, v_pages, block_table, q_positions,
-                            out, B, C, H, KV, Dk, Dv, page_size, NB,
-                            prompt_len, st);
+  if (D <= 64)
+    return (int)launch_f32<64>(q, k_pages, v_pages, block_table, q_positions,
+                               out, B, C, H, KV, Dk, Dv, page_size, NB,
+                               prompt_len, st);
+  if (D <= 128)
+    return (int)launch_f32<128>(q, k_pages, v_pages, block_table,
+                                q_positions, out, B, C, H, KV, Dk, Dv,
+                                page_size, NB, prompt_len, st);
+  return (int)launch_f32<256>(q, k_pages, v_pages, block_table, q_positions,
+                              out, B, C, H, KV, Dk, Dv, page_size, NB,
+                              prompt_len, st);
 }

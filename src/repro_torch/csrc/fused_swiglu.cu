@@ -52,14 +52,19 @@
 // raises otherwise.
 //
 // float32 (the reduced f32 models only; TF32 is off, so f32 operands never
-// go through the tensor cores): two CUDA-core stage kernels, gate_up then
-// down, one CTA per fixed block of kRows = 8 token rows
-// (models.blocking.TOKEN_BLOCK), every sum in one fixed order with no
-// atomics; x's rows stream through shared memory in chunks, so any d_model
-// runs (see the stage kernels below).
+// go through the tensor cores): two stage kernels, gate_up then down, on
+// one register-tiled CUDA-core GEMM (swiglu_f32_gemm_kernel): 64-row
+// tiles, an 8 x 8 block of outputs a thread fed by 16-byte shared-memory
+// loads, operands staged by cp.async through a 3-stage ring, and K split
+// over a thread-block cluster by K alone (1 to 8 CTAs), the ranks'
+// partials added in rank order over distributed shared memory. What
+// bounds it: operations (67 TFLOP/s of f32 FMA on the CUDA cores); at
+// small T the split fills the card. Any d_model and d_ff (see the stage
+// kernels below).
 #include "common.cuh"
 #include "hopper.cuh"
 
+#include <cooperative_groups.h>
 #include <math.h>
 
 #include <initializer_list>
@@ -244,123 +249,382 @@ cudaError_t launch_gemm(const CUtensorMap& a, const CUtensorMap& b0,
 }
 
 // ---------------------------------------------------------------------
-// float32: two CUDA-core stage kernels
+// float32: two stage kernels on one register-tiled CUDA-core GEMM,
+// split over K across a thread-block cluster
 // ---------------------------------------------------------------------
-constexpr int kRows = 8;     // token rows per CTA (models.blocking.TOKEN_BLOCK)
-constexpr int kThreads = 256;
-constexpr int kFChunk = kThreads;  // one hidden unit per thread per chunk
-constexpr int kDChunk = 1024;      // x columns in shared memory at a time
+// A CTA owns a tile of kF32Rows token rows by kF32Cols columns of the B
+// operand: in down, 128 columns of Wd (128 columns of out); in gate_up,
+// 64 columns of Wg beside the same 64 of Wu (64 columns of h), so that g
+// and u share the x tile and a thread holds both of the columns it
+// finishes. Warp w owns rows 2 kF32ThreadRows w .. of the tile; a thread
+// of it a kF32ThreadRows x 8 block of outputs: rows 2 kF32ThreadRows w +
+// 4 ty + (0..3) (+ 8 for the second four; ty = lane / 16), columns 4 tx +
+// (0..3) and 64 + 4 tx + (0..3) (tx = lane % 16),
+// every operand read from shared memory by 16-byte loads (A row-major,
+// a float4 four k of one row, taken four k at a time). A warp whose rows
+// all lie past M skips the arithmetic. The K operand comes in steps of
+// kF32K through a ring of kF32Stages stages by cp.async, A and B as they
+// lie in memory: 16-byte copies where K and N are multiples of 4 and the
+// operands 16-byte aligned, 4-byte copies otherwise; zero-filled past M,
+// N and the rank's K range.
+//
+// Split-K: a cluster of f32_split(K) CTAs shares one output tile; rank r
+// sums k over [f32_start(K, r), f32_start(K, r + 1)) in order (one fmaf
+// chain per output element), a range that depends on K alone. With more
+// than one rank, each stores its partials over distributed shared memory
+// into the inbox of the rank that owns those columns (the drained ring's
+// space), and the owner adds the ranks' partials in rank order 0..n-1;
+// gate_up combines g and u so, then forms silu(g) * u in f32 once. No
+// workspace in device memory, no second kernel, no atomics. An element's
+// sum runs in an order fixed by K: it depends on neither M, nor N, nor
+// the rows or columns beside it, so rows called alone and column slices
+// of the weights give the same bits.
+constexpr int kF32Warps = 4;
+constexpr int kF32ThreadRows = 8;  // output rows a thread (a multiple of 4)
+constexpr int kF32Threads = 32 * kF32Warps;
+constexpr int kF32Rows = 2 * kF32ThreadRows * kF32Warps;  // rows a tile
+constexpr int kF32Cols = 128;      // B columns a tile (gate_up: 64 + 64)
+constexpr int kF32HCols = kF32Cols / 2;  // columns of h a gate_up tile
+constexpr int kF32K = 16;          // K a ring stage
+constexpr int kF32Stages = 3;
+constexpr int kF32MinBlocks = 3;   // CTAs an SM, for the register budget
+// The split: up to 8 ranks, each at least one ring stage of K, so even
+// a small K spreads over several SMs (K 64: 4 ranks of 16). A small T
+// runs few tiles and needs that; a large T pays for the exchange (about
+// 5% at T 4096), since the split may follow K only.
+constexpr int kF32MaxSplit = 8;
+constexpr int kF32MinChunk = kF32K;  // K a rank at least, past one rank
+// A row-major, its rows of kF32K padded by 4 floats: 16-byte aligned, and
+// the 8 rows a warp reads at one k fall in distinct banks
+constexpr int kF32AStride = kF32K + 4;
+constexpr int kF32StageFloats =
+    kF32Rows * kF32AStride + kF32K * kF32Cols;
+constexpr int kF32RingFloats = kF32Stages * kF32StageFloats;
+constexpr int kF32InboxFloats = kF32Rows * kF32Cols;
+constexpr int kF32SmemBytes =
+    4 * (kF32RingFloats > kF32InboxFloats ? kF32RingFloats
+                                          : kF32InboxFloats);
 
-// float32 runs as two stages, h = silu(x Wg) * (x Wu) then h Wd, each a
-// kernel of its own (the wrapper launches both, and the serving mesh's
-// tensor parallelism calls them apart, gathering h between them):
-//   stage 1: one CTA a block of kRows token rows and kFChunk hidden units;
-//            each thread sums one unit's g and u over D in order (fmaf),
-//            x's rows streamed through shared memory kDChunk columns at a
-//            time (any D), then h = silu(g) * u. A unit's value does not
-//            depend on F, so a column slice of Wg and Wu gives the same
-//            columns of h.
-//   stage 2: one CTA a block of kRows rows and kThreads output columns;
-//            each thread sums its column over F in order, kFChunk units of
-//            h at a time through shared memory.
-// Each element's sums run in one fixed order with no atomics, so a row's
-// bits depend on neither its neighbours nor the count of rows, and a
-// column's on neither the other columns nor their count.
-__global__ void __launch_bounds__(kThreads)
-    swiglu_gate_up_f32_kernel(const float* __restrict__ x,
-                              const float* __restrict__ wg,
-                              const float* __restrict__ wu,
-                              float* __restrict__ h, int n_tokens, int D,
-                              int F) {
-  __shared__ float xs[kRows * kDChunk];
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * kRows;
-  const int nrows = min(kRows, n_tokens - row0);
-  const int f = blockIdx.y * kFChunk + tid;
-  float g[kRows], u[kRows];
+// CTAs a cluster: 1, 2, 4 or 8 by K alone, each rank >= kF32MinChunk
+__host__ __device__ __forceinline__ int f32_split(int K) {
+  int n = 1;
+  while (n < kF32MaxSplit && K >= 2 * n * kF32MinChunk) n *= 2;
+  return n;
+}
+
+// K a rank: ceil(K / split) rounded up to a whole ring stage
+__host__ __device__ __forceinline__ int f32_chunk(int K) {
+  const int n = f32_split(K);
+  return ((K + n - 1) / n + kF32K - 1) / kF32K * kF32K;
+}
+
+// the first k of rank r's range (r >= the split gives K)
+__host__ __device__ __forceinline__ int f32_start(int K, int r) {
+  const long long s = (long long)r * f32_chunk(K);
+  return s < K ? (int)s : K;
+}
+
+// kGateUp: b0 = Wg, b1 = Wu, out = h (N = F, its silu(g) * u); else
+// b0 = Wd, out = h Wd (N = D). kVec: A and B by 16-byte copies and out
+// by 16-byte stores (K, N multiples of 4, every pointer 16-byte aligned).
+// kSplit: f32_split(K), the cluster's CTAs.
+template <bool kGateUp, bool kVec, int kSplit>
+__global__ void __launch_bounds__(kF32Threads, kF32MinBlocks)
+    swiglu_f32_gemm_kernel(const float* __restrict__ a,
+                           const float* __restrict__ b0,
+                           const float* __restrict__ b1,
+                           float* __restrict__ out, int M, int K, int N) {
+  extern __shared__ __align__(16) float f32_smem[];
+  float* smem = f32_smem;
+  const int rank = (int)cooperative_groups::this_cluster().block_rank();
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int ty = lane / 16, tx = lane % 16;
+  const int m0 = blockIdx.z * kF32Rows;
+  // the tile's first column of the output (h or out)
+  const int n0 = blockIdx.y * (kGateUp ? kF32HCols : kF32Cols);
+  const int lo = f32_start(K, rank), hi = f32_start(K, rank + 1);
+  const int n_k = (hi - lo + kF32K - 1) / kF32K;
+  // the thread's row r: wrow + r % 4 + 8 (r / 4)
+  const int wrow = 2 * kF32ThreadRows * warp + 4 * ty;
+  // the warp has a row below M
+  const bool live = m0 + 2 * kF32ThreadRows * warp < M;
+
+  // one ring stage: columns k0 .. k0 + kF32K - 1 of A's rows, the same
+  // rows of B
+  auto load_stage = [&](int i, int buf) {
+    float* as = smem + buf * kF32StageFloats;
+    float* bs = as + kF32Rows * kF32AStride;
+    const int k0 = lo + i * kF32K;
+    if (kVec) {
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    g[r] = 0.f;
-    u[r] = 0.f;
-  }
-  for (int d0 = 0; d0 < D; d0 += kDChunk) {
-    const int nd = min(kDChunk, D - d0);
-    __syncthreads();  // the previous chunk is read
-    for (int i = tid; i < kRows * nd; i += kThreads) {
-      const int r = i / nd, d = i % nd;
-      xs[r * kDChunk + d] =
-          r < nrows ? x[(size_t)(row0 + r) * D + d0 + d] : 0.f;
+      for (int t = 0; t < kF32Rows * kF32K / 4 / kF32Threads; ++t) {
+        const int q = tid + t * kF32Threads, m = q / (kF32K / 4),
+                  k = (q % (kF32K / 4)) * 4;
+        const bool ok = m0 + m < M && k0 + k < hi;
+        hp::cp_async16(as + m * kF32AStride + k,
+                       ok ? a + (size_t)(m0 + m) * K + k0 + k : a,
+                       ok ? 16u : 0u);
+      }
+    } else {
+#pragma unroll 4
+      for (int t = 0; t < kF32Rows * kF32K / kF32Threads; ++t) {
+        const int e = tid + t * kF32Threads, m = e / kF32K, k = e % kF32K;
+        const bool ok = m0 + m < M && k0 + k < hi;
+        hp::cp_async4_zfill(as + m * kF32AStride + k,
+                            ok ? a + (size_t)(m0 + m) * K + k0 + k : a,
+                            ok ? 4u : 0u);
+      }
     }
-    __syncthreads();
-    if (f < F) {
-      for (int d = 0; d < nd; ++d) {
-        const float wgv = wg[(size_t)(d0 + d) * F + f];
-        const float wuv = wu[(size_t)(d0 + d) * F + f];
+    // B: column c of the tile is column n0 + c of b0 (gate_up: c < 64 of
+    // Wg, c >= 64 the same columns of Wu)
+    if (kVec) {
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const float xv = xs[r * kDChunk + d];
-          g[r] = fmaf(xv, wgv, g[r]);
-          u[r] = fmaf(xv, wuv, u[r]);
+      for (int t = 0; t < kF32K * kF32Cols / 4 / kF32Threads; ++t) {
+        const int q = tid + t * kF32Threads, k = q / 32, c = (q % 32) * 4;
+        const float* src = b0;
+        int col = n0 + c;
+        if (kGateUp && c >= kF32HCols) {
+          src = b1;
+          col -= kF32HCols;
+        }
+        const bool ok = col < N && k0 + k < hi;
+        hp::cp_async16(bs + k * kF32Cols + c,
+                       ok ? src + (size_t)(k0 + k) * N + col : src,
+                       ok ? 16u : 0u);
+      }
+    } else {
+#pragma unroll 4
+      for (int t = 0; t < kF32K * kF32Cols / kF32Threads; ++t) {
+        const int e = tid + t * kF32Threads, k = e / kF32Cols,
+                  c = e % kF32Cols;
+        const float* src = b0;
+        int col = n0 + c;
+        if (kGateUp && c >= kF32HCols) {
+          src = b1;
+          col -= kF32HCols;
+        }
+        const bool ok = col < N && k0 + k < hi;
+        hp::cp_async4_zfill(bs + k * kF32Cols + c,
+                            ok ? src + (size_t)(k0 + k) * N + col : src,
+                            ok ? 4u : 0u);
+      }
+    }
+  };
+
+  float acc[kF32ThreadRows][8];
+#pragma unroll
+  for (int i = 0; i < kF32ThreadRows; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kF32Stages - 1; ++s) {
+    if (s < n_k) load_stage(s, s);
+    hp::cp_async_commit();
+  }
+  for (int i = 0; i < n_k; ++i) {
+    hp::cp_async_wait<kF32Stages - 2>();
+    __syncthreads();  // stage i is in; every thread is done with i - 1
+    if (i + kF32Stages - 1 < n_k)
+      load_stage(i + kF32Stages - 1, (i + kF32Stages - 1) % kF32Stages);
+    hp::cp_async_commit();
+    if (!live) continue;
+    const float* as = smem + (i % kF32Stages) * kF32StageFloats;
+    const float* bs = as + kF32Rows * kF32AStride;
+    // four k at a time: a float4 of each of the thread's rows, then the
+    // four k in order
+#pragma unroll
+    for (int k4 = 0; k4 < kF32K; k4 += 4) {
+      float4 a4[kF32ThreadRows];
+#pragma unroll
+      for (int r = 0; r < kF32ThreadRows; ++r)
+        a4[r] = *reinterpret_cast<const float4*>(
+            as + (wrow + r % 4 + 8 * (r / 4)) * kF32AStride + k4);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float4 c0 = *reinterpret_cast<const float4*>(
+            bs + (k4 + kk) * kF32Cols + 4 * tx);
+        const float4 c1 = *reinterpret_cast<const float4*>(
+            bs + (k4 + kk) * kF32Cols + 64 + 4 * tx);
+        const float bv[8] = {c0.x, c0.y, c0.z, c0.w,
+                             c1.x, c1.y, c1.z, c1.w};
+#pragma unroll
+        for (int r = 0; r < kF32ThreadRows; ++r) {
+          const float av = kk == 0   ? a4[r].x
+                           : kk == 1 ? a4[r].y
+                           : kk == 2 ? a4[r].z
+                                     : a4[r].w;
+#pragma unroll
+          for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(av, bv[c], acc[r][c]);
         }
       }
     }
   }
-  if (f >= F) return;
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    if (r < nrows) {
-      const float sg = g[r] / (1.f + expf(-g[r]));  // silu in float32
-      h[(size_t)(row0 + r) * F + f] = sg * u[r];
-    }
-  }
-}
+  hp::cp_async_wait<0>();
 
-// stage 2: out (T, D) = h (T, F) Wd (F, D)
-__global__ void __launch_bounds__(kThreads)
-    swiglu_down_f32_kernel(const float* __restrict__ h,
-                           const float* __restrict__ wd,
-                           float* __restrict__ out, int n_tokens, int D,
-                           int F) {
-  __shared__ float hs[kRows * kFChunk];
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * kRows;
-  const int nrows = min(kRows, n_tokens - row0);
-  const int c = blockIdx.y * kThreads + tid;
-  float acc[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-  for (int f0 = 0; f0 < F; f0 += kFChunk) {
-    for (int i = tid; i < kRows * kFChunk; i += kThreads) {
-      const int r = i / kFChunk, ff = i % kFChunk;
-      hs[i] = (r < nrows && f0 + ff < F)
-                  ? h[(size_t)(row0 + r) * F + f0 + ff]
-                  : 0.f;
+  // a row's 4 output columns from col (a multiple of 4): one 16-byte
+  // store where the row has them all (kVec: N % 4 == 0, out aligned)
+  auto store4 = [&](int row, int col, float4 v) {
+    float* o = out + (size_t)row * N + col;
+    if (kVec && col + 3 < N) {
+      *reinterpret_cast<float4*>(o) = v;
+    } else {
+      if (col < N) o[0] = v.x;
+      if (col + 1 < N) o[1] = v.y;
+      if (col + 2 < N) o[2] = v.z;
+      if (col + 3 < N) o[3] = v.w;
     }
-    __syncthreads();
-    const int nf = min(kFChunk, F - f0);
-    if (c < D) {
-      for (int ff = 0; ff < nf; ++ff) {
-        const float w = wd[(size_t)(f0 + ff) * D + c];
+  };
+  auto silu4 = [](float4 g, float4 u) {
+    return make_float4(silu(g.x) * u.x, silu(g.y) * u.y, silu(g.z) * u.z,
+                       silu(g.w) * u.w);
+  };
+
+  if (kSplit == 1) {
+    // one rank: its sums are the outputs
+    if (!live) return;
 #pragma unroll
-        for (int r = 0; r < kRows; ++r)
-          acc[r] = fmaf(hs[r * kFChunk + ff], w, acc[r]);
+    for (int r = 0; r < kF32ThreadRows; ++r) {
+      const int row = m0 + wrow + r % 4 + 8 * (r / 4);
+      if (row >= M) continue;
+      const float4 lo4 =
+          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+      const float4 hi4 =
+          make_float4(acc[r][4], acc[r][5], acc[r][6], acc[r][7]);
+      if (kGateUp) {
+        store4(row, n0 + 4 * tx, silu4(lo4, hi4));
+      } else {
+        store4(row, n0 + 4 * tx, lo4);
+        store4(row, n0 + 64 + 4 * tx, hi4);
       }
     }
-    __syncthreads();
+    return;
   }
-  if (c < D) {
-    for (int r = 0; r < nrows; ++r) out[(size_t)(row0 + r) * D + c] = acc[r];
+
+  // every rank is done with its ring: the inboxes take its place. The
+  // owner of a 4-column unit u (0..31) of the tile: down, u / (32 / n);
+  // gate_up, (u % 16) / (16 / n), its g columns first, then its u
+  // columns. Inbox [source rank][row][kWidth columns].
+  constexpr int kWidth = kF32Cols / kSplit;
+  constexpr int kOwn = kGateUp ? kF32HCols / kSplit : kWidth;  // out cols
+  hp::cluster_arrive();
+  hp::cluster_wait();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    int owner, col;
+    if (kGateUp) {
+      constexpr int kPer = 16 / kSplit;  // h units an owner
+      owner = tx / kPer;
+      col = h * kOwn + (tx % kPer) * 4;
+    } else {
+      constexpr int kPer = 32 / kSplit;
+      const int unit = tx + 16 * h;
+      owner = unit / kPer;
+      col = (unit % kPer) * 4;
+    }
+#pragma unroll
+    for (int r = 0; r < kF32ThreadRows; ++r) {
+      const int row = wrow + r % 4 + 8 * (r / 4);
+      if (m0 + row >= M) continue;
+      hp::st_cluster_v4(
+          hp::cluster_map(smem + (rank * kF32Rows + row) * kWidth + col,
+                          owner),
+          make_float4(acc[r][4 * h], acc[r][4 * h + 1], acc[r][4 * h + 2],
+                      acc[r][4 * h + 3]));
+    }
+  }
+  hp::cluster_arrive();
+  hp::cluster_wait();
+
+  // this rank's columns, 4 at a time, the ranks' partials added in rank
+  // order
+  auto part = [&](int s, int row, int c) {
+    return *reinterpret_cast<const float4*>(
+        smem + (s * kF32Rows + row) * kWidth + c);
+  };
+  auto add4 = [](float4 x, float4 y) {
+    return make_float4(x.x + y.x, x.y + y.y, x.z + y.z, x.w + y.w);
+  };
+  constexpr int kUnits = kOwn / 4;  // 4-column units a row
+#pragma unroll
+  for (int t = 0; t < (kF32Rows * kUnits + kF32Threads - 1) / kF32Threads;
+       ++t) {
+    const int q = tid + t * kF32Threads, row = q / kUnits,
+              c = (q % kUnits) * 4;
+    if (row >= kF32Rows || m0 + row >= M) continue;
+    float4 v = part(0, row, c);
+#pragma unroll
+    for (int s = 1; s < kSplit; ++s) v = add4(v, part(s, row, c));
+    if (kGateUp) {
+      float4 u = part(0, row, kOwn + c);
+#pragma unroll
+      for (int s = 1; s < kSplit; ++s) u = add4(u, part(s, row, kOwn + c));
+      v = silu4(v, u);
+    }
+    store4(m0 + row, n0 + rank * kOwn + c, v);
   }
 }
 
-cudaError_t launch_down_f32(const void* h, const void* wd, void* out,
-                            int n_tokens, int D, int F, cudaStream_t st) {
-  const dim3 grid((n_tokens + kRows - 1) / kRows,
-                  (D + kThreads - 1) / kThreads);
-  swiglu_down_f32_kernel<<<grid, kThreads, 0, st>>>(
-      static_cast<const float*>(h), static_cast<const float*>(wd),
-      static_cast<float*>(out), n_tokens, D, F);
+template <bool kGateUp, bool kVec, int kSplit>
+cudaError_t launch_f32_split(const float* a, const float* b0,
+                             const float* b1, float* out, int M, int K,
+                             int N, cudaStream_t st) {
+  const auto kernel = swiglu_f32_gemm_kernel<kGateUp, kVec, kSplit>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kF32SmemBytes);
+  if (err != cudaSuccess) return err;
+  const int cols = kGateUp ? kF32HCols : kF32Cols;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kSplit, (N + cols - 1) / cols,
+                     (M + kF32Rows - 1) / kF32Rows);
+  cfg.blockDim = dim3(kF32Threads);
+  cfg.dynamicSmemBytes = kF32SmemBytes;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kSplit;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = kSplit > 1;  // one rank: no cluster
+  err = cudaLaunchKernelEx(&cfg, kernel, a, b0, b1, out, M, K, N);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+template <bool kGateUp, bool kVec>
+cudaError_t launch_f32_vec(const float* a, const float* b0, const float* b1,
+                           float* out, int M, int K, int N,
+                           cudaStream_t st) {
+  switch (f32_split(K)) {
+    case 1:
+      return launch_f32_split<kGateUp, kVec, 1>(a, b0, b1, out, M, K, N, st);
+    case 2:
+      return launch_f32_split<kGateUp, kVec, 2>(a, b0, b1, out, M, K, N, st);
+    case 4:
+      return launch_f32_split<kGateUp, kVec, 4>(a, b0, b1, out, M, K, N, st);
+    default:
+      return launch_f32_split<kGateUp, kVec, 8>(a, b0, b1, out, M, K, N, st);
+  }
+}
+
+template <bool kGateUp>
+cudaError_t launch_f32(const void* a, const void* b0, const void* b1,
+                       void* out, int M, int K, int N, cudaStream_t st) {
+  if (M <= 0 || N <= 0) return cudaSuccess;
+  if (K <= 0) return cudaErrorInvalidValue;
+  const int cols = kGateUp ? kF32HCols : kF32Cols;
+  if ((N + cols - 1) / cols > 65535 || (M + kF32Rows - 1) / kF32Rows > 65535)
+    return cudaErrorInvalidValue;
+  bool vec = K % 4 == 0 && N % 4 == 0;
+  for (const void* p : {a, b0, b1, static_cast<const void*>(out)})
+    vec = vec && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  const float* pa = static_cast<const float*>(a);
+  const float* p0 = static_cast<const float*>(b0);
+  const float* p1 = static_cast<const float*>(b1);
+  float* po = static_cast<float*>(out);
+  return vec ? launch_f32_vec<kGateUp, true>(pa, p0, p1, po, M, K, N, st)
+             : launch_f32_vec<kGateUp, false>(pa, p0, p1, po, M, K, N, st);
 }
 
 bool bf16_shapes_ok(int D, int F, std::initializer_list<const void*> ptrs) {
@@ -407,21 +671,37 @@ extern "C" int acar_swiglu_down(const void* h, const void* wd, void* out,
 extern "C" int acar_swiglu_gate_up_f32(const void* x, const void* wg,
                                        const void* wu, void* h, int n_tokens,
                                        int D, int F, void* stream) {
-  if (n_tokens <= 0) return (int)cudaSuccess;
-  const dim3 grid((n_tokens + kRows - 1) / kRows,
-                  (F + kFChunk - 1) / kFChunk);
-  swiglu_gate_up_f32_kernel<<<grid, kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(wg),
-      static_cast<const float*>(wu), static_cast<float*>(h), n_tokens, D, F);
-  return (int)cudaGetLastError();
+  return (int)launch_f32<true>(x, wg, wu, h, n_tokens, D, F,
+                               static_cast<cudaStream_t>(stream));
 }
 
 // float32 stage 2: out (T, D) = h Wd
 extern "C" int acar_swiglu_down_f32(const void* h, const void* wd, void* out,
                                     int n_tokens, int D, int F,
                                     void* stream) {
-  if (n_tokens <= 0) return (int)cudaSuccess;
-  return (int)launch_down_f32(h, wd, out, n_tokens, D, F,
-                              static_cast<cudaStream_t>(stream));
+  return (int)launch_f32<false>(h, wd, wd, out, n_tokens, F, D,
+                                static_cast<cudaStream_t>(stream));
+}
+
+// The f32 stages' plan as the kernel computes it, for checking
+// kernels/fused_swiglu.py::swiglu_f32_plan(): field 0 the CTAs of a
+// cluster (the split of K), 1 the K a rank, 2 a tile's token rows, 3 a
+// gate_up tile's columns of h, 4 a down tile's columns, 5 the K a ring
+// stage, 6 and 7 the gate_up and down column tiles of n; 8 + r the first
+// k of rank r's range (r >= the split gives K). -1 for another field.
+extern "C" int acar_swiglu_f32_plan(int k, int n, int field) {
+  switch (field) {
+    case 0: return f32_split(k);
+    case 1: return f32_chunk(k);
+    case 2: return kF32Rows;
+    case 3: return kF32HCols;
+    case 4: return kF32Cols;
+    case 5: return kF32K;
+    case 6: return (n + kF32HCols - 1) / kF32HCols;
+    case 7: return (n + kF32Cols - 1) / kF32Cols;
+    default:
+      if (field >= 8 && field <= 8 + kF32MaxSplit)
+        return f32_start(k, field - 8);
+      return -1;
+  }
 }

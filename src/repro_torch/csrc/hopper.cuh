@@ -4,10 +4,11 @@
 // too); 3-D TMA tile loads and stores (selective_scan.cu); cp.async,
 // ldmatrix and mma.sync.m16n8k16 (chunked_prefill_attention.cu,
 // projection.cu); the cluster barrier and distributed shared memory
-// (decode_split.cuh, projection.cu).
+// (decode_split.cuh, projection.cu, fused_swiglu.cu's f32 stages).
 //
-// Everything here is bf16 in, f32 accumulate: the port keeps TF32 off, so
-// f32 operands never go through the tensor cores.
+// The matrix instructions here are bf16 in, f32 accumulate: the port keeps
+// TF32 off, so f32 operands never go through the tensor cores (the f32
+// kernels use only the copies and the cluster helpers).
 #pragma once
 
 #include <cuda.h>
@@ -306,6 +307,15 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
                : "memory");
 }
 
+// 4-byte async copy that reads src_bytes (4 or 0) and zero-fills the rest
+__device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src,
+                                                uint32_t src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
 // ---------------------------------------------------------------------
 // thread block clusters: the cluster barrier, distributed shared memory
 // ---------------------------------------------------------------------
@@ -340,6 +350,13 @@ __device__ __forceinline__ void st_cluster_v2(uint32_t addr, float a,
                                               float b) {
   asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(addr),
                "f"(a), "f"(b)
+               : "memory");
+}
+// four floats at a 16-byte aligned shared::cluster address
+__device__ __forceinline__ void st_cluster_v4(uint32_t addr, float4 v) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   addr),
+               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
                : "memory");
 }
 // arrive on an mbarrier of another CTA of the cluster, releasing this

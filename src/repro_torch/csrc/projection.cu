@@ -387,9 +387,19 @@ extern "C" int acar_projection(const void* x, const void* w, void* out,
   const int smem =
       Staging(M < kRows ? M : kRows,
               (range_start(K, 1) + kKGran - 1) / kKGran).total + 1024;
+  // The limit is the kernel's, shared by every host thread (the
+  // scheduler launches from a worker thread beside the main one), so it
+  // is set to the most any call stages, never to this call's: a smaller
+  // limit set by another thread between this one's set and launch would
+  // refuse the launch.
+  int most = 0;
+  for (int rows = kXBox; rows <= kRows; rows += kXBox) {
+    const int total = Staging(rows, 1 << 20).total;
+    most = total > most ? total : most;
+  }
   err = cudaFuncSetAttribute(projection_split_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
+                             most + 1024);
   if (err != cudaSuccess) return (int)err;
   projection_split_kernel<<<dim3(kSplit, col_tiles, row_tiles), kThreads,
                             smem, st>>>(mx, mw, static_cast<bf16*>(out), M,

@@ -53,6 +53,7 @@ _SIGNATURES = {
         [_VP] * 4 + [_I] * 3 + [_VP],
     "acar_swiglu_down_f32":
         [_VP] * 3 + [_I] * 3 + [_VP],
+    "acar_swiglu_f32_plan": [_I] * 3,
     "acar_projection":
         [_VP] * 3 + [_I] * 4 + [_VP],
     "acar_projection_plan": [_I] * 3,
@@ -180,11 +181,14 @@ def check(err: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel}: CUDA error {err} ({msg})")
 
 
-def count_launch(wrapper) -> None:
+def count_launch(wrapper, dtype: Optional[torch.dtype] = None) -> None:
     """Add one to ``wrapper.launches``: each wrapper calls this where it
-    launches its kernel, and nowhere else."""
+    launches its kernel, and nowhere else. A wrapper that also counts its
+    float32 calls apart (``wrapper.f32_launches``) passes the dtype."""
     with _count_lock:
         wrapper.launches += 1
+        if dtype == torch.float32:
+            wrapper.f32_launches += 1
 
 
 def dtype_code(dtype: torch.dtype, kernel: str) -> int:

@@ -13,7 +13,10 @@ the reference oracle
 the kernel runs on the tensor cores (mma.sync: q.k and p.v in bf16 with
 f32 sums, p rounded to bf16 for the second product) at key and value
 widths that are multiples of 8 up to 256, equal or not; in f32 on the
-CUDA cores at any widths up to 256.
+CUDA cores (``chunked_prefill_f32_kernel``, a register-tiled flash
+attention: a lane a key of each 32-key tile, 8 query rows a warp) at any
+widths up to 256. ``chunked_prefill_attention.f32_launches`` counts the
+f32 calls apart.
 """
 from __future__ import annotations
 
@@ -116,8 +119,9 @@ def chunked_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
             b, c, h, kv, dk, dv, page_size, nb, int(prompt_len), code,
             build.stream_handle(dev))
     build.check(err, name)
-    build.count_launch(chunked_prefill_attention)
+    build.count_launch(chunked_prefill_attention, q.dtype)
     return out
 
 
 chunked_prefill_attention.launches = 0
+chunked_prefill_attention.f32_launches = 0

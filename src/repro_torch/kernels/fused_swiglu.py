@@ -12,10 +12,13 @@ bf16 call is two CUDA launches, one tensor-core GEMM kernel per stage:
 into a (T, F) scratch) and ``swiglu_down`` (h Wd). Each stage has its
 plain version beside it (``swiglu_gate_up_plain``,
 ``swiglu_down_plain``), which rounds where the kernel and the Pallas
-kernel round. An f32 call is two launches too, the CUDA-core stage
-kernels (``swiglu_gate_up_f32_kernel``, ``swiglu_down_f32_kernel``),
-which take any d_model (x's rows stream through shared memory in
-chunks).
+kernel round. An f32 call is two launches too, one
+``swiglu_f32_gemm_kernel`` a stage: a register-tiled CUDA-core GEMM
+that takes any d_model and d_ff and splits K over a thread-block cluster
+by K alone (``swiglu_f32_plan``, checked on the card against the
+library's ``acar_swiglu_f32_plan``), the ranks' partials added in rank
+order. ``swiglu_gate_up.f32_launches`` and the like count the f32 calls
+apart.
 
 Tensor parallelism (the serving mesh, ``sharding/tp.py``) splits Wg and
 Wu by columns and gathers h between the stages, so it calls the two
@@ -23,7 +26,9 @@ stages as wrappers of their own: ``swiglu_gate_up`` (x, a column slice
 of Wg and Wu -> that slice of h) and ``swiglu_down`` (the gathered h, the
 whole Wd), each with its own ``launches`` count. In bf16 they launch the
 fused wrapper's two GEMM kernels, in f32 its two CUDA-core stage
-kernels, so gate_up then down gives the fused call's bits. On a CPU
+kernels, so gate_up then down gives the fused call's bits; in f32 an
+element's sum runs in an order fixed by K alone, so a column slice of
+Wg and Wu gives the same columns of h. On a CPU
 tensor they run the stages' plain versions.
 
 ``fused_swiglu_plain`` rounds silu(x Wg) to x's dtype before multiplying
@@ -40,9 +45,68 @@ after the kernel on the card and after the plain version on the CPU.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import Tuple
+
 import torch
 
 from repro_torch.kernels import build
+
+# csrc/fused_swiglu.cu, the f32 stages: a tile's token rows, its columns
+# of h (gate_up: Wg's and Wu's columns side by side) and of out (down),
+# the K a ring stage, and the split of K: up to F32_MAX_SPLIT CTAs a
+# cluster, each rank at least F32_MIN_CHUNK of K
+F32_ROWS = 64
+F32_GATE_UP_COLS = 64
+F32_DOWN_COLS = 128
+F32_K_STEP = 16
+F32_MAX_SPLIT = 8
+F32_MIN_CHUNK = F32_K_STEP
+
+
+@dataclass(frozen=True)
+class SwigluF32Plan:
+    """The f32 stage kernels' split of a product over K (x (T, k) Wg /
+    Wu (k, n), or h (T, k) Wd (k, n)), as ``csrc/fused_swiglu.cu``
+    computes it (``acar_swiglu_f32_plan`` reports each field)."""
+    split: int                           # CTAs a cluster: one tile's ranks
+    chunk: int                           # K a rank (the last ones clipped)
+    ranges: Tuple[Tuple[int, int], ...]  # rank r's [lo, hi) of K
+    rows: int                            # token rows a tile
+    gate_up_cols: int                    # columns of h a gate_up tile
+    down_cols: int                       # columns of out a down tile
+    k_step: int                          # K a ring stage
+    gate_up_col_tiles: int               # gate_up tiles along n
+    down_col_tiles: int                  # down tiles along n
+
+    def ctas(self, t: int, stage: str) -> int:
+        """The grid's CTAs over t token rows for ``stage`` ("gate_up" or
+        "down"): ``split`` a tile."""
+        tiles = (self.gate_up_col_tiles if stage == "gate_up"
+                 else self.down_col_tiles)
+        return self.split * tiles * -(-t // self.rows)
+
+
+def swiglu_f32_plan(k: int, n: int) -> SwigluF32Plan:
+    """The K ranges, tiles and grid of the f32 stage kernels for a
+    product over k into n columns: the split doubles from 1 while every
+    rank keeps at least ``F32_MIN_CHUNK`` of k, up to ``F32_MAX_SPLIT``;
+    rank r sums k over ``ranges[r]``, chunk = ceil(k / split) rounded up
+    to ``F32_K_STEP``. The ranges are a function of k alone (never of T
+    or n), so rows called alone and column slices of the weights take
+    the same ones."""
+    k, n = int(k), int(n)
+    split = 1
+    while split < F32_MAX_SPLIT and k >= 2 * split * F32_MIN_CHUNK:
+        split *= 2
+    chunk = -(-(-(-k // split)) // F32_K_STEP) * F32_K_STEP
+    ranges = tuple((min(r * chunk, k), min((r + 1) * chunk, k))
+                   for r in range(split))
+    return SwigluF32Plan(
+        split=split, chunk=chunk, ranges=ranges, rows=F32_ROWS,
+        gate_up_cols=F32_GATE_UP_COLS, down_cols=F32_DOWN_COLS,
+        k_step=F32_K_STEP, gate_up_col_tiles=-(-n // F32_GATE_UP_COLS),
+        down_col_tiles=-(-n // F32_DOWN_COLS))
 
 def fused_swiglu_plain(x: torch.Tensor, w_gate: torch.Tensor,
                        w_up: torch.Tensor,
@@ -183,6 +247,7 @@ def _launch_down(h: torch.Tensor, w_down: torch.Tensor) -> torch.Tensor:
 
 def _launch_gate_up_f32(x: torch.Tensor, w_gate: torch.Tensor,
                         w_up: torch.Tensor) -> torch.Tensor:
+    """Stage 1 on the card (f32): h (T, F). Counts no launch."""
     name = "swiglu_gate_up"
     dev = build.check_cuda(name, x=x, w_gate=w_gate, w_up=w_up)
     t, d = x.shape
@@ -197,6 +262,7 @@ def _launch_gate_up_f32(x: torch.Tensor, w_gate: torch.Tensor,
 
 
 def _launch_down_f32(h: torch.Tensor, w_down: torch.Tensor) -> torch.Tensor:
+    """Stage 2 on the card (f32): h Wd (T, D). Counts no launch."""
     name = "swiglu_down"
     dev = build.check_cuda(name, h=h, w_down=w_down)
     t, f = h.shape
@@ -226,7 +292,7 @@ def swiglu_gate_up(x: torch.Tensor, w_gate: torch.Tensor,
         h = _launch_gate_up(x, w_gate, w_up)
     else:
         h = _launch_gate_up_f32(x, w_gate, w_up)
-    build.count_launch(swiglu_gate_up)
+    build.count_launch(swiglu_gate_up, x.dtype)
     return h
 
 
@@ -250,7 +316,7 @@ def swiglu_down(h: torch.Tensor, w_down: torch.Tensor) -> torch.Tensor:
         out = _launch_down(h, w_down)
     else:
         out = _launch_down_f32(h, w_down)
-    build.count_launch(swiglu_down)
+    build.count_launch(swiglu_down, h.dtype)
     return out
 
 
@@ -265,10 +331,13 @@ def _launch(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
         out = _launch_down(_launch_gate_up(x, w_gate, w_up), w_down)
     else:
         out = _launch_down_f32(_launch_gate_up_f32(x, w_gate, w_up), w_down)
-    build.count_launch(fused_swiglu)
+    build.count_launch(fused_swiglu, x.dtype)
     return out
 
 
 fused_swiglu.launches = 0
 swiglu_gate_up.launches = 0
 swiglu_down.launches = 0
+fused_swiglu.f32_launches = 0
+swiglu_gate_up.f32_launches = 0
+swiglu_down.f32_launches = 0

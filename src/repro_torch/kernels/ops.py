@@ -32,17 +32,35 @@ KERNELS = (paged_decode_attention, chunked_prefill_attention,
            projection)
 
 
-def launch_counts() -> dict:
+# the wrappers that count their float32 calls apart (kernels 2 and 3)
+F32_COUNTED = (chunked_prefill_attention, fused_swiglu, swiglu_gate_up,
+               swiglu_down)
+
+
+class LaunchCounts(dict):
+    """Kernel launches per wrapper; ``f32`` holds the float32 calls among
+    them of the wrappers in ``F32_COUNTED``."""
+
+    def __init__(self, counts: dict, f32: dict):
+        super().__init__(counts)
+        self.f32 = f32
+
+
+def launch_counts() -> LaunchCounts:
     """Kernel launches per wrapper since the counts were last reset."""
-    return {k.__name__: k.launches for k in KERNELS}
+    return LaunchCounts({k.__name__: k.launches for k in KERNELS},
+                        {k.__name__: k.f32_launches for k in F32_COUNTED})
 
 
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+    for k in F32_COUNTED:
+        k.f32_launches = 0
 
 
-__all__ = ["KERNELS", "chunked_prefill_attention", "decode_attention",
+__all__ = ["F32_COUNTED", "KERNELS", "LaunchCounts",
+           "chunked_prefill_attention", "decode_attention",
            "decode_attention_quant", "fused_swiglu", "launch_counts",
            "paged_decode_attention", "paged_decode_attention_quant",
            "projection", "reset_launch_counts", "rglru_scan",
