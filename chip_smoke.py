@@ -82,7 +82,7 @@ Phases (each raises on failure, and the script then exits non-zero):
    (frames) and llava-next-mistral-7b (patches): forward, prefill, two
    decode steps and greedy tokens;
 5. serve — the stepped ACAR engine serves 16 long-prompt tasks through
-   a full-width smollm-135m fleet cut to its first 10 of 30 layers
+   a full-width smollm-135m fleet cut to its first 6 of 30 layers
    (``SERVE_LAYERS``; bf16, seed-initialised weights): every
    task retires, its three kernels launch during the run, no page leaks
    outside the prefix cache, and a second run reproduces sigma, modes
@@ -175,11 +175,12 @@ Phases (each raises on failure, and the script then exits non-zero):
    ``paged=False`` queued baseline, each twice with the same gates, the
    decodes seen at G 48; every placed model's param bytes equal
    ``launch.dryrun.account``'s, each pool printed beside the cache
-   ``account`` counts for its positions; (c) ``launch.serve.main`` for
-   both fleets (reduced models trained 2 steps, 8 tasks), and for the
-   default fleet with ``--step-loop`` and with ``--shards 4`` (the step
-   loop on a data-sharded mesh of logical devices on the one card):
-   equal reports, kernels 1, 2 and 3 launched on the mesh.
+   ``account`` counts for its positions; (c) the serve CLI through
+   ``examples_torch/serve_acar.py``'s ``main`` for both fleets (reduced
+   models trained 2 steps, 8 tasks), and for the default fleet with
+   ``--step-loop`` and with ``--shards 4`` (the step loop on a
+   data-sharded mesh of logical devices on the one card): equal
+   reports, kernels 1, 2 and 3 launched on the mesh.
 12. moe (run last) — the fleet of ``launch.serve --ensemble
    mixtral-8x22b deepseek-v2-236b`` at published widths, bf16,
    seed-initialised, over phase 5's stream and forced routes: the
@@ -228,6 +229,22 @@ Phases (each raises on failure, and the script then exits non-zero):
    fleet (a gather-MoE member
    beside a dense one) at (2, 2) and the reduced int8-KV fleet at data 4
    (kernel 5), 24 tasks each.
+15. examples (run after phase 7) — the port's examples
+   (``examples_torch/``): (a) ``train_model.py --size 100m``'s
+   ``train_full``: smollm-arith-100m (smollm-135m's 30 x 576 stack, f32,
+   the char vocabulary), its first two steps' losses equal to the same
+   code's on the CPU (relative 1e-5), then 100 steps and the four greedy
+   samples, the last logged loss below the first, kernel 3 in f32,
+   kernel 4 and the projection launched; steps/s, tokens/s, the peak
+   memory and one profiled step's busy share printed; (d) the greedy
+   attribution check: the serve CLI's default fleet trained 10 steps a
+   model by ``build_zoo``, the members greedy, 32 arithmetic tasks
+   through ``run_queued`` traced under golds keyed to their answers
+   (head equal to the untraced run's, span file and lineage verified,
+   attribution spans equal to leave-one-out, some value non-zero); (c)
+   ``quickstart.py`` (12 audited records, no parse error) and
+   ``attribution_demo.py`` in process. Phase 11 (c) runs
+   ``serve_acar.py``.
 
 Phase 3 also holds the training path's kernels against their plain
 versions at the phase-7 shapes (the selective scan and the RG-LRU scan,
@@ -266,6 +283,8 @@ import os
 # initialises
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
+import contextlib  # noqa: E402
+import io  # noqa: E402
 import json  # noqa: E402
 import statistics  # noqa: E402
 import subprocess  # noqa: E402
@@ -2802,21 +2821,37 @@ def check_no_leaks(engine) -> None:
 # wrapper's kernels only after it has found some of them recorded,
 # which shows that the window's own records are whole. A dense-wave
 # window once lost all 20,000 (PR 21), so ``profiled`` runs a window
-# that lost them all again, up to PROFILE_ATTEMPTS times.
+# that lost them all again, up to PROFILE_ATTEMPTS times. A window can
+# lose its first records too: a 30-layer train step's profile recorded
+# 177 of its 180 projection kernels with every tail marker recorded
+# (the step's first projections are layer 0's q, k and v). So
+# each window also opens with HEAD_MARKERS spin kernels before its own
+# work (open_profile_window), and counts as whole only when more markers
+# than those were recorded.
+HEAD_MARKERS = 2_000
 TAIL_MARKERS = 20_000
 MARKER_KERNEL = "spin_kernel"
 PROFILE_ATTEMPTS = 3
 
 
-def close_profile_window(torch) -> None:
-    for _ in range(TAIL_MARKERS):
+def _spin_markers(torch, n: int) -> None:
+    for _ in range(n):
         torch.cuda._sleep(1)
     torch.cuda.synchronize()
 
 
+def open_profile_window(torch) -> None:
+    _spin_markers(torch, HEAD_MARKERS)
+
+
+def close_profile_window(torch) -> None:
+    _spin_markers(torch, TAIL_MARKERS)
+
+
 def profiled(torch, fn):
-    """Run ``fn`` under the profiler (CUDA activity), the window closed
-    by the tail markers and the launch counts set to 0 just before.
+    """Run ``fn`` under the profiler (CUDA activity), the window opened
+    by the head markers and closed by the tail markers, the launch
+    counts set to 0 just before.
     Returns (``fn``'s result, the window's ``kernel_totals``, the
     seconds they took to read, the launch counts). A window in which no
     tail marker was recorded runs again, up to ``PROFILE_ATTEMPTS``
@@ -2828,6 +2863,7 @@ def profiled(torch, fn):
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
         ops.reset_launch_counts()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            open_profile_window(torch)
             out = fn()
             close_profile_window(torch)
         t = time.perf_counter()
@@ -2835,7 +2871,8 @@ def profiled(torch, fn):
         read = time.perf_counter() - t
         del prof
         if (attempt == PROFILE_ATTEMPTS
-                or any(MARKER_KERNEL in e.key for e in events)):
+                or sum(e.count for e in events
+                       if MARKER_KERNEL in e.key) > HEAD_MARKERS):
             return out, events, read, ops.launch_counts()
         log(f"profile: window {attempt} recorded none of its tail "
             "markers; profiling the run again")
@@ -2895,7 +2932,7 @@ def kernel_totals(prof) -> list:
 
 def report_profile(events, t_read: float, wall: float,
                    wall_profiled: float, swiglu_calls: int = None,
-                   launches: dict = None) -> None:
+                   launches: dict = None) -> float:
     """Device time by kernel over one profiled window (``events``: its
     ``kernel_totals``, read in ``t_read`` seconds). ``wall`` is the
     unprofiled run's wall time: the device work is the same, so its
@@ -2905,13 +2942,13 @@ def report_profile(events, t_read: float, wall: float,
     wrapper; with ``launches`` (the wrappers' counts over the profiled
     run), that each call of the split-KV decodes, of the two scans
     (forward, backward) and of the projection ran as exactly one kernel
-    of its name."""
+    of its name. Returns the busy share of ``wall``."""
     def dev_us(e):
         return e.dev_us
     events = sorted(events, key=dev_us, reverse=True)
     markers = sum(e.count for e in events if MARKER_KERNEL in e.key)
     events = [e for e in events if MARKER_KERNEL not in e.key]
-    if launches is not None and markers == 0:
+    if launches is not None and markers <= HEAD_MARKERS:
         raise AssertionError(
             f"profile: none of the {TAIL_MARKERS} tail markers was recorded"
             ": the profiler lost the end of the window, so its kernel "
@@ -2921,8 +2958,9 @@ def report_profile(events, t_read: float, wall: float,
     log(f"profile: {n_kernels} device kernels, device busy {busy:.3f} s "
         f"= {100 * busy / wall:.1f}% of the unprofiled wall {wall:.3f} s "
         f"({100 * busy / wall_profiled:.1f}% of the profiled wall "
-        f"{wall_profiled:.3f} s); {markers} of the {TAIL_MARKERS} tail "
-        f"markers recorded after them; events read in {t_read:.1f} s")
+        f"{wall_profiled:.3f} s); {markers} of the {HEAD_MARKERS} head and "
+        f"{TAIL_MARKERS} tail markers recorded around them; events read in "
+        f"{t_read:.1f} s")
     for e in events[:10]:
         if dev_us(e) <= 0:
             break
@@ -2964,6 +3002,7 @@ def report_profile(events, t_read: float, wall: float,
         log(f"profile: {swiglu_calls} fused_swiglu calls = {gemms} "
             "tensor-core GEMM kernels (gate_up + down), no other kernel "
             "under the wrapper")
+    return busy / wall
 
 
 def account_params(label: str, cfg, params) -> int:
@@ -3467,12 +3506,11 @@ AUDIT_TRAIN_STEPS = 20
 # task or one micro-batch at a time); at full depth phases 8 and 10
 # took 258-310 s of the script's 800 s budget and phase 6 73-99 s
 AUDIT_LAYERS = 10
-# phases 5 and 9 serve phase 5's models cut to their first 10 of 30
-# layers, the depth of phases 6, 8 and 10: host-bound by layer, at 15
-# layers they took 65.8 and 64.1 s of the script's budget on the slower
-# host, which phase 3's G-tile and projection checks and phase 11's
-# granite-34b leg now share
-SERVE_LAYERS = 10
+# phases 5 and 9 serve phase 5's models cut to their first 6 of 30
+# layers: host-bound by layer, at 15 layers they took 65.8 and 64.1 s of
+# the script's budget on the slower host, at 10 layers 48.7 and 43.0 s
+# there, which phase 15's examples (76.7 s there) now share
+SERVE_LAYERS = 6
 
 
 def first_layers(cfg, params, n: int):
@@ -4260,6 +4298,227 @@ def run_frontend_train_phase(torch) -> dict:
 
 
 # ----------------------------------------------------------------------
+# phase 15: the examples (examples_torch/; run after phase 7)
+# ----------------------------------------------------------------------
+# train_model's 100m leg: a third of the example's default 300 steps (a
+# step takes 0.3-0.5 s on the card: ~10,000 kernels, each bound by the
+# host's launch), and the steps held against the CPU
+EXAMPLE_TRAIN_STEPS = 100
+EXAMPLE_CHECK_STEPS = 2
+TRAIN_MODEL_KERNELS = ("fused_swiglu", "decode_attention", "projection")
+# the greedy attribution leg: the serve CLI's default fleet after
+# build_zoo's 10 arithmetic steps (it then answers in digits, not "")
+# over the CLI's default stream of 32 arithmetic tasks
+GREEDY_TRAIN_STEPS = 10
+GREEDY_TASKS = 32
+
+
+def run_train_model_leg(torch, smi: str) -> dict:
+    """(a) ``examples_torch/train_model.py --size 100m`` on the card:
+    smollm-arith-100m (smollm-135m's 30 x 576 stack, f32, the char
+    vocabulary) from seed-initialised params made on the card. Its first
+    ``EXAMPLE_CHECK_STEPS`` steps of ``train_full`` give the losses of
+    the same code on the CPU (plain kernels, the params copied there)
+    within phase 4's relative 1e-5; then ``train_full`` runs
+    ``EXAMPLE_TRAIN_STEPS`` steps and the four greedy samples
+    (``sample_lines``) follow, the launch counts set to 0 just before
+    and read just after: the last logged loss below the first, kernel 3
+    in f32, kernel 4 and the projection launched. Prints steps/s,
+    tokens/s, the peak memory and one profiled step's busy share beside
+    ``smi``. Returns the launch counts."""
+    from examples_torch import train_model as ex
+
+    from repro_torch.data.pipeline import arithmetic_batches
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import params as params_lib
+    from repro_torch.optim import init as opt_init
+
+    cfg = ex.arith_100m_config()
+    p0 = params_lib.init_params(cfg, 0, device="cuda")
+    n_params = params_lib.count_params(p0)
+    first = {}
+    for dev, prm in (("cpu", _to_device(p0, "cpu")), ("cuda", p0)):
+        got = []
+        with contextlib.redirect_stdout(io.StringIO()):
+            ex.train_full(cfg, EXAMPLE_CHECK_STEPS, params=prm, device=dev,
+                          on_step=lambda i, m: got.append(float(m["loss"])))
+        first[dev] = got
+    for i, (a, b) in enumerate(zip(first["cuda"], first["cpu"])):
+        if not abs(a - b) <= 1e-5 * abs(b):
+            raise AssertionError(f"train_model: step {i} loss {a} on the "
+                                 f"card, {b} on the CPU")
+    log(f"train_model: {cfg.name}, {cfg.num_layers} layers x "
+        f"{cfg.d_model}, {cfg.dtype}: {n_params} params; losses of steps "
+        f"0-{EXAMPLE_CHECK_STEPS - 1} on the card {first['cuda']}, on the "
+        f"CPU {first['cpu']}")
+
+    logged = []
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    _, params, _ = ex.train_full(
+        cfg, EXAMPLE_TRAIN_STEPS, params=p0, device="cuda",
+        on_step=lambda i, m: i % ex.LOG_EVERY == 0 and logged.append(
+            m["loss"]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    lines = ex.sample_lines(cfg, params)
+    launches = ops.launch_counts()
+    for line in lines:
+        log(f"train_model: sample {line.strip()}")
+    log(f"train_model: launches during the run {launches} (f32 "
+        f"{launches.f32})")
+    missing = [k for k in TRAIN_MODEL_KERNELS if launches[k] <= 0]
+    if missing or launches.f32["fused_swiglu"] <= 0:
+        raise AssertionError(f"train_model: never launched {missing} (f32 "
+                             f"fused_swiglu {launches.f32['fused_swiglu']})")
+    losses = [float(x) for x in logged]
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train_model: logged losses {losses}")
+    tokens = EXAMPLE_TRAIN_STEPS * ex.FULL_BATCH * ex.FULL_SEQ
+    log(f"train_model: {EXAMPLE_TRAIN_STEPS} steps on {smi}: wall "
+        f"{wall:.3f} s, steps/s {EXAMPLE_TRAIN_STEPS / wall:.3f}, tokens/s "
+        f"{tokens / wall:.1f}, peak memory {peak / 2**30:.2f} GiB; logged "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+
+    # one more step unprofiled, then the same step under the profiler
+    b = next(arithmetic_batches(ex.FULL_BATCH, ex.FULL_SEQ, seed=0))
+    batch = {n: torch.from_numpy(getattr(b, n)).cuda()
+             for n in ("tokens", "labels", "loss_mask")}
+    step = make_train_step(cfg, ex.full_train_config(EXAMPLE_TRAIN_STEPS))
+    state = opt_init(params)
+
+    def timed_step():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step(params, state, batch)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    wall_step = timed_step()
+    wall_prof, events, t_read, counts = profiled(torch, timed_step)
+    busy = report_profile(events, t_read, wall_step, wall_prof,
+                          launches=counts)
+    log(f"train_model: one step {wall_step * 1e3:.2f} ms, the card busy "
+        f"{100 * busy:.1f}% of it, on {smi}")
+    del params, state, p0, events
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_greedy_attribution_leg(torch, smi: str) -> dict:
+    """(d) The greedy attribution check: the serve CLI's default fleet
+    (``launch.serve.build_zoo``, reduced, ``GREEDY_TRAIN_STEPS``
+    arithmetic steps a model on the card), its members decoded greedily
+    (``ensemble_temperature`` 0), over the CLI's default stream of
+    ``GREEDY_TASKS`` arithmetic tasks with forced routes, through
+    ``run_queued``: an untraced run, then a traced one under golds keyed
+    to the untraced run's member answers (``attribution_key``). The
+    traced head equals the untraced run's under the keyed golds, the
+    span file verifies, every lineage walks, one attribution span per
+    full-arena row equals leave-one-out (``check_attribution``), and at
+    least one value is non-zero. Returns the two runs' launch counts."""
+    import tempfile
+
+    from repro_torch.configs import ACARConfig
+    from repro_torch.data.tasks import arithmetic_suite
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.serving import (
+        BatchedACAREngine, MicroBatchPolicy, SpanTracer)
+    from repro_torch.teamllm.prov import lineage, verify_span_file
+
+    t0 = time.perf_counter()
+    zoo = serve_mod.build_zoo(
+        (serve_mod.DEFAULT_PROBE,) + serve_mod.DEFAULT_ENSEMBLE,
+        GREEDY_TRAIN_STEPS, verbose=False, device="cuda")
+    probe, ensemble = zoo[0], zoo[1:]
+    names = [m.name for m in ensemble]
+    acfg = ACARConfig(probe_model=probe.name, ensemble_models=tuple(names),
+                      ensemble_temperature=0.0, seed=0)
+    tasks = arithmetic_suite(GREEDY_TASKS, seed=99)
+    modes = forced_modes(len(tasks))
+
+    def run(stream, tracer=None):
+        eng = BatchedACAREngine(
+            acfg, probe, ensemble, device="cuda",
+            route_fn=lambda sig, idx: modes[np.asarray(idx, np.int64)])
+        return eng.run_queued(stream, MicroBatchPolicy(max_batch_size=8),
+                              tracer=tracer)
+
+    ops.reset_launch_counts()
+    base = run(tasks)
+    keyed = attribution_key(tasks, base, names)
+    with tempfile.TemporaryDirectory(prefix="acar-greedy-") as d:
+        d = Path(d)
+        traced = run(keyed, SpanTracer(d / "spans.jsonl"))
+        launches = ops.launch_counts()
+        # serving does not read the gold: the untraced run's results are
+        # its results under the keyed golds
+        heads = [chain_head("greedy", keyed, r, names, d / f"{i}.jsonl")
+                 for i, r in enumerate((base, traced))]
+        audit = verify_span_file(d / "spans.jsonl")
+    if heads[0] != heads[1]:
+        raise AssertionError(f"greedy: the traced head {heads[1]} is not "
+                             f"the untraced run's {heads[0]}")
+    if not (audit["ok"] and audit["head"] == traced.span_head
+            and audit["records"] == len(traced.spans)):
+        raise AssertionError(f"greedy: span file audit {audit}")
+    walked = [lineage(traced.spans, t)
+              for t in sorted({t.task_id for t in keyed})]
+    if not all(lin["ok"] and lin["verified"] > 0 for lin in walked):
+        raise AssertionError("greedy: a task's lineage failed")
+    n_full, n_nonzero = check_attribution(keyed, traced, names, "greedy")
+    full = [i for i in range(len(tasks)) if int(traced.modes[i]) == 2]
+    answered = sum(1 for i in full for a in traced.member_answers[i] if a)
+    log(f"greedy: member answers on the full-arena rows "
+        f"{[traced.member_answers[i] for i in full]}")
+    if n_nonzero == 0:
+        raise AssertionError(f"greedy: every attribution value of {n_full} "
+                             f"full-arena rows is 0")
+    log(f"greedy: the CLI's default fleet trained {GREEDY_TRAIN_STEPS} "
+        f"steps a model, members greedy, {len(tasks)} tasks traced on "
+        f"{smi}: head {heads[1]} = the untraced run's; span file verified, "
+        f"lineage OK for {len(walked)} tasks; {n_full} full-arena "
+        f"attribution spans equal to leave-one-out, non-zero in "
+        f"{n_nonzero}; {answered} of {len(names) * n_full} member answers "
+        f"not empty; {time.perf_counter() - t0:.1f} s with the training")
+    del zoo, probe, ensemble
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_host_examples() -> None:
+    """(c) ``examples_torch/quickstart.py`` and ``attribution_demo.py``,
+    in process (the synthetic pool: host only): the quickstart's audit
+    holds 12 records and no parse error, the demo shows its 5 tasks."""
+    from examples_torch import attribution_demo, quickstart
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        audit = quickstart.main([])
+    if not (audit["ok"] and audit["records"] == 12
+            and audit["parse_errors"] == 0):
+        raise AssertionError(f"quickstart: audit {audit}")
+    log(f"quickstart: {out.getvalue().splitlines()[-2].strip()}")
+    with contextlib.redirect_stdout(io.StringIO()):
+        shown = attribution_demo.main([])
+    if shown != attribution_demo.SHOWN:
+        raise AssertionError(f"attribution_demo: {shown} tasks shown")
+    log(f"attribution_demo: {shown} full-arena tasks shown")
+
+
+def run_examples_phase(torch, smi: str) -> dict:
+    """Phase 15: the examples' legs (a), (d) and (c); phase 11 (c) runs
+    ``serve_acar``'s. Returns each device leg's launch counts."""
+    by_path = {"train_model": run_train_model_leg(torch, smi),
+               "greedy_attribution": run_greedy_attribution_leg(torch, smi)}
+    run_host_examples()
+    return by_path
+
+
+# ----------------------------------------------------------------------
 # phase 11: the serve CLI's fleets at published widths
 # ----------------------------------------------------------------------
 # each path's kernels, and no other. The default fleet's wave decodes
@@ -4419,9 +4678,9 @@ def run_fleet_phase(torch, smi: str) -> dict:
     with whether their heads agree (a finding); both at published
     widths, every model at its first ``FLEET_LAYERS`` layers, over phase
     5's stream and forced routes; (d) granite-34b behind the smollm-135m
-    probe (``run_granite_leg``); (c) the CLI (``main``) on the card for
-    both fleets. Returns each path's launch counts."""
-    from repro_torch.kernels import ops
+    probe (``run_granite_leg``); (c) the CLI through
+    ``examples_torch/serve_acar.py`` (``run_cli_legs``). Returns each
+    path's launch counts."""
     from repro_torch.launch import serve as serve_mod
 
     tasks = long_prompt_tasks(16, prompt_chars=PROMPT)
@@ -4473,9 +4732,24 @@ def run_fleet_phase(torch, smi: str) -> dict:
     log(f"fleets: (b) heterogeneous fleet {time.perf_counter() - t0:.1f} s")
 
     by_path.update(run_granite_leg(torch, tasks, route, smi))
+    by_path.update(run_cli_legs(torch))
+    return by_path
+
+
+def run_cli_legs(torch) -> dict:
+    """Phase 11 (c): ``examples_torch/serve_acar.py``'s ``main``, which
+    hands its flags to the serve CLI (``launch.serve.main``), on the
+    card for the default fleet, the heterogeneous fleet with the step
+    loop, the default fleet with the step loop and on a data-sharded
+    mesh of ``MESH_DEVICES`` logical devices (reduced models trained 2
+    steps, 8 tasks each): every report covers the 8 tasks, the sharded
+    report equals the step loop's, kernels 1, 2 and 3 launched on the
+    mesh. Returns each leg's launch counts."""
+    from examples_torch import serve_acar
+    from repro_torch.kernels import ops
 
     t0 = time.perf_counter()
-    reports = {}
+    by_path, reports = {}, {}
     cli = ["--tasks", "8", "--train-steps", "2"]
     for path, argv in (
             ("cli_default", cli),
@@ -4483,12 +4757,13 @@ def run_fleet_phase(torch, smi: str) -> dict:
             ("cli_stepped", ["--step-loop"] + cli),
             ("cli_shards", ["--shards", str(MESH_DEVICES)] + cli)):
         ops.reset_launch_counts()
-        report = serve_mod.main(argv)
+        report = serve_acar.main(argv)
         by_path[path] = ops.launch_counts()
         if sum(report["mode_distribution"].values()) != 8:
             raise AssertionError(f"fleets[{path}]: the report covers "
                                  f"{report['mode_distribution']}")
-        log(f"fleets[{path}]: main({' '.join(argv)}) returned accuracy "
+        log(f"fleets[{path}]: examples_torch/serve_acar.py "
+            f"main({' '.join(argv)}) returned accuracy "
             f"{report['accuracy']:.3f}, modes "
             f"{report['mode_distribution']}; launches {by_path[path]}")
         del report["wall_ms"]
@@ -5386,7 +5661,8 @@ def f32_redesign_checks(torch) -> dict:
     calls()
     torch.cuda.synchronize()
     _, events, _, launches = profiled(torch, calls)
-    if not any(MARKER_KERNEL in e.key for e in events):
+    if not sum(e.count for e in events
+               if MARKER_KERNEL in e.key) > HEAD_MARKERS:
         raise AssertionError("f32 profile: the profiler lost the end of "
                              "the window")
     kinds: dict = {}
@@ -5992,6 +6268,8 @@ def main() -> int:
     by_path.update(run_moe_train_phase(torch))
     by_path.update(run_frontend_train_phase(torch))
     phase_done("train")
+    by_path.update(run_examples_phase(torch, smi.splitlines()[0]))
+    phase_done("examples")
     by_path.update(run_fleet_phase(torch, smi.splitlines()[0]))
     phase_done("fleets")
     by_path.update(run_moe_phase(torch, smi.splitlines()[0]))

@@ -16,3 +16,15 @@ def deterministic_cuda() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.use_deterministic_algorithms(True)
+
+
+def require_device(device) -> torch.device:
+    """``device`` as a ``torch.device``, refusing a CUDA device when no
+    card is visible: the entry points run on the card unless the caller
+    asks for the CPU, and never fall back to it."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} asked for, but no CUDA "
+                           "device is visible; pass --device cpu to run "
+                           "on the CPU")
+    return dev
